@@ -15,7 +15,8 @@ Phases, each printing a line:
 4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
    kernel once per layer; after the main path it is checked against a
    float32 forward of the same weights (see the tolerances below);
-5. greedy ``generate`` of 32 tokens for 4 prompts of 512, twice.
+5. greedy ``generate`` of 32 tokens for 4 prompts of 512, once cold and
+   three times steady.
 
 Launch counts are set to 0 before phase 3 and read after phase 5.  Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -51,6 +52,9 @@ FLASH_SHAPES = [
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
+# Generate runs once cold, then this many times steady (the median is
+# reported with every run, since the host's dispatch rate varies).
+GENERATE_STEADY_RUNS = 3
 # The forward's checks against a float32 forward of the same weights on the
 # plain attention ("the f32 reference").  In float32 the flash path must
 # match it: logits within F32_LOGITS_ATOL, top-1 agreement >= TOP1_MIN.  In
@@ -58,7 +62,9 @@ BATCH, SEQ, NEW_TOKENS = 4, 512, 32
 # as far from it as any other (top-1 near 0.87 for each), so the bf16 flash
 # forward must be no farther from it than the bf16 plain forward: mean
 # |dlogits| at most BF16_MEAN_SLACK times the plain one's, top-1 agreement
-# at most BF16_TOP1_SLACK below it.
+# at most BF16_TOP1_SLACK below it; and the two bf16 forwards may differ
+# from each other by a mean |dlogits| no larger than the plain one's own
+# mean error against the f32 reference.
 F32_LOGITS_ATOL = 1e-3
 TOP1_MIN = 0.99
 BF16_MEAN_SLACK = 1.1
@@ -70,8 +76,12 @@ def _check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def _time_ms(fn, *, warmup: int = 3, reps: int = 25) -> float:
-    """Median device time of one call, by CUDA events."""
+def _time_ms(fn, *, warmup: int = 3, reps: int = 21, calls: int = 10) -> float:
+    """Time of one call by CUDA events: the median over ``reps`` of
+    ``calls`` back-to-back calls between two events, divided by ``calls``.
+    Back to back, the host queues the next launch while the card runs the
+    last one, so a call that takes the card longer than the host's launch
+    path reads its device time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -79,11 +89,28 @@ def _time_ms(fn, *, warmup: int = 3, reps: int = 25) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _device_ms(fn, *, calls: int = 10) -> float:
+    """Device time of one call from torch.profiler: the card's kernel time
+    summed over ``calls`` calls, divided by ``calls`` (host time left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / calls
 
 
 def _flash_bound(b, s, hq, hkv, d, dtype, causal):
@@ -134,22 +161,26 @@ def phase_kernels():
         _check(err_out <= tol_out, f"{name}: out err {err_out} > {tol_out}")
         _check(err_lse <= tol_lse, f"{name}: lse err {err_lse} > {tol_lse}")
 
-        ms = _time_ms(lambda: fa.flash_attention_fwd_with_lse(q, k, v, causal=causal))
-        plain_ms = _time_ms(lambda: fa.flash_attention_reference(q, k, v, causal=causal))
         # The library call on (B, H, S, D) inputs with the kv heads
         # expanded to Hq (done once, outside the timed call).
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
-        library_ms = _time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+        calls = {
+            "": lambda: fa.flash_attention_fwd_with_lse(q, k, v, causal=causal),
+            "plain_": lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+            "library_": lambda: sdpa(qt, kt, vt, is_causal=causal),
+        }
         bound_ms, bound_by = _flash_bound(b, s, hq, hkv, d, dtype, causal)
         row = {
             "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "max_abs_err": err_out, "lse_max_abs_err": err_lse,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        for prefix, fn in calls.items():
+            row[prefix + "ms"] = _time_ms(fn)
+            row[prefix + "device_ms"] = _device_ms(fn)
         print("[flash_fwd] " + json.dumps(row))
         rows.append(row)
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
@@ -218,7 +249,7 @@ def phase_generate(model, tokens):
     from torchdistx_tpu_torch.models.generate import generate
 
     outs, secs = [], []
-    for _ in range(2):
+    for _ in range(1 + GENERATE_STEADY_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = generate(model, tokens, max_new_tokens=NEW_TOKENS)
@@ -228,21 +259,32 @@ def phase_generate(model, tokens):
     _check(outs[0].shape == (BATCH, NEW_TOKENS), f"generate shape {outs[0].shape}")
     _check(bool(((outs[0] >= 0) & (outs[0] < model.cfg.vocab_size)).all()),
            "generated token out of range")
-    _check(torch.equal(outs[0], outs[1]), "greedy generate is not deterministic")
+    _check(all(torch.equal(outs[0], o) for o in outs[1:]),
+           "greedy generate is not deterministic")
     tps = [BATCH * NEW_TOKENS / s for s in secs]
+    steady_tps = statistics.median(tps[1:])
     with torch.inference_mode():
         weights = model.prep_decode()
         cache = model.init_cache(BATCH, SEQ + 2)
         model.forward_cached(tokens, cache, 0, weights)
         step = tokens[:, -1:]
         model.forward_cached(step, cache, SEQ, weights)  # warm-up step
-        decode = _profile("decode step", lambda: model.forward_cached(step, cache, SEQ + 1, weights))
+        def decode_step():
+            return model.forward_cached(step, cache, SEQ + 1, weights)
+
+        decode = _profile("decode step", decode_step)
+        # One step at a time, so the events read the host's dispatch of it.
+        decode["event_ms"] = _time_ms(decode_step, warmup=1, reps=11, calls=1)
+        print(f"[decode step] {decode['event_ms']:.3f} ms by events, "
+              f"{decode['device_ms']:.3f} ms of it on the card")
         del weights, cache
     print(f"[generate] {BATCH} x {SEQ} prompts, {NEW_TOKENS} new tokens, "
-          f"deterministic; {secs[0]:.3f} s / {secs[1]:.3f} s, "
-          f"{tps[0]:.2f} / {tps[1]:.2f} tokens/s; first tokens "
-          f"{outs[0][:, :8].tolist()}")
-    return {"generate_s": secs, "tokens_per_s": tps, "decode_step_profile": decode}
+          f"deterministic over {len(outs)} runs; cold {secs[0]:.3f} s "
+          f"({tps[0]:.2f} tokens/s); steady {[round(s, 3) for s in secs[1:]]} s, "
+          f"{[round(t, 2) for t in tps[1:]]} tokens/s, median {steady_tps:.2f}; "
+          f"first tokens {outs[0][:, :8].tolist()}")
+    return {"generate_s": secs, "tokens_per_s": tps,
+            "steady_tokens_per_s_median": steady_tps, "decode_step_profile": decode}
 
 
 def _profile(label, fn):
@@ -279,8 +321,9 @@ def check_forward_against_f32(model, tokens, logits):
     checks against the f32 reference (the model is cast to float32 in place
     here, after the main path's counts were read)."""
     with torch.inference_mode():
-        ms = _time_ms(lambda: model(tokens, attn_impl="auto"), warmup=1, reps=5)
-        plain_ms = _time_ms(lambda: model(tokens, attn_impl="plain"), warmup=1, reps=5)
+        ms = _time_ms(lambda: model(tokens, attn_impl="auto"), warmup=1, reps=5, calls=3)
+        plain_ms = _time_ms(lambda: model(tokens, attn_impl="plain"), warmup=1, reps=5,
+                            calls=3)
         print(f"[forward] steady bf16: flash {ms:.3f} ms, plain attention {plain_ms:.3f} ms")
         profile = _profile("forward", lambda: model(tokens, attn_impl="auto"))
         plain = model(tokens, attn_impl="plain")
@@ -305,6 +348,10 @@ def check_forward_against_f32(model, tokens, logits):
            f"bf16 flash mean err {flash['mean_abs']} vs plain {plain_s['mean_abs']}")
     _check(flash["top1"] >= plain_s["top1"] - BF16_TOP1_SLACK,
            f"bf16 flash top-1 {flash['top1']} vs plain {plain_s['top1']}")
+    pair = stats["bf16 flash vs bf16 plain"]
+    _check(pair["mean_abs"] <= plain_s["mean_abs"],
+           f"bf16 flash vs bf16 plain mean err {pair['mean_abs']} > plain's own "
+           f"error {plain_s['mean_abs']}")
     return stats
 
 

@@ -52,10 +52,6 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Training-side knobs of the JAX config, kept so that the two configs
-    # carry the same fields; the eager forward reads neither.
-    remat: bool = True
-    layer_unroll: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -66,7 +62,7 @@ def llama_test() -> LlamaConfig:
     """CI-sized config: big enough to exercise GQA."""
     return LlamaConfig(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        ffn_dim=128, max_seq_len=128, dtype=torch.float32, remat=False,
+        ffn_dim=128, max_seq_len=128, dtype=torch.float32,
     )
 
 

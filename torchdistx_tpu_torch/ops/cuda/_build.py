@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/torchdistx_tpu_torch/lib<name>.so`` (beside the package, at the
-checkout's root) with a plain C interface, at first use, and is rebuilt
+checkout's root; an installed package sets ``TDX_TORCH_BUILD_DIR`` to
+another directory) with a plain C interface, at first use, and is rebuilt
 when a source in ``csrc/`` is newer than the library.  Stale sources are
 compiled in parallel, one nvcc process each.  A failed build raises with
 nvcc's output.  Nothing here runs at import.
@@ -21,7 +22,10 @@ from typing import Dict, Iterable, List, Optional
 __all__ = ["build", "load", "sources", "build_logs", "BUILD_DIR", "SRC_DIR"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torchdistx_tpu_torch"
+BUILD_DIR = Path(
+    os.environ.get("TDX_TORCH_BUILD_DIR")
+    or Path(__file__).resolve().parents[3] / "build" / "torchdistx_tpu_torch"
+)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

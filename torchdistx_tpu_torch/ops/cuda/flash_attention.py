@@ -35,6 +35,20 @@ _HEAD_DIMS = (64, 128)
 
 # Kernel launches made by this process (a plain count; callers reset it).
 launches = 0
+# The launcher ``tdx_flash_fwd`` with its C signature, bound at first use.
+_launcher = None
+
+
+def _flash_fwd():
+    global _launcher
+    if _launcher is None:
+        fn = _build.load("flash_fwd").tdx_flash_fwd
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _launcher = fn
+    return _launcher
 
 
 def _scale_log2(d: int) -> float:
@@ -106,12 +120,7 @@ def _launch(q, k, v, causal: bool):
         raise ValueError("flash kernel takes at most 65535 heads and batch rows")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_fwd")
-    fn = lib.tdx_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _flash_fwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
