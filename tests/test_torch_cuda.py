@@ -52,8 +52,74 @@ def test_flash_rejects_unsupported_head_dim(cuda):
         fa.flash_attention(q, q, q)
 
 
-def test_flash_backward_raises(cuda):
-    q = torch.randn((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    out = fa.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+# (dq, dk, dv) tolerance against the plain version, on the largest error
+# relative to max(1, the largest |plain| value): bf16 rounds p, ds and the
+# outputs to bf16 (2^-8 relative), and a pair whose p or ds lands on the
+# other side of a rounding step moves its products by that much; f32 differs
+# by summation order only (the fused dq also by its atomics' order).
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _bwd_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item() / max(
+        1.0, want.float().abs().max().item()
+    )
+
+
+def _bwd_inputs(g, b, s, hq, hkv, d, dtype, causal, device):
+    q = torch.randn((b, s, hq, d), generator=g, device=device, dtype=dtype)
+    k = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=dtype)
+    v = torch.randn((b, s, hkv, d), generator=g, device=device, dtype=dtype)
+    do = torch.randn((b, s, hq, d), generator=g, device=device, dtype=dtype)
+    out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    return q, k, v, do, out, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s, hq, hkv", [(1, 4, 4), (77, 8, 2), (300, 4, 1), (2049, 4, 4)])
+@pytest.mark.parametrize("route", ["fused", "streamed"])
+def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
+    g = torch.Generator(device=cuda).manual_seed(s * d + 1)
+    q, k, v, do, out, lse = _bwd_inputs(g, 2, s, hq, hkv, d, dtype, causal, cuda)
+    counts = (fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal, route=route)
+    torch.cuda.synchronize()
+    fused = route == "fused"
+    assert (fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv) == (
+        counts[0] + fused, counts[1] + (not fused), counts[2] + (not fused)
+    )
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, do, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        assert _bwd_err(a, b) <= BWD_TOL[dtype], (name, _bwd_err(a, b))
+
+
+def test_flash_function_gradcheck(cuda):
+    # float32 against finite differences of the forward kernel, at a small
+    # shape with GQA and a ragged tile.  float32 (the kernels take no
+    # float64) needs a wide step and tolerance; nondet_tol admits the fused
+    # dq's atomics.
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (
+        torch.randn((1, 19, h, 64), generator=g, device=cuda, dtype=torch.float32)
+        .requires_grad_()
+        for h in (4, 2, 2)
+    )
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=True),
+        (q, k, v), eps=1e-3, atol=5e-3, rtol=5e-3, nondet_tol=1e-5, fast_mode=True,
+    )
+
+
+def test_flash_backward_default_route_and_launches(cuda):
+    n0 = (fa.launches, fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    for s in (512, 2049):
+        q = torch.randn((1, s, 2, 64), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        fa.flash_attention(q, q.detach(), q.detach()).sum().backward()
+    torch.cuda.synchronize()
+    n1 = (fa.launches, fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    assert [b - a for a, b in zip(n0, n1)] == [2, 1, 1, 1]
+    assert fa.backward_route(512) == "fused" and fa.backward_route(2049) == "streamed"

@@ -16,6 +16,7 @@ import torchdistx_tpu_torch
 from torchdistx_tpu_torch import resolve_device
 from torchdistx_tpu_torch.models import llama as tllama
 from torchdistx_tpu_torch.models.convert import llama_from_jax_params
+from torchdistx_tpu_torch.parallel.train_step import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,7 +44,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 11
+    assert n_modules >= 15
 
 
 def test_walk_finds_every_module():
@@ -51,7 +52,8 @@ def test_walk_finds_every_module():
         torchdistx_tpu_torch.__path__, "torchdistx_tpu_torch.")}
     for want in ("_device", "_tape", "fake", "deferred_init", "ops.attention",
                  "ops.cuda._build", "ops.cuda.flash_attention", "models.llama",
-                 "models.convert", "models.generate"):
+                 "models.convert", "models.generate", "parallel.train_step",
+                 "resilience.guard"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -66,8 +68,9 @@ def _no_cuda():
         lambda: resolve_device(None),
         lambda: tllama.Llama(tllama.llama_test()),
         lambda: llama_from_jax_params({}, tllama.llama_test()),
+        lambda: make_train_step(tllama.llama_test(), torch.optim.SGD),
     ],
-    ids=["resolve_device", "Llama", "llama_from_jax_params"],
+    ids=["resolve_device", "Llama", "llama_from_jax_params", "make_train_step"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -35,12 +35,14 @@ def _tokens(shape, seed):
 def test_config_fields_match():
     j, t = jllama.llama_test(), tllama.llama_test()
     for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
-              "ffn_dim", "max_seq_len", "rope_theta", "norm_eps", "head_dim"):
+              "ffn_dim", "max_seq_len", "rope_theta", "norm_eps", "head_dim",
+              "remat"):
         assert getattr(j, f) == getattr(t, f), f
     for name in ("llama_tiny", "llama_7b", "llama_70b"):
         jc, tc = getattr(jllama, name)(), getattr(tllama, name)()
         assert tllama.num_params(tc) == jllama.num_params(jc), name
         assert tc.dtype == torch.bfloat16
+        assert tc.remat == jc.remat, name
 
 
 @pytest.mark.parametrize("jax_impl", ["jnp", "pallas"])

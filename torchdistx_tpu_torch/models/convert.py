@@ -1,4 +1,4 @@
-"""Load the JAX package's Llama parameters into the port's :class:`Llama`.
+"""Move Llama parameters between the JAX package's layout and the port's.
 
 The JAX pytree (``torchdistx_tpu.models.llama._shapes``) stores weights
 ``(in, out)`` with the layers stacked on axis 0; :class:`Llama` keeps
@@ -15,7 +15,7 @@ import torch
 from .._device import resolve_device
 from .llama import Llama, LlamaConfig
 
-__all__ = ["llama_from_jax_params"]
+__all__ = ["copy_jax_params_", "llama_from_jax_params", "llama_to_jax_params"]
 
 # JAX layer-pytree key -> (block attribute, transpose to (out, in)).
 _LAYER_KEYS = {
@@ -31,15 +31,12 @@ _LAYER_KEYS = {
 }
 
 
-def llama_from_jax_params(
-    params_np: dict, cfg: LlamaConfig, device: Optional[Any] = None
-) -> Llama:
-    """A :class:`Llama` on ``device`` computing the same function as the
-    JAX parameters ``params_np`` (a pytree of numpy arrays; bf16 arrays
-    may be passed as ``np.asarray(x, np.float32)``).  Values are cast to
-    ``cfg.dtype``."""
-    device = resolve_device(device)
-    model = Llama(cfg, device="meta").to_empty(device=device)
+def copy_jax_params_(model: Llama, params_np: dict) -> Llama:
+    """Copy the JAX parameters ``params_np`` (a pytree of numpy arrays;
+    bf16 arrays may be passed as ``np.asarray(x, np.float32)``) into
+    ``model``'s parameters in place, cast to their dtype.  The parameter
+    objects stay the same, so an optimizer built over them keeps working.
+    Returns ``model``."""
 
     def put(dst: torch.Tensor, src, transpose: bool) -> None:
         t = torch.tensor(np.asarray(src, np.float32))
@@ -58,3 +55,38 @@ def llama_from_jax_params(
             for key, (attr, transpose) in _LAYER_KEYS.items():
                 put(getattr(blk, attr).weight, layers[key][i], transpose)
     return model
+
+
+def llama_from_jax_params(
+    params_np: dict, cfg: LlamaConfig, device: Optional[Any] = None
+) -> Llama:
+    """A :class:`Llama` on ``device`` computing the same function as the
+    JAX parameters ``params_np`` (see :func:`copy_jax_params_`).  Values
+    are cast to ``cfg.dtype``."""
+    device = resolve_device(device)
+    model = Llama(cfg, device="meta").to_empty(device=device)
+    return copy_jax_params_(model, params_np)
+
+
+def llama_to_jax_params(model: Llama, *, grads: bool = False) -> dict:
+    """``model``'s parameters (or, with ``grads``, their ``.grad``) in the
+    JAX pytree layout, as float32 numpy arrays: layers stacked on axis 0,
+    weights ``(in, out)``."""
+
+    def get(p: torch.Tensor, transpose: bool) -> np.ndarray:
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = t.detach().float().cpu()
+        return (t.T if transpose else t).numpy()
+
+    layers = {
+        key: np.stack([get(getattr(blk, attr).weight, transpose) for blk in model.layers])
+        for key, (attr, transpose) in _LAYER_KEYS.items()
+    }
+    return {
+        "embed": {"weight": get(model.embed.weight, False)},
+        "layers": layers,
+        "norm": {"weight": get(model.norm.weight, False)},
+        "lm_head": {"weight": get(model.lm_head.weight, True)},
+    }

@@ -11,6 +11,11 @@ flash kernel on CUDA tensors.
 The module computes in its parameters' dtype (``cfg.dtype`` as built;
 ``model.float()`` makes a float32 model of the same weights).
 
+Training: :meth:`Llama.loss` is the mean next-token cross-entropy of the
+JAX ``loss_fn``.  With ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` when gradients are on, so its activations are
+recomputed in the backward (the flash forward then runs twice per layer).
+
 Decoding (:meth:`Llama.forward_cached`) fuses ``wq|wk|wv`` and
 ``w_gate|w_up`` (:meth:`Llama.prep_decode`) and updates the KV cache in
 place, which keeps one cache in memory instead of a copy per step.
@@ -25,6 +30,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import attention, cached_attention
@@ -42,6 +48,12 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
+    """The JAX ``LlamaConfig``'s fields.  ``remat`` recomputes each block's
+    activations in the backward (``jax.checkpoint`` there,
+    ``torch.utils.checkpoint`` here).  The JAX ``layer_unroll`` tunes a
+    ``jax.lax.scan`` and has no meaning for an eager loop over layers, so
+    it has no counterpart."""
+
     vocab_size: int = 32000
     dim: int = 4096
     n_layers: int = 32
@@ -52,6 +64,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -62,7 +75,7 @@ def llama_test() -> LlamaConfig:
     """CI-sized config: big enough to exercise GQA."""
     return LlamaConfig(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        ffn_dim=128, max_seq_len=128, dtype=torch.float32,
+        ffn_dim=128, max_seq_len=128, dtype=torch.float32, remat=False,
     )
 
 
@@ -205,16 +218,37 @@ class Llama(nn.Module):
         """Final norm and head in ``cfg.dtype``, then f32 logits."""
         return self.lm_head(self.norm(x)).float()
 
-    def forward(self, tokens, attn_impl: str = "auto"):
-        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32."""
+    def _hidden(self, tokens, attn_impl: str):
+        """The blocks' output ``(B, S, dim)`` before the final norm."""
         cfg = self.cfg
         s = tokens.shape[1]
         x = self.embed(tokens)
         positions = torch.arange(s, device=tokens.device)[None]
         cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            x = blk(x, cos, sin, attn_impl)
-        return self._head(x)
+            if remat:
+                x = checkpoint(blk, x, cos, sin, attn_impl, use_reentrant=False)
+            else:
+                x = blk(x, cos, sin, attn_impl)
+        return x
+
+    def forward(self, tokens, attn_impl: str = "auto"):
+        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32."""
+        return self._head(self._hidden(tokens, attn_impl))
+
+    def loss(self, tokens, targets, attn_impl: str = "auto"):
+        """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``).
+
+        The head's logits stay in the parameters' dtype, as the JAX
+        ``_head_ce`` keeps them; the loss is ``logsumexp`` of their f32
+        upcast minus the target's logit, averaged over ``(B, S)``.
+        """
+        x = self._hidden(tokens, attn_impl)
+        logits = self.lm_head(self.norm(x))
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0].float()
+        return (lse - tgt).mean()
 
     def init_cache(self, batch: int, max_len: int, *, device: Optional[Any] = None):
         """Static-shape KV cache: ``(L, B, Smax, Hkv, Dh)`` per k/v in the
