@@ -65,6 +65,9 @@ FLASH_SHAPES = [
     ("gqa_70b_heads", 2, 1024, 64, 8, 128, torch.bfloat16, True),
     ("ragged_f32", 2, 1000, 8, 8, 64, torch.float32, False),
     ("decode_s1", 4, 1, 32, 32, 128, torch.bfloat16, True),
+    ("train_1x4096", 1, 4096, 32, 32, 128, torch.bfloat16, True),
+    ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False),
+    ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -221,7 +224,7 @@ def phase_build() -> None:
     print(f"[build] {built} in {secs:.2f} s (sources: {_build.sources()})")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"[build] {name}: {line.strip()}")
 
 

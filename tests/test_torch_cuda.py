@@ -30,7 +30,12 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s, hq, hkv", [(1, 4, 4), (77, 8, 2), (300, 4, 1)])
+# 127, 128 and 129: one q tile of the bf16 kernel minus one, exactly one,
+# and plus one; 1000 with 8 q heads on one kv head: a long ragged GQA case.
+@pytest.mark.parametrize(
+    "s, hq, hkv",
+    [(1, 4, 4), (77, 8, 2), (300, 4, 1), (127, 4, 4), (128, 8, 2), (129, 8, 8), (1000, 8, 1)],
+)
 def test_flash_fwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv):
     g = torch.Generator(device=cuda).manual_seed(s * d)
     q = torch.randn((2, s, hq, d), generator=g, device=cuda, dtype=dtype)
@@ -44,6 +49,20 @@ def test_flash_fwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv):
     tol_out, tol_lse = TOL[dtype]
     assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
     assert (lse - ref_lse).abs().max().item() <= tol_lse
+
+
+def test_flash_fwd_is_deterministic(cuda):
+    # The forward sums in a fixed order and uses no atomics: two calls on
+    # the same inputs give the same bits (the Llama-7B training shape).
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (
+        torch.randn((4, 512, 32, 128), generator=g, device=cuda, dtype=torch.bfloat16)
+        for _ in range(3)
+    )
+    out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
 
 
 def test_flash_rejects_unsupported_head_dim(cuda):
