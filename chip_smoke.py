@@ -10,7 +10,9 @@ Phases, each printing a line:
    main paths' shapes and the other shapes below, and time the kernel, the
    plain version and the PyTorch library call that computes the same
    function (a yardstick only; the port never calls it): the flash forward
-   against SDPA, the three backward kernels against SDPA's backward;
+   against SDPA, the three backward kernels against SDPA's backward; every
+   input of a backward kernel must be unchanged after its launch, and the
+   streamed pair (dq, dk/dv) must give the same bits on a second call;
 3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated), then
    materialize it on the card (its bf16 parameters allocated);
 4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
@@ -98,12 +100,17 @@ BWD_SHAPES = [
     ("gqa_70b_heads", 2, 1024, 64, 8, 128, torch.bfloat16, True, "fused"),
     ("ragged_f32", 2, 1000, 8, 8, 64, torch.float32, False, "fused"),
     ("ragged_f32", 2, 1000, 8, 8, 64, torch.float32, False, "streamed"),
+    ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True, "streamed"),
+    ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "streamed"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
     "fused": {"flash_bwd_fused": (True, True)},
     "streamed": {"flash_bwd_dq": (True, False), "flash_bwd_dkv": (False, True)},
 }
+# Kernels that sum in a fixed order (no atomics): a second call on the same
+# inputs must give the same bits.
+BWD_DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
 # Kernel vs plain on (dq, dk, dv): the largest |kernel - plain| over
 # max(1, the largest |plain|).  bf16: p, ds and the outputs are rounded to
 # bf16 (2^-8 relative), so a pair whose p or ds rounds the other way moves
@@ -224,7 +231,8 @@ def phase_build() -> None:
     print(f"[build] {built} in {secs:.2f} s (sources: {_build.sources()})")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                       "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -317,9 +325,22 @@ def phase_bwd_kernels():
             def plain():
                 return fa.flash_bwd_plain(*args, causal=causal, dq=want_dq, dkv=want_dkv)
 
+            before = [a.clone() for a in args]
             got = run()
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
+            _check(all(torch.equal(a, c) for a, c in zip(args, before)),
+                   f"{kernel} {name}: an input changed during the launch")
+            if kernel in BWD_DETERMINISTIC:
+                again = run()
+                again = again if isinstance(again, tuple) else (again,)
+                torch.cuda.synchronize()
+                _check(all(torch.equal(a, c) for a, c in zip(args, before)),
+                       f"{kernel} {name}: an input changed during the second launch")
+                _check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                       f"{kernel} {name}: two calls gave different bits")
+                del again
+            del before
             want = [w for w in plain() if w is not None]
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             scale = max(1.0, max(w.float().abs().max().item() for w in want))
@@ -330,7 +351,8 @@ def phase_bwd_kernels():
             row = {
                 "kernel": kernel, "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
                 "D": d, "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-                "max_abs_err": err, "max_abs_ref": scale,
+                "max_abs_err": err, "max_abs_ref": scale, "inputs_unchanged": True,
+                "deterministic": kernel in BWD_DETERMINISTIC,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "ms": _time_ms(run), "device_ms": _device_ms(run),
                 "plain_ms": _time_ms(plain, warmup=1, reps=3, calls=2),
@@ -446,12 +468,14 @@ def phase_generate(model, tokens):
 
 # Profiler kernel-name fragments of cuBLAS's matrix products.
 _GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma")
-# Profiler kernel-name patterns of the port's kernels.
+# Profiler kernel-name patterns of the port's bf16 kernels (the train
+# path's): a kernel's device time sums the kernels whose names hold every
+# fragment of its pattern.
 _KERNEL_NAMES = {
-    "flash_fwd": ("flash_fwd",),
-    "flash_bwd_fused": ("bwd_kv_", "true>"),
-    "flash_bwd_dq": ("bwd_dq_",),
-    "flash_bwd_dkv": ("bwd_kv_", "false>"),
+    "flash_fwd": ("flash_fwd_bf16",),
+    "flash_bwd_fused": ("bwd_kv_bf16<",),
+    "flash_bwd_dq": ("flash_bwd_dq_wgmma<",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_wgmma<",),
 }
 
 

@@ -97,7 +97,14 @@ def _bwd_inputs(g, b, s, hq, hkv, d, dtype, causal, device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s, hq, hkv", [(1, 4, 4), (77, 8, 2), (300, 4, 1), (2049, 4, 4)])
+# 63, 64, 65 and 127, 128, 129 with 8 q heads on one kv head: the bf16
+# streamed kernels' tile edges (dk/dv: kv and q tiles of 64; dq: q tiles of
+# 128, kv tiles of 64).
+@pytest.mark.parametrize(
+    "s, hq, hkv",
+    [(1, 4, 4), (77, 8, 2), (300, 4, 1), (2049, 4, 4), (63, 8, 1), (64, 8, 1), (65, 8, 1),
+     (127, 8, 1), (128, 8, 1), (129, 8, 1)],
+)
 @pytest.mark.parametrize("route", ["fused", "streamed"])
 def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
     g = torch.Generator(device=cuda).manual_seed(s * d + 1)
@@ -114,6 +121,25 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert bool(torch.isfinite(a).all()), name
         assert _bwd_err(a, b) <= BWD_TOL[dtype], (name, _bwd_err(a, b))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_bwd_streamed_is_deterministic(cuda, causal):
+    # The streamed pair sums in a fixed order and uses no atomics: two calls
+    # on the same inputs give the same bits, and no launch writes its
+    # inputs (a ragged GQA shape across several tiles).
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, do, out, lse = _bwd_inputs(g, 1, 1000, 8, 2, 128, torch.bfloat16, causal, cuda)
+    delta = fa.attention_delta(do, out)
+    args = (q, k, v, do, lse, delta)
+    before = [t.clone() for t in args]
+    dq1 = fa.flash_bwd_dq(*args, causal=causal)
+    dk1, dv1 = fa.flash_bwd_dkv(*args, causal=causal)
+    dq2 = fa.flash_bwd_dq(*args, causal=causal)
+    dk2, dv2 = fa.flash_bwd_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
 
 
 def test_flash_function_gradcheck(cuda):

@@ -7,11 +7,12 @@
 //   p  = exp2(q.k^T * scale * log2 e - lse * log2 e),  0 on masked pairs
 //   ds = p * (do.v^T - delta) * scale
 //
-// (p_ds below), so a change to the gradient identities cannot diverge
-// between the kernels.  q.k^T and do.v^T accumulate in f32 from the storage
-// dtype; ds is cast to q's dtype, and p to do's dtype, right before the
-// products that take them; delta = rowsum(do * out) and lse arrive as f32
-// (B, Hq, S).
+// (p_ds below, and p_ds_fast, the same with the scale folded into delta,
+// for the wgmma kernels), so a change to the gradient identities cannot
+// diverge between the kernels.  q.k^T and do.v^T accumulate in f32 from
+// the storage dtype; ds is cast to q's dtype, and p to do's dtype, right
+// before the products that take them; delta = rowsum(do * out) and lse
+// arrive as f32 (B, Hq, S).
 //
 // Masking: a pair is kept iff its q row and its kv column are both < S and,
 // when causal, the column is <= the row.  Padded rows and columns are masked
@@ -21,10 +22,12 @@
 // interior tiles skip the per-pair compare.
 //
 // Also here: the mma.sync helpers, the launch helper for dynamic shared
-// memory, and the kv-tile-outer kernel body (bwd_kv_bf16 / bwd_kv_f32) that
-// the fused and the dk/dv kernels share.  The two differ only in kDq: the
-// fused kernel adds dq = ds.k from the same p/ds (atomically, see
-// flash_bwd_fused.cu), the dk/dv kernel does not.
+// memory, and the kv-tile-outer kernel bodies: bwd_kv_bf16, the fused
+// kernel's, which adds dq = ds.k from the same p/ds (atomically, see
+// flash_bwd_fused.cu), and bwd_kv_f32, which the fused and the dk/dv
+// kernels share and which does so only with kDq.  The bf16 dk/dv and dq
+// kernels are built on hopper.cuh instead (flash_bwd_dkv.cu,
+// flash_bwd_dq.cu).
 //
 // Layout: q, do, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); contiguous,
 // read and written in place.  GQA maps q head h to kv head h / (Hq / Hkv).
@@ -78,6 +81,31 @@ __device__ __forceinline__ float p_ds(float s, float& dp, float lse2,
                                       float scale_log2) {
   const float p = keep ? exp2f(s * scale_log2 - lse2) : 0.f;
   dp = p * (dp - delta) * scale;
+  return p;
+}
+
+// 2^x by the special-function unit alone (exp2f adds a range check and two
+// conditional multiplies).  Results below 2^-126 flush to 0, far under what
+// p's bf16 rounding or the f32 sums can see.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p_ds for the wgmma kernels, whose p and ds are on the critical path: the
+// same identities with delta_s = delta * scale taken once per row, so ds =
+// p * (dp * scale - delta_s) is an FFMA and an FMUL, and exp2 by exp2_ftz.
+// The pair (row, col) is tested only when the tile needs the mask, after
+// the exp2 (in this order the wgmma kernels' loops compile tightest).
+__device__ __forceinline__ float p_ds_fast(float s, float& dp, float lse2,
+                                           float delta_s, bool mask,
+                                           int causal, int row, int col,
+                                           int S, float scale,
+                                           float scale_log2) {
+  float p = exp2_ftz(fmaf(s, scale_log2, -lse2));
+  if (mask && !keep_pair(causal, row, col, S)) p = 0.f;
+  dp = p * fmaf(dp, scale, -delta_s);
   return p;
 }
 
@@ -141,21 +169,20 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // pair computes S^T = K.Q^T and dP^T = V.dO^T (16 x 32 per warp, on the
 // tensor cores), p and ds in registers, then dV += P^T.dO and dK += dS^T.Q
 // with the accumulator fragments reused as A operands; dk and dv stay in
-// f32 registers until the end.  kDq adds dQ = dS.K: ds goes to shared
-// memory q-major, each warp takes 16 q rows x D/2 columns of the product,
-// and adds it to the f32 dq buffer with atomics.
+// f32 registers until the end.  Then dQ = dS.K: ds goes to shared memory
+// q-major, each warp takes 16 q rows x D/2 columns of the product, and adds
+// it to the f32 dq buffer with atomics.
 
 template <int D>
 struct KvTileBf16 {
   static constexpr int BK = 64, BQ = 32, LD = D + 8, LDS = BK + 8;
-  static constexpr size_t smem(bool with_dq) {
+  static constexpr size_t smem() {
     return 2 * BQ * sizeof(float) +
-           (2 * BK * LD + 2 * BQ * LD + (with_dq ? BQ * LDS : 0)) *
-               sizeof(bf16);
+           (2 * BK * LD + 2 * BQ * LD + BQ * LDS) * sizeof(bf16);
   }
 };
 
-template <int D, bool kDq>
+template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_kv_bf16(const BwdArgs a) {
   using T = KvTileBf16<D>;
   constexpr int BK = T::BK, BQ = T::BQ, LD = T::LD, LDS = T::LDS;
@@ -168,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_bf16(const BwdArgs a) {
   bf16* vs = ks + BK * LD;
   bf16* qs = vs + BK * LD;
   bf16* dos = qs + BQ * LD;
-  bf16* dss = dos + BQ * LD;  // kDq only: dS, q-major
+  bf16* dss = dos + BQ * LD;  // dS, q-major
 
   const int S = a.S, G = a.Hq / a.Hkv;
   const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
@@ -289,49 +316,47 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_bf16(const BwdArgs a) {
         }
       }
 
-      if constexpr (kDq) {
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
+      for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = j * 8 + 2 * t + (e & 1);
-            dss[qc * LDS + kr_l + (e >= 2 ? 8 : 0)] =
-                __float2bfloat16_rn(dpt[j][e]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t + (e & 1);
+          dss[qc * LDS + kr_l + (e >= 2 ? 8 : 0)] =
+              __float2bfloat16_rn(dpt[j][e]);
         }
-        __syncthreads();
-        // dQ (BQ x D) = dS (BQ x BK) . K (BK x D): warp -> 16 rows x D / 2.
-        const int mt = warp & 1, nh = warp >> 1;
-        float acc[D / 16][4];
+      }
+      __syncthreads();
+      // dQ (BQ x D) = dS (BQ x BK) . K (BK x D): warp -> 16 rows x D / 2.
+      const int mt = warp & 1, nh = warp >> 1;
+      float acc[D / 16][4];
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const bf16* ap = dss + (mt * 16 + g) * LDS + kk * 16 + 2 * t;
+        const uint32_t da[4] = {ld32(ap), ld32(ap + 8 * LDS), ld32(ap + 8),
+                                ld32(ap + 8 * LDS + 8)};
+        const bf16* k0p = ks + (kk * 16 + 2 * t) * LD + nh * (D / 2) + g;
 #pragma unroll
         for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+          const bf16* kp = k0p + n * 8;
+          mma_bf16(acc[n], da, pack_bf16(kp[0], kp[LD]),
+                   pack_bf16(kp[8 * LD], kp[9 * LD]));
         }
+      }
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const bf16* ap = dss + (mt * 16 + g) * LDS + kk * 16 + 2 * t;
-          const uint32_t da[4] = {ld32(ap), ld32(ap + 8 * LDS), ld32(ap + 8),
-                                  ld32(ap + 8 * LDS + 8)};
-          const bf16* k0p = ks + (kk * 16 + 2 * t) * LD + nh * (D / 2) + g;
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + mt * 16 + g + 8 * r;
+        if (row >= S) continue;
+        float* dst = a.dq_acc + (static_cast<size_t>(b) * S + row) * q_rs +
+                     h * D + nh * (D / 2) + 2 * t;
 #pragma unroll
-          for (int n = 0; n < D / 16; ++n) {
-            const bf16* kp = k0p + n * 8;
-            mma_bf16(acc[n], da, pack_bf16(kp[0], kp[LD]),
-                     pack_bf16(kp[8 * LD], kp[9 * LD]));
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = q0 + mt * 16 + g + 8 * r;
-          if (row >= S) continue;
-          float* dst = a.dq_acc + (static_cast<size_t>(b) * S + row) * q_rs +
-                       h * D + nh * (D / 2) + 2 * t;
-#pragma unroll
-          for (int n = 0; n < D / 16; ++n) {
-            atomicAdd(dst + n * 8, acc[n][2 * r]);
-            atomicAdd(dst + n * 8 + 1, acc[n][2 * r + 1]);
-          }
+        for (int n = 0; n < D / 16; ++n) {
+          atomicAdd(dst + n * 8, acc[n][2 * r]);
+          atomicAdd(dst + n * 8 + 1, acc[n][2 * r + 1]);
         }
       }
     }
@@ -517,25 +542,27 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 // Hopper grants a block at most 227 KB of shared memory.  The tiles do not
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
-static_assert(KvTileBf16<128>::smem(true) <= kMaxSmem, "bf16 tile too large");
+static_assert(KvTileBf16<128>::smem() <= kMaxSmem, "bf16 tile too large");
 static_assert(KvTileF32<128>::smem() <= kMaxSmem, "f32 tile too large");
 
 // Launches the kv-tile-outer kernel for (dtype, D); kDq selects the fused
-// variant.  dtype: 0 = float32, 1 = bfloat16.
+// variant, the only one with a bf16 body.  dtype: 0 = float32, 1 = bfloat16.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
-  if (dtype == 1 && D == 64) {
-    using T = KvTileBf16<64>;
-    return launch_dyn(bwd_kv_bf16<64, kDq>,
-                      dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                      T::smem(kDq), stream, args);
-  }
-  if (dtype == 1 && D == 128) {
-    using T = KvTileBf16<128>;
-    return launch_dyn(bwd_kv_bf16<128, kDq>,
-                      dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                      T::smem(kDq), stream, args);
+  if constexpr (kDq) {
+    if (dtype == 1 && D == 64) {
+      using T = KvTileBf16<64>;
+      return launch_dyn(bwd_kv_bf16<64>,
+                        dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
+                        T::smem(), stream, args);
+    }
+    if (dtype == 1 && D == 128) {
+      using T = KvTileBf16<128>;
+      return launch_dyn(bwd_kv_bf16<128>,
+                        dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
+                        T::smem(), stream, args);
+    }
   }
   if (dtype == 0 && D == 64) {
     using T = KvTileF32<64>;

@@ -569,12 +569,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   using T = Bf16Tiles<D>;
   // Per device, once: the SM count (one persistent block each) and the
   // opt-in to more than 48 KB of dynamic shared memory.
-  constexpr int kMaxDevices = 64;
-  static int n_sm[kMaxDevices];
+  static int n_sm[hw::kMaxDevices];
   int device = 0;
   int err = cudaGetDevice(&device);
   if (err) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (device >= hw::kMaxDevices) return cudaErrorInvalidDevice;
   if (n_sm[device] == 0) {
     int count = 0;
     err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,

@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +72,26 @@ inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+constexpr int kMaxDevices = 64;
+
+// Opts `kernel` in to `bytes` of dynamic shared memory (above 48 KB only
+// after this), once per device; `done` is the caller's record of the
+// devices done, one per kernel.  Returns a cudaError_t (0 on success).
+template <typename Kernel>
+inline int smem_opt_in(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int device = 0;
+  int err = cudaGetDevice(&device);
+  if (err) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err) return err;
+    done[device] = true;
+  }
+  return 0;
 }
 
 // -------------------------------------------------------------- device side
@@ -266,6 +287,79 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same for a 64 x 16 B (m64n64k16).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#define TDX_OUT8(d, i)                                                  \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+
+// d = a . b^T for a 64 x 16 A and a 64 x 16 B, both K-major in shared
+// memory (m64n64k16): d is only written, so it needs no value before, and
+// ptxas sees each such d as a new definition by the wgmma.
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TDX_OUT8(d, 0), TDX_OUT8(d, 8), TDX_OUT8(d, 16), TDX_OUT8(d, 24)
+      : "l"(a), "l"(b), "r"(0));
+}
+
+#undef TDX_OUT8
+
+// d += a . b for a 64 x 16 A, K-major, and a 16 x 128 B, MN-major, both in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24),
+        TDX_ACC8(d, 32), TDX_ACC8(d, 40), TDX_ACC8(d, 48), TDX_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The same for a 16 x 64 B.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d += a . b for a 64 x 16 A in registers and a 16 x 128 B, MN-major in
 // shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -302,6 +396,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 }
 
 #undef TDX_ACC8
+
+// Stores four 8 x 8 bf16 matrices: register i of every lane holds row
+// lane / 4, columns 2 (lane % 4) + {0, 1} of matrix i (the accumulator and
+// A-fragment layout above), and lane l gives the shared address of row l % 8
+// of matrix l / 8 (16 bytes).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// Writes a warpgroup's 64 x (2R) f32 accumulator (R registers a thread,
+// the m64nNk16 layout above) as bf16 into a 64-row tile laid out as TMA's
+// 128-byte swizzle expects: 64-column chunk c at tile + c * 8192, row r at
+// byte r * 128 of its chunk, 16-byte group j at (j ^ r % 8) * 16.
+template <int R>
+__device__ __forceinline__ void store_acc_sw128(uint8_t* tile,
+                                                const float (&acc)[R]) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+#pragma unroll
+  for (int n = 0; n < R / 4; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;  // row % 8 == g
+      uint8_t* dst =
+          tile + (n / 8) * 8192 + row * 128 + ((n % 8) ^ g) * 16 + t * 4;
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
 
 }  // namespace hopper
 }  // namespace tdx
