@@ -11,8 +11,9 @@ Phases, each printing a line:
    plain version and the PyTorch library call that computes the same
    function (a yardstick only; the port never calls it): the flash forward
    against SDPA, the three backward kernels against SDPA's backward; every
-   input of a backward kernel must be unchanged after its launch, and the
-   streamed pair (dq, dk/dv) must give the same bits on a second call;
+   input of a kernel must be unchanged after its launch, and a second call
+   of a backward kernel must give the same bits in every output that it
+   sums in a fixed order (all but the fused kernel's dq);
 3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated), then
    materialize it on the card (its bf16 parameters allocated);
 4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
@@ -102,20 +103,24 @@ BWD_SHAPES = [
     ("ragged_f32", 2, 1000, 8, 8, 64, torch.float32, False, "streamed"),
     ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True, "streamed"),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "streamed"),
+    ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "fused"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
     "fused": {"flash_bwd_fused": (True, True)},
     "streamed": {"flash_bwd_dq": (True, False), "flash_bwd_dkv": (False, True)},
 }
-# Kernels that sum in a fixed order (no atomics): a second call on the same
-# inputs must give the same bits.
-BWD_DETERMINISTIC = ("flash_bwd_dq", "flash_bwd_dkv")
+# The outputs that each kernel sums in a fixed order: a second call on the
+# same inputs must give them the same bits.  The fused kernel's dq is summed
+# across blocks in an order that varies from run to run (TMA reductions in
+# bf16, atomics in f32); its dk and dv are not.
+BWD_DETERMINISTIC = {"flash_bwd_fused": ("dk", "dv"), "flash_bwd_dq": ("dq",),
+                     "flash_bwd_dkv": ("dk", "dv")}
 # Kernel vs plain on (dq, dk, dv): the largest |kernel - plain| over
 # max(1, the largest |plain|).  bf16: p, ds and the outputs are rounded to
 # bf16 (2^-8 relative), so a pair whose p or ds rounds the other way moves
 # its products by that much; f32: summation order only (the fused dq also
-# sums with atomics, in an order that changes from run to run).
+# sums across blocks in an order that changes from run to run).
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # 2 D flops per causal pair for each product of the kernel.
 BWD_PRODUCTS = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
@@ -248,8 +253,12 @@ def phase_kernels():
             return torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=dtype)
 
         q, k, v = rand(hq), rand(hkv), rand(hkv)
+        before = [t.clone() for t in (q, k, v)]
         out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        _check(all(torch.equal(t, c) for t, c in zip((q, k, v), before)),
+               f"{name}: an input changed during the forward launch")
+        del before
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
@@ -272,7 +281,7 @@ def phase_kernels():
         row = {
             "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-            "max_abs_err": err_out, "lse_max_abs_err": err_lse,
+            "max_abs_err": err_out, "lse_max_abs_err": err_lse, "inputs_unchanged": True,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         for prefix, fn in calls.items():
@@ -331,16 +340,16 @@ def phase_bwd_kernels():
             torch.cuda.synchronize()
             _check(all(torch.equal(a, c) for a, c in zip(args, before)),
                    f"{kernel} {name}: an input changed during the launch")
-            if kernel in BWD_DETERMINISTIC:
-                again = run()
-                again = again if isinstance(again, tuple) else (again,)
-                torch.cuda.synchronize()
-                _check(all(torch.equal(a, c) for a, c in zip(args, before)),
-                       f"{kernel} {name}: an input changed during the second launch")
-                _check(all(torch.equal(g, a) for g, a in zip(got, again)),
-                       f"{kernel} {name}: two calls gave different bits")
-                del again
-            del before
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, c) for a, c in zip(args, before)),
+                   f"{kernel} {name}: an input changed during the second launch")
+            outs = [n for n, w in zip(("dq", "dk", "dv"), (want_dq, want_dkv, want_dkv)) if w]
+            same = dict(zip(outs, (torch.equal(g, a) for g, a in zip(got, again))))
+            _check(all(same[n] for n in BWD_DETERMINISTIC[kernel]),
+                   f"{kernel} {name}: two calls gave different bits: {same}")
+            del again, before
             want = [w for w in plain() if w is not None]
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             scale = max(1.0, max(w.float().abs().max().item() for w in want))
@@ -352,7 +361,7 @@ def phase_bwd_kernels():
                 "kernel": kernel, "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
                 "D": d, "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                 "max_abs_err": err, "max_abs_ref": scale, "inputs_unchanged": True,
-                "deterministic": kernel in BWD_DETERMINISTIC,
+                "same_bits_twice": same,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "ms": _time_ms(run), "device_ms": _device_ms(run),
                 "plain_ms": _time_ms(plain, warmup=1, reps=3, calls=2),
@@ -473,7 +482,7 @@ _GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma")
 # fragment of its pattern.
 _KERNEL_NAMES = {
     "flash_fwd": ("flash_fwd_bf16",),
-    "flash_bwd_fused": ("bwd_kv_bf16<",),
+    "flash_bwd_fused": ("flash_bwd_fused_wgmma<",),
     "flash_bwd_dq": ("flash_bwd_dq_wgmma<",),
     "flash_bwd_dkv": ("flash_bwd_dkv_wgmma<",),
 }

@@ -36,6 +36,14 @@ def test_bwd_bound(kernel, bound_ms):
     assert got_by == "operations"
 
 
+def test_bwd_bound_fused_train_4x512():
+    # The fused kernel at the 4 x 512 train step: q, k, v, do read and dq,
+    # dk, dv written once (7 x 16.8 MB) plus lse and delta, by bytes.
+    got_ms, got_by = chip_smoke._bwd_bound("flash_bwd_fused", *TRAIN_4x512, torch.bfloat16, True)
+    assert got_ms == pytest.approx(0.03521, rel=1e-3)
+    assert got_by == "bytes"
+
+
 # The streamed rows of BWD_SHAPES beside the train path's: (B, S, Hq, Hkv,
 # D, causal); bounds by operations (products x 2 D flops per pair).
 GQA_RAGGED = (1, 4095, 32, 8, 128, True)
@@ -64,7 +72,10 @@ PROFILED_NAMES = {
     "flash_fwd": "void (anonymous namespace)::flash_fwd_bf16_wgmma<128>(CUtensorMap_st, "
                  "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float*, int, int, int, int, "
                  "float, int)",
-    "flash_bwd_fused": "void tdx_bwd::bwd_kv_bf16<128>(tdx_bwd::BwdArgs)",
+    "flash_bwd_fused": "void tdx_bwd::(anonymous namespace)::flash_bwd_fused_wgmma<128>("
+                       "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                       "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, "
+                       "float const*, int, int, int, int, int, float, float)",
     "flash_bwd_dq": "void tdx_bwd::(anonymous namespace)::flash_bwd_dq_wgmma<128>("
                     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                     "CUtensorMap_st, float const*, float const*, int, int, int, int, float, "
@@ -92,3 +103,11 @@ def test_flash_shapes_take_the_kernels_head_dims():
         assert d in fa._HEAD_DIMS, name
         assert dtype in fa._DTYPES, name
         assert hq % hkv == 0, name
+
+
+@pytest.mark.parametrize("d", fa._HEAD_DIMS)
+def test_bwd_shapes_hold_a_bf16_fused_row_per_head_dim(d):
+    # Both instantiations of the fused kernel are held against the plain
+    # backward on the card.
+    assert any(r[5] == d and r[6] == torch.bfloat16 and r[8] == "fused"
+               for r in chip_smoke.BWD_SHAPES)

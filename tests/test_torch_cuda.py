@@ -75,7 +75,8 @@ def test_flash_rejects_unsupported_head_dim(cuda):
 # relative to max(1, the largest |plain| value): bf16 rounds p, ds and the
 # outputs to bf16 (2^-8 relative), and a pair whose p or ds lands on the
 # other side of a rounding step moves its products by that much; f32 differs
-# by summation order only (the fused dq also by its atomics' order).
+# by summation order only (the fused dq also by the order, varying from run
+# to run, in which blocks add to it).
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
@@ -139,6 +140,27 @@ def test_flash_bwd_streamed_is_deterministic(cuda, causal):
     dk2, dv2 = fa.flash_bwd_dkv(*args, causal=causal)
     torch.cuda.synchronize()
     assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_fused_dkv_is_deterministic(cuda, causal, d):
+    # The fused kernel's blocks own their dk and dv rows and sum them in a
+    # fixed order: two calls give the same dk and dv bits.  dq is summed
+    # across blocks by TMA reductions in an order that varies, so only its
+    # last bits may differ; no launch writes its inputs (a ragged GQA shape
+    # over several works).
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, do, out, lse = _bwd_inputs(g, 2, 1000, 8, 2, d, torch.bfloat16, causal, cuda)
+    delta = fa.attention_delta(do, out)
+    args = (q, k, v, do, lse, delta)
+    before = [t.clone() for t in args]
+    dq1, dk1, dv1 = fa.flash_bwd_fused(*args, causal=causal)
+    dq2, dk2, dv2 = fa.flash_bwd_fused(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert _bwd_err(dq1, dq2) <= BWD_TOL[torch.bfloat16]
     assert all(torch.equal(a, b) for a, b in zip(args, before))
 
 

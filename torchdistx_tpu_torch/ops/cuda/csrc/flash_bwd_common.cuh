@@ -21,13 +21,17 @@
 // column overflowing f32).  needs_mask is the block-level test that lets
 // interior tiles skip the per-pair compare.
 //
-// Also here: the mma.sync helpers, the launch helper for dynamic shared
-// memory, and the kv-tile-outer kernel bodies: bwd_kv_bf16, the fused
-// kernel's, which adds dq = ds.k from the same p/ds (atomically, see
-// flash_bwd_fused.cu), and bwd_kv_f32, which the fused and the dk/dv
-// kernels share and which does so only with kDq.  The bf16 dk/dv and dq
-// kernels are built on hopper.cuh instead (flash_bwd_dkv.cu,
-// flash_bwd_dq.cu).
+// Also here: the steps that the two bf16 kv-tile kernels on wgmma share
+// (flash_bwd_dkv.cu and flash_bwd_fused.cu: s^T and dp^T, p and ds into
+// shared memory, the dk/dv accumulation), the launch helper for dynamic
+// shared memory, and bwd_kv_f32, the f32 kv-tile-outer body on the CUDA
+// cores that the dk/dv kernel and (with kDq, dq by atomics) the fused
+// kernel run for f32.  The bf16 kernels are built on hopper.cuh.  What
+// bounds the shared steps: a step's critical path is one warpgroup's p and
+// ds (4,096 pairs, an exp2 each on the special-function unit) and then the
+// accumulations that wait for them; knocking out half the tensor work saved
+// less than knocking out p and ds, so this chain, not the tensor rate,
+// holds the kv-tile kernels back (each source's header gives its bound).
 //
 // Layout: q, do, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); contiguous,
 // read and written in place.  GQA maps q head h to kv head h / (Hq / Hkv).
@@ -38,12 +42,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace tdx_bwd {
+
+namespace hw = tdx::hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
-
-using bf16 = __nv_bfloat16;
 
 // Arguments of every backward kernel; pointers a kernel does not use are
 // null.
@@ -114,37 +120,105 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// ---------------------------------------------------------------------------
+// The steps of the bf16 kv-tile kernels on wgmma (flash_bwd_dkv.cu and
+// flash_bwd_fused.cu).  A block holds the k and v of 64 kv rows and streams
+// q and do tiles of 64 rows, all as TMA writes them (hopper.cuh: D / 64
+// chunks of 64 x 64, 128-byte swizzled).  A step (GQA head, q tile)
+// computes s^T and dp^T (issue_st_dpt), then p and ds, which go to shared
+// memory (p_ds_store) for the accumulations dv += p^T.do and dk += ds^T.q
+// (issue_acc).
+
+constexpr int kChunk = 64 * 128;  // bytes of one 64 x 64 bf16 chunk
+
+// Issues s^T = k.q^T and dp^T = v.do^T for the 64 kv rows and the 64 q
+// rows (wgmma m64n64k16, both operands K-major; not committed), each a new
+// definition by its first wgmma.
+template <int D>
+__device__ __forceinline__ void issue_st_dpt(float (&s)[32], float (&dp)[32],
+                                             uint32_t k_addr, uint32_t v_addr,
+                                             uint32_t q_addr,
+                                             uint32_t do_addr) {
+  hw::wgmma_ss_init(s, hw::sw128_desc(k_addr, 16, 1024),
+                    hw::sw128_desc(q_addr, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
+    hw::wgmma_ss(s, hw::sw128_desc(k_addr + off, 16, 1024),
+                 hw::sw128_desc(q_addr + off, 16, 1024), 1);
+  }
+  hw::wgmma_ss_init(dp, hw::sw128_desc(v_addr, 16, 1024),
+                    hw::sw128_desc(do_addr, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
+    hw::wgmma_ss(dp, hw::sw128_desc(v_addr + off, 16, 1024),
+                 hw::sw128_desc(do_addr + off, 16, 1024), 1);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// p = 2^(s scale log2 e - lse log2 e) and ds = p (dp scale - delta scale)
+// of one step (lse_st and delta_st hold the q tile's lse log2 e and delta
+// scale), 0 on masked pairs (p_ds_fast); column qc of the tile is q row q0 +
+// qc, this thread's kv rows are k0 + 16 (warp % 4) + lane / 4 and that + 8.
+// Then p and ds in bf16 into the step's buffer (p at pb, ds one chunk on),
+// four 8 x 8 blocks a stmatrix, laid out as the 128-byte swizzle of a
+// K-major operand: kv row r at byte r * 128, the 16-byte group of q columns
+// 8 c .. 8 c + 7 at (c ^ r % 8) * 16.
+__device__ __forceinline__ void p_ds_store(const float (&s)[32],
+                                           float (&dp)[32],
+                                           const float* lse_st,
+                                           const float* delta_st, bool mask,
+                                           int causal, int q0, int k0, int S,
+                                           float scale, float scale_log2,
+                                           uint8_t* pb, int warp, int lane) {
+  const int t = lane % 4;
+  const int row = 16 * (warp % 4) + lane / 4;
+  uint32_t pk[16], dsk[16];  // block (j, r): kv rows row + 8 r, cols 8 j..
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = 8 * j + 2 * t;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_st + qc);
+    const float2 dl = *reinterpret_cast<const float2*>(delta_st + qc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * r + c;
+        ds[c] = dp[e];
+        p[c] = p_ds_fast(s[e], ds[c], c ? l2.y : l2.x, c ? dl.y : dl.x, mask,
+                         causal, q0 + qc + c, k0 + row + 8 * r, S, scale,
+                         scale_log2);
+      }
+      pk[2 * j + r] = pack_f32(p[0], p[1]);
+      dsk[2 * j + r] = pack_f32(ds[0], ds[1]);
+    }
+  }
+  // Lane l addresses row l % 8 of block (2 jp + l / 16, l / 8 % 2).
+  const int m_row = 16 * (warp % 4) + lane % 8 + 8 * (lane / 8 % 2);
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    const int off = m_row * 128 + ((2 * jp + lane / 16) ^ (lane % 8)) * 16;
+    const uint32_t pa = hw::smem_addr(pb + off);
+    hw::stmatrix_x4(pa, pk[4 * jp], pk[4 * jp + 1], pk[4 * jp + 2],
+                    pk[4 * jp + 3]);
+    hw::stmatrix_x4(pa + kChunk, dsk[4 * jp], dsk[4 * jp + 1],
+                    dsk[4 * jp + 2], dsk[4 * jp + 3]);
+  }
 }
 
-// c += a . b for a 16x16 (row) by 16x8 (col) bf16 tile, f32 accumulate.
-// Fragments (g = lane / 4, t = lane % 4): a0 (row g, cols 2t, 2t+1), a1 (row
-// g+8), a2 (cols +8), a3 (both); b0 (rows 2t, 2t+1, col g), b1 (rows +8);
-// c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of the kk-th 16-wide k slice, taken from two 16x8 f32
-// accumulator tiles (2kk and 2kk + 1) and rounded to bf16.
-__device__ __forceinline__ void acc_to_a(const float (&lo)[4],
-                                         const float (&hi)[4],
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_f32(lo[0], lo[1]);
-  a[1] = pack_f32(lo[2], lo[3]);
-  a[2] = pack_f32(hi[0], hi[1]);
-  a[3] = pack_f32(hi[2], hi[3]);
+// Issues acc += a^T.b over a step's 64 q rows (not committed): a is p or ds
+// (64 kv rows x 64 q columns, K-major, from p_ds_store), b is do or q (64 q
+// rows x D, MN-major, as TMA lays it out), so nothing is transposed.
+template <int D>
+__device__ __forceinline__ void issue_acc(float (&acc)[D / 2], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hw::wgmma_ss_mn(acc, hw::sw128_desc(a + kk * 32, 16, 1024),
+                    hw::sw128_desc(b + kk * 16 * 128, kChunk, 1024));
+  }
 }
 
 // Launch with `smem` bytes of dynamic shared memory (above 48 KB only after
@@ -160,223 +234,6 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   }
   kernel<<<grid, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// kv-tile-outer body, bf16: one block per (kv tile of 64, kv head, batch);
-// 4 warps, each owning 16 kv rows.  K and V stay in shared memory; the block
-// loops over (GQA group, q tile of 32) from the causal diagonal on, and per
-// pair computes S^T = K.Q^T and dP^T = V.dO^T (16 x 32 per warp, on the
-// tensor cores), p and ds in registers, then dV += P^T.dO and dK += dS^T.Q
-// with the accumulator fragments reused as A operands; dk and dv stay in
-// f32 registers until the end.  Then dQ = dS.K: ds goes to shared memory
-// q-major, each warp takes 16 q rows x D/2 columns of the product, and adds
-// it to the f32 dq buffer with atomics.
-
-template <int D>
-struct KvTileBf16 {
-  static constexpr int BK = 64, BQ = 32, LD = D + 8, LDS = BK + 8;
-  static constexpr size_t smem() {
-    return 2 * BQ * sizeof(float) +
-           (2 * BK * LD + 2 * BQ * LD + BQ * LDS) * sizeof(bf16);
-  }
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_kv_bf16(const BwdArgs a) {
-  using T = KvTileBf16<D>;
-  constexpr int BK = T::BK, BQ = T::BQ, LD = T::LD, LDS = T::LDS;
-  static_assert(BK == 16 * (kThreads / 32), "one 16-row slice per warp");
-  static_assert(BQ == 32, "the dq split assumes 2 x 16 q rows");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* lse_s = reinterpret_cast<float*>(smem_raw);
-  float* delta_s = lse_s + BQ;
-  bf16* ks = reinterpret_cast<bf16*>(delta_s + BQ);
-  bf16* vs = ks + BK * LD;
-  bf16* qs = vs + BK * LD;
-  bf16* dos = qs + BQ * LD;
-  bf16* dss = dos + BQ * LD;  // dS, q-major
-
-  const int S = a.S, G = a.Hq / a.Hkv;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr_l = warp * 16 + g;  // this thread's kv rows: kr_l, kr_l + 8
-  const size_t q_rs = static_cast<size_t>(a.Hq) * D;
-  const size_t kv_rs = static_cast<size_t>(a.Hkv) * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const bf16* vb = static_cast<const bf16*>(a.v) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-
-  for (int i = threadIdx.x; i < BK * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-    if (k0 + r < S) {
-      const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-      kx = *reinterpret_cast<const uint4*>(kb + off);
-      vx = *reinterpret_cast<const uint4*>(vb + off);
-    }
-    *reinterpret_cast<uint4*>(ks + r * LD + c) = kx;
-    *reinterpret_cast<uint4*>(vs + r * LD + c) = vx;
-  }
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  }
-
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int qt0 = a.causal ? k0 / BQ : 0;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const bf16* qb = static_cast<const bf16*>(a.q) +
-                     static_cast<size_t>(b) * S * q_rs + h * D;
-    const bf16* dob = static_cast<const bf16*>(a.dout) +
-                      static_cast<size_t>(b) * S * q_rs + h * D;
-    const float* lseb = a.lse + (static_cast<size_t>(b) * a.Hq + h) * S;
-    const float* deltab = a.delta + (static_cast<size_t>(b) * a.Hq + h) * S;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous pair's readers are done
-      for (int i = threadIdx.x; i < BQ * D / 8; i += kThreads) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-        uint4 qx = make_uint4(0u, 0u, 0u, 0u), dx = qx;
-        if (q0 + r < S) {
-          const size_t off = static_cast<size_t>(q0 + r) * q_rs + c;
-          qx = *reinterpret_cast<const uint4*>(qb + off);
-          dx = *reinterpret_cast<const uint4*>(dob + off);
-        }
-        *reinterpret_cast<uint4*>(qs + r * LD + c) = qx;
-        *reinterpret_cast<uint4*>(dos + r * LD + c) = dx;
-      }
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < S ? lseb[row] * kLog2e : 0.f;
-        delta_s[threadIdx.x] = row < S ? deltab[row] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K.Q^T and dP^T = V.dO^T: BQ / 8 tiles of 16 kv rows x 8 q cols.
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* kp = ks + kr_l * LD + kk * 16 + 2 * t;
-        const bf16* vp = vs + kr_l * LD + kk * 16 + 2 * t;
-        const uint32_t ka[4] = {ld32(kp), ld32(kp + 8 * LD), ld32(kp + 8),
-                                ld32(kp + 8 * LD + 8)};
-        const uint32_t va[4] = {ld32(vp), ld32(vp + 8 * LD), ld32(vp + 8),
-                                ld32(vp + 8 * LD + 8)};
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const bf16* qp = qs + (j * 8 + g) * LD + kk * 16 + 2 * t;
-          const bf16* dp = dos + (j * 8 + g) * LD + kk * 16 + 2 * t;
-          mma_bf16(st[j], ka, ld32(qp), ld32(qp + 8));
-          mma_bf16(dpt[j], va, ld32(dp), ld32(dp + 8));
-        }
-      }
-
-      // p into st, ds into dpt.
-      const bool mask = needs_mask(a.causal, q0, BQ, k0, BK, S);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + 2 * t + (e & 1);
-          const int kr = k0 + kr_l + (e >= 2 ? 8 : 0);
-          const bool keep = !mask || keep_pair(a.causal, q0 + qc, kr, S);
-          st[j][e] = p_ds(st[j][e], dpt[j][e], lse_s[qc], delta_s[qc], keep,
-                          a.scale, a.scale_log2);
-        }
-      }
-
-      // dV += P^T.dO and dK += dS^T.Q; the k dimension is the q rows.
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(st[2 * kk], st[2 * kk + 1], pa);
-        acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sa);
-        const bf16* d0 = dos + (kk * 16 + 2 * t) * LD + g;
-        const bf16* q0p = qs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          const bf16* dp = d0 + n * 8;
-          const bf16* qp = q0p + n * 8;
-          mma_bf16(dv_acc[n], pa, pack_bf16(dp[0], dp[LD]),
-                   pack_bf16(dp[8 * LD], dp[9 * LD]));
-          mma_bf16(dk_acc[n], sa, pack_bf16(qp[0], qp[LD]),
-                   pack_bf16(qp[8 * LD], qp[9 * LD]));
-        }
-      }
-
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + 2 * t + (e & 1);
-          dss[qc * LDS + kr_l + (e >= 2 ? 8 : 0)] =
-              __float2bfloat16_rn(dpt[j][e]);
-        }
-      }
-      __syncthreads();
-      // dQ (BQ x D) = dS (BQ x BK) . K (BK x D): warp -> 16 rows x D / 2.
-      const int mt = warp & 1, nh = warp >> 1;
-      float acc[D / 16][4];
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const bf16* ap = dss + (mt * 16 + g) * LDS + kk * 16 + 2 * t;
-        const uint32_t da[4] = {ld32(ap), ld32(ap + 8 * LDS), ld32(ap + 8),
-                                ld32(ap + 8 * LDS + 8)};
-        const bf16* k0p = ks + (kk * 16 + 2 * t) * LD + nh * (D / 2) + g;
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          const bf16* kp = k0p + n * 8;
-          mma_bf16(acc[n], da, pack_bf16(kp[0], kp[LD]),
-                   pack_bf16(kp[8 * LD], kp[9 * LD]));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = q0 + mt * 16 + g + 8 * r;
-        if (row >= S) continue;
-        float* dst = a.dq_acc + (static_cast<size_t>(b) * S + row) * q_rs +
-                     h * D + nh * (D / 2) + 2 * t;
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          atomicAdd(dst + n * 8, acc[n][2 * r]);
-          atomicAdd(dst + n * 8 + 1, acc[n][2 * r + 1]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kr = k0 + kr_l + 8 * r;
-    if (kr >= S) continue;
-    const size_t off = (static_cast<size_t>(b) * S + kr) * kv_rs + hk * D + 2 * t;
-    bf16* dkr = static_cast<bf16*>(a.dk) + off;
-    bf16* dvr = static_cast<bf16*>(a.dv) + off;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + n * 8) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + n * 8) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -542,28 +399,13 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 // Hopper grants a block at most 227 KB of shared memory.  The tiles do not
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
-static_assert(KvTileBf16<128>::smem() <= kMaxSmem, "bf16 tile too large");
 static_assert(KvTileF32<128>::smem() <= kMaxSmem, "f32 tile too large");
 
-// Launches the kv-tile-outer kernel for (dtype, D); kDq selects the fused
-// variant, the only one with a bf16 body.  dtype: 0 = float32, 1 = bfloat16.
+// Launches the f32 kv-tile-outer kernel for D (dtype 0 = float32; the
+// bf16 kernels are on wgmma); kDq selects the fused variant.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
-  if constexpr (kDq) {
-    if (dtype == 1 && D == 64) {
-      using T = KvTileBf16<64>;
-      return launch_dyn(bwd_kv_bf16<64>,
-                        dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                        T::smem(), stream, args);
-    }
-    if (dtype == 1 && D == 128) {
-      using T = KvTileBf16<128>;
-      return launch_dyn(bwd_kv_bf16<128>,
-                        dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                        T::smem(), stream, args);
-    }
-  }
   if (dtype == 0 && D == 64) {
     using T = KvTileF32<64>;
     return launch_dyn(bwd_kv_f32<64, kDq>,

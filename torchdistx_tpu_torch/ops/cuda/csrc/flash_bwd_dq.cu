@@ -54,12 +54,9 @@
 // price of two deterministic kernels).
 
 #include "flash_bwd_common.cuh"
-#include "hopper.cuh"
 
 namespace tdx_bwd {
 namespace {
-
-namespace hw = tdx::hopper;
 
 // Tiles and dynamic shared memory of the bf16 kernel: q and do (each two
 // warpgroups x D / 64 chunks of 64 rows, 8 KB a chunk), then per stage k

@@ -17,9 +17,9 @@
 // that bound).
 //
 // bf16 (flash_fwd_bf16_wgmma), built from hopper.cuh.  Persistent: one block
-// per SM walks its works (WorkList), a work being 128 q rows of one (batch,
-// head), the two q tiles n_q - 1 - p and p of a head taken together so that
-// every block gets the same number of causal kv tiles; works go out
+// per SM walks its works (PairedWorks), a work being 128 q rows of one
+// (batch, head), the two q tiles n_q - 1 - p and p of a head taken together
+// so that every block gets the same number of causal kv tiles; works go out
 // head-major, so blocks running side by side share their heads' k and v in
 // L2.  A block has two consumer warpgroups (64 q rows each) and one
 // producer warp.  One producer thread loads each work's q into one of two q
@@ -217,34 +217,6 @@ __device__ __forceinline__ void rescale(float (&o)[N],
   }
 }
 
-// The works of a persistent block: unit u = blockIdx.x, + gridDim.x, ...
-// of n_units = B x Hq x ceil(n_q / 2), head-major; unit u of head hb is
-// the pair of q tiles (n_q - 1 - p, p), p = u % n_pairs, so that under the
-// causal mask every unit holds n_q + 1 kv tiles and a static round robin
-// balances the blocks (the middle tile of an odd n_q stands alone).
-struct WorkList {
-  int n_q, n_pairs, n_units, Hq, u, part;
-  __device__ WorkList(int n_q_, int Hq_, int B)
-      : n_q(n_q_), n_pairs((n_q + 1) / 2),
-        n_units(B * Hq_ * n_pairs), Hq(Hq_), u(blockIdx.x), part(0) {}
-  __device__ bool done() const { return u >= n_units; }
-  __device__ int q_tile() const {
-    const int p = u % n_pairs;
-    return part == 0 ? n_q - 1 - p : p;
-  }
-  __device__ int h() const { return u / n_pairs % Hq; }
-  __device__ int b() const { return u / n_pairs / Hq; }
-  __device__ void next() {
-    const int p = u % n_pairs;
-    if (part == 0 && p != n_q - 1 - p) {
-      part = 1;
-    } else {
-      part = 0;
-      u += gridDim.x;
-    }
-  }
-};
-
 template <int D>
 __global__ void __launch_bounds__(Bf16Tiles<D>::kThreads, 1)
 flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
@@ -301,8 +273,8 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
       hw::prefetch_map(&tm_v);
       int tile = 0;
       int j = 0;
-      for (WorkList w(n_q, Hq, B); !w.done(); w.next(), ++j) {
-        const int q0 = w.q_tile() * T::kBQ, h = w.h(), b = w.b();
+      for (hw::PairedWorks w(n_q, Hq, B); !w.done(); w.next(), ++j) {
+        const int q0 = w.tile() * T::kBQ, h = w.head(), b = w.batch();
         const int hk = h / (Hq / Hkv), n_tiles = n_tiles_of(q0);
         uint8_t* qj = qs + (j % 2) * T::kQBytes;
         hw::mbar_wait(q_empty + j % 2, ((j / 2) & 1) ^ 1);
@@ -350,8 +322,8 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
     if (wg == 1) hw::named_arrive(kTurn, 256);
     int tile = 0;
     int j = 0;
-    for (WorkList w(n_q, Hq, B); !w.done(); ++j) {
-      const int q0 = w.q_tile() * T::kBQ, h = w.h(), b = w.b();
+    for (hw::PairedWorks w(n_q, Hq, B); !w.done(); ++j) {
+      const int q0 = w.tile() * T::kBQ, h = w.head(), b = w.batch();
       const int n_tiles = n_tiles_of(q0);
       w.next();
       const bool last_work = w.done();
@@ -567,37 +539,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
                 int causal, cudaStream_t stream) {
   using T = Bf16Tiles<D>;
-  // Per device, once: the SM count (one persistent block each) and the
-  // opt-in to more than 48 KB of dynamic shared memory.
-  static int n_sm[hw::kMaxDevices];
-  int device = 0;
-  int err = cudaGetDevice(&device);
-  if (err) return err;
-  if (device >= hw::kMaxDevices) return cudaErrorInvalidDevice;
-  if (n_sm[device] == 0) {
-    int count = 0;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (!err) {
-      err = cudaFuncSetAttribute(flash_fwd_bf16_wgmma<D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 T::kSmem);
-    }
-    if (err) return err;
-    n_sm[device] = count;
-  }
+  static bool opted[hw::kMaxDevices];
+  int n_sm = 0;
+  int err = hw::smem_opt_in(flash_fwd_bf16_wgmma<D>, T::kSmem, opted);
+  if (!err) err = hw::sm_count(&n_sm);
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  err = hw::bshd_map(&tm_q, q, B, S, Hq, D, 64);
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, 64);
   if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
   if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
   if (!err) err = hw::bshd_map(&tm_o, o, B, S, Hq, D, 64);
   if (err) return err;
-  // One persistent block per SM, or one per unit of work (WorkList).
+  // One persistent block per SM, or one per unit of work (PairedWorks).
   const int n_q = (S + T::kBQ - 1) / T::kBQ;
   const long long n_units = static_cast<long long>(B) * Hq * ((n_q + 1) / 2);
   if (n_units > INT_MAX) return cudaErrorInvalidValue;
   const int grid =
-      static_cast<int>(n_units < n_sm[device] ? n_units : n_sm[device]);
+      static_cast<int>(n_units < n_sm ? n_units : n_sm);
   flash_fwd_bf16_wgmma<D><<<grid, T::kThreads, T::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), B, S, Hq, Hkv,
       scale_log2, causal);

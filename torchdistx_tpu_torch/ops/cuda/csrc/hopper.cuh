@@ -1,6 +1,7 @@
 // Hopper (sm_90a) plumbing shared by the port's kernels: TMA tensor maps
-// over the model's (B, S, H, D) bf16 tensors, mbarriers, named barriers, and
-// wgmma shared-memory descriptors and instructions.
+// over the model's (B, S, H, D) bf16 tensors (and f32 ones, for reductions),
+// mbarriers, named barriers, wgmma shared-memory descriptors and
+// instructions, and the persistent kernels' work list.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and read
 // by wgmma through descriptors of the same swizzle.  A tile is a stack of
@@ -49,28 +50,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a contiguous (B, S, H, D) bf16 tensor at `base`, as the
-// 4-d tensor (D, H, S, B) (innermost first), loaded or stored in boxes of
-// 64 columns x `rows` sequence positions of one head.  Positions >= S read
-// as zeros and are not written.  Returns a cudaError_t (0 on success).
+// A tensor map over a contiguous (B, S, H, D) tensor at `base` of bf16
+// (`bytes` 2) or f32 (`bytes` 4) elements, as the 4-d tensor (D, H, S, B)
+// (innermost first), loaded, stored or reduced into in boxes of 128 bytes
+// (64 bf16 or 32 f32 columns) x `rows` sequence positions of one head.
+// Positions >= S read as zeros and are not written.  Returns a cudaError_t
+// (0 on success).
 inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                    int D, int rows) {
+                    int D, int rows, int bytes = 2) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = static_cast<cuuint64_t>(H) * D * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(H) * D * bytes;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row,
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * bytes, row,
                                  row * static_cast<cuuint64_t>(S)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / bytes), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }
 
@@ -94,7 +100,54 @@ inline int smem_opt_in(Kernel kernel, int bytes, bool (&done)[kMaxDevices]) {
   return 0;
 }
 
+// The current device's number of SMs, read once per device.  Returns a
+// cudaError_t (0 on success).
+inline int sm_count(int* count) {
+  static int n_sm[kMaxDevices];
+  int device = 0;
+  int err = cudaGetDevice(&device);
+  if (err) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (n_sm[device] == 0) {
+    err = cudaDeviceGetAttribute(&n_sm[device],
+                                 cudaDevAttrMultiProcessorCount, device);
+    if (err) return err;
+  }
+  *count = n_sm[device];
+  return 0;
+}
+
 // -------------------------------------------------------------- device side
+
+// The works of a persistent block (at most one block per SM): unit u =
+// blockIdx.x, + gridDim.x, ... of n_units = B x H x ceil(n / 2), head-major;
+// unit u of head hb is the pair of tiles (n - 1 - p, p), p = u % n_pairs,
+// taken in that order, so that under the causal mask every unit holds the
+// same work (tile t of a forward sees t + 1 kv tiles, kv tile t of a
+// backward n - t q tiles) and a static round robin balances the blocks (the
+// middle tile of an odd n stands alone).
+struct PairedWorks {
+  int n, n_pairs, n_units, H, u, part;
+  __device__ PairedWorks(int n_, int H_, int B)
+      : n(n_), n_pairs((n_ + 1) / 2), n_units(B * H_ * n_pairs), H(H_),
+        u(blockIdx.x), part(0) {}
+  __device__ bool done() const { return u >= n_units; }
+  __device__ int tile() const {
+    const int p = u % n_pairs;
+    return part == 0 ? n - 1 - p : p;
+  }
+  __device__ int head() const { return u / n_pairs % H; }
+  __device__ int batch() const { return u / n_pairs / H; }
+  __device__ void next() {
+    const int p = u % n_pairs;
+    if (part == 0 && p != n - 1 - p) {
+      part = 1;
+    } else {
+      part = 0;
+      u += gridDim.x;
+    }
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -180,6 +233,19 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared -> global, one box of an f32 map added element-wise to what is
+// there (in L2, atomically per element); out-of-bounds rows are not
+// written.  Committed and waited for as stores are.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
@@ -306,59 +372,81 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
   "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
       "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
 
-// d = a . b^T for a 64 x 16 A and a 64 x 16 B, both K-major in shared
-// memory (m64n64k16): d is only written, so it needs no value before, and
+#define TDX_ACC_REGS64                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"        \
+  " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"        \
+  " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"        \
+  " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"        \
+  " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"        \
+  " %62, %63}"
+#define TDX_ACC_REGS32                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"        \
+  " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"        \
+  " %26, %27, %28, %29, %30, %31}"
+
+// d = a . b for a 64 x 16 A and a 16 x N B in shared memory (m64nNk16).
+// An operand whose transpose bit (kTransA, kTransB) is 0 is K-major: each
+// of its 64 or N rows holds its 16 k (as TMA lays out q and k, so b is
+// stored as b^T).  With the bit 1 it is MN-major: its 64 or N extent lies
+// along a 128-byte row and its 16 k across rows, so a K-major tile is read
+// as its transpose.  d is only written, so it needs no value before, and
 // ptxas sees each such d as a new definition by the wgmma.
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      TDX_ACC_REGS64 ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : TDX_OUT8(d, 0), TDX_OUT8(d, 8), TDX_OUT8(d, 16), TDX_OUT8(d, 24),
+        TDX_OUT8(d, 32), TDX_OUT8(d, 40), TDX_OUT8(d, 48), TDX_OUT8(d, 56)
+      : "l"(a), "l"(b), "r"(0), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a,
                                               uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      TDX_ACC_REGS32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : TDX_OUT8(d, 0), TDX_OUT8(d, 8), TDX_OUT8(d, 16), TDX_OUT8(d, 24)
-      : "l"(a), "l"(b), "r"(0));
+      : "l"(a), "l"(b), "r"(0), "n"(kTransA), "n"(kTransB));
 }
 
-#undef TDX_OUT8
-
-// d += a . b for a 64 x 16 A, K-major, and a 16 x 128 B, MN-major, both in
-// shared memory.
+// d += a . b for a 64 x 16 A, K-major (or MN-major where kTransA is 1, as
+// above), and a 16 x 128 B, MN-major, both in shared memory.
+template <int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a,
                                             uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      TDX_ACC_REGS64 ", %64, %65, p, 1, 1, %67, 1;\n}\n"
       : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24),
         TDX_ACC8(d, 32), TDX_ACC8(d, 40), TDX_ACC8(d, 48), TDX_ACC8(d, 56)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA));
 }
 
 // The same for a 16 x 64 B.
+template <int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
                                             uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      TDX_ACC_REGS32 ", %32, %33, p, 1, 1, %35, 1;\n}\n"
       : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA));
 }
+
+#undef TDX_ACC_REGS64
+#undef TDX_ACC_REGS32
+#undef TDX_OUT8
 
 // d += a . b for a 64 x 16 A in registers and a 16 x 128 B, MN-major in
 // shared memory.
@@ -429,6 +517,28 @@ __device__ __forceinline__ void store_acc_sw128(uint8_t* tile,
           tile + (n / 8) * 8192 + row * 128 + ((n % 8) ^ g) * 16 + t * 4;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
           __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// The same in f32 (an f32 map's 128-byte box is 32 columns): column block
+// c of 32 at tile + c * 8192, row r at byte r * 128 of its block, 16-byte
+// group j at (j ^ r % 8) * 16.
+template <int R>
+__device__ __forceinline__ void store_acc_sw128_f32(uint8_t* tile,
+                                                    const float (&acc)[R]) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+#pragma unroll
+  for (int n = 0; n < R / 4; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;  // row % 8 == g
+      const int j = 2 * (n % 4) + t / 2;      // the 16-byte group
+      uint8_t* dst =
+          tile + (n / 4) * 8192 + row * 128 + (j ^ g) * 16 + (t % 2) * 8;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
     }
   }
 }

@@ -286,8 +286,9 @@ def _on_cpu(q) -> bool:
 
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = True):
     """``(dq, dk, dv)`` by ``csrc/flash_bwd_fused.cu`` for CUDA tensors (dq
-    summed with atomics in f32, then cast to q's dtype), by the plain
-    version for CPU tensors."""
+    summed across the kernel's blocks in f32, in an order that varies from
+    run to run, then cast to q's dtype; dk and dv the same bits on every
+    run), by the plain version for CPU tensors."""
     global launches_bwd_fused
     _check_bwd(q, k, v, do, lse, delta)
     if _on_cpu(q):
