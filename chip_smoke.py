@@ -14,6 +14,11 @@ Phases, each printing a line:
    input of a kernel must be unchanged after its launch, and a second call
    of a backward kernel must give the same bits in every output that it
    sums in a fixed order (all but the fused kernel's dq);
+   ``[head dims]``: the forward and the three backward kernels at head dims
+   without a kernel instance (16, 32, 80: zero-padded to 64 or 128 by the
+   wrappers), bf16 and f32, against their plain versions; then
+   ``Llama(llama_test())`` (head_dim 16) on the card, its forward and 3 SGD
+   steps of ``make_train_step`` against the CPU port on the same weights;
 3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated), then
    materialize it on the card (its bf16 parameters allocated);
 4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
@@ -29,12 +34,17 @@ Phases, each printing a line:
    the unprofiled steps after the first);
 7. train gates: the gradients of a 2-layer model at Llama-7B's width,
    through the kernels and through the plain attention, in f32 and bf16,
-   at both training shapes (see the tolerances below).
+   at both training shapes (see the tolerances below);
+8. ``[fit]``: ``fit`` on a FIT_LAYERS-layer model at Llama-7B's width
+   (bf16, remat, AdamW), 4 x 512 batches, checkpointing into a temporary
+   directory: a straight run, then a run stopped by a real SIGTERM (the
+   ``step.exec`` fault site) and resumed, with the checkpoint, resume and
+   launch gates below; the save, restore and step times.
 
-Two main paths are driven, each with every launch count set to 0 just
-before it and read just after: the forward path (phases 3 to 5) and the
-train path (phase 6).  Any failed check raises, so the script exits
-non-zero and prints no result.  float32 matmuls run in full float32 (TF32
+Three main paths are driven, each with every launch count set to 0 just
+before it and read just after: the forward path (phases 3 to 5), the
+train path (phase 6) and the fit path (phase 8).  Any failed check
+raises, so the script exits non-zero and prints no result.  float32 matmuls run in full float32 (TF32
 is switched off).  The last three lines are the kernels' summary, the
 card's name and power limit, then the result object.
 """
@@ -143,6 +153,28 @@ GATE_SEED = 5
 LOSS_F32_ATOL = 1e-4
 GRAD_F32_RTOL = 1e-3
 GRAD_BF16_SLACK = 1.1
+
+# [head dims]: head dims without a kernel instance (the wrappers pad them to
+# 64 or 128), at (B, S, Hq, Hkv); llama_test on the card against the CPU
+# port within HEAD_DIM_LOSS_ATOL (f32, TF32 off), SGD(lr) for 3 steps.
+PADDED_HEAD_DIMS = [16, 32, 80]
+PADDED_SHAPE = (2, 300, 8, 2)
+HEAD_DIM_LOSS_ATOL = 1e-5
+HEAD_DIM_SGD_LR = 0.1
+
+# [fit]: depth cut to FIT_LAYERS at Llama-7B's width, so that a checkpoint
+# (parameters and AdamW's two moments, bf16) is about 4 GB, not 40 GB.
+# FIT_STEPS steps of 4 x 512, a checkpoint every FIT_EVERY, FIT_KEEP kept;
+# the interrupted run takes a real SIGTERM as step FIT_STOP is about to run,
+# so fit saves FIT_STOP and returns, and the second call resumes there.
+# The resumed losses may differ from the straight run's by FIT_LOSS_ATOL:
+# the fused kernel's dq is summed by TMA reductions in an order that varies,
+# so the last bits of the gradients (and of AdamW's bf16 updates) do.
+FIT_LAYERS = 2
+FIT_SHAPE = (4, 512)
+FIT_STEPS, FIT_EVERY, FIT_KEEP, FIT_STOP = 6, 2, 3, 3
+FIT_DATA_SEED = 6
+FIT_LOSS_ATOL = 0.02
 
 
 def _check(ok: bool, what: str) -> None:
@@ -737,6 +769,270 @@ def phase_train_gates(cfg):
     return stats
 
 
+def phase_head_dims(fa):
+    """C1 on the card: the kernels at head dims they have no instance for,
+    then llama_test (head_dim 16) forward and training against the CPU."""
+    b, s, hq, hkv = PADDED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for d in PADDED_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rand(h):
+                return torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=dtype)
+
+            q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+            out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+            err = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                   "lse": (lse - ref_lse).abs().max().item()}
+            _check(out.shape == q.shape and bool(torch.isfinite(out).all()), f"D {d}: out")
+            tol_out, tol_lse = TOL[dtype]
+            _check(err["out"] <= tol_out and err["lse"] <= tol_lse, f"D {d} {dtype}: fwd {err}")
+            delta = fa.attention_delta(do, ref_out)
+            args = (q, k, v, do, ref_lse, delta)
+            for route in ("fused", "streamed"):
+                for kernel, (want_dq, want_dkv) in BWD_KERNELS[route].items():
+                    got = getattr(fa, kernel)(*args, causal=True)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = [w for w in fa.flash_bwd_plain(*args, causal=True, dq=want_dq,
+                                                          dkv=want_dkv) if w is not None]
+                    scale = max(1.0, max(w.float().abs().max().item() for w in want))
+                    err[kernel] = max((g.float() - w.float()).abs().max().item()
+                                      for g, w in zip(got, want)) / scale
+                    _check(all(g.shape == w.shape for g, w in zip(got, want)),
+                           f"D {d}: {kernel} shapes")
+                    _check(err[kernel] <= BWD_TOL[dtype], f"D {d} {dtype}: {kernel} {err}")
+            torch.cuda.synchronize()
+            row = {"D": d, "kernel_D": fa._kernel_head_dim(d), "B": b, "S": s, "Hq": hq,
+                   "Hkv": hkv, "dtype": str(dtype).replace("torch.", ""), "causal": True,
+                   "max_err": err}
+            print("[head dims] " + json.dumps(row))
+            rows.append(row)
+
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=HEAD_DIM_SGD_LR)
+
+    cpu_init, cpu_step = make_train_step(llama_test(), sgd, device="cpu")
+    gpu_init, gpu_step = make_train_step(llama_test(), sgd, device="cuda")
+    cpu_state, gpu_state = cpu_init(TRAIN_SEED), gpu_init(TRAIN_SEED)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    g = torch.Generator().manual_seed(9)
+    seq = torch.randint(0, llama_test().vocab_size, (4, 65), generator=g)
+    n0 = fa.launches
+    with torch.no_grad():
+        logits_err = (gpu_state.model(seq.cuda()).cpu() - cpu_state.model(seq)).abs().max().item()
+    _check(fa.launches - n0 == llama_test().n_layers, "llama_test forward: flash launches")
+    _check(logits_err <= HEAD_DIM_LOSS_ATOL, f"llama_test logits err {logits_err}")
+    loss_err = []
+    for _ in range(3):
+        seq = torch.randint(0, llama_test().vocab_size, (4, 65), generator=g)
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        gpu_state, gpu_m = gpu_step(gpu_state, batch)
+        loss_err.append(abs(gpu_m["loss"].item() - cpu_m["loss"].item()))
+    _check(max(loss_err) <= HEAD_DIM_LOSS_ATOL, f"llama_test loss errs {loss_err}")
+    _check(gpu_state.step == 3, "llama_test: steps")
+    print(f"[head dims] llama_test (head_dim 16) on the card vs the CPU port: logits max err "
+          f"{logits_err:.3e}; SGD loss errs {[f'{e:.3e}' for e in loss_err]} (atol "
+          f"{HEAD_DIM_LOSS_ATOL})")
+    return {"rows": rows, "llama_test_logits_err": logits_err, "llama_test_loss_errs": loss_err}
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def _fit_flops(cfg, b, s):
+    """Model flops of one train step: 6 x matmul params x tokens (the
+    embedding table is a gather, not a product) plus attention's two
+    products, 4 D flops per causal pair forward, three times for training."""
+    from torchdistx_tpu_torch.models.llama import num_params
+
+    matmul_params = num_params(cfg) - cfg.vocab_size * cfg.dim
+    attention = 3 * 4 * b * cfg.n_heads * cfg.head_dim * (s * (s + 1) // 2) * cfg.n_layers
+    return 6 * matmul_params * b * s + attention
+
+
+def _state_tensors(state):
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for pid, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"opt.{pid}.{k}"] = torch.as_tensor(v)
+    return out
+
+
+def phase_fit(cfg, fa):
+    """The fit path: a straight run and an interrupted, resumed one, with
+    checkpoints in a temporary directory removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.parallel.fit import fit
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+    from torchdistx_tpu_torch.resilience import faults
+    from torchdistx_tpu_torch.utils.checkpoint import Checkpointer, latest_step
+
+    small = dataclasses.replace(cfg, n_layers=FIT_LAYERS)
+    init_fn, step_fn = make_train_step(
+        small, lambda ps: torch.optim.AdamW(ps, lr=TRAIN_LR, foreach=False))
+    b, s = FIT_SHAPE
+    flops = _fit_flops(small, b, s)
+    want = {"flash_fwd": 2 * FIT_LAYERS, "flash_bwd_fused": FIT_LAYERS,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+    def batches():
+        gen = torch.Generator(device="cuda").manual_seed(FIT_DATA_SEED)
+        while True:
+            seq = torch.randint(0, small.vocab_size, (b, s + 1), generator=gen, device="cuda")
+            yield {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+    record = {}  # run -> {step: (loss, derived metrics, launches)}
+
+    def watch(run):
+        record[run] = {}
+        last = [_counts(fa)]
+
+        def on_metrics(step, metrics):
+            now = _counts(fa)
+            launched = {k: now[k] - last[0][k] for k in now}
+            last[0] = now
+            record[run][step] = (metrics["loss"].item(), {
+                k: metrics[k] for k in ("steps_per_s", "tokens_per_s", "mfu") if k in metrics
+            }, launched)
+        return on_metrics
+
+    def run_fit(run, directory, step=step_fn):
+        return fit(init_fn, step, batches(), seed=TRAIN_SEED, n_steps=FIT_STEPS,
+                   checkpoint_dir=directory, checkpoint_every=FIT_EVERY,
+                   on_metrics=watch(run), flops_per_step=flops,
+                   peak_flops=PEAK_OPS_PER_S[torch.bfloat16])
+
+    def committed(directory):
+        return sorted(int(n) for n in os.listdir(directory) if n.isdigit())
+
+    root = tempfile.mkdtemp(prefix="tdx_fit_")
+    stats = {"layers": FIT_LAYERS, "shape": [b, s], "flops_per_step": flops}
+    try:
+        # (a) the straight run.
+        telemetry.reset()
+        t0 = time.perf_counter()
+        state, _ = run_fit("a", os.path.join(root, "a"))
+        stats["straight_run_s"] = time.perf_counter() - t0
+        _check(state.step == FIT_STEPS, f"straight run ended at {state.step}")
+        periodic = set(range(FIT_EVERY, FIT_STEPS + 1, FIT_EVERY)) | {FIT_STEPS}
+        keep = sorted(periodic)[-FIT_KEEP:]
+        _check(committed(os.path.join(root, "a")) == keep,
+               f"straight run committed {committed(os.path.join(root, 'a'))}, want {keep}")
+        stats["mfu_gauge"] = telemetry.gauges().get("train.mfu")
+        steady = [d for _, d, _ in list(record["a"].values())[1:]]
+        for key in ("steps_per_s", "tokens_per_s", "mfu"):
+            stats[key] = statistics.median(d[key] for d in steady)
+
+        # Save and restore times of this state, in a directory of their own.
+        timing = Checkpointer(os.path.join(root, "timing"), max_to_keep=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing.save(1, state, wait=True)
+        stats["save_sync_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        timing.save(2, state, wait=False)
+        stats["save_async_return_ms"] = (time.perf_counter() - t0) * 1e3
+        timing.wait_until_finished()
+        stats["save_async_total_ms"] = (time.perf_counter() - t0) * 1e3
+        stats["checkpoint_bytes"] = os.path.getsize(os.path.join(root, "timing", "2", "state.pt"))
+        t0 = time.perf_counter()
+        timing.restore_latest(target=state)
+        torch.cuda.synchronize()
+        stats["restore_s"] = time.perf_counter() - t0
+        del state, timing
+        shutil.rmtree(os.path.join(root, "a"))
+        shutil.rmtree(os.path.join(root, "timing"))
+        _free()
+
+        # (b) a real SIGTERM as step FIT_STOP is about to run, then resume.
+        run_b = os.path.join(root, "b")
+        telemetry.reset()
+        faults.reset(f"step.exec:{FIT_STOP}:sigterm")
+        stopped, _ = run_fit("b1", run_b)
+        faults.reset("")
+        steps_first = telemetry.counters()["train.steps"]
+        _check(stopped.step == FIT_STOP and latest_step(run_b) == FIT_STOP,
+               f"interrupted run: step {stopped.step}, committed {committed(run_b)}")
+        _check(telemetry.counters()["train.preemptions"] == 1, "no preemption counted")
+        saved = {k: v.clone() for k, v in _state_tensors(stopped).items()}
+        del stopped
+        _free()
+        restored = {}
+
+        def probe(state, batch):
+            if not restored:
+                got = _state_tensors(state)
+                restored["step"] = state.step
+                restored["equal"] = (got.keys() == saved.keys()
+                                     and all(torch.equal(got[k], saved[k]) for k in saved))
+            return step_fn(state, batch)
+
+        state, _ = run_fit("b2", run_b, step=probe)
+        steps_second = telemetry.counters()["train.steps"] - steps_first
+        _check(state.step == FIT_STEPS, f"resumed run ended at {state.step}")
+        _check((steps_first, steps_second) == (FIT_STOP, FIT_STEPS - FIT_STOP),
+               f"train.steps {steps_first} + {steps_second}: a step ran twice or not at all")
+        _check(restored.get("step") == FIT_STOP and restored.get("equal"),
+               f"restored state at the resume: {restored}")
+        keep_b = sorted(periodic | {FIT_STOP})[-FIT_KEEP:]
+        _check(committed(run_b) == keep_b, f"resumed run committed {committed(run_b)}, "
+               f"want {keep_b}")
+        _check(list(record["b2"]) == list(range(FIT_STOP + 1, FIT_STEPS + 1)),
+               f"resumed run's steps {list(record['b2'])}")
+        gap = {st: abs(record["b2"][st][0] - record["a"][st][0]) for st in record["b2"]}
+        _check(max(gap.values()) <= FIT_LOSS_ATOL, f"resumed losses vs straight: {gap}")
+        for run, steps in record.items():
+            for st, (loss, _, launched) in steps.items():
+                _check(math.isfinite(loss), f"fit {run} step {st}: loss {loss}")
+                _check(launched == want, f"fit {run} step {st}: launches {launched}, "
+                       f"expected {want}")
+        stats.update({
+            # Wall ms from the last step's return to this one's (fit's own
+            # steps_per_s): a save's host time lands in the next step.
+            "step_ms": {run: {st: 1e3 / d["steps_per_s"] for st, (_, d, _) in steps.items()
+                              if "steps_per_s" in d} for run, steps in record.items()},
+            "losses_straight": {st: v[0] for st, v in record["a"].items()},
+            "losses_resumed": {st: v[0] for st, v in {**record["b1"], **record["b2"]}.items()},
+            "resumed_loss_gap": gap, "committed_resumed": committed(run_b),
+            "launches_per_step": want, "train_steps": [steps_first, steps_second],
+        })
+        del state, saved
+    finally:
+        faults.reset(None)
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    smi = _smi()
+    print(f"[fit] {FIT_LAYERS} layers at llama_7b width, {b}x{s}, {FIT_STEPS} steps, "
+          f"checkpoint every {FIT_EVERY} ({smi}): straight run {stats['straight_run_s']:.3f} s; "
+          f"steady {stats['steps_per_s']:.3f} steps/s, {stats['tokens_per_s']:.1f} tokens/s, "
+          f"mfu {stats['mfu']:.4f} (gauge {stats['mfu_gauge']:.4f}; {flops:.4e} flops a step, "
+          f"peak {PEAK_OPS_PER_S[torch.bfloat16]:.3e}); step ms "
+          f"{ {st: round(ms, 1) for st, ms in stats['step_ms']['a'].items()} }; "
+          f"checkpoint {stats['checkpoint_bytes']} "
+          f"bytes: save sync {stats['save_sync_ms']:.1f} ms, async returns in "
+          f"{stats['save_async_return_ms']:.1f} ms and commits in "
+          f"{stats['save_async_total_ms']:.1f} ms, restore {stats['restore_s']:.3f} s; "
+          f"SIGTERM before step {FIT_STOP}: saved {FIT_STOP}, resumed, steps "
+          f"{stats['train_steps']}, committed {stats['committed_resumed']}, restored state "
+          f"equal to the saved one; resumed loss gap max {max(gap.values()):.3e} "
+          f"(atol {FIT_LOSS_ATOL}); launches a step {want}")
+    print("[fit] " + json.dumps({**stats, "card": smi}))
+    return stats
+
+
 def _kernel_entry(name, source, replaces, row, launches):
     return {
         "name": name, "route": "cuda",
@@ -764,6 +1060,8 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
+    head_dim_stats = phase_head_dims(fa)
+    _free()  # the forward path's allocation checks start from a settled heap
 
     cfg = llama_7b()
     _reset_counts(fa)  # the forward path starts here
@@ -789,14 +1087,24 @@ def main() -> int:
         _check(n > 0, f"{kernel} was not launched on the train path")
 
     gate_stats = phase_train_gates(cfg)
+
+    _reset_counts(fa)  # the fit path starts here
+    fit_stats = phase_fit(cfg, fa)
+    fit_launches = _counts(fa)  # the fit path ends here
+    print(f"[fit path] launches: {json.dumps(fit_launches)}")
+    for kernel in ("flash_fwd", "flash_bwd_fused"):
+        _check(fit_launches[kernel] > 0, f"{kernel} was not launched on the fit path")
+
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
-        "train_gates": gate_stats, "script_s": time.perf_counter() - t_start,
+        "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
+        "script_s": time.perf_counter() - t_start,
     }))
 
     def launches(kernel):
-        return {"forward": fwd_launches[kernel], "train": train_launches[kernel]}
+        return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
+                "fit": fit_launches[kernel]}
 
     by_kernel = {r["kernel"]: r for r in reversed(bwd_rows)}  # first row of each
     print(json.dumps({"kernels": [
@@ -808,11 +1116,7 @@ def main() -> int:
         _kernel_entry("flash_bwd_dkv", "flash_bwd_dkv.cu", 438,
                       by_kernel["flash_bwd_dkv"], launches("flash_bwd_dkv")),
     ]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    print(smi)
+    print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

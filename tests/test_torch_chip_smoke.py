@@ -111,3 +111,33 @@ def test_bwd_shapes_hold_a_bf16_fused_row_per_head_dim(d):
     # backward on the card.
     assert any(r[5] == d and r[6] == torch.bfloat16 and r[8] == "fused"
                for r in chip_smoke.BWD_SHAPES)
+
+
+def test_fit_flops_at_two_layers_of_llama_7b():
+    # 6 x matmul params x tokens (the embedding table left out) plus the
+    # causal attention products, 3 x 4 D flops a pair, over 2 layers.
+    import dataclasses
+
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), n_layers=chip_smoke.FIT_LAYERS)
+    b, s = chip_smoke.FIT_SHAPE
+    matmul = 535_842_816  # 666,914,816 params less the 32000 x 4096 embedding
+    attention = 3 * 4 * b * 32 * 128 * (s * (s + 1) // 2) * 2
+    assert chip_smoke._fit_flops(cfg, b, s) == 6 * matmul * b * s + attention
+    assert chip_smoke._fit_flops(cfg, b, s) == pytest.approx(6.6361e12, rel=1e-4)
+
+
+def test_padded_head_dims_have_no_instance_and_fit_one():
+    for d in chip_smoke.PADDED_HEAD_DIMS:
+        assert d not in fa._HEAD_DIMS
+        assert fa._kernel_head_dim(d) in fa._HEAD_DIMS
+
+
+def test_fit_run_is_cut_and_interrupted_as_documented():
+    # The fused route (S <= 2048), a stop strictly inside the run, and a
+    # checkpoint cadence that keeps FIT_KEEP steps around the stop.
+    b, s = chip_smoke.FIT_SHAPE
+    assert fa.backward_route(s) == "fused"
+    assert 1 < chip_smoke.FIT_STOP < chip_smoke.FIT_STEPS
+    assert chip_smoke.FIT_STOP % chip_smoke.FIT_EVERY != 0

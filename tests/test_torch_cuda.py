@@ -66,7 +66,8 @@ def test_flash_fwd_is_deterministic(cuda):
 
 
 def test_flash_rejects_unsupported_head_dim(cuda):
-    q = torch.zeros((1, 8, 2, 32), device=cuda, dtype=torch.bfloat16)
+    # Head dims up to 128 are padded to an instance; above it the launch refuses.
+    q = torch.zeros((1, 8, 2, 192), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
 
@@ -93,6 +94,32 @@ def _bwd_inputs(g, b, s, hq, hkv, d, dtype, causal, device):
     do = torch.randn((b, s, hq, d), generator=g, device=device, dtype=dtype)
     out, lse = fa.flash_attention_reference(q, k, v, causal=causal)
     return q, k, v, do, out, lse
+
+
+# Head dims without a kernel instance: zero-padded to 64 or 128 and cut back.
+PADDED_HEAD_DIMS = [16, 32, 48, 80, 96]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_padded_head_dims_match_plain(cuda, dtype, d, causal):
+    g = torch.Generator(device=cuda).manual_seed(d + 3)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, 300, 8, 2, d, dtype, causal, cuda)
+    n0 = fa.launches
+    out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1 and out.shape == q.shape
+    tol_out, tol_lse = TOL[dtype]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+    want = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, do, causal=causal)
+    for route in ("fused", "streamed"):
+        got = fa.flash_attention_backward(q, k, v, ref_out, ref_lse, do, causal=causal,
+                                          route=route)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, (route, name)
+            assert _bwd_err(a, b) <= BWD_TOL[dtype], (route, name, _bwd_err(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -190,3 +217,69 @@ def test_flash_backward_default_route_and_launches(cuda):
     n1 = (fa.launches, fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
     assert [b - a for a, b in zip(n0, n1)] == [2, 1, 1, 1]
     assert fa.backward_route(512) == "fused" and fa.backward_route(2049) == "streamed"
+
+
+def test_llama_test_trains_on_cuda_like_the_cpu_port(cuda):
+    # llama_test has head_dim 16: the forward and 3 SGD steps on the card
+    # (padded flash kernels, f32, TF32 off) against the CPU port (plain
+    # attention) from the same weights, losses within 1e-5.
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.1)
+
+    cpu_init, cpu_step = make_train_step(llama_test(), sgd, device="cpu")
+    gpu_init, gpu_step = make_train_step(llama_test(), sgd, device=cuda)
+    cpu_state, gpu_state = cpu_init(0), gpu_init(1)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, 256, (2, 33), generator=g)
+    n0 = fa.launches
+    with torch.no_grad():
+        logits = gpu_state.model(tokens.to(cuda))
+        want = cpu_state.model(tokens)
+    assert fa.launches - n0 == llama_test().n_layers
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-5, rtol=0)
+    for i in range(3):
+        seq = torch.randint(0, 256, (2, 33), generator=g)
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        gpu_state, gpu_m = gpu_step(gpu_state, batch)
+        assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= 1e-5, i
+        assert gpu_m["step"] == cpu_m["step"] == i + 1
+
+
+def test_fit_and_checkpointer_keep_a_cuda_state_on_the_card(cuda, tmp_path):
+    # fit and Checkpointer take no device: a state on the card is saved,
+    # restored into init_fn's state in place and trained on, all on the card.
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.parallel.fit import fit
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    init_fn, step_fn = make_train_step(llama_test(), lambda ps: torch.optim.AdamW(ps, lr=1e-3))
+
+    def batches():
+        g = torch.Generator(device=cuda).manual_seed(3)
+        while True:
+            t = torch.randint(0, 256, (2, 16), generator=g, device=cuda)
+            yield {"tokens": t, "targets": t}
+
+    run = str(tmp_path / "run")
+    first, _ = fit(init_fn, step_fn, batches(), seed=0, n_steps=2, checkpoint_dir=run,
+                   checkpoint_every=2)
+    saved = {k: v.clone() for k, v in first.optimizer.state_dict()["state"][0].items()}
+    seen = []
+
+    def probe(state, batch):
+        if not seen:
+            seen.append(state)
+            opt = state.optimizer.state_dict()["state"][0]
+            assert all(torch.equal(opt[k], saved[k]) for k in ("exp_avg", "exp_avg_sq"))
+        return step_fn(state, batch)
+
+    state, _ = fit(init_fn, probe, batches(), seed=0, n_steps=3, checkpoint_dir=run)
+    assert state.step == 3 and seen[0].step == 2
+    assert all(p.is_cuda for p in state.model.parameters())
+    for s in state.optimizer.state.values():
+        assert s["exp_avg"].is_cuda and s["exp_avg_sq"].is_cuda

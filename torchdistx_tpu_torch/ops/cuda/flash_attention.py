@@ -20,6 +20,15 @@ Layout ``(B, S, H, D)``, as everywhere in the model.  A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.  Each launch adds
 one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
+
+The kernels have instances for head dims 64 and 128.  Every entry point takes
+any head dim up to 128: q, k, v (and ``do``) are zero-padded on the last axis
+to the next instance, the kernels run with the scale of the true head dim,
+and out, dq, dk and dv are cut back to it.  Zero columns add nothing to
+``q.k^T``, and out, dq, dk and dv are zero in them, so the padded launch
+computes exactly what an unpadded one would.  The CPU path pads the same way,
+so the tests here cover the padding the card runs.  A head dim above 128
+raises on CUDA.
 """
 
 from __future__ import annotations
@@ -104,19 +113,40 @@ def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
-def flash_attention_reference(q, k, v, *, causal: bool = True):
+def _kernel_head_dim(d: int) -> int:
+    """The head dim a launch for ``d`` runs at: the least instance in
+    ``_HEAD_DIMS`` that holds it, or ``d`` itself above them all (which the
+    launch refuses)."""
+    return next((h for h in _HEAD_DIMS if d <= h), d)
+
+
+def _pad_head(*ts):
+    """``ts`` zero-padded on the last axis to the kernel's head dim."""
+    d = ts[0].shape[-1]
+    pad = _kernel_head_dim(d) - d
+    return ts if pad == 0 else tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+
+
+def _cut(d: int, *ts):
+    """``ts`` cut back to head dim ``d`` on the last axis."""
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous() for t in ts)
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              scale: float | None = None):
     """Plain PyTorch ``(out, lse)`` of the kernel's computation.
 
     q ``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)``.  Logits accumulate in f32
     from the storage-dtype inputs and go to the log2 domain; masked
     logits are ``-1e30``; ``p`` is cast to v's dtype before ``p.v``; rows
     with ``l == 0`` are guarded to 1.  Returns ``out`` like q and ``lse``
-    ``(B, Hq, S)`` f32, natural log.
+    ``(B, Hq, S)`` f32, natural log.  ``scale`` defaults to ``1 / sqrt(D)``.
     """
     b, s, hq, d = q.shape
     hkv = k.shape[2]
+    scale = _scale(d) if scale is None else scale
     qg = q.float().reshape(b, s, hkv, hq // hkv, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (_scale(d) * _LOG2E)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (scale * _LOG2E)
     if causal:
         logits = torch.where(_causal_keep(s, q.device), logits, _MASK)
     m = logits.amax(dim=-1, keepdim=True)
@@ -140,7 +170,7 @@ def attention_delta(do, out) -> torch.Tensor:
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, *, causal: bool = True,
-                    dq: bool = True, dkv: bool = True):
+                    dq: bool = True, dkv: bool = True, scale: float | None = None):
     """Plain PyTorch ``(dq, dk, dv)`` of the backward kernels' computation
     (``None`` for a part not asked for).
 
@@ -149,19 +179,21 @@ def flash_bwd_plain(q, k, v, do, lse, delta, *, causal: bool = True,
     ``ds = p * (do.v^T - delta) * scale`` cast to q's dtype; ``dq = ds.k``;
     ``dk = ds^T.q`` and ``dv = p^T.do`` (p cast to do's dtype) summed over
     the GQA group; products accumulate in f32 from storage-dtype values.
-    ``lse`` and ``delta`` are ``(B, Hq, S)`` f32.
+    ``lse`` and ``delta`` are ``(B, Hq, S)`` f32.  ``scale`` defaults to
+    ``1 / sqrt(D)``.
     """
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
+    scale = _scale(d) if scale is None else scale
     qg = q.float().reshape(b, s, hkv, g, d)
     dog = do.float().reshape(b, s, hkv, g, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (_scale(d) * _LOG2E)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (scale * _LOG2E)
     p = torch.exp2(logits - (lse.reshape(b, hkv, g, s) * _LOG2E)[..., None])
     if causal:
         p = torch.where(_causal_keep(s, q.device), p, 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    ds = (p * (dp - delta.reshape(b, hkv, g, s)[..., None]) * _scale(d))
+    ds = (p * (dp - delta.reshape(b, hkv, g, s)[..., None]) * scale)
     ds = ds.to(q.dtype).float()
     dq_out = dk_out = dv_out = None
     if dq:
@@ -205,7 +237,9 @@ def _check_kernel_inputs(tensors, b, hq) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernel takes bf16 or f32, not {q.dtype}")
     if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, not {q.shape[-1]}")
+        raise ValueError(
+            f"flash kernel takes head_dim up to {_HEAD_DIMS[-1]}, not {q.shape[-1]}"
+        )
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"flash kernel needs contiguous {name}")
@@ -215,10 +249,24 @@ def _check_kernel_inputs(tensors, b, hq) -> None:
         raise ValueError("flash kernel takes at most 65535 heads and batch rows")
 
 
-def _launch(q, k, v, causal: bool):
+def _on_cpu(q) -> bool:
+    if q.is_cuda:
+        return False
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return True
+
+
+def _padded(scale, *ts):
+    """``(d, scale, ts)``: the true head dim, the scale (``1 / sqrt(d)``
+    unless given) and ``ts`` zero-padded to the kernel's head dim."""
+    d = ts[0].shape[-1]
+    return d, (_scale(d) if scale is None else scale), _pad_head(*ts)
+
+
+def _launch(q, k, v, causal: bool, scale: float):
     """Launch ``csrc/flash_fwd.cu`` on the current stream; ``(out, lse)``."""
     global launches
-    _check(q, k, v)
     b, s, hq, d = q.shape
     _check_kernel_inputs({"q": q, "k": k, "v": v}, b, hq)
     out = torch.empty_like(q)
@@ -226,7 +274,7 @@ def _launch(q, k, v, causal: bool):
     err = _call_on(
         q.device, _launcher("flash_fwd"),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, s, hq, k.shape[2], d, _DTYPES[q.dtype], int(causal), _scale(d) * _LOG2E,
+        b, s, hq, k.shape[2], d, _DTYPES[q.dtype], int(causal), scale * _LOG2E,
     )
     if err:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
@@ -234,15 +282,18 @@ def _launch(q, k, v, causal: bool):
     return out, lse
 
 
-def flash_attention_fwd_with_lse(q, k, v, *, causal: bool = True):
+def flash_attention_fwd_with_lse(q, k, v, *, causal: bool = True,
+                                 scale: float | None = None):
     """``(out, lse)``: the kernel for CUDA tensors, the plain version for
-    CPU tensors.  ``lse`` is ``(B, Hq, S)`` f32."""
-    if q.is_cuda:
-        return _launch(q, k, v, causal)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    CPU tensors.  ``lse`` is ``(B, Hq, S)`` f32; ``scale`` defaults to
+    ``1 / sqrt(D)``."""
     _check(q, k, v)
-    return flash_attention_reference(q, k, v, causal=causal)
+    d, scale, (q, k, v) = _padded(scale, q, k, v)
+    if _on_cpu(q):
+        out, lse = flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    else:
+        out, lse = _launch(q, k, v, causal, scale)
+    return _cut(d, out)[0], lse
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:
@@ -258,7 +309,7 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
             )
 
 
-def _launch_bwd(source, q, k, v, do, lse, delta, outs, causal) -> None:
+def _launch_bwd(source, q, k, v, do, lse, delta, outs, causal, scale) -> None:
     """Launch one backward kernel on the current stream, writing ``outs``."""
     b, s, hq, d = q.shape
     _check_kernel_inputs(
@@ -270,61 +321,63 @@ def _launch_bwd(source, q, k, v, do, lse, delta, outs, causal) -> None:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs.values()),
         b, s, hq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
-        _scale(d), _scale(d) * _LOG2E,
+        scale, scale * _LOG2E,
     )
     if err:
         raise RuntimeError(f"{source} launch failed: CUDA error {err}")
 
 
-def _on_cpu(q) -> bool:
-    if q.is_cuda:
-        return False
-    if q.device.type != "cpu":
-        raise ValueError(f"flash backward: unsupported device {q.device}")
-    return True
-
-
-def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = True):
+def flash_bwd_fused(q, k, v, do, lse, delta, *, causal: bool = True,
+                    scale: float | None = None):
     """``(dq, dk, dv)`` by ``csrc/flash_bwd_fused.cu`` for CUDA tensors (dq
     summed across the kernel's blocks in f32, in an order that varies from
     run to run, then cast to q's dtype; dk and dv the same bits on every
     run), by the plain version for CPU tensors."""
     global launches_bwd_fused
     _check_bwd(q, k, v, do, lse, delta)
+    d, scale, (q, k, v, do) = _padded(scale, q, k, v, do)
     if _on_cpu(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal)
+        return _cut(d, *flash_bwd_plain(q, k, v, do, lse, delta, causal=causal, scale=scale))
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd_fused", q, k, v, do, lse, delta,
-                {"dq_acc": dq_acc, "dk": dk, "dv": dv}, causal)
+                {"dq_acc": dq_acc, "dk": dk, "dv": dv}, causal, scale)
     launches_bwd_fused += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return _cut(d, dq_acc.to(q.dtype), dk, dv)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True):
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                 scale: float | None = None):
     """``dq`` by ``csrc/flash_bwd_dq.cu`` for CUDA tensors, by the plain
     version for CPU tensors."""
     global launches_bwd_dq
     _check_bwd(q, k, v, do, lse, delta)
+    d, scale, (q, k, v, do) = _padded(scale, q, k, v, do)
     if _on_cpu(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal, dkv=False)[0]
+        dq = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal, dkv=False,
+                             scale=scale)[0]
+        return _cut(d, dq)[0]
     dq = torch.empty_like(q)
-    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, {"dq": dq}, causal)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, {"dq": dq}, causal, scale)
     launches_bwd_dq += 1
-    return dq
+    return _cut(d, dq)[0]
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                  scale: float | None = None):
     """``(dk, dv)`` by ``csrc/flash_bwd_dkv.cu`` for CUDA tensors, by the
     plain version for CPU tensors."""
     global launches_bwd_dkv
     _check_bwd(q, k, v, do, lse, delta)
+    d, scale, (q, k, v, do) = _padded(scale, q, k, v, do)
     if _on_cpu(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal, dq=False)[1:]
+        return _cut(d, *flash_bwd_plain(q, k, v, do, lse, delta, causal=causal, dq=False,
+                                        scale=scale)[1:])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, {"dk": dk, "dv": dv}, causal)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, {"dk": dk, "dv": dv}, causal,
+                scale)
     launches_bwd_dkv += 1
-    return dk, dv
+    return _cut(d, dk, dv)
 
 
 def backward_route(s: int) -> str:
@@ -334,39 +387,48 @@ def backward_route(s: int) -> str:
 
 
 def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
-                             route: str | None = None):
+                             route: str | None = None, scale: float | None = None):
     """``(dq, dk, dv)`` of attention from the forward's ``out`` and ``lse``.
 
     ``route`` (default :func:`backward_route`): ``"fused"`` or
-    ``"streamed"``.
+    ``"streamed"``.  ``scale`` defaults to ``1 / sqrt(D)``.
     """
     do = do.contiguous()
     delta = attention_delta(do, out)
     route = route or backward_route(q.shape[1])
     if route == "fused":
-        return flash_bwd_fused(q, k, v, do, lse, delta, causal=causal)
+        return flash_bwd_fused(q, k, v, do, lse, delta, causal=causal, scale=scale)
     if route == "streamed":
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
-        return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+        return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale))
     raise ValueError(f"unknown flash backward route {route!r} (fused|streamed)")
 
 
 class _FlashAttention(torch.autograd.Function):
+    """Attention on q, k, v already padded to the kernel's head dim, at the
+    true head dim's ``scale``."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd_with_lse(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, causal=ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do, causal=ctx.causal,
+                                              scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """Fused attention, ``(B, S, H, D)`` in and out, differentiable: the
-    kernels on CUDA tensors, their plain versions on CPU tensors."""
-    return _FlashAttention.apply(q, k, v, causal)
+    kernels on CUDA tensors, their plain versions on CPU tensors.  q, k and
+    v are padded to the kernel's head dim before the autograd Function, so
+    autograd cuts the gradients back to ``D``."""
+    _check(q, k, v)
+    d = q.shape[-1]
+    out = _FlashAttention.apply(*_pad_head(q, k, v), causal, _scale(d))
+    return out if out.shape[-1] == d else out[..., :d]

@@ -1,2 +1,2 @@
-"""Training steps (counterpart of ``torchdistx_tpu.parallel``); one device
-for now."""
+"""Training (counterpart of ``torchdistx_tpu.parallel``): the single-device
+train step, the ``fit`` loop and cross-process flag agreement."""

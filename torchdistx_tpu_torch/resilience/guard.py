@@ -11,10 +11,12 @@ gradient is non-finite is skipped:
   the parameters, the optimizer's moments and the step count untouched: the
   skip the JAX step takes with ``select_tree`` of the prior state, with no
   second copy of the state.
-* :class:`SkipTracker` counts skips and raises :class:`NonFiniteError`
-  after ``max_consecutive`` skips in a row.  The JAX package also bumps the
-  ``train.skipped_steps`` telemetry counter; the port has no telemetry yet,
-  so the count is :attr:`SkipTracker.total` until the telemetry port.
+* :class:`SkipTracker` (used by ``fit()``) bumps the
+  ``train.skipped_steps`` telemetry counter per skip and raises
+  :class:`NonFiniteError` after ``max_consecutive`` skips in a row.
+
+The JAX package's ``select_tree`` has no counterpart: the port's step skips
+by not calling ``optimizer.step()``, so there is no prior state to select.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
+from .. import telemetry as _telemetry
+
 __all__ = ["NonFiniteError", "SkipTracker", "tree_allfinite"]
+
+_T_SKIPPED = _telemetry.counter("train.skipped_steps")
 
 
 class NonFiniteError(RuntimeError):
@@ -61,7 +67,7 @@ def tree_allfinite(*trees: Any) -> torch.Tensor:
 class SkipTracker:
     """Host-side escalation policy over the per-step ``nonfinite`` flag.
 
-    ``observe(skipped, step)`` counts a skip in :attr:`total` and raises
+    ``observe(skipped, step)`` bumps ``train.skipped_steps`` and raises
     :class:`NonFiniteError` once ``max_consecutive`` skips arrive with no
     finite step in between.  ``max_consecutive <= 0`` disables escalation
     (skips are still counted).
@@ -78,5 +84,6 @@ class SkipTracker:
             return
         self.total += 1
         self.consecutive += 1
+        _T_SKIPPED.add()
         if 0 < self.max_consecutive <= self.consecutive:
             raise NonFiniteError(step, self.consecutive)
