@@ -15,10 +15,14 @@ Phases, each printing a line:
    of a backward kernel must give the same bits in every output that it
    sums in a fixed order (all but the fused kernel's dq);
    ``[head dims]``: the forward and the three backward kernels at head dims
-   without a kernel instance (16, 32, 80: zero-padded to 64 or 128 by the
-   wrappers), bf16 and f32, against their plain versions; then
+   without a kernel instance (16, 32, 80, 192: zero-padded to 64, 128 or
+   256 by the wrappers) and at 256, bf16 and f32, against their plain
+   versions, the rows above 128 timed beside SDPA; then
    ``Llama(llama_test())`` (head_dim 16) on the card, its forward and 3 SGD
    steps of ``make_train_step`` against the CPU port on the same weights;
+   then the D = 256 path: a 2-layer Llama of dim 1024 and head_dim 256 in
+   f32 against the CPU port (forward, 3 SGD steps), and one bf16 step past
+   2048 tokens (the streamed pair);
 3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated), then
    materialize it on the card (its bf16 parameters allocated);
 4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
@@ -39,11 +43,20 @@ Phases, each printing a line:
    (bf16, remat, AdamW), 4 x 512 batches, checkpointing into a temporary
    directory: a straight run, then a run stopped by a real SIGTERM (the
    ``step.exec`` fault site) and resumed, with the checkpoint, resume and
-   launch gates below; the save, restore and step times.
+   launch gates below; the save, restore and step times;
+9. ``[materialize]``: ``deferred_init`` Llama-7B on ``cuda``, then
+   ``materialize_module_torch(model, seed=0)`` (per-node seeded
+   generators; bytes, peak and time), one parameter alone bit-equal to the
+   module's, distinct streams, the init's statistics, the values loaded by
+   assignment, the 4 x 512 forward and 2 SGD steps at 4 x 512 through the
+   kernels; then the f32-recorded model materialized in bf16 (its peak),
+   two recordings of a 2-layer model bit-equal, and a 1-rank NCCL mesh
+   (DTensor values equal to the unsharded ones).
 
-Three main paths are driven, each with every launch count set to 0 just
-before it and read just after: the forward path (phases 3 to 5), the
-train path (phase 6) and the fit path (phase 8).  Any failed check
+Five main paths are driven, each with every launch count set to 0 just
+before it and read just after: the D = 256 path (end of phase 2), the
+forward path (phases 3 to 5), the train path (phase 6), the fit path
+(phase 8) and the materialize path (phase 9).  Any failed check
 raises, so the script exits non-zero and prints no result.  float32 matmuls run in full float32 (TF32
 is switched off).  The last three lines are the kernels' summary, the
 card's name and power limit, then the result object.
@@ -81,6 +94,8 @@ FLASH_SHAPES = [
     ("train_1x4096", 1, 4096, 32, 32, 128, torch.bfloat16, True),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False),
     ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True),
+    # The D = 256 instance (CUDA cores) at a 256-wide-head model's shape.
+    ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -114,6 +129,8 @@ BWD_SHAPES = [
     ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True, "streamed"),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "streamed"),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "fused"),
+    ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True, "fused"),
+    ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True, "streamed"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -155,12 +172,27 @@ GRAD_F32_RTOL = 1e-3
 GRAD_BF16_SLACK = 1.1
 
 # [head dims]: head dims without a kernel instance (the wrappers pad them to
-# 64 or 128), at (B, S, Hq, Hkv); llama_test on the card against the CPU
-# port within HEAD_DIM_LOSS_ATOL (f32, TF32 off), SGD(lr) for 3 steps.
+# 64, 128 or 256) and the 256 instances, at (B, S, Hq, Hkv), the ones above
+# 128 timed beside SDPA; llama_test on the card against the CPU port within
+# HEAD_DIM_LOSS_ATOL (f32, TF32 off), SGD(lr) for 3 steps.
 PADDED_HEAD_DIMS = [16, 32, 80]
+WIDE_HEAD_DIMS = [192, 256]
 PADDED_SHAPE = (2, 300, 8, 2)
 HEAD_DIM_LOSS_ATOL = 1e-5
 HEAD_DIM_SGD_LR = 0.1
+
+# [head dims]'s D = 256 path: the bf16 step at 1 x WIDE_STREAMED_S (above
+# 2048, so the streamed pair).
+WIDE_STREAMED_S = 2112
+
+# [materialize]: the seeded path at llama_7b width, MAT_TRAIN_STEPS SGD
+# steps of 4 x 512 on the loaded values; its gates: std within 2 % of the
+# init's, the f32-recorded model materialized in bf16 within 2 x its largest
+# f32 parameter of the bf16 total, two recordings of MAT_SMALL_LAYERS layers
+# bit-equal, and a 1-rank NCCL mesh.
+MAT_SEED = 0
+MAT_TRAIN_STEPS = 2
+MAT_SMALL_LAYERS = 2
 
 # [fit]: depth cut to FIT_LAYERS at Llama-7B's width, so that a checkpoint
 # (parameters and AdamW's two moments, bf16) is about 4 GB, not 40 GB.
@@ -330,8 +362,6 @@ def phase_bwd_kernels():
     """Each backward kernel against its plain version (flash_bwd_plain) on
     the same (q, k, v, do, lse, delta), with its time, the plain version's,
     SDPA's backward of the same (out, do) and its bound."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -345,17 +375,7 @@ def phase_bwd_kernels():
         delta = fa.attention_delta(do, out)
         args = (q, k, v, do, lse, delta)
 
-        # The library yardstick: SDPA's backward alone, on (B, H, S, D)
-        # copies with the kv heads expanded; the graph is kept between calls.
-        qt = q.transpose(1, 2).contiguous().requires_grad_()
-        kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
-        vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
-        out_t = sdpa(qt, kt, vt, is_causal=causal)
-        do_t = do.transpose(1, 2).contiguous()
-
-        def library():
-            return torch.autograd.grad(out_t, (qt, kt, vt), do_t, retain_graph=True)
-
+        library = _library_grads(q, k, v, do, causal)
         library_ms, library_device_ms = _time_ms(library), _device_ms(library)
         for kernel, (want_dq, want_dkv) in BWD_KERNELS[route].items():
             launch = getattr(fa, kernel)
@@ -403,7 +423,7 @@ def phase_bwd_kernels():
             print("[flash_bwd] " + json.dumps(row))
             rows.append(row)
             del got, want
-        del q, k, v, do, out, lse, delta, args, qt, kt, vt, out_t, do_t
+        del q, k, v, do, out, lse, delta, args, library
         torch.cuda.empty_cache()
     return rows
 
@@ -769,45 +789,105 @@ def phase_train_gates(cfg):
     return stats
 
 
+def _library_grads(q, k, v, do, causal):
+    """SDPA's backward alone on (B, H, S, D) copies with the kv heads
+    expanded (the graph is kept between calls): the library yardstick."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    hq, hkv = q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous().requires_grad_()
+    out_t = sdpa(qt, kt, vt, is_causal=causal)
+    do_t = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t, retain_graph=True)
+
+
+def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
+    """The forward and the three backward kernels at head dim ``d`` against
+    their plain versions (causal); with ``timed``, each call's ms by events
+    and on the device beside the plain version's, SDPA's and the bound."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    def rand(h):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=dtype)
+
+    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    err = {"out": (out.float() - ref_out.float()).abs().max().item(),
+           "lse": (lse - ref_lse).abs().max().item()}
+    _check(out.shape == q.shape and bool(torch.isfinite(out).all()), f"D {d}: out")
+    tol_out, tol_lse = TOL[dtype]
+    _check(err["out"] <= tol_out and err["lse"] <= tol_lse, f"D {d} {dtype}: fwd {err}")
+    delta = fa.attention_delta(do, ref_out)
+    args = (q, k, v, do, ref_lse, delta)
+    row = {"D": d, "kernel_D": fa._kernel_head_dim(d), "B": b, "S": s, "Hq": hq,
+           "Hkv": hkv, "dtype": str(dtype).replace("torch.", ""), "causal": True,
+           "max_err": err}
+    timing = {}
+    if timed:
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+        calls = {"": lambda: fa.flash_attention_fwd_with_lse(q, k, v, causal=True),
+                 "plain_": lambda: fa.flash_attention_reference(q, k, v, causal=True),
+                 "library_": lambda: sdpa(qt, kt, vt, is_causal=True)}
+        fwd = dict(zip(("bound_ms", "bound_by"), _flash_bound(b, s, hq, hkv, d, dtype, True)))
+        fwd["max_abs_err"] = err["out"]
+        for prefix, fn in calls.items():
+            fwd[prefix + "ms"] = _time_ms(fn, **({} if prefix != "plain_" else
+                                                 dict(warmup=1, reps=3, calls=2)))
+            fwd[prefix + "device_ms"] = _device_ms(fn, calls=10 if prefix != "plain_" else 2)
+        timing["flash_fwd"] = fwd
+        del qt, kt, vt
+        library = _library_grads(q, k, v, do, True)
+        library_ms, library_device_ms = _time_ms(library), _device_ms(library)
+        del library
+    for route in ("fused", "streamed"):
+        for kernel, (want_dq, want_dkv) in BWD_KERNELS[route].items():
+            def run():
+                return getattr(fa, kernel)(*args, causal=True)
+
+            def plain():
+                return fa.flash_bwd_plain(*args, causal=True, dq=want_dq, dkv=want_dkv)
+
+            got = run()
+            got = got if isinstance(got, tuple) else (got,)
+            want = [w for w in plain() if w is not None]
+            scale = max(1.0, max(w.float().abs().max().item() for w in want))
+            err[kernel] = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want)) / scale
+            _check(all(g.shape == w.shape for g, w in zip(got, want)), f"D {d}: {kernel} shapes")
+            _check(err[kernel] <= BWD_TOL[dtype], f"D {d} {dtype}: {kernel} {err}")
+            del got, want
+            if timed:
+                bound_ms, bound_by = _bwd_bound(kernel, b, s, hq, hkv, d, dtype, True)
+                timing[kernel] = {
+                    "max_abs_err": err[kernel], "bound_ms": bound_ms, "bound_by": bound_by,
+                    "ms": _time_ms(run), "device_ms": _device_ms(run),
+                    "plain_ms": _time_ms(plain, warmup=1, reps=3, calls=2),
+                    "plain_device_ms": _device_ms(plain, calls=2),
+                    "library_ms": library_ms, "library_device_ms": library_device_ms,
+                }
+    torch.cuda.synchronize()
+    if timed:
+        row["timing"] = timing
+    print("[head dims] " + json.dumps(row))
+    return row
+
+
 def phase_head_dims(fa):
-    """C1 on the card: the kernels at head dims they have no instance for,
-    then llama_test (head_dim 16) forward and training against the CPU."""
-    b, s, hq, hkv = PADDED_SHAPE
+    """C1 and C2 on the card: the kernels at head dims that are padded to
+    an instance (16, 32, 80, 192) and at the 256 instances, against their
+    plain versions, the D > 128 rows timed beside SDPA; then llama_test
+    (head_dim 16) forward and training against the CPU."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
-    for d in PADDED_HEAD_DIMS:
+    for d in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
-            def rand(h):
-                return torch.randn((b, s, h, d), generator=gen, device="cuda", dtype=dtype)
-
-            q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
-            out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
-            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
-            err = {"out": (out.float() - ref_out.float()).abs().max().item(),
-                   "lse": (lse - ref_lse).abs().max().item()}
-            _check(out.shape == q.shape and bool(torch.isfinite(out).all()), f"D {d}: out")
-            tol_out, tol_lse = TOL[dtype]
-            _check(err["out"] <= tol_out and err["lse"] <= tol_lse, f"D {d} {dtype}: fwd {err}")
-            delta = fa.attention_delta(do, ref_out)
-            args = (q, k, v, do, ref_lse, delta)
-            for route in ("fused", "streamed"):
-                for kernel, (want_dq, want_dkv) in BWD_KERNELS[route].items():
-                    got = getattr(fa, kernel)(*args, causal=True)
-                    got = got if isinstance(got, tuple) else (got,)
-                    want = [w for w in fa.flash_bwd_plain(*args, causal=True, dq=want_dq,
-                                                          dkv=want_dkv) if w is not None]
-                    scale = max(1.0, max(w.float().abs().max().item() for w in want))
-                    err[kernel] = max((g.float() - w.float()).abs().max().item()
-                                      for g, w in zip(got, want)) / scale
-                    _check(all(g.shape == w.shape for g, w in zip(got, want)),
-                           f"D {d}: {kernel} shapes")
-                    _check(err[kernel] <= BWD_TOL[dtype], f"D {d} {dtype}: {kernel} {err}")
-            torch.cuda.synchronize()
-            row = {"D": d, "kernel_D": fa._kernel_head_dim(d), "B": b, "S": s, "Hq": hq,
-                   "Hkv": hkv, "dtype": str(dtype).replace("torch.", ""), "causal": True,
-                   "max_err": err}
-            print("[head dims] " + json.dumps(row))
-            rows.append(row)
+            rows.append(_head_dim_row(fa, gen, *PADDED_SHAPE, d, dtype, timed=d > 128))
+    _free()
 
     from torchdistx_tpu_torch.models.llama import llama_test
     from torchdistx_tpu_torch.parallel.train_step import make_train_step
@@ -839,6 +919,245 @@ def phase_head_dims(fa):
           f"{logits_err:.3e}; SGD loss errs {[f'{e:.3e}' for e in loss_err]} (atol "
           f"{HEAD_DIM_LOSS_ATOL})")
     return {"rows": rows, "llama_test_logits_err": logits_err, "llama_test_loss_errs": loss_err}
+
+
+def _wide_llama_cfg():
+    """The D = 256 path's model: llama_test widened to 256-wide heads (dim
+    1024, 4 query and 2 kv heads), 2 layers, f32, remat off."""
+    from torchdistx_tpu_torch.models.llama import llama_test
+
+    return dataclasses.replace(llama_test(), dim=1024, n_heads=4, n_kv_heads=2,
+                               ffn_dim=2816, max_seq_len=4096)
+
+
+def phase_wide_llama(fa):
+    """The D = 256 path: ``_wide_llama_cfg`` in f32 on the card against the CPU port
+    (forward, then 3 SGD steps at 2 x 64: the fused backward), then the same
+    weights in bf16 for one SGD step at 1 x WIDE_STREAMED_S (the streamed
+    pair), with exact launch counts."""
+    from torchdistx_tpu_torch.parallel.train_step import TrainState, make_train_step
+
+    cfg = _wide_llama_cfg()
+    n = cfg.n_layers
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=HEAD_DIM_SGD_LR)
+
+    cpu_init, cpu_step = make_train_step(cfg, sgd, device="cpu")
+    gpu_init, gpu_step = make_train_step(cfg, sgd, device="cuda")
+    cpu_state, gpu_state = cpu_init(TRAIN_SEED), gpu_init(TRAIN_SEED)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    g = torch.Generator().manual_seed(10)
+    seq = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    c0 = _counts(fa)
+    with torch.no_grad():
+        logits_err = (gpu_state.model(seq.cuda()).cpu() - cpu_state.model(seq)).abs().max().item()
+    _check(logits_err <= HEAD_DIM_LOSS_ATOL, f"D 256 llama logits err {logits_err}")
+    loss_err = []
+    for _ in range(3):
+        seq = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        gpu_state, gpu_m = gpu_step(gpu_state, batch)
+        loss_err.append(abs(gpu_m["loss"].item() - cpu_m["loss"].item()))
+    _check(max(loss_err) <= HEAD_DIM_LOSS_ATOL, f"D 256 llama loss errs {loss_err}")
+    want = {"flash_fwd": 4 * n, "flash_bwd_fused": 3 * n, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+    _check(launched == want, f"D 256 llama f32 launches {launched}, expected {want}")
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    model16 = gpu_state.model.to(torch.bfloat16)
+    _, step16 = make_train_step(cfg16, sgd, device="cuda")
+    seq = torch.randint(0, cfg.vocab_size, (1, WIDE_STREAMED_S + 1), generator=g).cuda()
+    c0 = _counts(fa)
+    _, m16 = step16(TrainState(model16, sgd(model16.parameters()), 0),
+                    {"tokens": seq[:, :-1], "targets": seq[:, 1:]})
+    loss16 = m16["loss"].item()
+    launched16 = {k: v - c0[k] for k, v in _counts(fa).items()}
+    want16 = {"flash_fwd": n, "flash_bwd_fused": 0, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    _check(math.isfinite(loss16) and not m16["nonfinite"], f"D 256 bf16 loss {loss16}")
+    _check(launched16 == want16, f"D 256 bf16 launches {launched16}, expected {want16}")
+    print(f"[head dims] D 256 llama ({cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads) on the card vs the CPU port, f32: logits max err "
+          f"{logits_err:.3e}; SGD loss errs {[f'{e:.3e}' for e in loss_err]} (atol "
+          f"{HEAD_DIM_LOSS_ATOL}); launches {launched}; bf16 step at 1x{WIDE_STREAMED_S}: "
+          f"loss {loss16:.4f}, launches {launched16}")
+    del cpu_state, gpu_state, model16
+    _free()
+    return {"logits_err": logits_err, "loss_errs": loss_err, "bf16_loss": loss16,
+            "launches_f32": launched, "launches_bf16": launched16}
+
+
+def phase_materialize(cfg, fa):
+    """The seeded path at llama_7b width: deferred_init, then
+    materialize_module_torch onto the card (bytes, peak, time), the
+    order-independence, distinct-stream and statistics gates, the values
+    loaded by assignment, the 4 x 512 forward and MAT_TRAIN_STEPS SGD steps
+    at 4 x 512 (remat: 2 forward + 1 fused launches a layer a step)."""
+    from torchdistx_tpu_torch.deferred_init import deferred_init, is_deferred
+    from torchdistx_tpu_torch.materialize import (
+        materialize_module_torch,
+        materialize_tensor_torch,
+    )
+    from torchdistx_tpu_torch.models.llama import Llama, num_params
+    from torchdistx_tpu_torch.parallel.train_step import TrainState, make_train_step
+
+    n = num_params(cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    _check(torch.cuda.memory_allocated() == before, "deferred_init allocated bytes")
+    largest = max(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    values = materialize_module_torch(model, seed=MAT_SEED)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    _check(abs(allocated - 2 * n) <= 0.01 * 2 * n,
+           f"materialized {allocated} bytes, expected about {2 * n}")
+    _check(peak <= allocated + largest, f"peak {peak} > {allocated} + largest {largest}")
+    _check(all(v.is_cuda and v.dtype == cfg.dtype for v in values.values()), "values")
+    _check(all(is_deferred(p) for p in model.parameters()), "the module was changed")
+
+    # Order independence, distinct streams, statistics.
+    last = f"layers.{cfg.n_layers - 1}.w_down.weight"
+    alone = materialize_tensor_torch(model.layers[-1].w_down.weight, seed=MAT_SEED)
+    _check(torch.equal(alone, values[last]), f"{last} alone differs from the module's")
+    del alone
+    _check(not torch.equal(values["layers.0.wq.weight"], values["layers.1.wq.weight"]),
+           "layers 0 and 1 drew the same wq")
+    resid = 0.02 / math.sqrt(2 * cfg.n_layers)
+    stds = {"wq": values["layers.0.wq.weight"].float().std().item(),
+            "wo": values["layers.0.wo.weight"].float().std().item()}
+    _check(abs(stds["wq"] / 0.02 - 1) <= 0.02, f"wq std {stds['wq']}")
+    _check(abs(stds["wo"] / resid - 1) <= 0.02, f"wo std {stds['wo']} vs {resid}")
+    norms = [v for k, v in values.items() if k.endswith("norm.weight")]
+    _check(len(norms) == 2 * cfg.n_layers + 1 and all(bool((v == 1).all()) for v in norms),
+           "a norm weight is not exactly 1")
+
+    # Load by assignment (no copy), then the forward and train steps.
+    model.load_state_dict(values, assign=True)
+    _check(all(p.data_ptr() == values[k].data_ptr() for k, p in model.named_parameters()),
+           "load_state_dict copied")
+    del values
+    _check(torch.cuda.memory_allocated() - before == allocated, "loading allocated bytes")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
+    c0 = _counts(fa)
+    with torch.inference_mode():
+        logits = model(tokens)
+    _check(logits.shape == (BATCH, SEQ, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+           "materialized model's logits")
+    _check(fa.launches - c0["flash_fwd"] == cfg.n_layers, "forward flash launches")
+    del logits
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=TRAIN_LR)
+
+    _, step_fn = make_train_step(cfg, sgd)
+    state = TrainState(model, sgd(model.parameters()), 0)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    losses, step_ms = [], []
+    for i in range(MAT_TRAIN_STEPS):
+        seq = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen, device="cuda")
+        c0 = _counts(fa)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": seq[:, :-1], "targets": seq[:, 1:]})
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+        _check(math.isfinite(losses[-1]) and not metrics["nonfinite"],
+               f"materialized model step {i + 1}: loss {losses[-1]}")
+        _check(launched == want, f"materialized model step {i + 1}: launches {launched}")
+    del state, model
+    _free()
+    stats = {"params": n, "materialize_s": mat_s, "bytes": allocated, "peak_bytes": peak,
+             "largest_param_bytes": largest, "std": stds, "losses": losses,
+             "step_ms": step_ms}
+    print(f"[materialize] llama_7b seed {MAT_SEED}: {n} params in {mat_s:.3f} s; bytes "
+          f"{allocated} (2 x params = {2 * n}), peak {peak} (<= + largest {largest}); "
+          f"{last} alone bit-equal; std wq {stds['wq']:.6f} (0.02), wo {stds['wo']:.6f} "
+          f"({resid:.6f}); norms 1; loaded by assignment; forward {cfg.n_layers} launches; "
+          f"{MAT_TRAIN_STEPS} SGD steps: losses {losses}, ms {[round(t, 1) for t in step_ms]}")
+    return stats
+
+
+def phase_materialize_gates(cfg):
+    """The dtype override (the f32-recorded model never resident),
+    reproducibility across recordings and a 1-rank NCCL mesh."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models.llama import Llama, num_params
+    from torchdistx_tpu_torch.parallel import MeshSpec, fsdp_plan, make_mesh
+
+    # dtype override: recorded in f32, materialized in bf16.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    n = num_params(cfg32)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model32 = deferred_init(Llama, cfg32, device_="cuda")
+    largest32 = max(p.numel() * p.element_size() for p in model32.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    values = materialize_module_torch(model32, seed=MAT_SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    override_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    _check(all(v.dtype == torch.bfloat16 for v in values.values()), "override dtype")
+    _check(abs(allocated - 2 * n) <= 0.01 * 2 * n, f"override bytes {allocated}")
+    _check(peak <= allocated + 2 * largest32,
+           f"override peak {peak} > bf16 {allocated} + 2 x f32 largest {largest32}")
+    del values, model32
+    _free()
+
+    # Two recordings of a MAT_SMALL_LAYERS-layer model: the same values.
+    small = dataclasses.replace(cfg, n_layers=MAT_SMALL_LAYERS)
+    first = materialize_module_torch(deferred_init(Llama, small, device_="cuda"), seed=MAT_SEED)
+    model = deferred_init(Llama, small, device_="cuda")
+    second = materialize_module_torch(model, seed=MAT_SEED)
+    _check(list(first) == list(second) and all(torch.equal(first[k], second[k]) for k in first),
+           "two recordings differ")
+    del second
+
+    # A 1-rank NCCL mesh: DTensor values, each local tensor the unsharded one.
+    store_dir = tempfile.mkdtemp(prefix="tdx_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        placements = {}
+        for mesh in (make_mesh(MeshSpec(fsdp=1)), make_mesh(axis_names=("fsdp",))):
+            sharded = materialize_module_torch(model, mesh=mesh, plan=fsdp_plan(),
+                                               seed=MAT_SEED)
+            _check(all(isinstance(v, DTensor) for v in sharded.values()), "mesh values")
+            _check(all(torch.equal(v.to_local(), first[k]) for k, v in sharded.items()),
+                   "a mesh value differs from the unsharded one")
+            placements[mesh.mesh_dim_names[0]] = sorted({str(v.placements)
+                                                         for v in sharded.values()})
+            del sharded
+    finally:
+        dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(store_dir, ignore_errors=True)
+    del first, model
+    _free()
+    print(f"[materialize] f32-recorded llama_7b -> bf16 in {override_s:.3f} s: bytes "
+          f"{allocated}, peak {peak} (<= bf16 + 2 x {largest32}); {MAT_SMALL_LAYERS}-layer "
+          f"recordings bit-equal; 1-rank NCCL mesh, fsdp_plan: DTensor values bit-equal, "
+          f"placements {placements}")
+    return {"override_s": override_s, "override_bytes": allocated, "override_peak": peak,
+            "f32_largest_param_bytes": largest32, "mesh_placements": placements}
 
 
 def _smi() -> str:
@@ -1061,6 +1380,12 @@ def main() -> int:
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
     head_dim_stats = phase_head_dims(fa)
+    _reset_counts(fa)  # the D = 256 path starts here
+    wide_stats = phase_wide_llama(fa)
+    wide_launches = _counts(fa)  # the D = 256 path ends here
+    print(f"[head dims path] launches: {json.dumps(wide_launches)}")
+    for kernel, n in wide_launches.items():
+        _check(n > 0, f"{kernel} was not launched on the D = 256 path")
     _free()  # the forward path's allocation checks start from a settled heap
 
     cfg = llama_7b()
@@ -1095,16 +1420,30 @@ def main() -> int:
     for kernel in ("flash_fwd", "flash_bwd_fused"):
         _check(fit_launches[kernel] > 0, f"{kernel} was not launched on the fit path")
 
+    _reset_counts(fa)  # the materialize path starts here
+    mat_stats = phase_materialize(cfg, fa)
+    mat_launches = _counts(fa)  # the materialize path ends here
+    print(f"[materialize path] launches: {json.dumps(mat_launches)}")
+    for kernel in ("flash_fwd", "flash_bwd_fused"):
+        _check(mat_launches[kernel] > 0, f"{kernel} was not launched on the materialize path")
+    mat_gate_stats = phase_materialize_gates(cfg)
+
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
         "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
+        "wide_llama": wide_stats, "materialize": mat_stats,
+        "materialize_gates": mat_gate_stats,
         "script_s": time.perf_counter() - t_start,
     }))
 
     def launches(kernel):
         return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
-                "fit": fit_launches[kernel]}
+                "fit": fit_launches[kernel], "materialize": mat_launches[kernel]}
+
+    # The D = 256 instances' rows: phase 2's wide_d256 shape.
+    wide = {r["kernel"]: r for r in reversed(bwd_rows) if r["D"] == 256}
+    wide["flash_fwd"] = next(r for r in rows if r["D"] == 256)
 
     by_kernel = {r["kernel"]: r for r in reversed(bwd_rows)}  # first row of each
     print(json.dumps({"kernels": [
@@ -1115,6 +1454,10 @@ def main() -> int:
                       by_kernel["flash_bwd_dq"], launches("flash_bwd_dq")),
         _kernel_entry("flash_bwd_dkv", "flash_bwd_dkv.cu", 438,
                       by_kernel["flash_bwd_dkv"], launches("flash_bwd_dkv")),
+        *(_kernel_entry(f"{kernel} (D 256)", f"{kernel}.cu", line, wide[kernel],
+                        {"head_dim_256": wide_launches[kernel]})
+          for kernel, line in (("flash_fwd", 161), ("flash_bwd_fused", 492),
+                               ("flash_bwd_dq", 393), ("flash_bwd_dkv", 438))),
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

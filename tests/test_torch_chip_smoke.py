@@ -141,3 +141,32 @@ def test_fit_run_is_cut_and_interrupted_as_documented():
     assert fa.backward_route(s) == "fused"
     assert 1 < chip_smoke.FIT_STOP < chip_smoke.FIT_STEPS
     assert chip_smoke.FIT_STOP % chip_smoke.FIT_EVERY != 0
+
+
+# The 256 instances at phase 2's wide_d256 shape (B 2, S 1024, 16/16 heads,
+# causal): bf16 bounds against the tensor rate, f32 against the CUDA cores'.
+@pytest.mark.parametrize(
+    "kernel, dtype, bound_ms, bound_by",
+    [("flash_fwd", torch.bfloat16, 0.020072, "bytes"),
+     ("flash_bwd_fused", torch.bfloat16, 0.043470, "operations"),
+     ("flash_bwd_dq", torch.float32, 0.38500, "operations"),
+     ("flash_bwd_dkv", torch.float32, 0.51333, "operations")],
+)
+def test_wide_shape_bounds(kernel, dtype, bound_ms, bound_by):
+    row = next(r for r in chip_smoke.FLASH_SHAPES if r[0] == "wide_d256")
+    assert row[5] == 256 and row[6] == torch.bfloat16
+    args = (*row[1:6], dtype, True)
+    if kernel == "flash_fwd":
+        got_ms, got_by = chip_smoke._flash_bound(*args)
+    else:
+        got_ms, got_by = chip_smoke._bwd_bound(kernel, *args)
+    assert got_ms == pytest.approx(bound_ms, rel=1e-4)
+    assert got_by == bound_by
+
+
+def test_wide_llama_has_256_wide_heads():
+    cfg = chip_smoke._wide_llama_cfg()
+    assert cfg.head_dim == 256 and cfg.n_heads % cfg.n_kv_heads == 0
+    assert fa._kernel_head_dim(cfg.head_dim) == 256
+    assert chip_smoke.WIDE_STREAMED_S > 2048 and fa.backward_route(chip_smoke.WIDE_STREAMED_S) \
+        == "streamed"

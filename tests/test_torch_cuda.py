@@ -66,9 +66,9 @@ def test_flash_fwd_is_deterministic(cuda):
 
 
 def test_flash_rejects_unsupported_head_dim(cuda):
-    # Head dims up to 128 are padded to an instance; above it the launch refuses.
-    q = torch.zeros((1, 8, 2, 192), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    # Head dims up to 256 are padded to an instance; above it the launch refuses.
+    q = torch.zeros((1, 8, 2, 320), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa.flash_attention(q, q, q)
 
 
@@ -96,8 +96,9 @@ def _bwd_inputs(g, b, s, hq, hkv, d, dtype, causal, device):
     return q, k, v, do, out, lse
 
 
-# Head dims without a kernel instance: zero-padded to 64 or 128 and cut back.
-PADDED_HEAD_DIMS = [16, 32, 48, 80, 96]
+# Head dims without a kernel instance: zero-padded to 64, 128 or 256 and cut
+# back.
+PADDED_HEAD_DIMS = [16, 32, 48, 80, 96, 160, 192]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -149,6 +150,50 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert bool(torch.isfinite(a).all()), name
         assert _bwd_err(a, b) <= BWD_TOL[dtype], (name, _bwd_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+# The D = 256 instances (CUDA cores, bf16 and f32): one forward q tile of 16
+# minus one, exactly one and plus one, a kv tile of 32 plus one, GQA, and a
+# sequence past the fused route's 2048.
+@pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (15, 4, 1), (16, 4, 2), (17, 4, 4),
+                                        (33, 8, 2), (300, 4, 1), (2049, 2, 2)])
+def test_flash_d256_matches_plain(cuda, dtype, causal, s, hq, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s + 256)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, s, hq, hkv, 256, dtype, causal, cuda)
+    n0 = fa.launches
+    out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    tol_out, tol_lse = TOL[dtype]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+    want = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, do, causal=causal)
+    for route in ("fused", "streamed"):
+        got = fa.flash_attention_backward(q, k, v, ref_out, ref_lse, do, causal=causal,
+                                          route=route)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, (route, name)
+            assert bool(torch.isfinite(a).all()), (route, name)
+            assert _bwd_err(a, b) <= BWD_TOL[dtype], (route, name, _bwd_err(a, b))
+
+
+def test_flash_d256_gradients_through_autograd(cuda):
+    # A head dim of 200 runs the D = 256 instances through the autograd
+    # Function (padded, then cut back) and matches the plain gradients.
+    g = torch.Generator(device=cuda).manual_seed(200)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, 100, 4, 2, 200, torch.float32, True,
+                                                cuda)
+    want = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, do, causal=True)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qr, kr, vr, causal=True)
+    out.backward(do)
+    assert out.shape == q.shape
+    assert (out - ref_out).abs().max().item() <= TOL[torch.float32][0]
+    for name, a, b in zip(("dq", "dk", "dv"), (qr.grad, kr.grad, vr.grad), want):
+        assert a.shape == b.shape, name
+        assert _bwd_err(a, b) <= BWD_TOL[torch.float32], (name, _bwd_err(a, b))
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

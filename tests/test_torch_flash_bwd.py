@@ -135,3 +135,22 @@ def test_backward_rejects_bad_inputs():
         tfa.flash_bwd_fused(q, k, v, do, lse[:, :2], lse)
     with pytest.raises(ValueError, match="does not match q"):
         tfa.flash_bwd_dq(q, k, v, do[:, :4], lse, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_head_dims_match_jax_flash_attention(causal, d):
+    # Head dims above 128: the JAX flash_attention (interpreted) computes
+    # them; the port's autograd Function pads 192 to its 256 instance and
+    # runs 256 as it is.  Output and gradients at 1e-5.
+    q, k, v, do = _inputs(40, 2, 2, d=d, b=1, seed=d)
+    j_out, vjp = jax.vjp(
+        lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, causal=causal, interpret=True),
+        *(jnp.asarray(x) for x in (q, k, v)),
+    )
+    j_grads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=ATOL, rtol=0)
+    _check_grads((tq.grad, tk.grad, tv.grad), [np.asarray(g) for g in j_grads])

@@ -1,6 +1,6 @@
-"""Head dims that the flash kernels have no instance for (all up to 128 but
-64 and 128): the wrappers zero-pad q, k, v and ``do`` to the next instance,
-run at the true head dim's scale and cut out, dq, dk and dv back.
+"""Head dims that the flash kernels have no instance for (all up to 256 but
+64, 128 and 256): the wrappers zero-pad q, k, v and ``do`` to the next
+instance, run at the true head dim's scale and cut out, dq, dk and dv back.
 
 The identity behind it is checked here on the plain versions, and the
 wrappers (which pad on the CPU as on the card) are held against the unpadded
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
 
 ATOL = 1e-6
-HEAD_DIMS = [16, 32, 48, 80, 96]
+HEAD_DIMS = [16, 32, 48, 80, 96, 160, 192, 256]
 
 
 def _inputs(d, seed, b=2, s=37, hq=4, hkv=2):
@@ -35,9 +35,10 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("d, kernel_d", [(16, 64), (32, 64), (48, 64), (64, 64),
-                                         (80, 128), (96, 128), (128, 128), (192, 192)])
+                                         (80, 128), (96, 128), (128, 128), (192, 256),
+                                         (256, 256), (320, 320)])
 def test_kernel_head_dim(d, kernel_d):
-    # The least instance that holds d; above 128 the launch refuses d itself.
+    # The least instance that holds d; above 256 the launch refuses d itself.
     assert fa._kernel_head_dim(d) == kernel_d
 
 

@@ -14,8 +14,14 @@ import torch
 
 import torchdistx_tpu_torch
 from torchdistx_tpu_torch import resolve_device
+from torchdistx_tpu_torch.deferred_init import deferred_init
+from torchdistx_tpu_torch.materialize import (
+    materialize_module_torch,
+    materialize_tensor_torch,
+)
 from torchdistx_tpu_torch.models import llama as tllama
 from torchdistx_tpu_torch.models.convert import llama_from_jax_params
+from torchdistx_tpu_torch.parallel.mesh import make_mesh
 from torchdistx_tpu_torch.parallel.train_step import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +50,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 24
+    assert n_modules >= 27
 
 
 def test_walk_finds_every_module():
@@ -55,7 +61,8 @@ def test_walk_finds_every_module():
                  "models.convert", "models.generate", "parallel.train_step",
                  "resilience.guard", "telemetry", "telemetry._core",
                  "resilience.retry", "resilience.faults", "resilience.preemption",
-                 "parallel.distributed", "parallel.fit", "utils.checkpoint"):
+                 "parallel.distributed", "parallel.fit", "utils.checkpoint",
+                 "materialize", "parallel.sharding", "parallel.mesh"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -71,8 +78,12 @@ def _no_cuda():
         lambda: tllama.Llama(tllama.llama_test()),
         lambda: llama_from_jax_params({}, tllama.llama_test()),
         lambda: make_train_step(tllama.llama_test(), torch.optim.SGD),
+        lambda: materialize_module_torch(deferred_init(torch.nn.Linear, 4, 4)),
+        lambda: materialize_tensor_torch(deferred_init(torch.nn.Linear, 4, 4).weight),
+        lambda: make_mesh(),
     ],
-    ids=["resolve_device", "Llama", "llama_from_jax_params", "make_train_step"],
+    ids=["resolve_device", "Llama", "llama_from_jax_params", "make_train_step",
+         "materialize_module_torch", "materialize_tensor_torch", "make_mesh"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -31,7 +31,10 @@ _tls = threading.local()
 
 # Process-wide chronological op counter.  Global so that op_nr is unique
 # across tapes: a module may be assembled from several deferred_init calls,
-# and replay order is keyed by op_nr.
+# and replay order is keyed by op_nr.  Random streams never key on it: the
+# seeded materializer keys them on the tape-relative number
+# ``op_nr - base_nr`` (and the tape's ordinal), which does not depend on how
+# many tapes ran earlier in the process.
 _op_counter = itertools.count()
 
 
@@ -109,7 +112,7 @@ class OpNode:
 
     __slots__ = (
         "op_nr", "op", "dependents", "out_storages", "write_storages",
-        "pinned_storages", "num_outputs", "materialized_pyobjs",
+        "pinned_storages", "num_outputs", "materialized_pyobjs", "base_nr",
         "__weakref__",
     )
 
@@ -127,6 +130,8 @@ class OpNode:
         # Python-identity cache: materializing the same output twice returns
         # the same object.
         self.materialized_pyobjs: Dict[int, Any] = {}
+        # First op_nr of this node's tape, set at record time.
+        self.base_nr = 0
 
     def __repr__(self):
         return f"OpNode({self.op_nr}: {self.op.name})"
@@ -140,6 +145,7 @@ class Tape:
 
     def __init__(self):
         self.writers: Dict[int, List[Tuple[int, weakref.ref]]] = {}
+        self.base_nr: Optional[int] = None  # op_nr of the first recorded op
 
     def note_write(self, storage_key: int, node: OpNode) -> None:
         entries = self.writers.setdefault(storage_key, [])
@@ -272,6 +278,9 @@ def record_op(
         guards=guards,
     )
     node = OpNode(next(_op_counter), op)
+    if tape.base_nr is None:
+        tape.base_nr = node.op_nr
+    node.base_nr = tape.base_nr
     node.num_outputs = len(fake_outputs)
 
     # Output storages for aliasing checks, via the meta shadows.

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import attention, cached_attention
+from ..parallel.sharding import PartitionSpec as P
 
 __all__ = [
     "LlamaConfig",
@@ -42,6 +43,7 @@ __all__ = [
     "llama_7b",
     "llama_70b",
     "num_params",
+    "param_specs",
     "Llama",
 ]
 
@@ -107,6 +109,35 @@ def num_params(cfg: LlamaConfig) -> int:
     hkv = cfg.n_kv_heads * cfg.head_dim
     per_layer = 2 * d + d * hq + 2 * d * hkv + hq * d + 3 * d * f
     return 2 * v * d + d + cfg.n_layers * per_layer
+
+
+def param_specs(cfg: LlamaConfig, *, tp: Optional[str] = "tp",
+                fsdp: Optional[str] = "fsdp") -> Dict[str, P]:
+    """Megatron-TP + FSDP partition specs of :class:`Llama`'s parameters, by
+    name: a plan for
+    :func:`~torchdistx_tpu_torch.materialize.materialize_module_torch`.
+
+    The JAX ``param_specs``' layout on this module's names: column-parallel
+    projections (wq/wk/wv/w_gate/w_up) shard their out dim over ``tp``,
+    row-parallel ones (wo/w_down) their in dim, the other large dim goes
+    over ``fsdp``, norms replicate.  ``nn.Linear`` weights are ``(out,
+    in)`` where the JAX leaves are ``(in, out)`` (the transpose that
+    ``models/convert.py`` applies), so each spec is the JAX leaf's with its
+    two matrix dims swapped, and the JAX stacked layer axis (its ``pp``
+    entry) is dropped: every layer has its own parameters here.
+    """
+    column, row = P(tp, fsdp), P(fsdp, tp)
+    specs = {"embed.weight": P(fsdp, tp)}
+    for i in range(cfg.n_layers):
+        for norm in ("attn_norm", "mlp_norm"):
+            specs[f"layers.{i}.{norm}.weight"] = P()
+        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            specs[f"layers.{i}.{name}.weight"] = column
+        for name in ("wo", "w_down"):
+            specs[f"layers.{i}.{name}.weight"] = row
+    specs["norm.weight"] = P()
+    specs["lm_head.weight"] = P(tp, fsdp)
+    return specs
 
 
 def _rmsnorm(x, weight, eps: float):

@@ -43,6 +43,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "storage.cuh"
 
 namespace tdx_bwd {
 
@@ -243,7 +244,10 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // into shared memory; (B) warp w accumulates dV and dK for kv rows
 // 8w..8w+7, one lane per 32nd output column, in registers; (C, kDq) warp w
 // forms dQ for q rows 4w..4w+3 and adds it to the f32 dq buffer with
-// atomics.
+// atomics.  Elem is the storage type (storage.cuh): float at D 64, 128 and
+// 256, bf16 at D 256, where the wgmma kernels' dk and dv accumulators do
+// not fit a consumer's registers; p and ds are rounded to Elem before the
+// products that take them, and dk and dv to Elem on the store.
 
 template <int D>
 struct KvTileF32 {
@@ -253,7 +257,7 @@ struct KvTileF32 {
   }
 };
 
-template <int D, bool kDq>
+template <typename Elem, int D, bool kDq>
 __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
   using T = KvTileF32<D>;
   constexpr int BK = T::BK, BQ = T::BQ, LDK = T::LDK, LDP = T::LDP;
@@ -274,17 +278,17 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t q_rs = static_cast<size_t>(a.Hq) * D;
   const size_t kv_rs = static_cast<size_t>(a.Hkv) * D;
-  const float* kb = static_cast<const float*>(a.k) +
-                    static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const float* vb = static_cast<const float*>(a.v) +
-                    static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* kb = static_cast<const Elem*>(a.k) +
+                   static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* vb = static_cast<const Elem*>(a.v) +
+                   static_cast<size_t>(b) * S * kv_rs + hk * D;
 
   for (int i = threadIdx.x; i < BK * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const bool in = k0 + r < S;
     const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-    ks[r * LDK + c] = in ? kb[off] : 0.f;
-    vs[r * LDK + c] = in ? vb[off] : 0.f;
+    ks[r * LDK + c] = in ? tdx::to_f32(kb[off]) : 0.f;
+    vs[r * LDK + c] = in ? tdx::to_f32(vb[off]) : 0.f;
   }
 
   float dk_acc[KPW][DPL], dv_acc[KPW][DPL];
@@ -298,10 +302,10 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
   const int qt0 = a.causal ? k0 / BQ : 0;
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
-    const float* qb = static_cast<const float*>(a.q) +
+    const Elem* qb = static_cast<const Elem*>(a.q) +
+                     static_cast<size_t>(b) * S * q_rs + h * D;
+    const Elem* dob = static_cast<const Elem*>(a.dout) +
                       static_cast<size_t>(b) * S * q_rs + h * D;
-    const float* dob = static_cast<const float*>(a.dout) +
-                       static_cast<size_t>(b) * S * q_rs + h * D;
     const float* lseb = a.lse + (static_cast<size_t>(b) * a.Hq + h) * S;
     const float* deltab = a.delta + (static_cast<size_t>(b) * a.Hq + h) * S;
     for (int qt = qt0; qt < n_qt; ++qt) {
@@ -311,8 +315,8 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
         const int r = i / D, c = i % D;
         const bool in = q0 + r < S;
         const size_t off = static_cast<size_t>(q0 + r) * q_rs + c;
-        qs[i] = in ? qb[off] : 0.f;
-        dos[i] = in ? dob[off] : 0.f;
+        qs[i] = in ? tdx::to_f32(qb[off]) : 0.f;
+        dos[i] = in ? tdx::to_f32(dob[off]) : 0.f;
       }
       if (threadIdx.x < BQ) {
         const int row = q0 + threadIdx.x;
@@ -333,9 +337,10 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
           dp = fmaf(dos[qr * D + d], vs[lane * LDK + d], dp);
         }
         const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + lane, S);
-        ps[qr * LDP + lane] =
+        const float p =
             p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
-        dss[qr * LDP + lane] = dp;
+        ps[qr * LDP + lane] = tdx::round_to<Elem>(p);
+        dss[qr * LDP + lane] = tdx::round_to<Elem>(dp);
       }
       __syncthreads();
 
@@ -386,12 +391,12 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
     const int kr = k0 + warp * KPW + j;
     if (kr >= S) continue;
     const size_t off = (static_cast<size_t>(b) * S + kr) * kv_rs + hk * D + lane;
-    float* dkr = static_cast<float*>(a.dk) + off;
-    float* dvr = static_cast<float*>(a.dv) + off;
+    Elem* dkr = static_cast<Elem*>(a.dk) + off;
+    Elem* dvr = static_cast<Elem*>(a.dv) + off;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      dkr[32 * i] = dk_acc[j][i];
-      dvr[32 * i] = dv_acc[j][i];
+      dkr[32 * i] = tdx::from_f32<Elem>(dk_acc[j][i]);
+      dvr[32 * i] = tdx::from_f32<Elem>(dv_acc[j][i]);
     }
   }
 }
@@ -399,24 +404,33 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 // Hopper grants a block at most 227 KB of shared memory.  The tiles do not
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
-static_assert(KvTileF32<128>::smem() <= kMaxSmem, "f32 tile too large");
+static_assert(KvTileF32<256>::smem() <= kMaxSmem, "f32 tile too large");
 
-// Launches the f32 kv-tile-outer kernel for D (dtype 0 = float32; the
-// bf16 kernels are on wgmma); kDq selects the fused variant.
+template <typename Elem, int D, bool kDq>
+int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
+  using T = KvTileF32<D>;
+  return launch_dyn(bwd_kv_f32<Elem, D, kDq>,
+                    dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
+                    T::smem(), stream, args);
+}
+
+// Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
+// D 64, 128 and 256, bf16 at D 256 (dtype 0 = float32, 1 = bfloat16; the
+// bf16 kernels at D 64 and 128 are on wgmma); kDq selects the fused variant.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
   if (dtype == 0 && D == 64) {
-    using T = KvTileF32<64>;
-    return launch_dyn(bwd_kv_f32<64, kDq>,
-                      dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                      T::smem(), stream, args);
+    return launch_kv_f32<float, 64, kDq>(args, B, stream);
   }
   if (dtype == 0 && D == 128) {
-    using T = KvTileF32<128>;
-    return launch_dyn(bwd_kv_f32<128, kDq>,
-                      dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                      T::smem(), stream, args);
+    return launch_kv_f32<float, 128, kDq>(args, B, stream);
+  }
+  if (dtype == 0 && D == 256) {
+    return launch_kv_f32<float, 256, kDq>(args, B, stream);
+  }
+  if (dtype == 1 && D == 256) {
+    return launch_kv_f32<__nv_bfloat16, 256, kDq>(args, B, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

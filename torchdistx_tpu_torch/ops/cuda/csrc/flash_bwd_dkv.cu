@@ -50,8 +50,9 @@
 // bits as with the steps written out here, at the same time within 1 %
 // and with one register more (163 at D = 128), no spills.
 //
-// f32: CUDA cores, the kv-tile-outer body of flash_bwd_common.cuh
-// (bwd_kv_f32), shared with the fused kernel.
+// f32 at D 64, 128 and 256, and bf16 at D 256: CUDA cores, the
+// kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32), shared with the
+// fused kernel.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 4 products of 2 D flops per causal

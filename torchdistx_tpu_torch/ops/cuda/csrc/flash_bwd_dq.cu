@@ -37,8 +37,9 @@
 // bf16 through the warpgroup's half of the q buffer and a TMA store, which
 // drops rows >= S.
 //
-// f32: CUDA cores, 16 q rows a block, one warp lane per kv column for the
-// two dots and per 32nd output column for dS.K.
+// f32 at D 64, 128 and 256, and bf16 at D 256 (bwd_dq_f32): CUDA cores,
+// 16 q rows a block, one warp lane per kv column for the two dots and per
+// 32nd output column for dS.K.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 3 products of 2 D flops per causal
@@ -300,7 +301,12 @@ struct DqF32 {
   }
 };
 
-template <int D>
+// dq on the CUDA cores: one block per (q tile of 16, q head, batch), looping
+// over kv tiles of 32; warp w forms p and ds for q rows 4w..4w+3, one lane
+// per kv column, and dq = ds.k with one lane per 32nd output column.  Elem
+// is the storage type (storage.cuh): float at D 64, 128 and 256, bf16 at D
+// 256; ds is rounded to Elem before ds.k, and dq to Elem on the store.
+template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   using T = DqF32<D>;
   constexpr int BQ = T::BQ, BK = T::BK, LDK = T::LDK;
@@ -319,21 +325,21 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   const int q0 = q_tile * BQ;
   const size_t q_rs = static_cast<size_t>(a.Hq) * D;
   const size_t kv_rs = static_cast<size_t>(a.Hkv) * D;
-  const float* qb = static_cast<const float*>(a.q) +
+  const Elem* qb = static_cast<const Elem*>(a.q) +
+                   static_cast<size_t>(b) * S * q_rs + h * D;
+  const Elem* dob = static_cast<const Elem*>(a.dout) +
                     static_cast<size_t>(b) * S * q_rs + h * D;
-  const float* dob = static_cast<const float*>(a.dout) +
-                     static_cast<size_t>(b) * S * q_rs + h * D;
-  const float* kb = static_cast<const float*>(a.k) +
-                    static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const float* vb = static_cast<const float*>(a.v) +
-                    static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* kb = static_cast<const Elem*>(a.k) +
+                   static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* vb = static_cast<const Elem*>(a.v) +
+                   static_cast<size_t>(b) * S * kv_rs + hk * D;
 
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const bool in = q0 + r < S;
     const size_t off = static_cast<size_t>(q0 + r) * q_rs + c;
-    qs[i] = in ? qb[off] : 0.f;
-    dos[i] = in ? dob[off] : 0.f;
+    qs[i] = in ? tdx::to_f32(qb[off]) : 0.f;
+    dos[i] = in ? tdx::to_f32(dob[off]) : 0.f;
   }
   const float* lseb = a.lse + (static_cast<size_t>(b) * a.Hq + h) * S;
   const float* deltab = a.delta + (static_cast<size_t>(b) * a.Hq + h) * S;
@@ -356,8 +362,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < S;
       const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-      ks[r * LDK + c] = in ? kb[off] : 0.f;
-      vs[r * LDK + c] = in ? vb[off] : 0.f;
+      ks[r * LDK + c] = in ? tdx::to_f32(kb[off]) : 0.f;
+      vs[r * LDK + c] = in ? tdx::to_f32(vb[off]) : 0.f;
     }
     __syncthreads();
 
@@ -373,9 +379,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
       }
       const bool keep = !mask || keep_pair(a.causal, row, k0 + lane, S);
       p_ds(s, ds, lse2[rr], dl[rr], keep, a.scale, a.scale_log2);
+      const float ds_q = tdx::round_to<Elem>(ds);  // ds in q's dtype
 #pragma unroll 8
       for (int c = 0; c < BK; ++c) {
-        const float dsc = __shfl_sync(0xffffffffu, ds, c);
+        const float dsc = __shfl_sync(0xffffffffu, ds_q, c);
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           acc[rr][i] = fmaf(dsc, ks[c * LDK + lane + 32 * i], acc[rr][i]);
@@ -388,17 +395,22 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   for (int rr = 0; rr < RPW; ++rr) {
     const int row = q0 + warp * RPW + rr;
     if (row >= S) continue;
-    float* out = static_cast<float*>(a.dq) +
-                 (static_cast<size_t>(b) * S + row) * q_rs + h * D + lane;
+    Elem* out = static_cast<Elem*>(a.dq) +
+                (static_cast<size_t>(b) * S + row) * q_rs + h * D + lane;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) out[32 * i] = acc[rr][i];
+    for (int i = 0; i < DPL; ++i) {
+      out[32 * i] = tdx::from_f32<Elem>(acc[rr][i]);
+    }
   }
 }
 
-template <typename Kernel>
-int launch_dq(Kernel kernel, int bq, size_t smem, const BwdArgs& args, int B,
-              cudaStream_t stream) {
-  return launch_dyn(kernel, dim3((args.S + bq - 1) / bq, args.Hq, B), smem,
+static_assert(DqF32<256>::smem() <= kMaxSmem, "f32 dq tile too large");
+
+template <typename Elem, int D>
+int launch_dq(const BwdArgs& args, int B, cudaStream_t stream) {
+  using T = DqF32<D>;
+  return launch_dyn(bwd_dq_f32<Elem, D>,
+                    dim3((args.S + T::BQ - 1) / T::BQ, args.Hq, B), T::smem(),
                     stream, args);
 }
 
@@ -441,11 +453,9 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
   args.causal = causal;
   args.scale = scale;
   args.scale_log2 = scale_log2;
-  if (dtype == 0 && D == 64) {
-    return launch_dq(bwd_dq_f32<64>, DqF32<64>::BQ, DqF32<64>::smem(), args, B, st);
-  }
-  if (dtype == 0 && D == 128) {
-    return launch_dq(bwd_dq_f32<128>, DqF32<128>::BQ, DqF32<128>::smem(), args, B, st);
-  }
+  if (dtype == 0 && D == 64) return launch_dq<float, 64>(args, B, st);
+  if (dtype == 0 && D == 128) return launch_dq<float, 128>(args, B, st);
+  if (dtype == 0 && D == 256) return launch_dq<float, 256>(args, B, st);
+  if (dtype == 1 && D == 256) return launch_dq<__nv_bfloat16, 256>(args, B, st);
   return cudaErrorInvalidValue;
 }

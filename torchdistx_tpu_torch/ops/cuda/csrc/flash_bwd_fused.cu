@@ -72,8 +72,9 @@
 // next work's k and v keep streaming in); one dq tile that the
 // warpgroups hand over by an mbarrier, 3 stages, 0.127 (0.410).
 //
-// f32: CUDA cores, the kv-tile-outer body of flash_bwd_common.cuh
-// (bwd_kv_f32 with kDq), with dq by scalar atomics.
+// f32 at D 64, 128 and 256, and bf16 at D 256: CUDA cores, the
+// kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32 with kDq), with
+// dq by scalar atomics into the f32 buffer.
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape (B 4, S 512,
 // 32 heads, D 128, bf16, causal) it must read q, k, v, do and write dq, dk,

@@ -45,8 +45,12 @@
 // out through the warpgroup's half of its q buffer and a TMA store, which
 // drops rows >= S, and lse directly.
 //
-// f32: CUDA cores, 4 warps, 16 q rows per block, kv tiles of 32, one warp
-// lane per kv column for q.k and per output column for P.V.
+// f32 (flash_fwd_f32): CUDA cores, 4 warps, 16 q rows per block, kv tiles
+// of 32, one warp lane per kv column for q.k and per output column for P.V.
+// It takes f32 at D 64, 128 and 256, and bf16 at D 256, where the wgmma
+// kernel's 64 x 256 f32 accumulator does not fit a consumer's registers:
+// bf16 is widened to f32 on the load into shared memory, p is rounded to
+// bf16 before P.V and out to bf16 on the store (storage.cuh).
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512,
 // 32 heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in
@@ -68,6 +72,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "storage.cuh"
 
 namespace {
 
@@ -432,16 +437,41 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
+// The f32 body's tiles: q rows, then k and v rows padded by one float so
+// that lanes reading rows hit distinct banks.  Up to D = 128 they fit the
+// 48 KB of static shared memory; at D = 256 (82 KB) they are dynamic shared
+// memory, which needs the opt-in attribute.
 template <int D>
+struct F32Tiles {
+  static constexpr int kBQ = 16, kBK = 32;
+  float qs[kBQ][D];
+  float ks[kBK][D + 1];
+  float vs[kBK][D + 1];
+};
+
+template <int D>
+constexpr bool kF32Dynamic = sizeof(F32Tiles<D>) > 48 * 1024;
+
+template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_f32(const Elem* __restrict__ q, const Elem* __restrict__ k,
+              const Elem* __restrict__ v, Elem* __restrict__ o,
               float* __restrict__ lse, int S, int Hq, int Hkv,
               float scale_log2, int causal) {
-  constexpr int BQ = 16, BK = 32, RPW = BQ / (kThreads / 32), DPL = D / 32;
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BK][D + 1];  // +1: lanes reading rows hit distinct banks
-  __shared__ float vs[BK][D + 1];
+  using Tiles = F32Tiles<D>;
+  constexpr int BQ = Tiles::kBQ, BK = Tiles::kBK;
+  constexpr int RPW = BQ / (kThreads / 32), DPL = D / 32;
+  Tiles* tiles;
+  if constexpr (kF32Dynamic<D>) {
+    extern __shared__ float4 fwd_f32_smem[];
+    tiles = reinterpret_cast<Tiles*>(fwd_f32_smem);
+  } else {
+    __shared__ Tiles fixed;
+    tiles = &fixed;
+  }
+  auto& qs = tiles->qs;
+  auto& ks = tiles->ks;
+  auto& vs = tiles->vs;
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -449,13 +479,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t q_rs = static_cast<size_t>(Hq) * D;
   const size_t kv_rs = static_cast<size_t>(Hkv) * D;
-  const float* qb = q + static_cast<size_t>(b) * S * q_rs + h * D;
-  const float* kb = k + static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const float* vb = v + static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* qb = q + static_cast<size_t>(b) * S * q_rs + h * D;
+  const Elem* kb = k + static_cast<size_t>(b) * S * kv_rs + hk * D;
+  const Elem* vb = v + static_cast<size_t>(b) * S * kv_rs + hk * D;
 
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D, row = q_tile * BQ + r;
-    qs[r][c] = row < S ? qb[row * q_rs + c] : 0.f;
+    qs[r][c] = row < S ? tdx::to_f32(qb[row * q_rs + c]) : 0.f;
   }
 
   float acc[RPW][DPL], m[RPW], l[RPW];
@@ -477,8 +507,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / D, c = i % D;
       const bool in = k0 + r < S;
       const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-      ks[r][c] = in ? kb[off] : 0.f;
-      vs[r][c] = in ? vb[off] : 0.f;
+      ks[r][c] = in ? tdx::to_f32(kb[off]) : 0.f;
+      vs[r][c] = in ? tdx::to_f32(vb[off]) : 0.f;
     }
     __syncthreads();
 
@@ -508,9 +538,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       m[rr] = m_next;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
+      const float p_v = tdx::round_to<Elem>(p);  // p.v takes p in v's dtype
 #pragma unroll 8
       for (int c = 0; c < BK; ++c) {
-        const float pc = __shfl_sync(0xffffffffu, p, c);
+        const float pc = __shfl_sync(0xffffffffu, p_v, c);
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
           acc[rr][i] = fmaf(pc, vs[c][lane + 32 * i], acc[rr][i]);
@@ -524,9 +555,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q_tile * BQ + warp * RPW + rr;
     if (row >= S) continue;
     const float l_safe = l[rr] == 0.f ? 1.f : l[rr];
-    float* orow = o + (static_cast<size_t>(b) * S + row) * q_rs + h * D;
+    Elem* orow = o + (static_cast<size_t>(b) * S + row) * q_rs + h * D;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[rr][i] / l_safe;
+    for (int i = 0; i < DPL; ++i) {
+      orow[lane + 32 * i] = tdx::from_f32<Elem>(acc[rr][i] / l_safe);
+    }
     if (lane == 0) {
       lse[(static_cast<size_t>(b) * Hq + h) * S + row] =
           m[rr] / kLog2e + logf(l_safe);
@@ -561,17 +594,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-void launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int, int,
-                           int, float, int),
-            int bq, const void* q, const void* k, const void* v, void* o,
-            void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
-            int causal, cudaStream_t stream) {
-  const dim3 grid((S + bq - 1) / bq, Hq, B);
-  kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, Hq, Hkv, scale_log2, causal);
+template <typename Elem, int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
+               int causal, cudaStream_t stream) {
+  constexpr int smem =
+      kF32Dynamic<D> ? static_cast<int>(sizeof(F32Tiles<D>)) : 0;
+  if constexpr (kF32Dynamic<D>) {
+    static bool opted[hw::kMaxDevices];
+    const int err = hw::smem_opt_in(flash_fwd_f32<Elem, D>, smem, opted);
+    if (err) return err;
+  }
+  const dim3 grid((S + F32Tiles<D>::kBQ - 1) / F32Tiles<D>::kBQ, Hq, B);
+  flash_fwd_f32<Elem, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const Elem*>(q), static_cast<const Elem*>(k),
+      static_cast<const Elem*>(v), static_cast<Elem*>(o),
+      static_cast<float*>(lse), S, Hq, Hkv, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -592,14 +631,18 @@ extern "C" int tdx_flash_fwd(const void* q, const void* k, const void* v,
   } else if (dtype == 1 && D == 128) {
     return launch_bf16<128>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
                             st);
+  } else if (dtype == 1 && D == 256) {
+    return launch_f32<__nv_bfloat16, 256>(q, k, v, o, lse, B, S, Hq, Hkv,
+                                          scale_log2, causal, st);
   } else if (dtype == 0 && D == 64) {
-    launch(flash_fwd_f32<64>, 16, q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-           causal, st);
+    return launch_f32<float, 64>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
+                                 causal, st);
   } else if (dtype == 0 && D == 128) {
-    launch(flash_fwd_f32<128>, 16, q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-           causal, st);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_f32<float, 128>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
+                                  causal, st);
+  } else if (dtype == 0 && D == 256) {
+    return launch_f32<float, 256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
+                                  causal, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaErrorInvalidValue;
 }

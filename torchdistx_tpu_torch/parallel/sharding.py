@@ -1,0 +1,215 @@
+"""Sharding plans: parameter name/shape -> ``PartitionSpec``.
+
+Counterpart of ``torchdistx_tpu/parallel/sharding.py``, with the same rules
+on the same (Hugging Face) parameter names.  A *plan* is any
+``(name, shape) -> PartitionSpec | None`` callable; the builders here
+compose FSDP-style and Megatron-TP-style rules.  :class:`PartitionSpec` is
+the port's own: one entry per tensor dim, each ``None`` (replicated), a mesh
+axis name, or a tuple of names (the dim split over several axes).
+:func:`~torchdistx_tpu_torch.materialize.materialize_module_torch` turns a
+spec into ``DTensor`` placements on a ``DeviceMesh``.
+
+The mesh rules take a ``DeviceMesh`` (its ``mesh_dim_names`` and shape) or a
+:class:`~torchdistx_tpu_torch.parallel.mesh.MeshSpec`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+from .mesh import MeshSpec
+
+__all__ = [
+    "PartitionSpec",
+    "Plan",
+    "combine_plans",
+    "fit_spec_to_mesh",
+    "fsdp_over",
+    "fsdp_plan",
+    "replicate_indivisible",
+    "replicated_plan",
+    "tp_plan_gpt2",
+    "tp_plan_llama",
+]
+
+
+class PartitionSpec(tuple):
+    """Per-tensor-dim mesh axes, as ``jax.sharding.PartitionSpec``: a spec
+    shorter than the tensor's rank leaves the trailing dims replicated, and
+    a one-name tuple entry is the name itself."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries
+        ))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+Plan = Callable[[str, Tuple[int, ...]], Optional[PartitionSpec]]
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or a ``MeshSpec``."""
+    if isinstance(mesh, MeshSpec):
+        return dict(mesh.axes())
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("the mesh has no dim names: build it with make_mesh")
+    return dict(zip(names, mesh.shape))
+
+
+def fit_spec_to_mesh(spec, mesh) -> PartitionSpec:
+    """Drop axis names the mesh doesn't have (e.g. a tp rule on a dp-only
+    mesh)."""
+    names = set(mesh_axis_sizes(mesh))
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in names)
+            return kept or None
+        return entry if entry in names else None
+
+    return PartitionSpec(*[keep(a) for a in spec])
+
+
+def replicate_indivisible(spec, shape, mesh) -> PartitionSpec:
+    """Replicate dims whose size isn't divisible by their assigned axis
+    product (e.g. a 32000 vocab over tp=7): a sharded init value would be
+    ill-defined.  Frameworks wanting sharded odd dims pad them instead."""
+    sizes = mesh_axis_sizes(mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    fixed = []
+    for dim, axes in enumerate(entries):
+        if axes is None:
+            fixed.append(None)
+            continue
+        axis_tuple = axes if isinstance(axes, tuple) else (axes,)
+        size = 1
+        for a in axis_tuple:
+            size *= sizes[a]
+        fixed.append(axes if shape[dim] % size == 0 else None)
+    return PartitionSpec(*fixed)
+
+
+def replicated_plan() -> Plan:
+    return lambda name, shape: PartitionSpec()
+
+
+def fsdp_plan(
+    axis: str = "fsdp",
+    *,
+    min_size: int = 1024,
+    largest_dim: bool = True,
+) -> Plan:
+    """ZeRO-3-style parameter sharding: shard every big-enough param along
+    one dimension of the ``axis`` mesh axis.
+
+    ``largest_dim=True`` shards the largest dimension (best balance and the
+    dimension most likely divisible by the axis size); otherwise dim 0.
+    Params smaller than ``min_size`` elements stay replicated (the classic
+    FSDP small-tensor exemption).
+    """
+
+    def plan(name: str, shape: Tuple[int, ...]):
+        n = 1
+        for s in shape:
+            n *= s
+        if not shape or n < min_size:
+            return PartitionSpec()
+        dim = max(range(len(shape)), key=lambda i: shape[i]) if largest_dim else 0
+        spec = [None] * len(shape)
+        spec[dim] = axis
+        return PartitionSpec(*spec)
+
+    return plan
+
+
+def _regex_plan(rules: Iterable[Tuple[str, Sequence[Optional[str]]]]) -> Plan:
+    compiled = [(re.compile(pat), spec) for pat, spec in rules]
+
+    def plan(name: str, shape: Tuple[int, ...]):
+        for pat, spec in compiled:
+            if pat.search(name):
+                # A spec shorter than the rank leaves the rest replicated.
+                return PartitionSpec(*list(spec)[: len(shape)])
+        return None
+
+    return plan
+
+
+def tp_plan_gpt2(axis: str = "tp") -> Plan:
+    """Megatron-style TP rules for GPT-2-family (HF naming, Conv1D weights
+    are (in, out)): column-parallel QKV/MLP-up on the out dim, row-parallel
+    proj/MLP-down on the in dim, embeddings on vocab/model dim."""
+    return _regex_plan(
+        [
+            (r"c_attn\.weight$", (None, axis)),
+            (r"c_attn\.bias$", (axis,)),
+            (r"c_fc\.weight$", (None, axis)),
+            (r"c_fc\.bias$", (axis,)),
+            (r"c_proj\.weight$", (axis, None)),
+            (r"c_proj\.bias$", ()),
+            (r"(wte|lm_head)\.weight$", (axis, None)),
+            (r"wpe\.weight$", ()),
+            (r"ln_\w*\.(weight|bias)$", ()),
+        ]
+    )
+
+
+def tp_plan_llama(axis: str = "tp") -> Plan:
+    """Megatron-style TP rules for Llama-family (HF naming, Linear weights
+    are (out, in)): column-parallel q/k/v/gate/up on dim 0, row-parallel
+    o/down on dim 1, vocab-parallel embeddings."""
+    return _regex_plan(
+        [
+            (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$", (axis, None)),
+            (r"(o_proj|down_proj)\.weight$", (None, axis)),
+            (r"(embed_tokens|lm_head)\.weight$", (axis, None)),
+            (r"norm\.weight$", ()),
+        ]
+    )
+
+
+def fsdp_over(base: Plan, axis: str = "fsdp", *, min_size: int = 1024) -> Plan:
+    """2-D sharding: apply ``base`` (e.g. a TP plan), then additionally shard
+    the largest still-unsharded dimension along ``axis``."""
+
+    def plan(name: str, shape: Tuple[int, ...]):
+        spec = base(name, shape)
+        entries = list(spec) if spec is not None else []
+        entries += [None] * (len(shape) - len(entries))
+        n = 1
+        for s in shape:
+            n *= s
+        if n >= min_size:
+            free = [i for i, e in enumerate(entries) if e is None]
+            if free:
+                dim = max(free, key=lambda i: shape[i])
+                entries[dim] = axis
+        return PartitionSpec(*entries)
+
+    return plan
+
+
+def combine_plans(*plans: Plan) -> Plan:
+    """First plan returning a non-None spec wins; else replicated.
+
+    An explicit empty ``PartitionSpec()`` *is* a match ("replicate this
+    param") and stops the search — e.g. a TP rule replicating a norm weight
+    must not be overridden by a later FSDP catch-all.  For genuine 2-D
+    sharding (FSDP over the dims TP left free) use :func:`fsdp_over`.
+    """
+
+    def plan(name: str, shape: Tuple[int, ...]):
+        for p in plans:
+            spec = p(name, shape)
+            if spec is not None:
+                return spec
+        return PartitionSpec()
+
+    return plan
