@@ -22,43 +22,46 @@ Phases, each printing a line:
    steps of ``make_train_step`` against the CPU port on the same weights;
    then the D = 256 path: a 2-layer Llama of dim 1024 and head_dim 256 in
    f32 against the CPU port (forward, 3 SGD steps), and one bf16 step past
-   2048 tokens (the streamed pair);
-3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated), then
-   materialize it on the card (its bf16 parameters allocated);
-4. the 4 x 512 forward with ``attn_impl="auto"``, which launches the flash
-   kernel once per layer; after the forward path it is checked against a
-   float32 forward of the same weights (see the tolerances below);
+   2048 tokens (the streamed pair); phase 2 holds every D = 256 kernel
+   that this path launches at the path's own shapes and dtypes;
+3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated); the
+   in-place ``materialize_module`` timed as the comparison and freed; then
+   a second recording through ``materialize_module_torch(model, seed=0)``
+   (per-node seeded generators; bytes, peak and time), one parameter alone
+   bit-equal to the module's, distinct streams, the init's statistics, and
+   the values loaded into the module by assignment;
+4. the 4 x 512 forward with ``attn_impl="auto"`` on those values, which
+   launches the flash kernel once per layer; after the forward path it is
+   checked against a float32 forward of the same weights (see the
+   tolerances below);
 5. greedy ``generate`` of 32 tokens for 4 prompts of 512, once cold and
    three times steady;
-6. train: ``make_train_step`` on Llama-7B (bf16, remat, AdamW), its
-   ``init_fn`` recording and materializing a fresh model on the card, then
-   3 steps on one repeated 4 x 512 batch (the fused backward kernel) and 3
-   steps at 1 x 4096 (the streamed dq + dk/dv pair), each shape followed by
-   one more step under the profiler (the steady step time is the median of
-   the unprofiled steps after the first);
+6. train: ``make_train_step``'s ``step_fn`` on the same model (bf16,
+   remat, AdamW), 3 steps on one repeated 4 x 512 batch (the fused
+   backward kernel) and 3 steps at 1 x 4096 (the streamed dq + dk/dv
+   pair), each shape followed by one more step under the profiler (the
+   steady step time is the median of the unprofiled steps after the
+   first);
 7. train gates: the gradients of a 2-layer model at Llama-7B's width,
    through the kernels and through the plain attention, in f32 and bf16,
    at both training shapes (see the tolerances below);
 8. ``[fit]``: ``fit`` on a FIT_LAYERS-layer model at Llama-7B's width
-   (bf16, remat, AdamW), 4 x 512 batches, checkpointing into a temporary
-   directory: a straight run, then a run stopped by a real SIGTERM (the
-   ``step.exec`` fault site) and resumed, with the checkpoint, resume and
-   launch gates below; the save, restore and step times;
-9. ``[materialize]``: ``deferred_init`` Llama-7B on ``cuda``, then
-   ``materialize_module_torch(model, seed=0)`` (per-node seeded
-   generators; bytes, peak and time), one parameter alone bit-equal to the
-   module's, distinct streams, the init's statistics, the values loaded by
-   assignment, the 4 x 512 forward and 2 SGD steps at 4 x 512 through the
-   kernels; then the f32-recorded model materialized in bf16 (its peak),
-   two recordings of a 2-layer model bit-equal, and a 1-rank NCCL mesh
-   (DTensor values equal to the unsharded ones).
+   (bf16, remat, AdamW; ``init_fn`` records and materializes it on the
+   card), 4 x 512 batches, checkpointing into a temporary directory: a
+   straight run, then a run stopped by a real SIGTERM (the ``step.exec``
+   fault site) and resumed, with the checkpoint, resume and launch gates
+   below; the save, restore and step times;
+9. ``[materialize]``: the f32-recorded Llama-7B materialized in bf16 (its
+   peak), two recordings of a 2-layer model bit-equal, and a 1-rank NCCL
+   mesh (DTensor values equal to the unsharded ones).
 
-Five main paths are driven, each with every launch count set to 0 just
+Four main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
-forward path (phases 3 to 5), the train path (phase 6), the fit path
-(phase 8) and the materialize path (phase 9).  Any failed check
-raises, so the script exits non-zero and prints no result.  float32 matmuls run in full float32 (TF32
-is switched off).  The last three lines are the kernels' summary, the
+forward path (phases 3 to 5: seeded materialize, forward, generate), the
+train path (phase 6, on the forward path's values) and the fit path
+(phase 8).  Any failed check raises, so the script exits non-zero and
+prints no result.  float32 matmuls run in full float32 (TF32 is switched
+off).  The last three lines are the kernels' summary, the
 card's name and power limit, then the result object.
 """
 
@@ -94,8 +97,11 @@ FLASH_SHAPES = [
     ("train_1x4096", 1, 4096, 32, 32, 128, torch.bfloat16, True),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False),
     ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True),
-    # The D = 256 instance (CUDA cores) at a 256-wide-head model's shape.
+    # The D = 256 instances (CUDA cores) at a 256-wide-head model's shape,
+    # then at the D = 256 path's own shapes (WIDE_PATH_SHAPES).
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True),
+    ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True),
+    ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -131,6 +137,8 @@ BWD_SHAPES = [
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False, "fused"),
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True, "fused"),
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True, "streamed"),
+    ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True, "fused"),
+    ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True, "streamed"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -181,17 +189,21 @@ PADDED_SHAPE = (2, 300, 8, 2)
 HEAD_DIM_LOSS_ATOL = 1e-5
 HEAD_DIM_SGD_LR = 0.1
 
-# [head dims]'s D = 256 path: the bf16 step at 1 x WIDE_STREAMED_S (above
-# 2048, so the streamed pair).
+# [head dims]'s D = 256 path: f32 at WIDE_F32_BATCH (the fused backward),
+# then the bf16 step at 1 x WIDE_STREAMED_S (above 2048, so the streamed
+# pair).  Phase 2 holds each kernel the path launches against its plain
+# version at the path's own (B, S, Hq, Hkv, D) and dtype: the rows named in
+# WIDE_PATH_SHAPES, by dtype.
+WIDE_F32_BATCH = (2, 64)
 WIDE_STREAMED_S = 2112
+WIDE_PATH_SHAPES = {torch.float32: "d256_path_f32", torch.bfloat16: "d256_path_bf16"}
 
-# [materialize]: the seeded path at llama_7b width, MAT_TRAIN_STEPS SGD
-# steps of 4 x 512 on the loaded values; its gates: std within 2 % of the
-# init's, the f32-recorded model materialized in bf16 within 2 x its largest
-# f32 parameter of the bf16 total, two recordings of MAT_SMALL_LAYERS layers
-# bit-equal, and a 1-rank NCCL mesh.
+# The seeded materialize at llama_7b width (phase 3, whose values the
+# forward and train paths run on): std within 2 % of the init's; then
+# [materialize]: the f32-recorded model materialized in bf16 within 2 x its
+# largest f32 parameter of the bf16 total, two recordings of
+# MAT_SMALL_LAYERS layers bit-equal, and a 1-rank NCCL mesh.
 MAT_SEED = 0
-MAT_TRAIN_STEPS = 2
 MAT_SMALL_LAYERS = 2
 
 # [fit]: depth cut to FIT_LAYERS at Llama-7B's width, so that a checkpoint
@@ -429,41 +441,102 @@ def phase_bwd_kernels():
 
 
 def phase_deferred_init(cfg):
+    """deferred_init Llama-7B on the card (no bytes), the in-place
+    ``materialize_module`` timed as the comparison and freed, then the path:
+    a second recording through ``materialize_module_torch(seed=MAT_SEED)``
+    (bytes, peak and time), one parameter alone bit-equal to the module's,
+    distinct streams, the init's statistics, and the values loaded into the
+    module by assignment.  Returns the loaded model."""
     from torchdistx_tpu_torch.deferred_init import (
         deferred_init,
         is_deferred,
         materialize_module,
     )
+    from torchdistx_tpu_torch.materialize import (
+        materialize_module_torch,
+        materialize_tensor_torch,
+    )
     from torchdistx_tpu_torch.models.llama import Llama, num_params
 
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    model = deferred_init(Llama, cfg, device_="cuda")
-    record_s = time.perf_counter() - t0
-    recorded = torch.cuda.memory_allocated()
-    params = list(model.parameters())
-    _check(recorded == before, f"deferred_init allocated {recorded - before} bytes")
-    _check(all(is_deferred(p) for p in params), "a parameter is not deferred")
     n = num_params(cfg)
-    _check(sum(p.numel() for p in params) == n, "parameter count")
+    want = n * 2
 
+    # The comparison: the in-place replay on the global generator.
+    model = deferred_init(Llama, cfg, device_="cuda")
     torch.manual_seed(0)
     t0 = time.perf_counter()
     materialize_module(model)
     torch.cuda.synchronize()
+    inplace_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() - before
+    _check(abs(allocated - want) <= 0.01 * want,
+           f"materialize_module: {allocated} bytes, expected about {want}")
+    _check(all(p.is_cuda and not is_deferred(p) for p in model.parameters()),
+           "materialize_module left a parameter off the card")
+    del model
+    _free()
+
+    # The path: record, then the seeded materialize.
+    t0 = time.perf_counter()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    record_s = time.perf_counter() - t0
+    recorded = torch.cuda.memory_allocated() - before
+    params = list(model.parameters())
+    _check(recorded == 0, f"deferred_init allocated {recorded} bytes")
+    _check(all(is_deferred(p) for p in params), "a parameter is not deferred")
+    _check(sum(p.numel() for p in params) == n, "parameter count")
+    largest = max(p.numel() * p.element_size() for p in params)
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    values = materialize_module_torch(model, seed=MAT_SEED)
+    torch.cuda.synchronize()
     mat_s = time.perf_counter() - t0
     allocated = torch.cuda.memory_allocated() - before
-    want = n * 2
+    peak = torch.cuda.max_memory_allocated() - before
     _check(abs(allocated - want) <= 0.01 * want,
            f"materialized {allocated} bytes, expected about {want}")
+    _check(peak <= allocated + largest, f"peak {peak} > {allocated} + largest {largest}")
+    _check(all(v.is_cuda and v.dtype == cfg.dtype for v in values.values()), "values")
+    _check(all(is_deferred(p) for p in model.parameters()), "the module was changed")
+
+    # Order independence, distinct streams, statistics.
+    last = f"layers.{cfg.n_layers - 1}.w_down.weight"
+    alone = materialize_tensor_torch(model.layers[-1].w_down.weight, seed=MAT_SEED)
+    _check(torch.equal(alone, values[last]), f"{last} alone differs from the module's")
+    del alone
+    _check(not torch.equal(values["layers.0.wq.weight"], values["layers.1.wq.weight"]),
+           "layers 0 and 1 drew the same wq")
+    resid = 0.02 / math.sqrt(2 * cfg.n_layers)
+    stds = {"wq": values["layers.0.wq.weight"].float().std().item(),
+            "wo": values["layers.0.wo.weight"].float().std().item()}
+    _check(abs(stds["wq"] / 0.02 - 1) <= 0.02, f"wq std {stds['wq']}")
+    _check(abs(stds["wo"] / resid - 1) <= 0.02, f"wo std {stds['wo']} vs {resid}")
+    norms = [v for k, v in values.items() if k.endswith("norm.weight")]
+    _check(len(norms) == 2 * cfg.n_layers + 1 and all(bool((v == 1).all()) for v in norms),
+           "a norm weight is not exactly 1")
+    del norms
+
+    # Load by assignment: no copy, no second set.
+    model.load_state_dict(values, assign=True)
+    _check(all(p.data_ptr() == values[k].data_ptr() for k, p in model.named_parameters()),
+           "load_state_dict copied")
+    del values
+    _check(torch.cuda.memory_allocated() - before == allocated, "loading allocated bytes")
     _check(all(p.is_cuda and not is_deferred(p) for p in model.parameters()),
-           "a parameter was not materialized on the card")
-    print(f"[deferred_init] llama_7b: {n} params, bytes after record "
-          f"{recorded - before}, after materialize {allocated} (2 x params = "
-          f"{want}); record {record_s:.3f} s, materialize {mat_s:.3f} s")
-    return model, {"record_s": record_s, "materialize_s": mat_s,
-                   "bytes_recorded": recorded - before, "bytes_materialized": allocated}
+           "a parameter was not loaded on the card")
+    print(f"[deferred_init] llama_7b: {n} params, bytes after record {recorded}; in-place "
+          f"materialize_module (the comparison) {inplace_s:.3f} s; "
+          f"materialize_module_torch(seed={MAT_SEED}) {mat_s:.3f} s, bytes {allocated} "
+          f"(2 x params = {want}), peak {peak} (<= + largest {largest}); {last} alone "
+          f"bit-equal; std wq {stds['wq']:.6f} (0.02), wo {stds['wo']:.6f} ({resid:.6f}); "
+          f"norms 1; loaded by assignment; record {record_s:.3f} s")
+    return model, {"record_s": record_s, "materialize_s": inplace_s,
+                   "seeded_materialize_s": mat_s, "bytes_recorded": recorded,
+                   "bytes_materialized": allocated, "peak_bytes": peak,
+                   "largest_param_bytes": largest, "std": stds}
 
 
 def phase_forward(model, tokens, fa):
@@ -579,7 +652,9 @@ def _compare(a, b):
 def check_forward_against_f32(model, tokens, logits):
     """Steady timings of the bf16 forward on both attentions, then the
     checks against the f32 reference (the model is cast to float32 in place
-    here, after the main path's counts were read)."""
+    here, after the main path's counts were read, and back to its dtype at
+    the end: bf16 -> f32 -> bf16 gives the same values)."""
+    dtype = model.cfg.dtype
     with torch.inference_mode():
         ms = _time_ms(lambda: model(tokens, attn_impl="auto"), warmup=1, reps=5, calls=3)
         plain_ms = _time_ms(lambda: model(tokens, attn_impl="plain"), warmup=1, reps=5,
@@ -587,9 +662,11 @@ def check_forward_against_f32(model, tokens, logits):
         print(f"[forward] steady bf16: flash {ms:.3f} ms, plain attention {plain_ms:.3f} ms")
         profile = _profile("forward", lambda: model(tokens, attn_impl="auto"))
         plain = model(tokens, attn_impl="plain")
-        model.float()
+    model.float()
+    with torch.inference_mode():
         ref = model(tokens, attn_impl="plain")
         flash32 = model(tokens, attn_impl="auto")
+    model.to(dtype)
     stats = {"forward_ms": ms, "forward_plain_ms": plain_ms, "forward_profile": profile}
     for name, a, b in (("f32 flash vs f32 reference", flash32, ref),
                        ("bf16 flash vs f32 reference", logits, ref),
@@ -629,33 +706,30 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train(cfg, fa):
-    """The train path: init_fn, then TRAIN_SHAPES' steps with their launch
-    counts, losses and times, each shape followed by one profiled step."""
-    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+def phase_train(cfg, fa, model):
+    """The train path on ``model`` (phase 3's seeded values): TRAIN_SHAPES'
+    steps of ``make_train_step``'s ``step_fn`` with their launch counts,
+    losses and times, each shape followed by one profiled step."""
+    from torchdistx_tpu_torch.parallel.train_step import TrainState, make_train_step
 
     def tx(params):
         return torch.optim.AdamW(params, lr=TRAIN_LR, foreach=False)
 
-    init_fn, step_fn = make_train_step(cfg, tx)
+    _, step_fn = make_train_step(cfg, tx)
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = init_fn(TRAIN_SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    model = state.model
-    _check(cfg.remat and all(p.is_cuda for p in model.parameters()),
-           "init_fn did not build a remat model on the card")
+    _check(cfg.remat and model.cfg == cfg and all(
+        p.is_cuda and p.dtype == cfg.dtype for p in model.parameters()),
+        "the train path's model is not the bf16 remat model on the card")
+    state = TrainState(model, tx(model.parameters()), 0)
     watched = {"layers.0.wq.weight": model.layers[0].wq.weight,
                "layers.31.w_down.weight": model.layers[-1].w_down.weight,
                "lm_head.weight": model.lm_head.weight}
     before = {n: p.detach().clone() for n, p in watched.items()}
-    print(f"[train] init_fn(seed={TRAIN_SEED}): llama_7b on the card in {init_s:.3f} s; "
+    print(f"[train] llama_7b on the seeded values (seed {MAT_SEED}); "
           f"AdamW(lr={TRAIN_LR}, foreach=False)")
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_layers = cfg.n_layers
-    stats = {"init_s": init_s, "optimizer": f"AdamW(lr={TRAIN_LR}, foreach=False)"}
+    stats = {"optimizer": f"AdamW(lr={TRAIN_LR}, foreach=False)"}
     for (b, s), n_steps, route in TRAIN_SHAPES:
         seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
         batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
@@ -932,7 +1006,7 @@ def _wide_llama_cfg():
 
 def phase_wide_llama(fa):
     """The D = 256 path: ``_wide_llama_cfg`` in f32 on the card against the CPU port
-    (forward, then 3 SGD steps at 2 x 64: the fused backward), then the same
+    (forward, then 3 SGD steps at WIDE_F32_BATCH: the fused backward), then the same
     weights in bf16 for one SGD step at 1 x WIDE_STREAMED_S (the streamed
     pair), with exact launch counts."""
     from torchdistx_tpu_torch.parallel.train_step import TrainState, make_train_step
@@ -948,14 +1022,15 @@ def phase_wide_llama(fa):
     cpu_state, gpu_state = cpu_init(TRAIN_SEED), gpu_init(TRAIN_SEED)
     gpu_state.model.load_state_dict(cpu_state.model.state_dict())
     g = torch.Generator().manual_seed(10)
-    seq = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    b, s = WIDE_F32_BATCH
+    seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
     c0 = _counts(fa)
     with torch.no_grad():
         logits_err = (gpu_state.model(seq.cuda()).cpu() - cpu_state.model(seq)).abs().max().item()
     _check(logits_err <= HEAD_DIM_LOSS_ATOL, f"D 256 llama logits err {logits_err}")
     loss_err = []
     for _ in range(3):
-        seq = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+        seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
         batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
         cpu_state, cpu_m = cpu_step(cpu_state, batch)
         gpu_state, gpu_m = gpu_step(gpu_state, batch)
@@ -987,103 +1062,6 @@ def phase_wide_llama(fa):
     _free()
     return {"logits_err": logits_err, "loss_errs": loss_err, "bf16_loss": loss16,
             "launches_f32": launched, "launches_bf16": launched16}
-
-
-def phase_materialize(cfg, fa):
-    """The seeded path at llama_7b width: deferred_init, then
-    materialize_module_torch onto the card (bytes, peak, time), the
-    order-independence, distinct-stream and statistics gates, the values
-    loaded by assignment, the 4 x 512 forward and MAT_TRAIN_STEPS SGD steps
-    at 4 x 512 (remat: 2 forward + 1 fused launches a layer a step)."""
-    from torchdistx_tpu_torch.deferred_init import deferred_init, is_deferred
-    from torchdistx_tpu_torch.materialize import (
-        materialize_module_torch,
-        materialize_tensor_torch,
-    )
-    from torchdistx_tpu_torch.models.llama import Llama, num_params
-    from torchdistx_tpu_torch.parallel.train_step import TrainState, make_train_step
-
-    n = num_params(cfg)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    model = deferred_init(Llama, cfg, device_="cuda")
-    _check(torch.cuda.memory_allocated() == before, "deferred_init allocated bytes")
-    largest = max(p.numel() * p.element_size() for p in model.parameters())
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    values = materialize_module_torch(model, seed=MAT_SEED)
-    torch.cuda.synchronize()
-    mat_s = time.perf_counter() - t0
-    allocated = torch.cuda.memory_allocated() - before
-    peak = torch.cuda.max_memory_allocated() - before
-    _check(abs(allocated - 2 * n) <= 0.01 * 2 * n,
-           f"materialized {allocated} bytes, expected about {2 * n}")
-    _check(peak <= allocated + largest, f"peak {peak} > {allocated} + largest {largest}")
-    _check(all(v.is_cuda and v.dtype == cfg.dtype for v in values.values()), "values")
-    _check(all(is_deferred(p) for p in model.parameters()), "the module was changed")
-
-    # Order independence, distinct streams, statistics.
-    last = f"layers.{cfg.n_layers - 1}.w_down.weight"
-    alone = materialize_tensor_torch(model.layers[-1].w_down.weight, seed=MAT_SEED)
-    _check(torch.equal(alone, values[last]), f"{last} alone differs from the module's")
-    del alone
-    _check(not torch.equal(values["layers.0.wq.weight"], values["layers.1.wq.weight"]),
-           "layers 0 and 1 drew the same wq")
-    resid = 0.02 / math.sqrt(2 * cfg.n_layers)
-    stds = {"wq": values["layers.0.wq.weight"].float().std().item(),
-            "wo": values["layers.0.wo.weight"].float().std().item()}
-    _check(abs(stds["wq"] / 0.02 - 1) <= 0.02, f"wq std {stds['wq']}")
-    _check(abs(stds["wo"] / resid - 1) <= 0.02, f"wo std {stds['wo']} vs {resid}")
-    norms = [v for k, v in values.items() if k.endswith("norm.weight")]
-    _check(len(norms) == 2 * cfg.n_layers + 1 and all(bool((v == 1).all()) for v in norms),
-           "a norm weight is not exactly 1")
-
-    # Load by assignment (no copy), then the forward and train steps.
-    model.load_state_dict(values, assign=True)
-    _check(all(p.data_ptr() == values[k].data_ptr() for k, p in model.named_parameters()),
-           "load_state_dict copied")
-    del values
-    _check(torch.cuda.memory_allocated() - before == allocated, "loading allocated bytes")
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
-    c0 = _counts(fa)
-    with torch.inference_mode():
-        logits = model(tokens)
-    _check(logits.shape == (BATCH, SEQ, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-           "materialized model's logits")
-    _check(fa.launches - c0["flash_fwd"] == cfg.n_layers, "forward flash launches")
-    del logits
-
-    def sgd(params):
-        return torch.optim.SGD(params, lr=TRAIN_LR)
-
-    _, step_fn = make_train_step(cfg, sgd)
-    state = TrainState(model, sgd(model.parameters()), 0)
-    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    losses, step_ms = [], []
-    for i in range(MAT_TRAIN_STEPS):
-        seq = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen, device="cuda")
-        c0 = _counts(fa)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": seq[:, :-1], "targets": seq[:, 1:]})
-        losses.append(metrics["loss"].item())
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        launched = {k: v - c0[k] for k, v in _counts(fa).items()}
-        _check(math.isfinite(losses[-1]) and not metrics["nonfinite"],
-               f"materialized model step {i + 1}: loss {losses[-1]}")
-        _check(launched == want, f"materialized model step {i + 1}: launches {launched}")
-    del state, model
-    _free()
-    stats = {"params": n, "materialize_s": mat_s, "bytes": allocated, "peak_bytes": peak,
-             "largest_param_bytes": largest, "std": stds, "losses": losses,
-             "step_ms": step_ms}
-    print(f"[materialize] llama_7b seed {MAT_SEED}: {n} params in {mat_s:.3f} s; bytes "
-          f"{allocated} (2 x params = {2 * n}), peak {peak} (<= + largest {largest}); "
-          f"{last} alone bit-equal; std wq {stds['wq']:.6f} (0.02), wo {stds['wo']:.6f} "
-          f"({resid:.6f}); norms 1; loaded by assignment; forward {cfg.n_layers} launches; "
-          f"{MAT_TRAIN_STEPS} SGD steps: losses {losses}, ms {[round(t, 1) for t in step_ms]}")
-    return stats
 
 
 def phase_materialize_gates(cfg):
@@ -1352,16 +1330,44 @@ def phase_fit(cfg, fa):
     return stats
 
 
-def _kernel_entry(name, source, replaces, row, launches):
+# Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
+# it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
+PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
+                "flash_bwd_dkv": 438}
+
+
+def _kernel_entry(name, kernel, row, launches):
     return {
         "name": name, "route": "cuda",
-        "source": f"torchdistx_tpu_torch/ops/cuda/csrc/{source}",
-        "replaces": f"torchdistx_tpu/ops/pallas/flash_attention.py:{replaces}",
+        "source": f"torchdistx_tpu_torch/ops/cuda/csrc/{kernel}.cu",
+        "replaces": f"torchdistx_tpu/ops/pallas/flash_attention.py:{PALLAS_LINES[kernel]}",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     }
+
+
+def _kernels_line(rows, bwd_rows, launches, wide_stats):
+    """The kernels line's entries: each kernel at its first row (the main
+    paths' shapes) with ``launches(kernel)``; then each D = 256 instance
+    that the D = 256 path launched, at phase 2's row of the path's own
+    shape and dtype, with the launches of the path's part in that dtype."""
+    first = {"flash_fwd": rows[0], **{r["kernel"]: r for r in reversed(bwd_rows)}}
+    entries = [_kernel_entry(kernel, kernel, first[kernel], launches(kernel))
+               for kernel in PALLAS_LINES]
+    for dtype, shape in WIDE_PATH_SHAPES.items():
+        dtype_name = str(dtype).replace("torch.", "")
+        launched = wide_stats[f"launches_{'f32' if dtype == torch.float32 else 'bf16'}"]
+        path_rows = {"flash_fwd": next(r for r in rows if r["shape"] == shape)}
+        path_rows.update({r["kernel"]: r for r in bwd_rows if r["shape"] == shape})
+        for kernel in PALLAS_LINES:
+            if launched[kernel] == 0:
+                continue
+            _check(kernel in path_rows, f"D 256 path: no {dtype_name} row of {kernel}")
+            entries.append(_kernel_entry(f"{kernel} (D 256, {dtype_name})", kernel,
+                                         path_rows[kernel], {"head_dim_256": launched[kernel]}))
+    return entries
 
 
 def main() -> int:
@@ -1401,15 +1407,17 @@ def main() -> int:
 
     fwd_stats = check_forward_against_f32(model, tokens, logits)
     fwd_peak = torch.cuda.max_memory_allocated()
-    del model, logits
+    del logits
     _free()
 
     _reset_counts(fa)  # the train path starts here
-    train_stats = phase_train(cfg, fa)
+    train_stats = phase_train(cfg, fa, model)
     train_launches = _counts(fa)  # the train path ends here
     print(f"[train path] launches: {json.dumps(train_launches)}")
     for kernel, n in train_launches.items():
         _check(n > 0, f"{kernel} was not launched on the train path")
+    del model
+    _free()
 
     gate_stats = phase_train_gates(cfg)
 
@@ -1420,45 +1428,21 @@ def main() -> int:
     for kernel in ("flash_fwd", "flash_bwd_fused"):
         _check(fit_launches[kernel] > 0, f"{kernel} was not launched on the fit path")
 
-    _reset_counts(fa)  # the materialize path starts here
-    mat_stats = phase_materialize(cfg, fa)
-    mat_launches = _counts(fa)  # the materialize path ends here
-    print(f"[materialize path] launches: {json.dumps(mat_launches)}")
-    for kernel in ("flash_fwd", "flash_bwd_fused"):
-        _check(mat_launches[kernel] > 0, f"{kernel} was not launched on the materialize path")
     mat_gate_stats = phase_materialize_gates(cfg)
 
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
         "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
-        "wide_llama": wide_stats, "materialize": mat_stats,
-        "materialize_gates": mat_gate_stats,
+        "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
         "script_s": time.perf_counter() - t_start,
     }))
 
     def launches(kernel):
         return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
-                "fit": fit_launches[kernel], "materialize": mat_launches[kernel]}
+                "fit": fit_launches[kernel]}
 
-    # The D = 256 instances' rows: phase 2's wide_d256 shape.
-    wide = {r["kernel"]: r for r in reversed(bwd_rows) if r["D"] == 256}
-    wide["flash_fwd"] = next(r for r in rows if r["D"] == 256)
-
-    by_kernel = {r["kernel"]: r for r in reversed(bwd_rows)}  # first row of each
-    print(json.dumps({"kernels": [
-        _kernel_entry("flash_fwd", "flash_fwd.cu", 161, rows[0], launches("flash_fwd")),
-        _kernel_entry("flash_bwd_fused", "flash_bwd_fused.cu", 492,
-                      by_kernel["flash_bwd_fused"], launches("flash_bwd_fused")),
-        _kernel_entry("flash_bwd_dq", "flash_bwd_dq.cu", 393,
-                      by_kernel["flash_bwd_dq"], launches("flash_bwd_dq")),
-        _kernel_entry("flash_bwd_dkv", "flash_bwd_dkv.cu", 438,
-                      by_kernel["flash_bwd_dkv"], launches("flash_bwd_dkv")),
-        *(_kernel_entry(f"{kernel} (D 256)", f"{kernel}.cu", line, wide[kernel],
-                        {"head_dim_256": wide_launches[kernel]})
-          for kernel, line in (("flash_fwd", 161), ("flash_bwd_fused", 492),
-                               ("flash_bwd_dq", 393), ("flash_bwd_dkv", 438))),
-    ]}))
+    print(json.dumps({"kernels": _kernels_line(rows, bwd_rows, launches, wide_stats)}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

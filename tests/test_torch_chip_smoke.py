@@ -170,3 +170,53 @@ def test_wide_llama_has_256_wide_heads():
     assert fa._kernel_head_dim(cfg.head_dim) == 256
     assert chip_smoke.WIDE_STREAMED_S > 2048 and fa.backward_route(chip_smoke.WIDE_STREAMED_S) \
         == "streamed"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_d256_path_rows_are_the_paths_own_shapes(dtype):
+    # Phase 2 holds each D = 256 kernel that the D = 256 path launches at the
+    # path's own (B, S, Hq, Hkv, D) and dtype: f32 at WIDE_F32_BATCH (the
+    # fused backward), bf16 at 1 x WIDE_STREAMED_S (the streamed pair).
+    cfg = chip_smoke._wide_llama_cfg()
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    b, s = chip_smoke.WIDE_F32_BATCH if dtype == torch.float32 else (1, chip_smoke.WIDE_STREAMED_S)
+    name = chip_smoke.WIDE_PATH_SHAPES[dtype]
+    fwd = [r for r in chip_smoke.FLASH_SHAPES if r[0] == name]
+    assert [r[1:] for r in fwd] == [(b, s, *heads, dtype, True)]
+    bwd = [r for r in chip_smoke.BWD_SHAPES if r[0] == name]
+    assert [r[1:] for r in bwd] == [(b, s, *heads, dtype, True, fa.backward_route(s))]
+
+
+def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
+    # Fake rows named by phase 2's shapes; the D = 256 entries must come
+    # from the path's own rows with the launches of the path's part in
+    # that dtype, and every entry carries the contract's keys.
+    shapes = sorted({r[0] for r in chip_smoke.FLASH_SHAPES + chip_smoke.BWD_SHAPES})
+
+    def row(shape, kernel=None):
+        r = {"shape": shape, "max_abs_err": 0.0, "ms": shapes.index(shape), "plain_ms": 2.0,
+             "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1}
+        return r if kernel is None else {**r, "kernel": kernel}
+
+    rows = [row(r[0]) for r in chip_smoke.FLASH_SHAPES]
+    bwd_rows = [row(r[0], k) for r in chip_smoke.BWD_SHAPES
+                for k in chip_smoke.BWD_KERNELS[r[8]]]
+    wide = {"launches_f32": {"flash_fwd": 8, "flash_bwd_fused": 6, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0},
+            "launches_bf16": {"flash_fwd": 2, "flash_bwd_fused": 0, "flash_bwd_dq": 2,
+                              "flash_bwd_dkv": 2}}
+    entries = chip_smoke._kernels_line(rows, bwd_rows, lambda k: {"train": 3}, wide)
+    names = [e["name"] for e in entries]
+    assert names == ["flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+                     "flash_fwd (D 256, float32)", "flash_bwd_fused (D 256, float32)",
+                     "flash_fwd (D 256, bfloat16)", "flash_bwd_dq (D 256, bfloat16)",
+                     "flash_bwd_dkv (D 256, bfloat16)"]
+    assert [e["launches"] for e in entries] == [3, 3, 3, 3, 8, 6, 2, 2, 2]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(e) for e in entries)
+    f32, bf16 = (shapes.index(chip_smoke.WIDE_PATH_SHAPES[d])
+                 for d in (torch.float32, torch.bfloat16))
+    assert [e["ms"] for e in entries[4:]] == [f32, f32, bf16, bf16, bf16]
+    assert entries[6]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/flash_fwd.cu"
+    assert entries[6]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:161"

@@ -439,8 +439,9 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
 
 // The f32 body's tiles: q rows, then k and v rows padded by one float so
 // that lanes reading rows hit distinct banks.  Up to D = 128 they fit the
-// 48 KB of static shared memory; at D = 256 (82 KB) they are dynamic shared
-// memory, which needs the opt-in attribute.
+// 48 KB of static shared memory, as three arrays (the code of the f32
+// instances from before bf16 was added); at D = 256 (82 KB) they are this
+// struct in dynamic shared memory, which needs the opt-in attribute.
 template <int D>
 struct F32Tiles {
   static constexpr int kBQ = 16, kBK = 32;
@@ -461,17 +462,23 @@ flash_fwd_f32(const Elem* __restrict__ q, const Elem* __restrict__ k,
   using Tiles = F32Tiles<D>;
   constexpr int BQ = Tiles::kBQ, BK = Tiles::kBK;
   constexpr int RPW = BQ / (kThreads / 32), DPL = D / 32;
-  Tiles* tiles;
+  float (*qs)[D];
+  float (*ks)[D + 1];
+  float (*vs)[D + 1];
   if constexpr (kF32Dynamic<D>) {
     extern __shared__ float4 fwd_f32_smem[];
-    tiles = reinterpret_cast<Tiles*>(fwd_f32_smem);
+    Tiles* tiles = reinterpret_cast<Tiles*>(fwd_f32_smem);
+    qs = tiles->qs;
+    ks = tiles->ks;
+    vs = tiles->vs;
   } else {
-    __shared__ Tiles fixed;
-    tiles = &fixed;
+    __shared__ float qs_fixed[BQ][D];
+    __shared__ float ks_fixed[BK][D + 1];
+    __shared__ float vs_fixed[BK][D + 1];
+    qs = qs_fixed;
+    ks = ks_fixed;
+    vs = vs_fixed;
   }
-  auto& qs = tiles->qs;
-  auto& ks = tiles->ks;
-  auto& vs = tiles->vs;
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
