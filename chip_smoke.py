@@ -15,9 +15,9 @@ Phases, each printing a line:
    of a backward kernel must give the same bits in every output that it
    sums in a fixed order (all but the fused kernel's dq);
    ``[head dims]``: the forward and the three backward kernels at head dims
-   without a kernel instance (16, 32, 80, 192: zero-padded to 64, 128 or
-   256 by the wrappers) and at 256, bf16 and f32, against their plain
-   versions, the rows above 128 timed beside SDPA; then
+   without a kernel instance (16, 32, 80, 192, 320: zero-padded to 64, 128,
+   256 or 512 by the wrappers) and at 256 and 512, bf16 and f32, against
+   their plain versions, the rows above 128 timed beside SDPA; then
    ``Llama(llama_test())`` (head_dim 16) on the card, its forward and 3 SGD
    steps of ``make_train_step`` against the CPU port on the same weights;
    then the D = 256 path: a 2-layer Llama of dim 1024 and head_dim 256 in
@@ -53,15 +53,23 @@ Phases, each printing a line:
    below; the save, restore and step times;
 9. ``[materialize]``: the f32-recorded Llama-7B materialized in bf16 (its
    peak), two recordings of a 2-layer model bit-equal, and a 1-rank NCCL
-   mesh (DTensor values equal to the unsharded ones).
+   mesh (DTensor values equal to the unsharded ones);
+10. ``[slowmo]``: ``initialize`` a 1-rank NCCL group, ``make_mesh``, and
+   ``make_slowmo_train_step`` on the full Llama-7B (bf16, remat, SGD base,
+   averaging every 2 steps): 6 steps of one repeated 4 x 512 batch, then a
+   plain and a profiled averaging step (the averaging's device time against
+   its bound), with the launch, ``prev``, momentum and loss gates below;
+11. ``[slowmo replicas]``: two SlowMo replicas on the one card (two
+   processes over gloo, ``llama_test`` in f32) against the same two-rank run
+   on the CPU, bit-equal after each averaging step.
 
-Four main paths are driven, each with every launch count set to 0 just
+Five main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
-train path (phase 6, on the forward path's values) and the fit path
-(phase 8).  Any failed check raises, so the script exits non-zero and
-prints no result.  float32 matmuls run in full float32 (TF32 is switched
-off).  The last three lines are the kernels' summary, the
+train path (phase 6, on the forward path's values), the fit path (phase 8)
+and the SlowMo path (phase 10).  Any failed check raises, so the script
+exits non-zero and prints no result.  float32 matmuls run in full float32
+(TF32 is switched off).  The last three lines are the kernels' summary, the
 card's name and power limit, then the result object.
 """
 
@@ -102,6 +110,8 @@ FLASH_SHAPES = [
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True),
     ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True),
     ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True),
+    # The D = 512 instances (CUDA cores) at [head dims]' shape.
+    ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -139,6 +149,8 @@ BWD_SHAPES = [
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True, "streamed"),
     ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True, "fused"),
     ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True, "streamed"),
+    ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "fused"),
+    ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "streamed"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -180,11 +192,11 @@ GRAD_F32_RTOL = 1e-3
 GRAD_BF16_SLACK = 1.1
 
 # [head dims]: head dims without a kernel instance (the wrappers pad them to
-# 64, 128 or 256) and the 256 instances, at (B, S, Hq, Hkv), the ones above
-# 128 timed beside SDPA; llama_test on the card against the CPU port within
-# HEAD_DIM_LOSS_ATOL (f32, TF32 off), SGD(lr) for 3 steps.
+# 64, 128, 256 or 512) and the 256 and 512 instances, at (B, S, Hq, Hkv), the
+# ones above 128 timed beside SDPA; llama_test on the card against the CPU
+# port within HEAD_DIM_LOSS_ATOL (f32, TF32 off), SGD(lr) for 3 steps.
 PADDED_HEAD_DIMS = [16, 32, 80]
-WIDE_HEAD_DIMS = [192, 256]
+WIDE_HEAD_DIMS = [192, 256, 320, 512]
 PADDED_SHAPE = (2, 300, 8, 2)
 HEAD_DIM_LOSS_ATOL = 1e-5
 HEAD_DIM_SGD_LR = 0.1
@@ -219,6 +231,26 @@ FIT_SHAPE = (4, 512)
 FIT_STEPS, FIT_EVERY, FIT_KEEP, FIT_STOP = 6, 2, 3, 3
 FIT_DATA_SEED = 6
 FIT_LOSS_ATOL = 0.02
+
+# [slowmo]: make_slowmo_train_step on the full llama_7b (bf16, remat), one
+# replica on a 1-rank NCCL mesh, SGD at SLOWMO_LR, averaging every
+# SLOWMO_FREQ steps; then one more cycle, whose averaging step is profiled.
+# At SLOWMO_LR the loss on the repeated batch falls over SLOWMO_STEPS steps
+# in bf16 (from 11.23 to 5-6 by step 7 on an H100); from 0.5 up it climbs again
+# by step 6, and from 8 it overflows to nan.  SGD, because parameters,
+# gradients, prev and momentum are 4 x 13.48 GB: an AdamW base would add 27
+# GB past 80 GB.
+SLOWMO_SHAPE = (4, 512)
+SLOWMO_STEPS = 6
+SLOWMO_LR = 0.1
+SLOWMO_FREQ, SLOWMO_FACTOR, SLOWMO_SLR = 2, 0.5, 1.0
+SLOWMO_DATA_SEED = 11
+# Two replicas on the one card (gloo, 2 processes; NCCL takes one rank per
+# device): llama_test in f32 on rows that differ, SLOWMO_FREQ, against the
+# same 2-rank run on the CPU within SLOWMO_REPLICA_ATOL (TF32 off).
+SLOWMO_REPLICA_STEPS = 4
+SLOWMO_REPLICA_ATOL = 1e-5
+SLOWMO_REPLICA_TIMEOUT_S = 300
 
 
 def _check(ok: bool, what: str) -> None:
@@ -303,7 +335,40 @@ def _bwd_bound(kernel, b, s, hq, hkv, d, dtype, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_build() -> None:
+def _ptxas_report(logs):
+    """{demangled kernel: {registers, spill_stores, spill_loads, stack}} from
+    nvcc's -Xptxas -v output."""
+    import os
+    import re
+
+    entries, current = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = m.group(1)
+                entries[current] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if current is not None and m:
+                entries[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                        spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if current is not None and m:
+                entries[current]["registers"] = int(m.group(1))
+    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cu++filt")
+    names = subprocess.run([filt], input="\n".join(entries), text=True, capture_output=True,
+                           check=True, timeout=60).stdout.splitlines()
+    out = {}
+    for mangled, name in zip(entries, names):
+        name = name.removeprefix("void ")  # "ns::kernel<T, (int)D>(args)"
+        out[name[:name.rindex(">") + 1]] = entries[mangled]
+    return out
+
+
+def phase_build():
+    """Build every kernel; returns the ptxas report of each instance."""
     from torchdistx_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
@@ -315,6 +380,11 @@ def phase_build() -> None:
             if any(w in line for w in ("Compiling entry", "registers", "spill",
                                        "Performance Loss")):
                 print(f"[build] {name}: {line.strip()}")
+    report = _ptxas_report(_build.build_logs)
+    _check(bool(report) or not built, "no ptxas report from the build")
+    wide = {k: v for k, v in report.items() if "(int)512" in k}
+    print("[build] the D = 512 instances: " + json.dumps(wide))
+    return report
 
 
 def phase_kernels():
@@ -1330,6 +1400,251 @@ def phase_fit(cfg, fa):
     return stats
 
 
+def _span_ms(prof, name):
+    """Device time of the user annotations named ``name`` in ``prof``."""
+    return sum(ev.time_range.elapsed_us() for ev in _device_events(prof, annotations=True)
+               if ev.name == name) / 1e3
+
+
+def phase_slowmo(cfg, fa):
+    """The SlowMo path: ``initialize`` a 1-rank NCCL group, ``make_mesh``,
+    ``make_slowmo_train_step`` on ``cfg`` (``init_fn`` records and
+    materializes on the card), SLOWMO_STEPS steps of one repeated batch with
+    exact launch counts, parameters equal to ``prev`` after every averaging
+    step, momentum non-zero from the first averaging step, the loss falling;
+    then one more cycle, its averaging step profiled."""
+    import socket
+
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.models.llama import num_params
+    from torchdistx_tpu_torch.parallel import MeshSpec, initialize, make_mesh
+    from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+    from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    info = initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh(MeshSpec())
+
+        def opt(params):
+            return SlowMomentumOptimizer(
+                torch.optim.SGD(params, lr=SLOWMO_LR), base_lr=SLOWMO_LR,
+                slowmo_freq=SLOWMO_FREQ, slowmo_factor=SLOWMO_FACTOR, slowmo_lr=SLOWMO_SLR)
+
+        init_fn, step_fn = make_slowmo_train_step(cfg, mesh, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_fn(MAT_SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sm = state.optimizer
+        _check(sm.group.group_name == mesh.get_group("dp").group_name
+               and dist.get_backend(sm.group) == "nccl",
+               "the SlowMo optimizer does not average over the mesh's NCCL dp group")
+        b, s = SLOWMO_SHAPE
+        gen = torch.Generator(device="cuda").manual_seed(SLOWMO_DATA_SEED)
+        seq = torch.randint(0, cfg.vocab_size, (1, b, s + 1), generator=gen, device="cuda")
+        batch = {"tokens": seq[..., :-1], "targets": seq[..., 1:]}
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        losses, step_ms = [], []
+        for i in range(1, SLOWMO_STEPS + 2):
+            c0 = _counts(fa)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+            losses.append(metrics["loss"].item())
+            _check(math.isfinite(losses[-1]) and metrics["step"] == i,
+                   f"slowmo step {i}: loss {losses[-1]}, step {metrics['step']}")
+            _check(launched == want, f"slowmo step {i}: launches {launched}, expected {want}")
+            view = sm.slowmo_state
+            if i % SLOWMO_FREQ == 0:
+                _check(all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                              view.prev)),
+                       f"slowmo step {i}: a parameter differs from prev after averaging")
+            if i >= SLOWMO_FREQ:
+                # A norm weight (1.0) takes no SGD update that bf16 can hold
+                # at these learning rates, so its momentum may stay 0; every
+                # matrix's momentum must not.
+                zero = [n for (n, p), m in zip(state.model.named_parameters(), view.momentum)
+                        if not bool(m.any())]
+                _check(not any(state.model.get_parameter(n).dim() > 1 for n in zero),
+                       f"slowmo step {i}: a matrix's momentum is zero: {zero}")
+        _check(losses[SLOWMO_STEPS - 1] < losses[0],
+               f"slowmo: the loss did not fall on the repeated batch: {losses}")
+        del view
+        held = {}
+
+        def averaging_step():
+            held["out"] = step_fn(state, batch)
+
+        c0 = _counts(fa)
+        _check((sm.slowmo_step + 1) % SLOWMO_FREQ == 0, "the profiled step does not average")
+        profile = _profile("slowmo averaging step", averaging_step)
+        state, metrics = held.pop("out")
+        _check({k: v - c0[k] for k, v in _counts(fa).items()} == want,
+               "slowmo: profiled step launches")
+        _check(all(torch.equal(p, q) for p, q in zip(state.model.parameters(),
+                                                      sm.slowmo_state.prev)),
+               "slowmo: a parameter differs from prev after the profiled averaging step")
+        peak = torch.cuda.max_memory_allocated()
+        n = num_params(cfg)
+        esize = torch.tensor([], dtype=cfg.dtype).element_size()
+        # Averaging reads the parameter, prev and momentum and writes all three.
+        bound_ms = 6 * esize * n / PEAK_BYTES_PER_S * 1e3
+        spans = profile["annotation_spans_ms"]
+        slowmo_span = spans.get("Optimizer.step#SlowMomentumOptimizer.step", 0.0)
+        sgd_span = spans.get("Optimizer.step#SGD.step", 0.0)
+        plain = [step_ms[i - 1] for i in range(3, SLOWMO_STEPS + 1) if i % SLOWMO_FREQ]
+        averaging = [step_ms[i - 1] for i in range(3, SLOWMO_STEPS + 1) if i % SLOWMO_FREQ == 0]
+        plain_ms, averaging_ms = statistics.median(plain), statistics.median(averaging)
+        stats = {
+            "process": list(info.__dict__.values()), "init_s": init_s, "lr": SLOWMO_LR,
+            "freq": SLOWMO_FREQ, "factor": SLOWMO_FACTOR, "slowmo_lr": SLOWMO_SLR,
+            "shape": [b, s], "losses": losses, "step_ms": step_ms,
+            "plain_step_ms_median": plain_ms, "averaging_step_ms_median": averaging_ms,
+            "averaging_added_ms": averaging_ms - plain_ms,
+            "tokens_per_s": SLOWMO_FREQ * b * s / ((plain_ms + averaging_ms) / 1e3),
+            "profile": profile, "optimizer_span_device_ms": slowmo_span,
+            "sgd_span_device_ms": sgd_span,
+            "averaging_device_ms": slowmo_span - sgd_span,
+            "averaging_bound_ms": bound_ms, "averaging_bound_bytes": 6 * esize * n,
+            "launches_per_step": want, "peak_allocated_bytes": peak,
+            "zero_momentum_buffers": zero,
+        }
+        _check(slowmo_span > sgd_span > 0, f"slowmo: optimizer spans {spans}")
+        del state, sm, held, metrics
+    finally:
+        dist.destroy_process_group()
+        _free()
+    print(f"[slowmo] llama_7b ({cfg.n_layers} layers, bf16, remat), {b}x{s}, one replica on a "
+          f"1-rank NCCL mesh, SGD(lr={SLOWMO_LR}) every {SLOWMO_FREQ} steps averaged "
+          f"(factor {SLOWMO_FACTOR}, slowmo_lr {SLOWMO_SLR}): init {init_s:.3f} s; losses "
+          f"{[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in step_ms]}; "
+          f"plain {plain_ms:.3f}, averaging {averaging_ms:.3f} (+{averaging_ms - plain_ms:.3f}) "
+          f"ms; {stats['tokens_per_s']:.1f} tokens/s; averaging on the device "
+          f"{stats['averaging_device_ms']:.3f} ms (optimizer span {slowmo_span:.3f} - SGD "
+          f"{sgd_span:.3f}) against its bound {bound_ms:.3f} ms (bytes); peak allocated {peak} "
+          f"bytes; launches a step {want}")
+    print("[slowmo] " + json.dumps(stats))
+    return stats
+
+
+def slowmo_replica(device, rank, store, out) -> None:
+    """One rank of ``phase_slowmo_replicas``: 2 gloo ranks, llama_test in
+    f32 from the CPU port's seeded weights, SLOWMO_REPLICA_STEPS steps of
+    ``make_slowmo_train_step``'s ``step_fn`` on rows that differ; saves the
+    losses, every step's parameters and the launch counts to ``out``."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+    from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+    from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    try:
+        cfg = llama_test()
+
+        def opt(params):
+            return SlowMomentumOptimizer(torch.optim.SGD(params, lr=HEAD_DIM_SGD_LR),
+                                         base_lr=HEAD_DIM_SGD_LR, slowmo_freq=SLOWMO_FREQ)
+
+        init_fn, step_fn = make_slowmo_train_step(cfg, None, opt, device=device)
+        state = init_fn(TRAIN_SEED)
+        weights = make_train_step(cfg, opt, device="cpu")[0](TRAIN_SEED).model.state_dict()
+        state.model.load_state_dict(weights)
+        seq = torch.randint(0, cfg.vocab_size, (2, 4, 65),
+                            generator=torch.Generator().manual_seed(12))
+        batch = {"tokens": seq[..., :-1], "targets": seq[..., 1:]}
+        _reset_counts(fa)
+        losses, params = [], []
+        for _ in range(SLOWMO_REPLICA_STEPS):
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+            params.append([p.detach().cpu().clone() for p in state.model.parameters()])
+        torch.save({"losses": losses, "params": params, "launches": _counts(fa),
+                    "device": str(next(state.model.parameters()).device)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_slowmo_replicas():
+    """Two SlowMo replicas on the one card (2 processes over gloo) against
+    the same 2-rank run on the CPU, all four processes started together."""
+    import os
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="tdx_slowmo_")
+    runs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(2)]
+            for device in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for device, outs in runs.items():
+            store = os.path.join(root, f"store_{device}")
+            for rank, out in enumerate(outs):
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--slowmo-replica", device, str(rank), store,
+                     out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=SLOWMO_REPLICA_TIMEOUT_S)[0] for p in procs]
+        for p, log in zip(procs, logs):
+            _check(p.returncode == 0, f"a SlowMo replica exited {p.returncode}:\n{log[-3000:]}")
+        got = {device: [torch.load(out, weights_only=True) for out in outs]
+               for device, outs in runs.items()}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    n_layers = 2  # llama_test
+    want = {"flash_fwd": n_layers * SLOWMO_REPLICA_STEPS,
+            "flash_bwd_fused": n_layers * SLOWMO_REPLICA_STEPS,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    loss_err, param_err = 0.0, 0.0
+    for rank in range(2):
+        card, cpu = got["cuda"][rank], got["cpu"][rank]
+        _check(card["device"].startswith("cuda") and cpu["device"] == "cpu", "replica devices")
+        _check(card["launches"] == want, f"card replica {rank}: launches {card['launches']}")
+        _check(not any(cpu["launches"].values()), "a CPU replica launched a kernel")
+        loss_err = max(loss_err, max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"])))
+        for step_a, step_b in zip(card["params"], cpu["params"]):
+            param_err = max(param_err, max((a - b).abs().max().item()
+                                           for a, b in zip(step_a, step_b)))
+    _check(loss_err <= SLOWMO_REPLICA_ATOL and param_err <= SLOWMO_REPLICA_ATOL,
+           f"card replicas vs the CPU run: loss err {loss_err}, param err {param_err}")
+    equal = {}
+    for device in ("cuda", "cpu"):
+        a, b = (r["params"] for r in got[device])
+        equal[device] = [all(torch.equal(x, y) for x, y in zip(sa, sb)) for sa, sb in zip(a, b)]
+        _check(equal[device] == [(i + 1) % SLOWMO_FREQ == 0
+                                 for i in range(SLOWMO_REPLICA_STEPS)],
+               f"{device} replicas bit-equal after steps {equal[device]}")
+    stats = {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+             "replicas_bit_equal_by_step": equal, "launches_per_card_rank": want,
+             "losses_card": [r["losses"] for r in got["cuda"]], "wall_s": wall_s}
+    print(f"[slowmo replicas] 2 gloo ranks on the card vs 2 on the CPU, llama_test f32, "
+          f"{SLOWMO_REPLICA_STEPS} steps, averaging every {SLOWMO_FREQ}: loss max err "
+          f"{loss_err:.3e}, parameter max err {param_err:.3e} (atol {SLOWMO_REPLICA_ATOL}); "
+          f"replicas bit-equal by step {equal['cuda']}; launches per card rank {want}; "
+          f"{wall_s:.1f} s")
+    return stats
+
+
 # Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
 # it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
 PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
@@ -1382,7 +1697,7 @@ def main() -> int:
     from torchdistx_tpu_torch.models.llama import llama_7b
     from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
 
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
     head_dim_stats = phase_head_dims(fa)
@@ -1429,18 +1744,31 @@ def main() -> int:
         _check(fit_launches[kernel] > 0, f"{kernel} was not launched on the fit path")
 
     mat_gate_stats = phase_materialize_gates(cfg)
+    _free()
+
+    _reset_counts(fa)  # the SlowMo path starts here
+    slowmo_stats = phase_slowmo(cfg, fa)
+    slowmo_launches = _counts(fa)  # the SlowMo path ends here
+    print(f"[slowmo path] launches: {json.dumps(slowmo_launches)}")
+    for kernel in ("flash_fwd", "flash_bwd_fused"):
+        _check(slowmo_launches[kernel] > 0, f"{kernel} was not launched on the SlowMo path")
+    _check(slowmo_launches["flash_bwd_dq"] == slowmo_launches["flash_bwd_dkv"] == 0,
+           "the streamed pair was launched on the SlowMo path")
+    replica_stats = phase_slowmo_replicas()
 
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
         "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
         "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
+        "slowmo": slowmo_stats, "slowmo_replicas": replica_stats,
+        "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "script_s": time.perf_counter() - t_start,
     }))
 
     def launches(kernel):
         return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
-                "fit": fit_launches[kernel]}
+                "fit": fit_launches[kernel], "slowmo": slowmo_launches[kernel]}
 
     print(json.dumps({"kernels": _kernels_line(rows, bwd_rows, launches, wide_stats)}))
     print(_smi())
@@ -1452,4 +1780,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--slowmo-replica"]:
+        device, rank, store, out = sys.argv[2:6]
+        slowmo_replica(device, int(rank), store, out)
+        sys.exit(0)
     sys.exit(main())

@@ -220,3 +220,26 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
     assert [e["ms"] for e in entries[4:]] == [f32, f32, bf16, bf16, bf16]
     assert entries[6]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/flash_fwd.cu"
     assert entries[6]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:161"
+
+
+def test_slowmo_run_is_cut_as_documented():
+    # The fused route (S <= 2048), whole averaging cycles before the
+    # profiled one, and a step 2 that averages, so momentum is checked from
+    # there on; the two-replica run ends on an averaging step.
+    b, s = chip_smoke.SLOWMO_SHAPE
+    assert fa.backward_route(s) == "fused"
+    assert chip_smoke.SLOWMO_FREQ == 2
+    assert chip_smoke.SLOWMO_STEPS % chip_smoke.SLOWMO_FREQ == 0
+    assert chip_smoke.SLOWMO_STEPS >= 3 * chip_smoke.SLOWMO_FREQ
+    assert chip_smoke.SLOWMO_REPLICA_STEPS % chip_smoke.SLOWMO_FREQ == 0
+    assert chip_smoke.SLOWMO_LR > 0 and chip_smoke.SLOWMO_FACTOR >= 0
+
+
+def test_slowmo_averaging_bound_at_llama_7b():
+    # 12 bytes a bf16 parameter (parameter, prev and momentum read and
+    # written once): 80.9 GB, 24.1 ms at 3.35 TB/s.
+    from torchdistx_tpu_torch.models.llama import llama_7b, num_params
+
+    n = num_params(llama_7b())
+    assert 12 * n == pytest.approx(80.86e9, rel=1e-3)
+    assert 12 * n / chip_smoke.PEAK_BYTES_PER_S * 1e3 == pytest.approx(24.14, rel=1e-3)

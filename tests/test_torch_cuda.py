@@ -66,9 +66,9 @@ def test_flash_fwd_is_deterministic(cuda):
 
 
 def test_flash_rejects_unsupported_head_dim(cuda):
-    # Head dims up to 256 are padded to an instance; above it the launch refuses.
-    q = torch.zeros((1, 8, 2, 320), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
+    # Head dims up to 512 are padded to an instance; above it the launch refuses.
+    q = torch.zeros((1, 8, 2, 640), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim up to 512"):
         fa.flash_attention(q, q, q)
 
 
@@ -166,6 +166,33 @@ def test_flash_d256_matches_plain(cuda, dtype, causal, s, hq, hkv):
     out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa.launches == n0 + 1
+    tol_out, tol_lse = TOL[dtype]
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+    want = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, do, causal=causal)
+    for route in ("fused", "streamed"):
+        got = fa.flash_attention_backward(q, k, v, ref_out, ref_lse, do, causal=causal,
+                                          route=route)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, (route, name)
+            assert bool(torch.isfinite(a).all()), (route, name)
+            assert _bwd_err(a, b) <= BWD_TOL[dtype], (route, name, _bwd_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [320, 512])
+# The D = 512 instances (CUDA cores, bf16 and f32), and 320 padded to them:
+# the shapes of the D = 256 test; the kv-tile body's tiles are 16 rows here.
+@pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (15, 4, 1), (16, 4, 2), (17, 4, 4),
+                                        (33, 8, 2), (300, 4, 1), (2049, 2, 2)])
+def test_flash_d512_matches_plain(cuda, dtype, causal, d, s, hq, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, s, hq, hkv, d, dtype, causal, cuda)
+    n0 = fa.launches
+    out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1 and out.shape == q.shape
     tol_out, tol_lse = TOL[dtype]
     assert (out.float() - ref_out.float()).abs().max().item() <= tol_out
     assert (lse - ref_lse).abs().max().item() <= tol_lse
@@ -328,3 +355,36 @@ def test_fit_and_checkpointer_keep_a_cuda_state_on_the_card(cuda, tmp_path):
     assert all(p.is_cuda for p in state.model.parameters())
     for s in state.optimizer.state.values():
         assert s["exp_avg"].is_cuda and s["exp_avg_sq"].is_cuda
+
+
+def test_slowmo_step_on_cuda_like_the_cpu_port(cuda):
+    # make_slowmo_train_step on the card with one replica (no group):
+    # llama_test through the padded flash kernels, SGD 0.1 averaged every 2
+    # steps, against the CPU port from the same weights (losses and
+    # parameters within 1e-5; f32, TF32 off); the parameters equal prev
+    # after each averaging step.
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+    from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step
+
+    def opt(ps):
+        return SlowMomentumOptimizer(torch.optim.SGD(ps, lr=0.1), base_lr=0.1, slowmo_freq=2)
+
+    cpu_init, cpu_step = make_slowmo_train_step(llama_test(), None, opt, device="cpu")
+    gpu_init, gpu_step = make_slowmo_train_step(llama_test(), None, opt, device=cuda)
+    cpu_state, gpu_state = cpu_init(0), gpu_init(0)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    seq = torch.randint(0, 256, (1, 2, 33), generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": seq[..., :-1], "targets": seq[..., 1:]}
+    n0 = (fa.launches, fa.launches_bwd_fused)
+    for i in range(1, 5):
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        gpu_state, gpu_m = gpu_step(gpu_state, batch)
+        assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= 1e-5, i
+        for a, b in zip(gpu_state.model.parameters(), cpu_state.model.parameters()):
+            assert (a.cpu() - b).abs().max().item() <= 1e-5, i
+        if i % 2 == 0:
+            view = gpu_state.optimizer.slowmo_state
+            assert all(torch.equal(p, q) for p, q in zip(gpu_state.model.parameters(),
+                                                          view.prev))
+    assert (fa.launches - n0[0], fa.launches_bwd_fused - n0[1]) == (8, 8)

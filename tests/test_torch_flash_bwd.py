@@ -138,11 +138,12 @@ def test_backward_rejects_bad_inputs():
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_wide_head_dims_match_jax_flash_attention(causal, d):
     # Head dims above 128: the JAX flash_attention (interpreted) computes
     # them; the port's autograd Function pads 192 to its 256 instance and
-    # runs 256 as it is.  Output and gradients at 1e-5.
+    # 320 to its 512 instance, and runs 256 and 512 as they are.  Output and
+    # gradients at 1e-5.
     q, k, v, do = _inputs(40, 2, 2, d=d, b=1, seed=d)
     j_out, vjp = jax.vjp(
         lambda q_, k_, v_: jfa.flash_attention(q_, k_, v_, causal=causal, interpret=True),

@@ -1,5 +1,5 @@
-"""Head dims that the flash kernels have no instance for (all up to 256 but
-64, 128 and 256): the wrappers zero-pad q, k, v and ``do`` to the next
+"""Head dims that the flash kernels have no instance for (all up to 512 but
+64, 128, 256 and 512): the wrappers zero-pad q, k, v and ``do`` to the next
 instance, run at the true head dim's scale and cut out, dq, dk and dv back.
 
 The identity behind it is checked here on the plain versions, and the
@@ -36,9 +36,9 @@ def _close(got, want):
 
 @pytest.mark.parametrize("d, kernel_d", [(16, 64), (32, 64), (48, 64), (64, 64),
                                          (80, 128), (96, 128), (128, 128), (192, 256),
-                                         (256, 256), (320, 320)])
+                                         (256, 256), (320, 512), (512, 512), (640, 640)])
 def test_kernel_head_dim(d, kernel_d):
-    # The least instance that holds d; above 256 the launch refuses d itself.
+    # The least instance that holds d; above 512 the launch refuses d itself.
     assert fa._kernel_head_dim(d) == kernel_d
 
 

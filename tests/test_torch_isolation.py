@@ -21,8 +21,10 @@ from torchdistx_tpu_torch.materialize import (
 )
 from torchdistx_tpu_torch.models import llama as tllama
 from torchdistx_tpu_torch.models.convert import llama_from_jax_params
-from torchdistx_tpu_torch.parallel.mesh import make_mesh
-from torchdistx_tpu_torch.parallel.train_step import make_train_step
+from torchdistx_tpu_torch.parallel.distributed import initialize, make_hybrid_mesh
+from torchdistx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -50,7 +52,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 27
+    assert n_modules >= 28
 
 
 def test_walk_finds_every_module():
@@ -62,8 +64,12 @@ def test_walk_finds_every_module():
                  "resilience.guard", "telemetry", "telemetry._core",
                  "resilience.retry", "resilience.faults", "resilience.preemption",
                  "parallel.distributed", "parallel.fit", "utils.checkpoint",
-                 "materialize", "parallel.sharding", "parallel.mesh"):
+                 "materialize", "parallel.sharding", "parallel.mesh", "parallel.slowmo"):
         assert "torchdistx_tpu_torch." + want in names
+
+
+def _slowmo(params):
+    return SlowMomentumOptimizer(torch.optim.SGD(params, lr=0.1), base_lr=0.1)
 
 
 def _no_cuda():
@@ -81,9 +87,13 @@ def _no_cuda():
         lambda: materialize_module_torch(deferred_init(torch.nn.Linear, 4, 4)),
         lambda: materialize_tensor_torch(deferred_init(torch.nn.Linear, 4, 4).weight),
         lambda: make_mesh(),
+        lambda: initialize(),
+        lambda: make_hybrid_mesh(MeshSpec(tp=2), MeshSpec(dp=2)),
+        lambda: make_slowmo_train_step(tllama.llama_test(), None, _slowmo)[0](0),
     ],
     ids=["resolve_device", "Llama", "llama_from_jax_params", "make_train_step",
-         "materialize_module_torch", "materialize_tensor_torch", "make_mesh"],
+         "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
+         "make_hybrid_mesh", "make_slowmo_train_step_init_fn"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -238,20 +238,25 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 }
 
 // ---------------------------------------------------------------------------
-// kv-tile-outer body, f32 on the CUDA cores: one block per (kv tile of 32,
+// kv-tile-outer body, f32 on the CUDA cores: one block per (kv tile of BK,
 // kv head, batch), looping over (GQA group, q tile of 16).  Per pair:
 // (A) warp w computes p and ds for q rows 4w..4w+3, one lane per kv column,
 // into shared memory; (B) warp w accumulates dV and dK for kv rows
-// 8w..8w+7, one lane per 32nd output column, in registers; (C, kDq) warp w
-// forms dQ for q rows 4w..4w+3 and adds it to the f32 dq buffer with
-// atomics.  Elem is the storage type (storage.cuh): float at D 64, 128 and
-// 256, bf16 at D 256, where the wgmma kernels' dk and dv accumulators do
-// not fit a consumer's registers; p and ds are rounded to Elem before the
-// products that take them, and dk and dv to Elem on the store.
+// BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
+// (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
+// buffer with atomics.  Elem is the storage type (storage.cuh): float at D
+// 64, 128, 256 and 512, bf16 at D 256 and 512, where the wgmma kernels' dk
+// and dv accumulators do not fit a consumer's registers; p and ds are
+// rounded to Elem before the products that take them, and dk and dv to Elem
+// on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
+// lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
+// as at D 256, where 32-row tiles would need 256) and the tiles at 130 KB;
+// (A) then runs two q rows at once, half a warp on each.
 
 template <int D>
 struct KvTileF32 {
-  static constexpr int BK = 32, BQ = 16, LDK = D + 1, LDP = BK + 1;
+  static constexpr int BK = D > 256 ? 16 : 32, BQ = 16, LDK = D + 1,
+                       LDP = BK + 1;
   static constexpr size_t smem() {
     return (2 * BQ + 2 * BQ * D + 2 * BK * LDK + 2 * BQ * LDP) * sizeof(float);
   }
@@ -327,20 +332,41 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 
       // (A) p and ds for (q row, kv col = lane).
       const bool mask = needs_mask(a.causal, q0, BQ, k0, BK, S);
+      if constexpr (BK == 32) {
 #pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
-        const int qr = warp * RPW + rr;
-        float s = 0.f, dp = 0.f;
+        for (int rr = 0; rr < RPW; ++rr) {
+          const int qr = warp * RPW + rr;
+          float s = 0.f, dp = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(qs[qr * D + d], ks[lane * LDK + d], s);
-          dp = fmaf(dos[qr * D + d], vs[lane * LDK + d], dp);
+          for (int d = 0; d < D; ++d) {
+            s = fmaf(qs[qr * D + d], ks[lane * LDK + d], s);
+            dp = fmaf(dos[qr * D + d], vs[lane * LDK + d], dp);
+          }
+          const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + lane, S);
+          const float p =
+              p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
+          ps[qr * LDP + lane] = tdx::round_to<Elem>(p);
+          dss[qr * LDP + lane] = tdx::round_to<Elem>(dp);
         }
-        const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + lane, S);
-        const float p =
-            p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
-        ps[qr * LDP + lane] = tdx::round_to<Elem>(p);
-        dss[qr * LDP + lane] = tdx::round_to<Elem>(dp);
+      } else {
+        // BK 16: half-warp h of the lanes takes q row rr + h, kv col lane % 16.
+        static_assert(BK == 16 && RPW % 2 == 0, "two q rows a pass");
+        const int col = lane % BK;
+#pragma unroll
+        for (int rr = 0; rr < RPW; rr += 2) {
+          const int qr = warp * RPW + rr + lane / BK;
+          float s = 0.f, dp = 0.f;
+#pragma unroll 8
+          for (int d = 0; d < D; ++d) {
+            s = fmaf(qs[qr * D + d], ks[col * LDK + d], s);
+            dp = fmaf(dos[qr * D + d], vs[col * LDK + d], dp);
+          }
+          const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + col, S);
+          const float p =
+              p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
+          ps[qr * LDP + col] = tdx::round_to<Elem>(p);
+          dss[qr * LDP + col] = tdx::round_to<Elem>(dp);
+        }
       }
       __syncthreads();
 
@@ -405,6 +431,7 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
 static_assert(KvTileF32<256>::smem() <= kMaxSmem, "f32 tile too large");
+static_assert(KvTileF32<512>::smem() <= kMaxSmem, "f32 tile too large");
 
 template <typename Elem, int D, bool kDq>
 int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
@@ -415,8 +442,9 @@ int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 }
 
 // Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
-// D 64, 128 and 256, bf16 at D 256 (dtype 0 = float32, 1 = bfloat16; the
-// bf16 kernels at D 64 and 128 are on wgmma); kDq selects the fused variant.
+// D 64, 128, 256 and 512, bf16 at D 256 and 512 (dtype 0 = float32, 1 =
+// bfloat16; the bf16 kernels at D 64 and 128 are on wgmma); kDq selects the
+// fused variant.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
@@ -431,6 +459,12 @@ int launch_kv(const BwdArgs& args, int B, int D, int dtype,
   }
   if (dtype == 1 && D == 256) {
     return launch_kv_f32<__nv_bfloat16, 256, kDq>(args, B, stream);
+  }
+  if (dtype == 0 && D == 512) {
+    return launch_kv_f32<float, 512, kDq>(args, B, stream);
+  }
+  if (dtype == 1 && D == 512) {
+    return launch_kv_f32<__nv_bfloat16, 512, kDq>(args, B, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -50,7 +50,7 @@
 // bits as with the steps written out here, at the same time within 1 %
 // and with one register more (163 at D = 128), no spills.
 //
-// f32 at D 64, 128 and 256, and bf16 at D 256: CUDA cores, the
+// f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512: CUDA cores, the
 // kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32), shared with the
 // fused kernel.
 //

@@ -37,9 +37,9 @@
 // bf16 through the warpgroup's half of the q buffer and a TMA store, which
 // drops rows >= S.
 //
-// f32 at D 64, 128 and 256, and bf16 at D 256 (bwd_dq_f32): CUDA cores,
-// 16 q rows a block, one warp lane per kv column for the two dots and per
-// 32nd output column for dS.K.
+// f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512 (bwd_dq_f32):
+// CUDA cores, 16 q rows a block, one warp lane per kv column for the two
+// dots and per 32nd output column for dS.K.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 3 products of 2 D flops per causal
@@ -304,8 +304,9 @@ struct DqF32 {
 // dq on the CUDA cores: one block per (q tile of 16, q head, batch), looping
 // over kv tiles of 32; warp w forms p and ds for q rows 4w..4w+3, one lane
 // per kv column, and dq = ds.k with one lane per 32nd output column.  Elem
-// is the storage type (storage.cuh): float at D 64, 128 and 256, bf16 at D
-// 256; ds is rounded to Elem before ds.k, and dq to Elem on the store.
+// is the storage type (storage.cuh): float at D 64, 128, 256 and 512, bf16
+// at D 256 and 512 (192 KB of tiles; a lane holds 4 rows x 16 dq floats);
+// ds is rounded to Elem before ds.k, and dq to Elem on the store.
 template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   using T = DqF32<D>;
@@ -404,7 +405,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   }
 }
 
-static_assert(DqF32<256>::smem() <= kMaxSmem, "f32 dq tile too large");
+static_assert(DqF32<512>::smem() <= kMaxSmem, "f32 dq tile too large");
 
 template <typename Elem, int D>
 int launch_dq(const BwdArgs& args, int B, cudaStream_t stream) {
@@ -457,5 +458,7 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(args, B, st);
   if (dtype == 0 && D == 256) return launch_dq<float, 256>(args, B, st);
   if (dtype == 1 && D == 256) return launch_dq<__nv_bfloat16, 256>(args, B, st);
+  if (dtype == 0 && D == 512) return launch_dq<float, 512>(args, B, st);
+  if (dtype == 1 && D == 512) return launch_dq<__nv_bfloat16, 512>(args, B, st);
   return cudaErrorInvalidValue;
 }

@@ -72,7 +72,7 @@
 // next work's k and v keep streaming in); one dq tile that the
 // warpgroups hand over by an mbarrier, 3 stages, 0.127 (0.410).
 //
-// f32 at D 64, 128 and 256, and bf16 at D 256: CUDA cores, the
+// f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512: CUDA cores, the
 // kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32 with kDq), with
 // dq by scalar atomics into the f32 buffer.
 //

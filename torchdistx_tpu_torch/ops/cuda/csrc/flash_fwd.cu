@@ -47,8 +47,9 @@
 //
 // f32 (flash_fwd_f32): CUDA cores, 4 warps, 16 q rows per block, kv tiles
 // of 32, one warp lane per kv column for q.k and per output column for P.V.
-// It takes f32 at D 64, 128 and 256, and bf16 at D 256, where the wgmma
-// kernel's 64 x 256 f32 accumulator does not fit a consumer's registers:
+// It takes f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512, where
+// the wgmma kernel's 64 x D f32 accumulator does not fit a consumer's
+// registers:
 // bf16 is widened to f32 on the load into shared memory, p is rounded to
 // bf16 before P.V and out to bf16 on the store (storage.cuh).
 //
@@ -440,7 +441,8 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
 // The f32 body's tiles: q rows, then k and v rows padded by one float so
 // that lanes reading rows hit distinct banks.  Up to D = 128 they fit the
 // 48 KB of static shared memory, as three arrays (the code of the f32
-// instances from before bf16 was added); at D = 256 (82 KB) they are this
+// instances from before bf16 was added); at D = 256 (82 KB) and D = 512
+// (160 KB: a lane then holds 4 rows x 16 output floats) they are this
 // struct in dynamic shared memory, which needs the opt-in attribute.
 template <int D>
 struct F32Tiles {
@@ -452,6 +454,8 @@ struct F32Tiles {
 
 template <int D>
 constexpr bool kF32Dynamic = sizeof(F32Tiles<D>) > 48 * 1024;
+static_assert(sizeof(F32Tiles<512>) <= 232448,
+              "exceeds the 227 KB a block may use");
 
 template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -649,6 +653,12 @@ extern "C" int tdx_flash_fwd(const void* q, const void* k, const void* v,
                                   causal, st);
   } else if (dtype == 0 && D == 256) {
     return launch_f32<float, 256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
+                                  causal, st);
+  } else if (dtype == 1 && D == 512) {
+    return launch_f32<__nv_bfloat16, 512>(q, k, v, o, lse, B, S, Hq, Hkv,
+                                          scale_log2, causal, st);
+  } else if (dtype == 0 && D == 512) {
+    return launch_f32<float, 512>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
                                   causal, st);
   }
   return cudaErrorInvalidValue;

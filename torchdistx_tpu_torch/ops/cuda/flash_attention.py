@@ -21,15 +21,15 @@ plain version; a CUDA tensor launches the kernel or raises.  Each launch adds
 one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
 
-The kernels have instances for head dims 64, 128 and 256 (bf16 at 64 and
-128 on wgmma; f32, and bf16 at 256, on the CUDA cores).  Every entry point
-takes any head dim up to 256: q, k, v (and ``do``) are zero-padded on the
-last axis to the next instance, the kernels run with the scale of the true
-head dim, and out, dq, dk and dv are cut back to it.  Zero columns add
+The kernels have instances for head dims 64, 128, 256 and 512 (bf16 at 64
+and 128 on wgmma; f32, and bf16 at 256 and 512, on the CUDA cores).  Every
+entry point takes any head dim up to 512: q, k, v (and ``do``) are
+zero-padded on the last axis to the next instance, the kernels run with the
+scale of the true head dim, and out, dq, dk and dv are cut back to it.  Zero columns add
 nothing to ``q.k^T``, and out, dq, dk and dv are zero in them, so the padded
 launch computes exactly what an unpadded one would.  The CPU path pads the
 same way, so the tests here cover the padding the card runs.  A head dim
-above 256 raises on CUDA.
+above 512 raises on CUDA.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ __all__ = [
 _MASK = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 256, 512)
 # Sequences up to this length take the fused backward (the JAX package's
 # _FUSED_BWD_MAX_KV, compared there with the length padded to 128; padding
 # to 128 never crosses 2048 = 16 x 128, so the unpadded length decides the
@@ -232,7 +232,7 @@ def _check(q, k, v) -> None:
 
 
 def _check_kernel_inputs(tensors, b, hq) -> None:
-    """What every kernel takes: bf16 or f32, head_dim 64, 128 or 256,
+    """What every kernel takes: bf16 or f32, head_dim 64, 128, 256 or 512,
     contiguous, 16-byte aligned, grid dimensions in range."""
     q = tensors["q"]
     if q.dtype not in _DTYPES:

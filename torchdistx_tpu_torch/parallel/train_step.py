@@ -1,8 +1,9 @@
-"""The single-device Llama training step.
+"""The Llama training steps: the single-device step and the SlowMo step.
 
-Counterpart of ``torchdistx_tpu/parallel/train_step.py`` (``TrainState`` and
-``make_train_step``) on one device.  ``tx`` takes the place of the optax
-transform: it builds a ``torch.optim.Optimizer`` over the model's
+Counterpart of ``torchdistx_tpu/parallel/train_step.py`` (``TrainState``,
+``make_train_step`` on one device, and :func:`make_slowmo_train_step`, whose
+replicas are processes, one device each).  ``tx`` takes the place of the
+optax transform: it builds a ``torch.optim.Optimizer`` over the model's
 parameters.  The JAX step is a pure function of an immutable state; here
 the model and the optimizer update in place (one copy of the weights and
 moments in memory, which a 7B model on one 80 GB card needs), and
@@ -15,6 +16,11 @@ The mesh arguments of the JAX ``make_train_step`` (``mesh``, ``tp``,
 Its ``loss_fn`` option has no counterpart yet: the step trains on
 :meth:`Llama.loss`, whose attention is the flash kernel on CUDA tensors and
 the plain version on CPU tensors.
+
+The JAX SlowMo step keeps the replicas as a stacked leading ``dp`` axis and
+vmaps the loss over it; here each rank is one replica and trains on its own
+row of the ``(dp, B, S)`` batch, and the averaging is a collective over the
+mesh's ``dp`` group (see :mod:`~torchdistx_tpu_torch.parallel.slowmo`).
 """
 
 from __future__ import annotations
@@ -22,13 +28,16 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..deferred_init import deferred_init, materialize_module
 from ..models.llama import Llama
 from ..resilience.guard import tree_allfinite
+from .slowmo import SlowMomentumOptimizer, _group_or_default
 
-__all__ = ["TrainState", "make_train_step"]
+__all__ = ["TrainState", "make_slowmo_train_step", "make_train_step",
+           "slowmo_batch_sharding"]
 
 
 class TrainState(NamedTuple):
@@ -115,5 +124,135 @@ def make_train_step(
         if nonfinite_guard:
             metrics["nonfinite"] = not ok
         return new_state, metrics
+
+    return init_fn, step_fn
+
+
+# ---------------------------------------------------------------------------
+# SlowMo training step (one replica per rank, averaged over the dp group)
+
+
+def _dp_coordinates(mesh, dp_axis: str):
+    """``(group, size, index)`` of this rank's replica: the mesh's
+    ``dp_axis`` group; with ``mesh=None`` the default group's world, or one
+    replica (no group) when none is initialized.  A mesh axis other than
+    ``dp_axis`` of size > 1 would shard a replica across ranks, which needs
+    the multi-device port, and raises."""
+    if mesh is None:
+        group = _group_or_default(None)
+        if group is None:
+            return None, 1, 0
+        return group, dist.get_world_size(group), dist.get_rank(group)
+    names = mesh.mesh_dim_names or ()
+    if dp_axis not in names:
+        raise ValueError(f"make_slowmo_train_step: the mesh has no {dp_axis!r} axis "
+                         f"(axes {tuple(names)})")
+    split = {n: mesh.size(i) for i, n in enumerate(names) if n != dp_axis and mesh.size(i) > 1}
+    if split:
+        raise ValueError(
+            f"make_slowmo_train_step: mesh axes {split} would shard a replica "
+            "across ranks, which needs the multi-device port; each rank is one "
+            f"replica on the {dp_axis!r} axis"
+        )
+    return mesh.get_group(dp_axis), mesh.size(names.index(dp_axis)), mesh.get_local_rank(dp_axis)
+
+
+def slowmo_batch_sharding(mesh, *, dp_axis: str = "dp"):
+    """The placement of a SlowMo batch: a function from a ``{"tokens",
+    "targets"}`` batch of shape ``(dp, B, S)`` to this rank's ``(B, S)``
+    rows, those of its ``dp_axis`` coordinate (``mesh=None``: its rank in
+    the default group).  Counterpart of the JAX ``slowmo_batch_sharding``,
+    whose ``P(dp_axis, ...)`` puts row ``i`` on the replica at coordinate
+    ``i``."""
+    _, size, index = _dp_coordinates(mesh, dp_axis)
+
+    def shard(batch):
+        rows = {}
+        for key in ("tokens", "targets"):
+            x = batch[key]
+            if x.dim() != 3 or x.shape[0] != size:
+                raise ValueError(f"SlowMo batch {key!r} must be (dp={size}, B, S), "
+                                 f"not {tuple(x.shape)}")
+            rows[key] = x[index]
+        return rows
+
+    return shard
+
+
+def make_slowmo_train_step(
+    cfg,
+    mesh,
+    opt: Callable[[Any], SlowMomentumOptimizer],
+    *,
+    model=None,
+    dp_axis: str = "dp",
+    tp: Optional[str] = "tp",
+    fsdp: Optional[str] = "fsdp",
+    attn_impl: str = "auto",
+    device: Optional[Any] = None,
+) -> Tuple[Callable, Callable]:
+    """Build ``(init_fn, step_fn)`` for SlowMo training of a :class:`Llama`
+    of ``cfg``, one replica per rank.
+
+    ``mesh`` is a ``DeviceMesh`` (:func:`~torchdistx_tpu_torch.parallel.mesh.
+    make_mesh`, :func:`~torchdistx_tpu_torch.parallel.distributed.
+    make_hybrid_mesh`) whose ``dp_axis`` group is the averaging group, or
+    None for the default group's world (one replica with no group).  Its
+    other axes must have size 1: ``tp``/``fsdp`` sharding within a replica
+    needs the multi-device port and raises, as ``make_train_step`` raises on
+    its mesh arguments.  ``opt`` builds the optimizer from the model's
+    parameters, like ``make_train_step``'s ``tx``, and must return a
+    :class:`SlowMomentumOptimizer`; one built with ``group=None`` averages
+    over the mesh's ``dp`` group.  ``device=None`` means CUDA.
+
+    ``init_fn(seed) -> TrainState``: the model recorded with
+    ``deferred_init`` and materialized from ``seed`` (the same values on
+    every rank, so the replicas start equal), then ``opt(parameters)``.
+
+    ``step_fn(state, batch) -> (state, metrics)``: ``batch`` holds
+    ``"tokens"`` and ``"targets"`` of shape ``(dp, B, S)``; each rank trains
+    on the row of its ``dp`` coordinate.  ``metrics["loss"]`` is the mean
+    of the replicas' losses (one scalar all-reduce, queued without a host
+    sync), ``metrics["step"]`` the step count.  ``attn_impl="auto"`` is the
+    flash kernels on CUDA and the plain attention on the CPU: unlike the JAX
+    step, whose loss is vmapped over stacked replicas and takes XLA's
+    attention, nothing here is vmapped.
+    """
+    if model not in (None, Llama):
+        raise ValueError(
+            "make_slowmo_train_step trains Llama; other model families are not "
+            "ported yet"
+        )
+    del tp, fsdp  # named axes of size > 1 raise in _dp_coordinates
+    device = resolve_device(device)
+    group, _, _ = _dp_coordinates(mesh, dp_axis)
+    shard = slowmo_batch_sharding(mesh, dp_axis=dp_axis)
+    init_model, _ = make_train_step(cfg, opt, device=device, nonfinite_guard=False)
+
+    def init_fn(seed: int) -> TrainState:
+        state = init_model(seed)
+        if not isinstance(state.optimizer, SlowMomentumOptimizer):
+            raise TypeError(
+                "make_slowmo_train_step: opt must build a SlowMomentumOptimizer, "
+                f"not {type(state.optimizer).__name__}"
+            )
+        if state.optimizer.group is None:
+            state.optimizer.group = group
+        return state
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        model, sm = state.model, state.optimizer
+        rows = shard(batch)
+        loss = model.loss(rows["tokens"].to(device), rows["targets"].to(device),
+                          attn_impl=attn_impl)
+        loss.backward()
+        mean = loss.detach().clone()
+        if group is not None:
+            dist.all_reduce(mean, op=dist.ReduceOp.SUM, group=group)
+            mean.div_(dist.get_world_size(group))
+        sm.step()
+        sm.zero_grad(set_to_none=True)
+        step = state.step + 1
+        return TrainState(model, sm, step), {"loss": mean, "step": step}
 
     return init_fn, step_fn
