@@ -12,8 +12,9 @@ for ``step``.
   ``tests/test_slowmo.py``, rank ``r`` taking the gradient of stacked
   replica ``r`` there;
 - ``mesh`` (4 ranks): ``make_hybrid_mesh`` and collectives over its axes;
-- ``step`` (2 ranks): ``make_slowmo_train_step`` on ``llama_test`` from the
-  JAX weights and batch in ``<in_npz>``.
+- ``step`` (2 ranks): ``make_slowmo_train_step`` on ``llama_test`` (or, when
+  ``<in_npz>`` holds ``family="gpt2"``, on ``gpt2_test`` with
+  ``model=gpt2``) from the JAX weights and batch in ``<in_npz>``.
 """
 
 import io
@@ -243,8 +244,8 @@ def _flat(tree, prefix=""):
 
 
 def suite_step(rank, world, extra):
-    from torchdistx_tpu_torch.models.convert import copy_jax_params_, llama_to_jax_params
-    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.models import gpt2, llama
+    from torchdistx_tpu_torch.models.convert import copy_jax_params_, to_jax_params
     from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
     from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
     from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step
@@ -254,6 +255,8 @@ def suite_step(rank, world, extra):
     batch = {"tokens": torch.from_numpy(extra["tokens"]),
              "targets": torch.from_numpy(extra["targets"])}
     mesh = make_mesh(MeshSpec(dp=world), device_type="cpu")
+    family = gpt2 if str(extra.get("family", "llama")) == "gpt2" else llama
+    cfg = gpt2.gpt2_test() if family is gpt2 else llama.llama_test()
     out = {}
 
     def build(freq, factor=0.5):
@@ -261,7 +264,7 @@ def suite_step(rank, world, extra):
             return SlowMomentumOptimizer(torch.optim.SGD(ps, lr=0.1), base_lr=0.1,
                                          slowmo_freq=freq, slowmo_factor=factor)
 
-        return make_slowmo_train_step(llama_test(), mesh, opt, device="cpu")
+        return make_slowmo_train_step(cfg, mesh, opt, model=family, device="cpu")
 
     init_fn, step_fn = build(2)
     state = init_fn(0)
@@ -272,9 +275,9 @@ def suite_step(rank, world, extra):
         state, metrics = step_fn(state, batch)
         out[f"loss/{i}"] = np.array([metrics["loss"].item()])
         out[f"step/{i}"] = np.array([metrics["step"]])
-        # Copies: llama_to_jax_params may return views of the parameters,
-        # which the next step updates in place.
-        for key, value in _flat(llama_to_jax_params(state.model)).items():
+        # Copies: to_jax_params may return views of the parameters, which
+        # the next step updates in place.
+        for key, value in _flat(to_jax_params(state.model)).items():
             out[f"params/{i}/{key}"] = value.copy()
         view = state.optimizer.slowmo_state
         ps = list(state.model.parameters())

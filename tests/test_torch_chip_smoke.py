@@ -243,3 +243,115 @@ def test_slowmo_averaging_bound_at_llama_7b():
     n = num_params(llama_7b())
     assert 12 * n == pytest.approx(80.86e9, rel=1e-3)
     assert 12 * n / chip_smoke.PEAK_BYTES_PER_S * 1e3 == pytest.approx(24.14, rel=1e-3)
+
+
+def test_gpt2_rows_are_the_paths_own_shapes():
+    # Phase 2 holds the forward and the fused backward at the [gpt2] path's
+    # attention: GPT2_SHAPE, gpt2_xl's 25 heads of 64, bf16, causal.
+    from torchdistx_tpu_torch.models.gpt2 import gpt2_xl
+
+    cfg = gpt2_xl()
+    b, s = chip_smoke.GPT2_SHAPE
+    want = (b, s, cfg.n_heads, cfg.n_heads, cfg.head_dim, cfg.dtype, True)
+    fwd = [r[1:] for r in chip_smoke.FLASH_SHAPES if r[0] == chip_smoke.GPT2_HEADS]
+    bwd = [r[1:] for r in chip_smoke.BWD_SHAPES if r[0] == chip_smoke.GPT2_HEADS]
+    assert fwd == [want] and bwd == [(*want, fa.backward_route(s))]
+    assert fa.backward_route(s) == "fused" and cfg.head_dim in fa._HEAD_DIMS
+    assert [shape for shape, _, _ in chip_smoke.GPT2_TRAIN_SHAPES] == [chip_smoke.GPT2_SHAPE]
+    assert s <= cfg.max_seq_len and chip_smoke.SEQ + chip_smoke.NEW_TOKENS <= cfg.max_seq_len
+
+
+def test_gpt2_rows_bounds():
+    # 4 x 1024, 25/25 heads of 64, bf16, causal: the forward reads q, k, v
+    # and writes out (4 x 6,553,600 bf16 values) and lse (4 x 25 x 1024 f32),
+    # by bytes; the fused backward's 5 products over 524,800 pairs a head,
+    # by operations.
+    args = (4, 1024, 25, 25, 64, torch.bfloat16, True)
+    fwd_ms, fwd_by = chip_smoke._flash_bound(*args)
+    assert fwd_by == "bytes"
+    assert fwd_ms == pytest.approx((4 * 6_553_600 * 2 + 102_400 * 4) / 3.35e12 * 1e3, rel=1e-9)
+    bwd_ms, bwd_by = chip_smoke._bwd_bound("flash_bwd_fused", *args)
+    assert bwd_by == "operations"
+    assert bwd_ms == pytest.approx(5 * 2 * 4 * 25 * 64 * 524_800 / 989e12 * 1e3, rel=1e-9)
+
+
+def test_gpt2_entries_take_the_gpt2_rows():
+    def row(shape, kernel=None):
+        r = {"shape": shape, "max_abs_err": 0.0, "ms": 1.0 if shape == "gpt2_xl_heads" else 9.0,
+             "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1}
+        return r if kernel is None else {**r, "kernel": kernel}
+
+    rows = [row(r[0]) for r in chip_smoke.FLASH_SHAPES]
+    bwd_rows = [row(r[0], k) for r in chip_smoke.BWD_SHAPES
+                for k in chip_smoke.BWD_KERNELS[r[8]]]
+    launched = {"flash_fwd": 241, "flash_bwd_fused": 144, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    entries = chip_smoke._gpt2_entries(rows, bwd_rows, launched)
+    assert [e["name"] for e in entries] == ["flash_fwd (gpt2_xl heads, D 64)",
+                                            "flash_bwd_fused (gpt2_xl heads, D 64)"]
+    assert [e["launches"] for e in entries] == [241, 144]
+    assert all(e["ms"] == 1.0 and e["route"] == "cuda" for e in entries)
+    assert entries[1]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:492"
+
+
+def test_moe_path_is_cut_as_documented():
+    # MoEConfig()'s own widths at MOE_LAYERS layers: 4,859,269,120 params
+    # (9.72 GB in bf16; the 32 layers are 37.0 B); capacity 640 at 4 x 512
+    # and 1280 at 1 x 4096; each shape's route is the kernels' rule.
+    import dataclasses
+
+    from torchdistx_tpu_torch.models import moe
+
+    full = moe.MoEConfig()
+    cfg = dataclasses.replace(full, n_layers=chip_smoke.MOE_LAYERS)
+    assert (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim, cfg.n_experts,
+            cfg.experts_per_token, cfg.capacity_factor) == (4096, 32, 32, 11008, 8, 2, 1.25)
+    assert moe.num_params(cfg) == 4_859_269_120
+    assert moe.num_params(full) == pytest.approx(37.0e9, rel=2e-3)
+    caps = [moe._capacity(cfg, b * s) for (b, s), _, _ in chip_smoke.MOE_TRAIN_SHAPES]
+    assert caps == [640, 1280]
+    assert [route for (_, s), _, route in chip_smoke.MOE_TRAIN_SHAPES] == \
+        [fa.backward_route(s) for (_, s), _, _ in chip_smoke.MOE_TRAIN_SHAPES]
+    assert all(n >= 2 for _, n, _ in chip_smoke.MOE_TRAIN_SHAPES)  # a steady step each
+
+
+class _Event:
+    def __init__(self, name, parent=None, kernels=()):
+        import collections
+
+        kernel = collections.namedtuple("Kernel", "name duration")
+        self.name, self.cpu_parent = name, parent
+        self.kernels = [kernel(n, d) for n, d in kernels]
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_moe_split_attributes_kernels_by_range_and_node():
+    # Device time (us) of kernels under moe_ffn's profiler ranges, under
+    # backward nodes, and elsewhere; ms out.
+    node = "autograd::engine::evaluate_function: "
+    experts = _Event("moe.experts")
+    route = _Event("moe.route", _Event("aten::linear"))
+    bmm_bwd = _Event(node + "BmmBackward0")
+    idx_bwd = _Event(node + "IndexBackward0")
+    mul_bwd = _Event(node + "MulBackward0")
+    flash = "void (anonymous namespace)::flash_fwd_bf16_wgmma<128>(CUtensorMap_st)"
+    events = [
+        experts, route, bmm_bwd, idx_bwd, mul_bwd,
+        _Event("aten::bmm", experts, [("nvjet_tst_a", 1000.0)]),
+        _Event("aten::silu", experts, [("vectorized_elementwise", 100.0)]),
+        _Event("aten::sort", route, [("radixSort", 200.0)]),
+        _Event("aten::bmm", bmm_bwd, [("nvjet_tst_b", 3000.0)]),
+        _Event("aten::index_put_", idx_bwd, [("indexing_backward", 400.0)]),
+        _Event("aten::mm", mul_bwd, [("nvjet_tst_c", 500.0)]),
+        _Event("aten::mul", mul_bwd, [("elementwise", 50.0)]),
+        _Event("_FlashAttention", None, [(flash, 700.0)]),
+    ]
+    split = chip_smoke._moe_split(_Prof(events))
+    assert split == pytest.approx({"routing": 0.6, "expert_gemms": 4.0, "attention": 0.7,
+                                   "other_gemms": 0.5, "other": 0.15})

@@ -388,3 +388,108 @@ def test_slowmo_step_on_cuda_like_the_cpu_port(cuda):
             assert all(torch.equal(p, q) for p, q in zip(gpu_state.model.parameters(),
                                                           view.prev))
     assert (fa.launches - n0[0], fa.launches_bwd_fused - n0[1]) == (8, 8)
+
+
+def _family_pair(cuda, family, cfg):
+    """A model of ``family`` at ``cfg`` on the CPU and the same weights on
+    the card, through ``make_train_step(model=family)``'s seeded init, with
+    their SGD steps."""
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    def sgd(ps):
+        return torch.optim.SGD(ps, lr=0.1)
+
+    cpu_init, cpu_step = make_train_step(cfg, sgd, model=family, device="cpu")
+    gpu_init, gpu_step = make_train_step(cfg, sgd, model=family, device=cuda)
+    cpu_state, gpu_state = cpu_init(0), gpu_init(1)
+    gpu_state.model.load_state_dict(cpu_state.model.state_dict())
+    return (cpu_state, cpu_step), (gpu_state, gpu_step)
+
+
+@pytest.mark.parametrize("family_name", ["gpt2", "moe"])
+def test_test_config_trains_on_cuda_like_the_cpu_port(cuda, family_name):
+    # gpt2_test / moe_test (head_dim 16, f32, TF32 off) on the card through
+    # the padded flash kernels against the CPU port from the same weights:
+    # logits (and MoE's aux) within 1e-5 with one forward launch a layer,
+    # MoE's routing exactly, then 3 SGD steps' losses within 1e-5.
+    import importlib
+
+    family = importlib.import_module(f"torchdistx_tpu_torch.models.{family_name}")
+    cfg = family.gpt2_test() if family_name == "gpt2" else family.moe_test()
+    (cpu_state, cpu_step), (gpu_state, gpu_step) = _family_pair(cuda, family, cfg)
+    g = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    n0 = fa.launches
+    with torch.no_grad():
+        if family_name == "moe":
+            got, aux = gpu_state.model(tokens.to(cuda), return_aux=True)
+            want, want_aux = cpu_state.model(tokens, return_aux=True)
+            assert abs(aux.item() - want_aux.item()) <= 1e-5
+            for i, (cb, gb) in enumerate(zip(cpu_state.model.layers, gpu_state.model.layers)):
+                h = torch.randn(2, 33, cfg.dim, generator=g)
+                rc = family.route(h, cb.router.weight, cfg)
+                rg = family.route(h.to(cuda), gb.router.weight, cfg)
+                assert torch.equal(rg.experts.cpu(), rc.experts), i
+                assert torch.equal(rg.keep.cpu(), rc.keep), i
+        else:
+            got, want = gpu_state.model(tokens.to(cuda)), cpu_state.model(tokens)
+    assert fa.launches - n0 == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    for i in range(3):
+        seq = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        cpu_state, cpu_m = cpu_step(cpu_state, batch)
+        gpu_state, gpu_m = gpu_step(gpu_state, batch)
+        assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= 1e-5, i
+
+
+def test_moe_zero_router_ties_on_cuda(cuda):
+    # Uniform router probabilities pick experts 0..k-1 on the card too (the
+    # stable sort), with the CPU's drops.
+    from torchdistx_tpu_torch.models import moe
+
+    cfg = moe.moe_test()
+    h = torch.randn(4, 64, cfg.dim)
+    router = torch.zeros(cfg.n_experts, cfg.dim)
+    rc, rg = moe.route(h, router, cfg), moe.route(h.to(cuda), router.to(cuda), cfg)
+    assert bool((rg.experts.cpu() == torch.arange(cfg.experts_per_token)).all())
+    assert torch.equal(rg.keep.cpu(), rc.keep) and bool((~rc.keep).any())
+
+
+@pytest.mark.parametrize("family_name", ["gpt2", "moe"])
+def test_narrow_bf16_model_on_cuda_like_the_cpu_port(cuda, family_name):
+    # A narrow bf16 model with 64-wide heads (the kernels' own instance, no
+    # padding) on the card against the same weights on the CPU in f32: the
+    # card's logits no farther from them than the CPU's own bf16 logits
+    # (mean |dlogits| within 1.5 x, plus 1e-4), and one SGD step's loss
+    # within 2e-2 of the CPU's bf16 step.
+    import dataclasses
+    import importlib
+
+    family = importlib.import_module(f"torchdistx_tpu_torch.models.{family_name}")
+    if family_name == "gpt2":
+        cfg = family.GPT2Config(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                                max_seq_len=256)
+    else:
+        cfg = dataclasses.replace(family.MoEConfig(), vocab_size=512, dim=256, n_layers=2,
+                                  n_heads=4, n_kv_heads=2, ffn_dim=512, max_seq_len=256)
+    assert cfg.dtype == torch.bfloat16 and cfg.head_dim == 64
+    (cpu_state, cpu_step), (gpu_state, gpu_step) = _family_pair(cuda, family, cfg)
+    ref = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = type(cpu_state.model)(ref, device="cpu")
+    f32.load_state_dict({k: v.float() for k, v in cpu_state.model.state_dict().items()})
+    g = torch.Generator().manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    with torch.no_grad():
+        want = f32(tokens)
+        cpu_err = (cpu_state.model(tokens) - want).abs().mean().item()
+        got = gpu_state.model(tokens.to(cuda)).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().mean().item() <= 1.5 * cpu_err + 1e-4
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    n0 = (fa.launches, fa.launches_bwd_fused)
+    gpu_state, gpu_m = gpu_step(gpu_state, batch)
+    cpu_state, cpu_m = cpu_step(cpu_state, batch)
+    assert (fa.launches - n0[0], fa.launches_bwd_fused - n0[1]) == (2 * cfg.n_layers,
+                                                                    cfg.n_layers)
+    assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= 2e-2

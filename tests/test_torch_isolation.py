@@ -19,8 +19,10 @@ from torchdistx_tpu_torch.materialize import (
     materialize_module_torch,
     materialize_tensor_torch,
 )
+from torchdistx_tpu_torch.models import gpt2 as tgpt2
 from torchdistx_tpu_torch.models import llama as tllama
-from torchdistx_tpu_torch.models.convert import llama_from_jax_params
+from torchdistx_tpu_torch.models import moe as tmoe
+from torchdistx_tpu_torch.models.convert import gpt2_from_jax_params, llama_from_jax_params
 from torchdistx_tpu_torch.parallel.distributed import initialize, make_hybrid_mesh
 from torchdistx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
@@ -52,7 +54,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 28
+    assert n_modules >= 30
 
 
 def test_walk_finds_every_module():
@@ -64,7 +66,8 @@ def test_walk_finds_every_module():
                  "resilience.guard", "telemetry", "telemetry._core",
                  "resilience.retry", "resilience.faults", "resilience.preemption",
                  "parallel.distributed", "parallel.fit", "utils.checkpoint",
-                 "materialize", "parallel.sharding", "parallel.mesh", "parallel.slowmo"):
+                 "materialize", "parallel.sharding", "parallel.mesh", "parallel.slowmo",
+                 "models.gpt2", "models.moe"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -83,7 +86,11 @@ def _no_cuda():
         lambda: resolve_device(None),
         lambda: tllama.Llama(tllama.llama_test()),
         lambda: llama_from_jax_params({}, tllama.llama_test()),
+        lambda: tgpt2.GPT2(tgpt2.gpt2_test()),
+        lambda: tmoe.MoE(tmoe.moe_test()),
+        lambda: gpt2_from_jax_params({}, tgpt2.gpt2_test()),
         lambda: make_train_step(tllama.llama_test(), torch.optim.SGD),
+        lambda: make_train_step(tmoe.moe_test(), torch.optim.SGD, model=tmoe),
         lambda: materialize_module_torch(deferred_init(torch.nn.Linear, 4, 4)),
         lambda: materialize_tensor_torch(deferred_init(torch.nn.Linear, 4, 4).weight),
         lambda: make_mesh(),
@@ -91,7 +98,8 @@ def _no_cuda():
         lambda: make_hybrid_mesh(MeshSpec(tp=2), MeshSpec(dp=2)),
         lambda: make_slowmo_train_step(tllama.llama_test(), None, _slowmo)[0](0),
     ],
-    ids=["resolve_device", "Llama", "llama_from_jax_params", "make_train_step",
+    ids=["resolve_device", "Llama", "llama_from_jax_params", "GPT2", "MoE",
+         "gpt2_from_jax_params", "make_train_step", "make_train_step_moe",
          "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
          "make_hybrid_mesh", "make_slowmo_train_step_init_fn"],
 )

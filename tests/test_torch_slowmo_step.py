@@ -221,7 +221,7 @@ def test_mesh_axes_within_a_replica_raise(mesh, match):
 
 def test_argument_checks():
     cfg = tllama.llama_test()
-    with pytest.raises(ValueError, match="trains Llama"):
+    with pytest.raises(TypeError, match="model must be a model family"):
         make_slowmo_train_step(cfg, None, _sgd_slowmo, model=object(), device="cpu")
     init_fn, step_fn = make_slowmo_train_step(
         cfg, None, lambda ps: torch.optim.SGD(ps, lr=0.1), device="cpu")

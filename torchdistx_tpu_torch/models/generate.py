@@ -41,7 +41,8 @@ def generate(
     """Generate ``max_new_tokens`` continuations of ``prompt (B, S)``.
 
     ``model`` provides ``cfg``, ``init_cache``, ``prep_decode`` and
-    ``forward_cached`` (:class:`~torchdistx_tpu_torch.models.llama.Llama`).
+    ``forward_cached`` (:class:`~torchdistx_tpu_torch.models.llama.Llama`,
+    :class:`~torchdistx_tpu_torch.models.gpt2.GPT2`).
     Returns ``(B, max_new_tokens)`` int64 tokens on the prompt's device.
     After ``eos_id`` (if given) a sequence keeps emitting ``eos_id``; once
     every sequence is done, the remaining steps skip the model and emit

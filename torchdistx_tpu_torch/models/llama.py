@@ -181,7 +181,7 @@ class Block(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device):
         super().__init__()
         self.cfg = cfg
-        d, f = cfg.dim, cfg.ffn_dim
+        d = cfg.dim
         hq = cfg.n_heads * cfg.head_dim
         hkv = cfg.n_kv_heads * cfg.head_dim
         kw = dict(bias=False, dtype=cfg.dtype, device=device)
@@ -191,11 +191,17 @@ class Block(nn.Module):
         self.wv = nn.Linear(d, hkv, **kw)
         self.wo = nn.Linear(hq, d, **kw)
         self.mlp_norm = RMSNorm(d, cfg.norm_eps, dtype=cfg.dtype, device=device)
+        self._build_mlp(cfg, kw)
+
+    def _build_mlp(self, cfg: LlamaConfig, kw: dict) -> None:
+        """The feed-forward half's parameters (the MoE block replaces it)."""
+        d, f = cfg.dim, cfg.ffn_dim
         self.w_gate = nn.Linear(d, f, **kw)
         self.w_up = nn.Linear(d, f, **kw)
         self.w_down = nn.Linear(f, d, **kw)
 
-    def forward(self, x, cos, sin, attn_impl: str = "auto"):
+    def attend(self, x, cos, sin, attn_impl: str = "auto"):
+        """The attention half with its residual: ``x + wo(attn(norm(x)))``."""
         cfg = self.cfg
         b, s = x.shape[0], x.shape[1]
         h = self.attn_norm(x)
@@ -205,7 +211,10 @@ class Block(nn.Module):
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
         attn = attention(q, k, v, causal=True, impl=attn_impl)
-        x = x + self.wo(attn.reshape(b, s, -1))
+        return x + self.wo(attn.reshape(b, s, -1))
+
+    def forward(self, x, cos, sin, attn_impl: str = "auto"):
+        x = self.attend(x, cos, sin, attn_impl)
         h = self.mlp_norm(x)
         return x + self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
 

@@ -1,0 +1,252 @@
+"""Mixture-of-Experts Llama variant as a PyTorch module.
+
+Counterpart of ``torchdistx_tpu/models/moe.py``: Llama blocks (the port's
+RMSNorm, RoPE and GQA attention) with the dense FFN replaced by a top-k
+routed expert FFN.  A router scores E experts per token, the top k are
+taken with renormalized gates, each (token, choice) gets a position in its
+expert's fixed-capacity buffer by a running count in token-major order,
+choices past the capacity are dropped, the experts run as batched products
+over the expert dim, and the outputs are combined gate-weighted.  A
+load-balancing aux loss (the mean over layers of E * sum_e f_e * p_e, f
+counting all k choices) is added to the loss with ``router_aux_coef``.
+
+One device runs every expert: the JAX ``ep`` sharding (all-to-alls over
+the expert axis) and the pipeline pieces belong to the multi-device port;
+:func:`param_specs` gives the ``ep`` layout already.  Expert weights keep
+the JAX layout ``(E, in, out)``, so the products are plain ``bmm``; the
+router is an ``nn.Linear`` like the other projections.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
+
+from .._device import resolve_device
+from ..parallel.sharding import PartitionSpec as P
+from . import llama as llama_mod
+from .llama import LlamaConfig, RMSNorm, _rope_tables
+
+__all__ = [
+    "MoEConfig",
+    "moe_test",
+    "num_params",
+    "param_specs",
+    "route",
+    "moe_ffn",
+    "MoE",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(LlamaConfig):
+    n_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+
+def moe_test() -> MoEConfig:
+    return MoEConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
+        max_seq_len=128, dtype=torch.float32, remat=False, n_experts=4,
+        experts_per_token=2,
+    )
+
+
+def num_params(cfg: MoEConfig) -> int:
+    d, f, e = cfg.dim, cfg.ffn_dim, cfg.n_experts
+    hq = cfg.n_heads * cfg.head_dim
+    hkv = cfg.n_kv_heads * cfg.head_dim
+    per_layer = 2 * d + d * hq + 2 * d * hkv + hq * d + d * e + 3 * e * d * f
+    return 2 * cfg.vocab_size * d + d + cfg.n_layers * per_layer
+
+
+def param_specs(cfg: MoEConfig, *, tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp",
+                ep: Optional[str] = "ep") -> Dict[str, P]:
+    """Partition specs of :class:`MoE`'s parameters, by name: the Llama
+    specs for the attention half, the router replicated, and the experts
+    over ``ep`` (the JAX ``(ep, fsdp, tp)`` / ``(ep, tp, fsdp)``, in the
+    same layout, since the expert weights keep it)."""
+    specs = {k: v for k, v in llama_mod.param_specs(cfg, tp=tp, fsdp=fsdp).items()
+             if not k.endswith(("w_gate.weight", "w_up.weight", "w_down.weight"))}
+    for i in range(cfg.n_layers):
+        specs[f"layers.{i}.router.weight"] = P()
+        specs[f"layers.{i}.e_gate"] = P(ep, fsdp, tp)
+        specs[f"layers.{i}.e_up"] = P(ep, fsdp, tp)
+        specs[f"layers.{i}.e_down"] = P(ep, tp, fsdp)
+    return specs
+
+
+def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    cap = math.ceil(cfg.capacity_factor * n_tokens * cfg.experts_per_token / cfg.n_experts)
+    return max(int(cap), 1)
+
+
+class Routing(NamedTuple):
+    """One layer's routing of ``T`` tokens: ``probs (T, E)`` f32, the
+    renormalized ``gates (T, K)``, the ``experts (T, K)`` chosen, each
+    choice's ``pos (T, K)`` in its expert's buffer, ``keep (T, K)`` (pos
+    below ``capacity``)."""
+
+    probs: torch.Tensor
+    gates: torch.Tensor
+    experts: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def route(h, router_w, cfg: MoEConfig) -> Routing:
+    """The router's choices for ``h (B, S, D)`` (``router_w`` is the
+    ``nn.Linear`` weight ``(E, D)``).
+
+    The top k come from a stable descending sort, so equal probabilities
+    pick the lower expert first, as ``jax.lax.top_k`` does (``torch.topk``
+    does not promise an order on ties).  Positions are integer counts and
+    exact.
+    """
+    e, k = cfg.n_experts, cfg.experts_per_token
+    ht = h.reshape(-1, h.shape[-1])
+    t = ht.shape[0]
+    probs = torch.softmax(F.linear(ht, router_w).float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = vals[:, :k], idx[:, :k]
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    flat = F.one_hot(experts.reshape(t * k), e)
+    pos = ((flat.cumsum(0) - 1) * flat).sum(-1).reshape(t, k)
+    cap = _capacity(cfg, t)
+    return Routing(probs, gates, experts, pos, pos < cap, cap)
+
+
+def moe_ffn(h, router_w, e_gate, e_up, e_down, cfg: MoEConfig):
+    """Top-k routed expert FFN: ``h (B, S, D)`` -> ``(out (B, S, D), aux)``.
+
+    ``e_gate``/``e_up`` are ``(E, D, F)``, ``e_down`` ``(E, F, D)``.  The
+    dispatch copies each kept choice into its own slot of an ``(E, C, D)``
+    buffer; every dropped choice goes to one extra row that is cut off, so
+    no slot takes two writes (no atomics) and each holds exactly its
+    token, as the JAX ``.at[].add`` of the kept row and zeros does.  The
+    combine gathers each choice's slot (a dropped one reads slot ``C - 1``
+    with weight 0, as in JAX), so the gather's backward adds into a slot one
+    kept choice's gradient and zeros only: exact in any order.
+
+    The phases run in ``torch.profiler`` ranges named ``moe.route``,
+    ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` (for a profile's
+    attribution only, as the JAX package's ``jax.named_scope`` regions).
+    """
+    b, s, d = h.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    ht = h.reshape(b * s, d)
+    with record_function("moe.route"):
+        r = route(h, router_w, cfg)
+        cap = r.capacity
+        experts, keep = r.experts.reshape(-1), r.keep.reshape(-1)
+        slot = experts * cap + r.pos.reshape(-1).clamp(max=cap - 1)
+        frac = F.one_hot(r.experts, e).float().sum(dim=1).mean(dim=0) / k
+        aux = e * (frac * r.probs.mean(dim=0)).sum()
+    with record_function("moe.dispatch"):
+        dump = torch.where(keep, slot, e * cap)
+        dispatch = ht.new_zeros(e * cap + 1, d).index_copy(
+            0, dump, ht.repeat_interleave(k, dim=0))[:-1].view(e, cap, d)
+    with record_function("moe.experts"):
+        gated = F.silu(torch.bmm(dispatch, e_gate))
+        up = torch.bmm(dispatch, e_up)
+        expert_out = torch.bmm(gated * up, e_down).reshape(e * cap, d)
+    with record_function("moe.combine"):
+        weights = (r.gates.reshape(-1) * keep).to(ht.dtype)
+        out = (expert_out[slot] * weights[:, None]).reshape(b * s, k, d).sum(dim=1)
+    return out.reshape(b, s, d), aux
+
+
+class MoEBlock(llama_mod.Block):
+    """A Llama block whose feed-forward half is :func:`moe_ffn`; returns
+    ``(x, aux)``."""
+
+    def _build_mlp(self, cfg: MoEConfig, kw: dict) -> None:
+        d, f, e = cfg.dim, cfg.ffn_dim, cfg.n_experts
+        self.router = nn.Linear(d, e, **kw)  # kw: bias=False, dtype, device
+        like = dict(dtype=kw["dtype"], device=kw["device"])
+        self.e_gate = nn.Parameter(torch.empty(e, d, f, **like))
+        self.e_up = nn.Parameter(torch.empty(e, d, f, **like))
+        self.e_down = nn.Parameter(torch.empty(e, f, d, **like))
+
+    def forward(self, x, cos, sin, attn_impl: str = "auto"):
+        x = self.attend(x, cos, sin, attn_impl)
+        out, aux = moe_ffn(self.mlp_norm(x), self.router.weight, self.e_gate, self.e_up,
+                           self.e_down, self.cfg)
+        return x + out, aux
+
+
+class MoE(nn.Module):
+    """The MoE decoder.  ``device=None`` means CUDA.
+
+    Initialization as the JAX ``init_params``: N(0, 0.02) for embeddings,
+    projections, router and experts, 0.02/sqrt(2 n_layers) for ``wo`` and
+    ``e_down``, ones for the norms.  Parameter names are the port's Llama
+    names, with ``router.weight``, ``e_gate``, ``e_up`` and ``e_down`` in
+    each layer for ``w_gate``/``w_up``/``w_down``.
+    """
+
+    def __init__(self, cfg: MoEConfig, *, device: Optional[Any] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **kw)
+        self.layers = nn.ModuleList(MoEBlock(cfg, device=device) for _ in range(cfg.n_layers))
+        self.norm = RMSNorm(cfg.dim, cfg.norm_eps, **kw)
+        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw)
+        self._init_weights()
+
+    @torch.no_grad()
+    def _init_weights(self) -> None:
+        std = 0.02
+        resid_std = 0.02 / math.sqrt(2.0 * self.cfg.n_layers)
+        nn.init.normal_(self.embed.weight, 0.0, std)
+        for blk in self.layers:
+            for w in (blk.wq.weight, blk.wk.weight, blk.wv.weight, blk.router.weight,
+                      blk.e_gate, blk.e_up):
+                nn.init.normal_(w, 0.0, std)
+            for w in (blk.wo.weight, blk.e_down):
+                nn.init.normal_(w, 0.0, resid_std)
+        nn.init.normal_(self.lm_head.weight, 0.0, std)
+
+    def _hidden(self, tokens, attn_impl: str):
+        """The blocks' output before the final norm, and the sum of the
+        layers' aux losses (f32)."""
+        cfg = self.cfg
+        x = self.embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.layers:
+            if remat:
+                x, aux = checkpoint(blk, x, cos, sin, attn_impl, use_reentrant=False)
+            else:
+                x, aux = blk(x, cos, sin, attn_impl)
+            aux_sum = aux_sum + aux
+        return x, aux_sum
+
+    def forward(self, tokens, attn_impl: str = "auto", return_aux: bool = False):
+        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32; with
+        ``return_aux`` also the aux loss averaged over layers."""
+        x, aux_sum = self._hidden(tokens, attn_impl)
+        logits = self.lm_head(self.norm(x)).float()
+        return (logits, aux_sum / self.cfg.n_layers) if return_aux else logits
+
+    def loss(self, tokens, targets, attn_impl: str = "auto"):
+        """Mean next-token cross-entropy plus ``router_aux_coef`` times the
+        aux loss (the JAX ``loss_fn``), f32 scalar."""
+        logits, aux = self.forward(tokens, attn_impl, return_aux=True)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        return (lse - tgt).mean() + self.cfg.router_aux_coef * aux

@@ -1,4 +1,4 @@
-"""The Llama training steps: the single-device step and the SlowMo step.
+"""The training steps: the single-device step and the SlowMo step.
 
 Counterpart of ``torchdistx_tpu/parallel/train_step.py`` (``TrainState``,
 ``make_train_step`` on one device, and :func:`make_slowmo_train_step`, whose
@@ -10,11 +10,13 @@ moments in memory, which a 7B model on one 80 GB card needs), and
 ``step_fn`` returns a new :class:`TrainState` holding them with the new
 step count.
 
+``model=`` picks the model family as in the JAX steps: the port's
+``models.llama`` (the default), ``models.gpt2`` or ``models.moe`` module.
 The mesh arguments of the JAX ``make_train_step`` (``mesh``, ``tp``,
 ``fsdp``, ``seq_axis``, ``pp_axis``, ``n_microbatches``, ``pp_schedule``,
 ``seq_layout``) belong to the multi-device port and raise here when given.
-Its ``loss_fn`` option has no counterpart yet: the step trains on
-:meth:`Llama.loss`, whose attention is the flash kernel on CUDA tensors and
+Its ``loss_fn`` option has no counterpart yet: the step trains on the
+model's ``loss``, whose attention is the flash kernel on CUDA tensors and
 the plain version on CPU tensors.
 
 The JAX SlowMo step keeps the replicas as a stacked leading ``dp`` axis and
@@ -29,10 +31,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn as nn
 
 from .._device import resolve_device
 from ..deferred_init import deferred_init, materialize_module
-from ..models.llama import Llama
+from ..models import gpt2, llama, moe
 from ..resilience.guard import tree_allfinite
 from .slowmo import SlowMomentumOptimizer, _group_or_default
 
@@ -41,7 +44,7 @@ __all__ = ["TrainState", "make_slowmo_train_step", "make_train_step",
 
 
 class TrainState(NamedTuple):
-    model: Llama
+    model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int
 
@@ -52,17 +55,31 @@ _MESH_ARGS = {
     "n_microbatches": 1, "pp_schedule": "gpipe", "seq_layout": "contiguous",
 }
 
+# Model family module -> its module class.
+_FAMILIES = {llama: llama.Llama, gpt2: gpt2.GPT2, moe: moe.MoE}
+
+
+def _model_class(model) -> type:
+    """The module class of the family ``model`` (``None``: Llama)."""
+    cls = _FAMILIES.get(llama if model is None else model)
+    if cls is None:
+        raise TypeError("model must be a model family (models.llama, models.gpt2 or "
+                        f"models.moe), not {model!r}")
+    return cls
+
 
 def make_train_step(
     cfg,
     tx: Callable[[Any], torch.optim.Optimizer],
     *,
+    model=None,
     device: Optional[Any] = None,
     nonfinite_guard: bool = True,
     **mesh_args,
 ) -> Tuple[Callable, Callable]:
-    """Build ``(init_fn, step_fn)`` for training a :class:`Llama` of ``cfg``
-    on one device (``None``: CUDA; pass ``device="cpu"`` for the host).
+    """Build ``(init_fn, step_fn)`` for training a model of ``cfg`` on one
+    device (``None``: CUDA; pass ``device="cpu"`` for the host).  ``model``
+    is the family (default Llama; see the module docstring).
 
     ``init_fn(seed) -> TrainState``: shard-then-materialize on one device.
     The model is recorded with ``deferred_init`` (no bytes allocated), then
@@ -73,7 +90,7 @@ def make_train_step(
 
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is
     ``{"tokens": (B, S), "targets": (B, S)}``; ``metrics`` holds ``loss``
-    (f32 scalar tensor of :meth:`Llama.loss`), ``step`` and, with the
+    (f32 scalar tensor of the model's ``loss``), ``step`` and, with the
     guard, ``nonfinite``.  The reserved batch key ``_tdx_nan`` poisons the
     loss with NaN where it is true, as in the JAX step, for fault injection.
 
@@ -93,15 +110,16 @@ def make_train_step(
             f"make_train_step: {given} need the multi-device port; this step "
             "runs on one device"
         )
+    cls = _model_class(model)
     device = resolve_device(device)
 
     def init_fn(seed: int) -> TrainState:
-        model = deferred_init(Llama, cfg, device=device)
+        net = deferred_init(cls, cfg, device=device)
         cuda = [device] if device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda, device_type="cuda"):
             torch.manual_seed(seed)
-            materialize_module(model, device=device)
-        return TrainState(model, tx(model.parameters()), 0)
+            materialize_module(net, device=device)
+        return TrainState(net, tx(net.parameters()), 0)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, dict]:
         model, opt = state.model, state.optimizer
@@ -191,8 +209,9 @@ def make_slowmo_train_step(
     attn_impl: str = "auto",
     device: Optional[Any] = None,
 ) -> Tuple[Callable, Callable]:
-    """Build ``(init_fn, step_fn)`` for SlowMo training of a :class:`Llama`
-    of ``cfg``, one replica per rank.
+    """Build ``(init_fn, step_fn)`` for SlowMo training of a model of
+    ``cfg``, one replica per rank; ``model`` is the family, as in
+    :func:`make_train_step`.
 
     ``mesh`` is a ``DeviceMesh`` (:func:`~torchdistx_tpu_torch.parallel.mesh.
     make_mesh`, :func:`~torchdistx_tpu_torch.parallel.distributed.
@@ -218,16 +237,12 @@ def make_slowmo_train_step(
     step, whose loss is vmapped over stacked replicas and takes XLA's
     attention, nothing here is vmapped.
     """
-    if model not in (None, Llama):
-        raise ValueError(
-            "make_slowmo_train_step trains Llama; other model families are not "
-            "ported yet"
-        )
     del tp, fsdp  # named axes of size > 1 raise in _dp_coordinates
     device = resolve_device(device)
     group, _, _ = _dp_coordinates(mesh, dp_axis)
     shard = slowmo_batch_sharding(mesh, dp_axis=dp_axis)
-    init_model, _ = make_train_step(cfg, opt, device=device, nonfinite_guard=False)
+    init_model, _ = make_train_step(cfg, opt, model=model, device=device,
+                                    nonfinite_guard=False)
 
     def init_fn(seed: int) -> TrainState:
         state = init_model(seed)
