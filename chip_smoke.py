@@ -75,14 +75,29 @@ Phases, each printing a line:
    (streamed), each shape's profiled step split between routing, the
    expert GEMMs and attention; then ``moe_test`` on the card against the
    CPU port, its routing exactly, at its own capacity factor and at one
-   that drops choices.
+   that drops choices;
+14. ``[mesh]`` (run after phase 11): ``make_train_step(mesh=)`` on a 1-rank
+   NCCL mesh at the full Llama-7B (seeded shard-then-materialize, the
+   train path's shapes with its launches a step, each shape's first loss
+   against the single-device loss on the same weights, one profiled 4 x
+   512 step), then the 2-layer reference run of phase 15 (a);
+15. ``[mesh ranks]``: 4 gloo processes sharing the card and 4 on the CPU:
+   (a) Llama-7B's widths at 2 layers under ``MeshSpec(fsdp=2, tp=2)``
+   (the kernels on each rank's 2 rows and 16 of 32 heads, phase 2's
+   ``mesh_rank_block`` rows) against phase 14's reference: losses, the
+   first step's gradients and the parameters' change; (b) ``llama_test``
+   in f32 under ``fsdp=2, tp=2`` and (c) under ``fsdp=2, sp=2`` with the
+   ring (contiguous and zigzag), the card's ranks against the CPU's.
 
-Seven main paths are driven, each with every launch count set to 0 just
+Nine main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
-the SlowMo path (phase 10), the GPT-2 path (phase 12: its forward part,
-then its train part) and the MoE path (phase 13).  Any failed check
+the SlowMo path (phase 10), the mesh path (phase 14, read around each of
+its steps, so that its single-device reference forwards and its 2-layer
+reference run are not counted), the mesh ranks' runs (phase 15 (a) and
+(b), in each card rank), the GPT-2 path (phase 12: its forward part, then
+its train part) and the MoE path (phase 13).  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
 matmuls run in full float32 (TF32 is switched off).  The last three lines
 are the kernels' summary, the card's name and power limit, then the result
@@ -130,6 +145,11 @@ FLASH_SHAPES = [
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True),
     # The [gpt2] path's attention: gpt2_xl at GPT2_SHAPE, 25 heads of 64.
     ("gpt2_xl_heads", 4, 1024, 25, 25, 64, torch.bfloat16, True),
+    # [mesh ranks]' kernel blocks (MESH_RANK_BLOCKS): (a) llama_7b's heads at
+    # MESH_RANKS_SHAPE over fsdp=2 x tp=2; (b) llama_test's (head dim 16,
+    # launched at 64) at MESH_RANKS_F32_SHAPE.
+    ("mesh_rank_block", 2, 512, 16, 16, 128, torch.bfloat16, True),
+    ("mesh_rank_f32_block", 2, 32, 2, 1, 64, torch.float32, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -176,6 +196,8 @@ BWD_SHAPES = [
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "fused"),
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "streamed"),
     ("gpt2_xl_heads", 4, 1024, 25, 25, 64, torch.bfloat16, True, "fused"),
+    ("mesh_rank_block", 2, 512, 16, 16, 128, torch.bfloat16, True, "fused"),
+    ("mesh_rank_f32_block", 2, 32, 2, 1, 64, torch.float32, True, "fused"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -303,6 +325,51 @@ MOE_LAYERS = 4
 MOE_SHAPE = (4, 512)
 MOE_TRAIN_SHAPES = [(MOE_SHAPE, 3, "fused"), ((1, 4096), 2, "streamed")]
 MOE_DROPPING_FACTOR = 0.5
+# [mesh]: make_train_step(mesh=) on a 1-rank NCCL mesh (MeshSpec(): every
+# parameter a replicated DTensor), the full llama_7b (bf16, remat) with the
+# train path's AdamW at TRAIN_SHAPES: the same launches a step as the train
+# path, and each shape's first loss within MESH_LOSS_ATOL of the
+# single-device loss on the same weights (the same kernels; the mean's
+# summation order differs).  Then the MESH_RANKS_LAYERS-layer model's
+# MESH_RANKS_STEPS steps on the same mesh: the losses [mesh ranks] (a) is
+# held to.
+MESH_LOSS_ATOL = 1e-3
+# [mesh ranks]: 4 processes sharing the card over gloo (NCCL takes one rank
+# per device).  Gloo runs the mesh step's all-gathers, reduce-scatters and
+# all-reduces and the ring's all_to_all_single on CUDA tensors; its
+# point-to-point send and receive abort or hang on them
+# (scripts/torch_gloo_cuda_probe.py), which is why a ring hop is an
+# all_to_all_single.  (a) llama_7b's widths cut to MESH_RANKS_LAYERS layers,
+# bf16, remat, MeshSpec(fsdp=2, tp=2), MESH_RANKS_STEPS AdamW steps at
+# MESH_RANKS_SHAPE, against [mesh]'s run on the same seeded weights: the
+# losses within MESH_RANKS_BF16_ATOL (the row-parallel products are bf16
+# partial sums added over tp in another order), and the fingerprints
+# (_fingerprint: signed row and column sums) of the first step's gradients and of the parameters'
+# change over the steps within MESH_RANKS_GRAD_RTOL and
+# MESH_RANKS_UPDATE_RTOL; (b) llama_test in f32 under
+# MeshSpec(fsdp=2, tp=2) and (c) MeshSpec(fsdp=2, sp=2) with the ring,
+# contiguous and zigzag, MESH_RANKS_F32_STEPS AdamW steps, each against the
+# same 4 ranks on the CPU within MESH_RANKS_F32_ATOL (TF32 off).
+MESH_RANKS_LAYERS = 2
+MESH_RANKS_STEPS = 2
+MESH_RANKS_SHAPE = (4, 512)
+MESH_RANKS_SEED = 7
+MESH_RANKS_DATA_SEED = 8
+# On an H100 the losses read 3.0e-4 to 4.4e-4 from the 1-rank run's, the
+# fingerprints 2.4e-2 (gradients) and 0.12 (change: AdamW moves an element
+# by about lr a step, under bf16's ulp near 0.02, so an update that rounds
+# the other way counts whole); a misplaced shard reads about 1 or more.
+MESH_RANKS_BF16_ATOL = 2e-3
+MESH_RANKS_GRAD_RTOL = 0.1
+MESH_RANKS_UPDATE_RTOL = 0.5
+MESH_RANKS_F32_ATOL = 1e-5
+MESH_RANKS_F32_STEPS = 3
+MESH_RANKS_F32_SHAPE = (4, 32)
+MESH_RANKS_TIMEOUT_S = 400
+# The (B, S, Hq, Hkv, D) each [mesh ranks] run hands the kernel (D before
+# padding to the kernel's head dim), and its phase-2 rows.
+MESH_RANK_BLOCKS = {"a": ((2, 512, 16, 16, 128), "mesh_rank_block"),
+                    "b": ((2, 32, 2, 1, 16), "mesh_rank_f32_block")}
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1749,6 +1816,490 @@ def phase_slowmo_replicas():
     return stats
 
 
+def _mesh_tx(params):
+    return torch.optim.AdamW(params, lr=TRAIN_LR, foreach=False)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_ranks_batch(vocab, b, s):
+    """The [mesh ranks] batch, from a CPU generator (the same in every
+    process)."""
+    seq = torch.randint(0, vocab, (b, s + 1),
+                        generator=torch.Generator().manual_seed(MESH_RANKS_DATA_SEED))
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def _placed_by_plan(model, mesh, optimizer):
+    """Each parameter a DTensor placed as ``param_specs`` fitted to
+    ``mesh``, each AdamW moment as its parameter, no gradient held."""
+    from torch.distributed.tensor import DTensor
+
+    from torchdistx_tpu_torch.models.llama import param_specs
+    from torchdistx_tpu_torch.parallel.sharding import fit_shardings
+
+    named = dict(model.named_parameters())
+    want = fit_shardings(param_specs(model.cfg), {n: tuple(p.shape) for n, p in named.items()},
+                         mesh)
+    return (all(isinstance(p, DTensor) and list(p.placements) == want[n]
+                for n, p in named.items())
+            and all(list(optimizer.state[p][k].placements) == list(p.placements)
+                    for p in named.values() if p in optimizer.state
+                    for k in ("exp_avg", "exp_avg_sq"))
+            and all(p.grad is None for p in named.values()))
+
+
+def _fingerprint(named):
+    """A tensor's fingerprint: its whole value's sums in f32 along each dim
+    with fixed random signs (a matrix's signed row and column sums; a vector
+    is its own), on the CPU; by name for ``named``.  The signs keep sums
+    that cancel by construction from hiding a fault: a softmax head's
+    gradient sums to 0 over the vocabulary."""
+    from torchdistx_tpu_torch.parallel.spmd import whole
+
+    out = {}
+    for name, t in named.items():
+        w = whole(t).float()
+        if w.dim() == 2:
+            gen = torch.Generator().manual_seed(0)
+            rows, cols = (torch.randint(0, 2, (n,), generator=gen).float().mul_(2).sub_(1)
+                          .to(w.device) for n in w.shape)
+            sums = [w @ cols, rows @ w]
+        else:
+            sums = [w]
+        out[name] = [x.cpu() for x in sums]
+    return out
+
+
+def _fingerprint_change(after, before):
+    return {n: [a - b for a, b in zip(after[n], before[n])] for n in after}
+
+
+def _fingerprint_err(got, want):
+    """The largest L2 distance between two fingerprints' sums over the
+    L2 norm of ``want``'s (infinite where ``want``'s is 0 and ``got``'s
+    is not)."""
+    worst = 0.0
+    for name, sums in want.items():
+        for g, w in zip(got[name], sums):
+            diff, scale = (g - w).norm().item(), w.norm().item()
+            worst = max(worst, diff / scale if scale else (math.inf if diff else 0.0))
+    return worst
+
+
+def _fingerprinted_steps(state, step_fn, batch, steps):
+    """``steps`` steps of ``step_fn``, with the fingerprints of the first
+    step's gradients (read by a hook before the optimizer steps) and of the
+    parameters' change; returns ``(state, losses, step_ms, grads,
+    change)``."""
+    named = dict(state.model.named_parameters())
+    before = _fingerprint(named)
+    grads = {}
+
+    def capture(optimizer, args, kwargs):
+        if not grads:
+            grads.update(_fingerprint({n: p.grad for n, p in named.items()}))
+
+    hook = state.optimizer.register_step_pre_hook(capture)
+    losses, step_ms = [], []
+    try:
+        for _ in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(metrics["loss"].item())
+    finally:
+        hook.remove()
+    change = _fingerprint_change(_fingerprint(named), before)
+    return state, losses, step_ms, grads, change
+
+
+class _KernelBlocks:
+    """Within it, the (B, S, Hq, Hkv, D) of every ``flash_attention`` call
+    (``blocks``)."""
+
+    def __init__(self, fa):
+        self.fa, self.bare, self.blocks = fa, fa.flash_attention, set()
+
+    def __enter__(self):
+        def spy(q, k, v, **kw):
+            self.blocks.add((*q.shape[:3], k.shape[2], q.shape[3]))
+            return self.bare(q, k, v, **kw)
+
+        self.fa.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.bare
+
+
+def phase_mesh(cfg, fa, train_stats):
+    """The mesh path: ``make_train_step(mesh=)`` on a 1-rank NCCL mesh at
+    full depth (seeded shard-then-materialize, TRAIN_SHAPES' steps with
+    their launches, the first loss of each shape against the single-device
+    loss on the same weights, one profiled 4 x 512 step), then the
+    MESH_RANKS_LAYERS-layer reference of [mesh ranks] (a).  The path's
+    launches (``path_launches``) are the sum of the mesh steps' own, read
+    around each step: the single-device reference forwards and the
+    2-layer reference are not the path."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.models.llama import Llama, num_params
+    from torchdistx_tpu_torch.parallel import MeshSpec, initialize, make_mesh
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    info = initialize(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh(MeshSpec())
+        init_fn, step_fn = make_train_step(cfg, _mesh_tx, mesh=mesh)
+        t0 = time.perf_counter()
+        state = init_fn(MAT_SEED)  # cold: the first DTensor work of the process
+        torch.cuda.synchronize()
+        init_cold_s = time.perf_counter() - t0
+        del state
+        _free()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_fn(MAT_SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_allocated = torch.cuda.memory_allocated() - before
+        init_peak = torch.cuda.max_memory_allocated() - before
+        n = num_params(cfg)
+        params = dict(state.model.named_parameters())
+        nbytes = sum(p.to_local().untyped_storage().nbytes() for p in params.values())
+        _check(nbytes == 2 * n, f"[mesh]: the shards hold {nbytes} bytes, not {2 * n}")
+        _check(_placed_by_plan(state.model, mesh, state.optimizer),
+               "[mesh]: a parameter is not placed by the plan")
+        with torch.no_grad():  # the single-device model on the same storage
+            plain = deferred_init(Llama, cfg, device="cuda")
+            plain.load_state_dict({k: p.to_local().detach() for k, p in params.items()},
+                                  assign=True)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        stats = {"process": list(info.__dict__.values()), "init_s": init_s,
+                 "init_cold_s": init_cold_s,
+                 "init_bytes": nbytes, "init_allocated_bytes": init_allocated,
+                 "init_peak_bytes": init_peak}
+        torch.cuda.reset_peak_memory_stats()
+        path = dict.fromkeys(_counts(fa), 0)
+        for (b, s), n_steps, route in TRAIN_SHAPES:
+            seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
+            batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+            with torch.no_grad():
+                single_loss = plain.loss(batch["tokens"], batch["targets"]).item()
+            want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}
+            for kernel in BWD_KERNELS[route]:
+                want[kernel] = cfg.n_layers
+            losses, step_ms = [], []
+            for i in range(n_steps):
+                c0 = _counts(fa)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = step_fn(state, batch)
+                end.record()
+                end.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+                path = {k: v + launched[k] for k, v in path.items()}
+                losses.append(metrics["loss"].item())
+                _check(math.isfinite(losses[-1]) and not metrics["nonfinite"],
+                       f"[mesh] {b}x{s} step {i + 1}: loss {losses[-1]}")
+                _check(launched == want,
+                       f"[mesh] {b}x{s} step {i + 1}: launches {launched}, expected {want}")
+            _check(abs(losses[0] - single_loss) <= MESH_LOSS_ATOL,
+                   f"[mesh] {b}x{s}: first loss {losses[0]} vs single-device {single_loss}")
+            if route == "fused":
+                _check(losses[-1] < losses[0], f"[mesh]: the loss did not fall: {losses}")
+            row = {"losses": losses, "single_device_first_loss": single_loss,
+                   "step_ms": step_ms, "steady_step_ms": statistics.median(step_ms[1:]),
+                   "launches_per_step": want}
+            row["tokens_per_s"] = b * s / (row["steady_step_ms"] / 1e3)
+            single = train_stats.get(f"{b}x{s}", {})
+            row["single_device_steady_step_ms"] = single.get("steady_step_ms")
+            row["single_device_tokens_per_s"] = single.get("tokens_per_s")
+            if route == "fused":
+                held = {}
+
+                def profiled_step():
+                    held["out"] = step_fn(state, batch)
+
+                c0 = _counts(fa)
+                row["profile"] = _profile(f"mesh {b}x{s} step", profiled_step)
+                state, _ = held.pop("out")
+                launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+                path = {k: v + launched[k] for k, v in path.items()}
+                _check(launched == want, "[mesh]: profiled step launches")
+                row["device_busy_share"] = row["profile"]["device_ms"] / row["steady_step_ms"]
+            stats[f"{b}x{s}"] = row
+            print(f"[mesh] {b}x{s}: losses {losses} (single-device first loss "
+                  f"{single_loss}); step ms {[round(x, 1) for x in step_ms]}; steady "
+                  f"{row['steady_step_ms']:.3f} ms, {row['tokens_per_s']:.1f} tokens/s "
+                  f"(single-device {row['single_device_steady_step_ms']} ms, "
+                  f"{row['single_device_tokens_per_s']} tokens/s); launches a step {want}")
+        stats["path_launches"] = path
+        stats["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        stats["placed_by_plan_after_steps"] = _placed_by_plan(state.model, mesh,
+                                                              state.optimizer)
+        _check(stats["placed_by_plan_after_steps"], "[mesh]: placements after the steps")
+        del state, plain, params, init_fn, step_fn
+        _free()
+
+        # [mesh ranks] (a)'s reference: the same seeded weights and batch.
+        small = dataclasses.replace(cfg, n_layers=MESH_RANKS_LAYERS)
+        init_fn, step_fn = make_train_step(small, _mesh_tx, mesh=mesh)
+        state = init_fn(MESH_RANKS_SEED)
+        stats["ranks_reference_param_bytes"] = 2 * num_params(small)
+        batch = {k: v.cuda() for k, v in _mesh_ranks_batch(small.vocab_size,
+                                                          *MESH_RANKS_SHAPE).items()}
+        state, ref, _, grads, change = _fingerprinted_steps(state, step_fn, batch,
+                                                            MESH_RANKS_STEPS)
+        stats["ranks_reference_losses"] = ref
+        stats["ranks_reference_fingerprints"] = {"grads": grads, "change": change}
+        del state, init_fn, step_fn
+    finally:
+        dist.destroy_process_group()
+        _free()
+    print(f"[mesh] llama_7b ({cfg.n_layers} layers, bf16, remat) on a 1-rank NCCL mesh "
+          f"(MeshSpec()): make_train_step(mesh=) init {init_s:.3f} s (cold {init_cold_s:.3f} "
+          f"s), {nbytes} bytes of "
+          f"DTensor shards (peak {init_peak}); peak allocated "
+          f"{stats['peak_allocated_bytes']} bytes; {MESH_RANKS_LAYERS}-layer reference losses "
+          f"{ref}")
+    print("[mesh] " + json.dumps({k: v for k, v in stats.items()
+                                  if k != "ranks_reference_fingerprints"}))
+    return stats
+
+
+def _rank_weights(mesh, model, values):
+    """Each DTensor parameter's local shard set from the whole ``values``."""
+    from torchdistx_tpu_torch.materialize import _local_shard
+
+    dev = next(model.parameters()).to_local().device
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.to_local().copy_(_local_shard(values[name].to(dev), mesh, p.placements))
+
+
+def _rank_f32(device, spec, kw):
+    """[mesh ranks] (b)/(c): llama_test in f32 from the CPU port's seeded
+    weights, MESH_RANKS_F32_STEPS AdamW steps on the mesh."""
+    from torchdistx_tpu_torch.models.llama import llama_test
+    from torchdistx_tpu_torch.parallel import make_mesh
+    from torchdistx_tpu_torch.parallel.spmd import whole
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    def tx(params):
+        # eps 1e-6: at 1e-8 an element whose gradient is near eps turns
+        # summation-order noise into a share of a step (the CPU tests' note).
+        return torch.optim.AdamW(params, lr=1e-3, eps=1e-6, foreach=False)
+
+    cfg = llama_test()
+    mesh = make_mesh(spec, device_type=device)
+    init_fn, step_fn = make_train_step(cfg, tx, mesh=mesh, **kw)
+    state = init_fn(TRAIN_SEED)
+    _rank_weights(mesh, state.model,
+                  make_train_step(cfg, tx, device="cpu")[0](TRAIN_SEED).model.state_dict())
+    batch = _mesh_ranks_batch(cfg.vocab_size, *MESH_RANKS_F32_SHAPE)
+    losses = []
+    for _ in range(MESH_RANKS_F32_STEPS):
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())
+    return {"losses": losses, "params": {n: whole(p).detach().cpu()
+                                         for n, p in state.model.named_parameters()}}
+
+
+def _rank_llama7b_width(fa, rank):
+    """[mesh ranks] (a): llama_7b's widths at MESH_RANKS_LAYERS layers, bf16,
+    MeshSpec(fsdp=2, tp=2): the steps' losses, times and launches, the
+    blocks the kernel saw, the bytes this rank holds, and (rank 0) the
+    fingerprints of the first step's gradients and the parameters'
+    change."""
+    from torchdistx_tpu_torch.models.llama import llama_7b
+    from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    cfg = dataclasses.replace(llama_7b(), n_layers=MESH_RANKS_LAYERS)
+    mesh = make_mesh(MeshSpec(fsdp=2, tp=2), device_type="cuda")
+    init_fn, step_fn = make_train_step(cfg, _mesh_tx, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(MESH_RANKS_SEED)
+    placed = _placed_by_plan(state.model, mesh, state.optimizer)
+    held = sum(p.to_local().untyped_storage().nbytes() for p in state.model.parameters())
+    batch = {k: v.cuda() for k, v in _mesh_ranks_batch(cfg.vocab_size,
+                                                      *MESH_RANKS_SHAPE).items()}
+    _reset_counts(fa)
+    with _KernelBlocks(fa) as spy:
+        state, losses, step_ms, grads, change = _fingerprinted_steps(state, step_fn, batch,
+                                                                     MESH_RANKS_STEPS)
+    return {"losses": losses, "step_ms": step_ms, "launches": _counts(fa),
+            "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held,
+            "placed_by_plan": placed and _placed_by_plan(state.model, mesh, state.optimizer),
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "fingerprints": {"grads": grads, "change": change} if rank == 0 else None}
+
+
+def mesh_rank(device, rank, store, out) -> None:
+    """One rank of ``phase_mesh_ranks`` (4 gloo ranks on ``device``): (a) on
+    the card only, then (b) and (c); saves what the parent checks."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+    from torchdistx_tpu_torch.parallel import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+    got = {"device": device}
+    try:
+        if device == "cuda":
+            got["a"] = _rank_llama7b_width(fa, rank)
+        _reset_counts(fa)
+        with _KernelBlocks(fa) as spy:
+            got["b"] = _rank_f32(device, MeshSpec(fsdp=2, tp=2), {})
+        got["b_launches"] = _counts(fa)
+        got["b_kernel_blocks"] = sorted(spy.blocks)
+        got["c_ring"] = _rank_f32(device, MeshSpec(fsdp=2, sp=2),
+                                  {"seq_axis": "sp", "attn_impl": "ring"})
+        got["c_zigzag"] = _rank_f32(device, MeshSpec(fsdp=2, sp=2),
+                                    {"seq_axis": "sp", "seq_layout": "zigzag"})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(got, out)
+
+
+def phase_mesh_ranks(mesh_stats):
+    """4 gloo ranks on the card and 4 on the CPU, all started together; (a)
+    against [mesh]'s reference, (b) and (c) against the CPU ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    from torchdistx_tpu_torch.models.llama import llama_7b, num_params
+
+    root = tempfile.mkdtemp(prefix="tdx_mesh_")
+    runs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(4)]
+            for device in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for device, outs in runs.items():
+            store = os.path.join(root, f"store_{device}")
+            for rank, out in enumerate(outs):
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--mesh-rank", device, str(rank), store, out],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=MESH_RANKS_TIMEOUT_S)[0] for p in procs]
+        names = [f"{device} rank {r}" for device in runs for r in range(4)]
+        failed = [(n, p.returncode, log) for n, p, log in zip(names, procs, logs) if p.returncode]
+        _check(not failed, "mesh ranks exited " + "; ".join(
+            f"{n}: {code}:\n{log[-2000:]}" for n, code, log in failed))
+        got = {device: [torch.load(out, weights_only=True) for out in outs]
+               for device, outs in runs.items()}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+
+    # (a): every rank's losses the global ones, within the bf16 bound of
+    # the 1-rank reference, and so the fingerprints of the first step's
+    # gradients and of the parameters' change; the kernel on 16 of 32 heads
+    # and 2 of 4 rows.
+    cfg = dataclasses.replace(llama_7b(), n_layers=MESH_RANKS_LAYERS)
+    a = [r["a"] for r in got["cuda"]]
+    ref = mesh_stats["ranks_reference_losses"]
+    a_err = max(abs(x - y) for r in a for x, y in zip(r["losses"], ref))
+    _check(all(r["losses"] == a[0]["losses"] for r in a), "(a): the ranks' losses differ")
+    _check(a_err <= MESH_RANKS_BF16_ATOL, f"(a): losses {a[0]['losses']} vs 1-rank {ref}")
+    ref_prints = mesh_stats.pop("ranks_reference_fingerprints")
+    grad_err = _fingerprint_err(a[0]["fingerprints"]["grads"], ref_prints["grads"])
+    change_err = _fingerprint_err(a[0]["fingerprints"]["change"], ref_prints["change"])
+    print(f"[mesh ranks] (a) vs the 1-rank run: losses {a[0]['losses']} vs {ref}; the "
+          f"fingerprints' relative error: first-step gradients {grad_err}, the parameters' "
+          f"change {change_err}")
+    _check(grad_err <= MESH_RANKS_GRAD_RTOL,
+           f"(a): first-step gradients {grad_err} from the 1-rank run's")
+    _check(change_err <= MESH_RANKS_UPDATE_RTOL,
+           f"(a): the parameters' change {change_err} from the 1-rank run's")
+    local = (MESH_RANKS_SHAPE[0] // 2, MESH_RANKS_SHAPE[1], cfg.n_heads // 2,
+             cfg.n_kv_heads // 2, cfg.head_dim)
+    _check(local == MESH_RANK_BLOCKS["a"][0], f"(a): block {local} is not phase 2's row")
+    want_a = {"flash_fwd": 2 * cfg.n_layers * MESH_RANKS_STEPS,
+              "flash_bwd_fused": cfg.n_layers * MESH_RANKS_STEPS,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for rank, r in enumerate(a):
+        _check(r["kernel_blocks"] == [local],
+               f"(a) rank {rank}: the kernel saw (B, S, Hq, Hkv, D) {r['kernel_blocks']}")
+        _check(r["launches"] == want_a, f"(a) rank {rank}: launches {r['launches']}")
+        _check(r["placed_by_plan"], f"(a) rank {rank}: placements")
+    total = 2 * num_params(cfg)
+    norm_bytes = 2 * cfg.dim * (2 * cfg.n_layers + 1)
+    for rank, r in enumerate(a):
+        _check(r["held_param_bytes"] == (total - norm_bytes) // 4 + norm_bytes,
+               f"(a) rank {rank}: holds {r['held_param_bytes']} of {total} bytes")
+    # (b), (c): the card's ranks against the CPU's.
+    errs = {}
+    for key in ("b", "c_ring", "c_zigzag"):
+        card, cpu = got["cuda"][0][key], got["cpu"][0][key]
+        loss_err = max(abs(x - y) for x, y in zip(card["losses"], cpu["losses"]))
+        param_err = max((card["params"][n] - cpu["params"][n]).abs().max().item()
+                        for n in cpu["params"])
+        errs[key] = {"loss": loss_err, "param": param_err, "losses": card["losses"]}
+        _check(loss_err <= MESH_RANKS_F32_ATOL and param_err <= MESH_RANKS_F32_ATOL,
+               f"({key}) card vs CPU ranks: loss err {loss_err}, param err {param_err}")
+    b_launches = got["cuda"][0]["b_launches"]
+    _check(b_launches["flash_fwd"] > 0 and b_launches["flash_bwd_fused"] > 0,
+           f"(b): the card's ranks did not launch the kernels: {b_launches}")
+    _check(all(r["b_kernel_blocks"] == [MESH_RANK_BLOCKS["b"][0]] for r in got["cuda"]),
+           f"(b): the kernel saw (B, S, Hq, Hkv, D) {got['cuda'][0]['b_kernel_blocks']}")
+    _check(not any(got["cpu"][0]["b_launches"].values()), "a CPU rank launched a kernel")
+    # Each run's launches over the 4 card ranks, for the kernels line.
+    launches = {key: {k: sum(r[field][k] for r in rs) for k in want_a}
+                for key, field, rs in (("a", "launches", a), ("b", "b_launches", got["cuda"]))}
+    stats = {"a_losses": a[0]["losses"], "a_reference_losses": ref, "a_loss_max_abs_err": a_err,
+             "a_grad_fingerprint_rel_err": grad_err,
+             "a_change_fingerprint_rel_err": change_err,
+             "a_step_ms_by_rank": [r["step_ms"] for r in a],
+             "a_launches_per_rank": want_a, "a_kernel_block": local,
+             "launches_all_ranks": launches,
+             "a_held_param_bytes_per_rank": a[0]["held_param_bytes"],
+             "a_total_param_bytes": total,
+             "a_peak_allocated_bytes_by_rank": [r["peak_allocated_bytes"] for r in a],
+             "f32": errs, "b_launches_card_rank0": b_launches, "wall_s": wall_s}
+    print(f"[mesh ranks] 4 gloo ranks on the card: (a) llama_7b widths x {cfg.n_layers} "
+          f"layers, bf16, fsdp=2 x tp=2, {MESH_RANKS_SHAPE[0]}x{MESH_RANKS_SHAPE[1]}: losses "
+          f"{a[0]['losses']} vs 1-rank {ref} (max err {a_err:.3e}, atol "
+          f"{MESH_RANKS_BF16_ATOL}); fingerprints' relative error: first-step gradients "
+          f"{grad_err:.3e} (rtol {MESH_RANKS_GRAD_RTOL}), the parameters' change "
+          f"{change_err:.3e} (rtol {MESH_RANKS_UPDATE_RTOL}); step ms by rank "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in a]}; the kernel on (B, S, Hq, "
+          f"Hkv, D) {local}; launches per rank {want_a}; bytes held per rank "
+          f"{a[0]['held_param_bytes']} of {total} (total / 4 = {total // 4}, norms "
+          f"replicated); (b) llama_test f32 fsdp x tp and (c) fsdp x sp ring / zigzag vs 4 "
+          f"CPU ranks: {json.dumps(errs)} (atol {MESH_RANKS_F32_ATOL}); {wall_s:.1f} s")
+    return stats
+
+
 def _record_and_materialize(cls, cfg, n, label):
     """``deferred_init`` of ``cls(cfg)`` on the card (no bytes, ``n``
     parameters), ``materialize_module_torch(seed=MAT_SEED)`` (the values
@@ -1974,15 +2525,33 @@ def _kernels_line(rows, bwd_rows, launches, wide_stats):
     return entries
 
 
+def _path_entries(rows, bwd_rows, shape, label, path, launched):
+    """The kernels line's entries for each kernel that ``path`` launched
+    (``launched``), at phase 2's rows of ``shape``."""
+    by_kernel = {"flash_fwd": next(r for r in rows if r["shape"] == shape)}
+    by_kernel.update({r["kernel"]: r for r in bwd_rows if r["shape"] == shape})
+    entries = []
+    for kernel, n in launched.items():
+        if n:
+            _check(kernel in by_kernel, f"{path}: no {shape} row of {kernel}")
+            entries.append(_kernel_entry(f"{kernel} ({label})", kernel, by_kernel[kernel],
+                                         {path: n}))
+    return entries
+
+
 def _gpt2_entries(rows, bwd_rows, launched):
     """The kernels line's entries for the D 64 instances that the [gpt2] path
     launches, at phase 2's GPT2_HEADS rows, with the path's launches."""
-    fwd = next(r for r in rows if r["shape"] == GPT2_HEADS)
-    fused = next(r for r in bwd_rows
-                 if r["shape"] == GPT2_HEADS and r["kernel"] == "flash_bwd_fused")
-    return [_kernel_entry(f"{kernel} (gpt2_xl heads, D 64)", kernel, row,
-                          {"gpt2": launched[kernel]})
-            for kernel, row in (("flash_fwd", fwd), ("flash_bwd_fused", fused))]
+    return _path_entries(rows, bwd_rows, GPT2_HEADS, "gpt2_xl heads, D 64", "gpt2", launched)
+
+
+def _mesh_rank_entries(rows, bwd_rows, launches):
+    """The kernels line's entries for [mesh ranks]' kernel blocks, with each
+    run's launches over the 4 card ranks (``launches["a"]``, ``["b"]``)."""
+    return [entry for key, label in (("a", "mesh rank block, llama_7b widths"),
+                                     ("b", "mesh rank block, llama_test f32"))
+            for entry in _path_entries(rows, bwd_rows, MESH_RANK_BLOCKS[key][1], label,
+                                       f"mesh_ranks_{key}", launches[key])]
 
 
 def main() -> int:
@@ -2057,6 +2626,13 @@ def main() -> int:
     replica_stats = phase_slowmo_replicas()
     _free()
 
+    mesh_stats = phase_mesh(cfg, fa, train_stats)
+    mesh_launches = mesh_stats["path_launches"]  # read around each mesh step
+    print(f"[mesh path] launches: {json.dumps(mesh_launches)}")
+    for kernel, n in mesh_launches.items():
+        _check(n > 0, f"{kernel} was not launched on the mesh path")
+    mesh_stats["ranks"] = phase_mesh_ranks(mesh_stats)
+
     from torchdistx_tpu_torch.models import gpt2, moe
 
     _reset_counts(fa)  # the GPT-2 path's forward part starts here
@@ -2104,7 +2680,8 @@ def main() -> int:
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
         "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
         "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
-        "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "gpt2": gpt2_stats,
+        "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "mesh": mesh_stats,
+        "gpt2": gpt2_stats,
         "moe": moe_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "script_s": time.perf_counter() - t_start,
     }))
@@ -2112,10 +2689,11 @@ def main() -> int:
     def launches(kernel):
         return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
                 "fit": fit_launches[kernel], "slowmo": slowmo_launches[kernel],
-                "moe": moe_launches[kernel]}
+                "mesh": mesh_launches[kernel], "moe": moe_launches[kernel]}
 
     entries = (_kernels_line(rows, bwd_rows, launches, wide_stats)
-               + _gpt2_entries(rows, bwd_rows, gpt2_launches))
+               + _gpt2_entries(rows, bwd_rows, gpt2_launches)
+               + _mesh_rank_entries(rows, bwd_rows, mesh_stats["ranks"]["launches_all_ranks"]))
     print(json.dumps({"kernels": entries}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
@@ -2129,5 +2707,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--slowmo-replica"]:
         device, rank, store, out = sys.argv[2:6]
         slowmo_replica(device, int(rank), store, out)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        device, rank, store, out = sys.argv[2:6]
+        mesh_rank(device, int(rank), store, out)
         sys.exit(0)
     sys.exit(main())

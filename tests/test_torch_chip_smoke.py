@@ -355,3 +355,73 @@ def test_moe_split_attributes_kernels_by_range_and_node():
     split = chip_smoke._moe_split(_Prof(events))
     assert split == pytest.approx({"routing": 0.6, "expert_gemms": 4.0, "attention": 0.7,
                                    "other_gemms": 0.5, "other": 0.15})
+
+
+@pytest.mark.parametrize("run", ["a", "b"])
+def test_mesh_rank_rows_are_the_runs_own_blocks(run):
+    # [mesh ranks] (a): llama_7b's heads at MESH_RANKS_SHAPE, (b):
+    # llama_test's at MESH_RANKS_F32_SHAPE, each over fsdp=2 x tp=2 (half
+    # the rows, half of each head count); phase 2 holds the forward and the
+    # fused backward at that block, at the kernel's padded head dim.
+    import dataclasses
+
+    from torchdistx_tpu_torch.models.llama import llama_7b, llama_test
+
+    if run == "a":
+        cfg = dataclasses.replace(llama_7b(), n_layers=chip_smoke.MESH_RANKS_LAYERS)
+        (b, s), dtype = chip_smoke.MESH_RANKS_SHAPE, torch.bfloat16
+    else:
+        cfg, (b, s), dtype = llama_test(), chip_smoke.MESH_RANKS_F32_SHAPE, torch.float32
+    block, name = chip_smoke.MESH_RANK_BLOCKS[run]
+    assert cfg.dtype == dtype
+    assert block == (b // 2, s, cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim)
+    want = (*block[:4], fa._kernel_head_dim(block[4]), dtype, True)
+    assert [r[1:] for r in chip_smoke.FLASH_SHAPES if r[0] == name] == [want]
+    assert [r[1:] for r in chip_smoke.BWD_SHAPES if r[0] == name] == [
+        (*want, fa.backward_route(s))]
+
+
+def test_mesh_rank_entries_take_the_mesh_rank_rows():
+    def row(shape, kernel=None):
+        r = {"shape": shape, "max_abs_err": 0.0, "ms": 1.0 if shape.startswith("mesh") else 9.0,
+             "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1}
+        return r if kernel is None else {**r, "kernel": kernel}
+
+    rows = [row(r[0]) for r in chip_smoke.FLASH_SHAPES]
+    bwd_rows = [row(r[0], k) for r in chip_smoke.BWD_SHAPES
+                for k in chip_smoke.BWD_KERNELS[r[8]]]
+    launches = {"a": {"flash_fwd": 32, "flash_bwd_fused": 16, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0},
+                "b": {"flash_fwd": 24, "flash_bwd_fused": 24, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}}
+    entries = chip_smoke._mesh_rank_entries(rows, bwd_rows, launches)
+    assert [(e["name"], e["launches"]) for e in entries] == [
+        ("flash_fwd (mesh rank block, llama_7b widths)", 32),
+        ("flash_bwd_fused (mesh rank block, llama_7b widths)", 16),
+        ("flash_fwd (mesh rank block, llama_test f32)", 24),
+        ("flash_bwd_fused (mesh rank block, llama_test f32)", 24)]
+    assert all(e["ms"] == 1.0 for e in entries)
+    assert entries[1]["launches_by_path"] == {"mesh_ranks_a": 16}
+
+
+def test_fingerprint_err_sees_a_misplaced_gradient():
+    # Signed row and column sums of a matrix: equal tensors give 0, a
+    # gradient with two row blocks swapped (a shard in the wrong place) is
+    # far off, and so is one whose columns each sum to 0 (a softmax head's
+    # gradient over the vocabulary) against a column-wise wrong copy; a
+    # zero reference against a nonzero tensor is inf.
+    g = torch.Generator().manual_seed(0)
+    w = {"m": torch.randn(8, 6, generator=g), "v": torch.randn(5, generator=g)}
+    want = chip_smoke._fingerprint(w)
+    assert [x.shape for x in want["m"]] == [(8,), (6,)] and len(want["v"]) == 1
+    assert chip_smoke._fingerprint_err(chip_smoke._fingerprint(w), want) == 0.0
+    swapped = {"m": torch.cat([w["m"][4:], w["m"][:4]]), "v": w["v"]}
+    assert chip_smoke._fingerprint_err(chip_smoke._fingerprint(swapped), want) > 0.5
+    centred = {"m": w["m"] - w["m"].mean(dim=0), "v": w["v"]}
+    wrong = {"m": centred["m"][:, torch.arange(5, -1, -1)], "v": w["v"]}
+    assert chip_smoke._fingerprint_err(chip_smoke._fingerprint(wrong),
+                                       chip_smoke._fingerprint(centred)) > 0.5
+    zero = {"m": torch.zeros(8, 6), "v": torch.zeros(5)}
+    assert chip_smoke._fingerprint_err(want, chip_smoke._fingerprint(zero)) == float("inf")
+    change = chip_smoke._fingerprint_change(want, want)
+    assert chip_smoke._fingerprint_err(change, chip_smoke._fingerprint(zero)) == 0.0

@@ -355,8 +355,8 @@ def test_placements_follow_the_mesh_order():
     # strided sharding), which raises.
     from torch.distributed.tensor import Replicate, Shard
 
-    from torchdistx_tpu_torch.materialize import _placements
     from torchdistx_tpu_torch.parallel import MeshSpec, PartitionSpec
+    from torchdistx_tpu_torch.parallel.sharding import spec_placements as _placements
 
     mesh = MeshSpec(dp=2, fsdp=2, tp=2)
     assert _placements(PartitionSpec("tp", "fsdp"), mesh, 2) == [Replicate(), Shard(1), Shard(0)]

@@ -225,8 +225,8 @@ def test_tree_allfinite_and_skip_tracker():
     "kwargs, error",
     [
         ({"mesh": object()}, ValueError),
-        ({"tp": "tp"}, ValueError),
-        ({"fsdp": "fsdp"}, ValueError),
+        ({"tp": "model"}, ValueError),
+        ({"fsdp": "data"}, ValueError),
         ({"seq_axis": "sp"}, ValueError),
         ({"pp_axis": "pp"}, ValueError),
         ({"n_microbatches": 4}, ValueError),

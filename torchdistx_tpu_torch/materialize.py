@@ -61,8 +61,8 @@ from .fake import FakeTensor
 from .parallel.sharding import (
     PartitionSpec,
     fit_spec_to_mesh,
-    mesh_axis_sizes,
     replicate_indivisible,
+    spec_placements,
 )
 
 __all__ = ["materialize_tensor_torch", "materialize_module_torch"]
@@ -237,29 +237,6 @@ def _own(value: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return value
 
 
-def _placements(spec, mesh, ndim: int):
-    """DTensor placements of ``spec`` on ``mesh``: mesh dim ``i`` is
-    ``Shard(d)`` when its axis name is in entry ``d``, else ``Replicate()``.
-    A tuple entry must list its axes in the mesh's dim order."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    names = list(mesh_axis_sizes(mesh))
-    placements = [Replicate() for _ in names]
-    for d, entry in enumerate(list(spec)[:ndim]):
-        if entry is None:
-            continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
-        dims = [names.index(a) for a in axes]
-        if dims != sorted(dims):
-            raise ValueError(
-                f"spec entry {entry!r} lists its axes out of the mesh's order "
-                f"{tuple(names)}: DTensor cannot place it without strided sharding"
-            )
-        for i in dims:
-            placements[i] = Shard(d)
-    return placements
-
-
 def _local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of ``full``: tensor dim ``d`` split over the mesh
     dims that shard it, the earlier mesh dim the major one."""
@@ -292,7 +269,7 @@ def _finish(value, dtype, mesh, spec):
         return value
     from torch.distributed.tensor import DTensor
 
-    placements = _placements(spec, mesh, value.dim())
+    placements = spec_placements(spec, mesh, value.dim())
     local = _local_shard(value, mesh, placements)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=value.shape, stride=value.stride())

@@ -15,7 +15,12 @@ Parameter once, and a state dict loaded by assignment would fill only one).
 
 The module computes in its parameters' dtype (``cfg.dtype`` as built).
 ``cfg.remat`` runs each block under ``torch.utils.checkpoint`` when
-gradients are on.  The JAX ``forward_paged`` (serving) and the pipeline
+gradients are on.  On a mesh (``mesh=``, ``seq_axis=``) the parameters are
+``DTensor``s placed by :func:`param_specs` and each rank computes its
+block as the port's Llama does (see
+:mod:`~torchdistx_tpu_torch.models.llama`); ``attn_qkv``'s ``tp`` shards
+cut across q, k and v, so each rank gathers it and takes its own heads'
+rows of each.  The JAX ``forward_paged`` (serving) and the pipeline
 pieces (``pp_pieces``, ``pp_value_and_grad``) belong to later parts of the
 port.
 """
@@ -32,8 +37,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import attention, cached_attention
+from ..ops.attention import cached_attention
 from ..parallel.sharding import PartitionSpec as P
+from ..parallel.spmd import SINGLE, local_inputs
 
 __all__ = [
     "GPT2Config",
@@ -135,8 +141,8 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
 
-    def forward(self, x):
-        return _layernorm(x, self.weight, self.bias, self.eps)
+    def forward(self, x, ctx=SINGLE):
+        return _layernorm(x, ctx.weight(self.weight), ctx.weight(self.bias), self.eps)
 
 
 class Block(nn.Module):
@@ -154,26 +160,53 @@ class Block(nn.Module):
         self.mlp_fc = nn.Linear(d, f, **kw)
         self.mlp_proj = nn.Linear(f, d, **kw)
 
-    def qkv(self, x):
+    def qkv(self, x, ctx=SINGLE):
         """``(q, k, v)``, each ``(B, T, H, Dh)``: one product, split into
         thirds along the features, then into heads (the JAX order, so HF
-        ``c_attn`` weights need no permutation)."""
+        ``c_attn`` weights need no permutation).  Under ``tp`` the heads are
+        this rank's."""
         b, t = x.shape[0], x.shape[1]
         cfg = self.cfg
-        qkv = self.attn_qkv(self.ln_1(x))
-        return tuple(part.reshape(b, t, cfg.n_heads, cfg.head_dim).contiguous()
-                     for part in qkv.split(cfg.dim, dim=-1))
+        h = self.ln_1(x, ctx)
+        split = ctx.tp_size > 1 and ctx.tp_divides(cfg.n_heads)
+        w = ctx.weight(self.attn_qkv.weight, tp_partial=split)
+        bias = ctx.weight(self.attn_qkv.bias, tp_partial=split)
+        if split:
+            width = cfg.dim // ctx.tp_size
+            rows = [(part * cfg.dim + ctx.tp_rank * width, width) for part in range(3)]
+            w = torch.cat([w.narrow(0, start, n) for start, n in rows])
+            bias = torch.cat([bias.narrow(0, start, n) for start, n in rows])
+            h = ctx.tp_copy(h)
+        qkv = F.linear(h, w, bias)
+        return tuple(part.reshape(b, t, -1, cfg.head_dim).contiguous()
+                     for part in qkv.split(qkv.shape[-1] // 3, dim=-1))
 
-    def finish(self, x, attn):
+    def finish(self, x, attn, ctx=SINGLE):
         """The attention output's projection, residual and the MLP."""
         b, t = x.shape[0], x.shape[1]
-        x = x + self.attn_proj(attn.reshape(b, t, -1))
-        h = F.gelu(self.mlp_fc(self.ln_2(x)), approximate="tanh")
-        return x + self.mlp_proj(h)
+        cfg = self.cfg
+        split = ctx.tp_divides(cfg.n_heads)
+        x = x + self._row(ctx, split, self.attn_proj, attn.reshape(b, t, -1))
+        h = self.ln_2(x, ctx)
+        split = ctx.tp_divides(cfg.ffn_dim)
+        col = 0 if split else None
+        h = ctx.tp_copy(h) if split else h
+        h = F.gelu(F.linear(h, ctx.weight(self.mlp_fc.weight, tp_dim=col),
+                            ctx.weight(self.mlp_fc.bias, tp_dim=col)), approximate="tanh")
+        return x + self._row(ctx, split, self.mlp_proj, h)
 
-    def forward(self, x, attn_impl: str = "auto"):
-        q, k, v = self.qkv(x)
-        return self.finish(x, attention(q, k, v, causal=True, impl=attn_impl))
+    @staticmethod
+    def _row(ctx, split, lin, h):
+        """A row-parallel product (summed over ``tp``), then its bias."""
+        if not split or ctx.tp_size == 1:
+            return F.linear(h, ctx.weight(lin.weight), ctx.weight(lin.bias))
+        out = ctx.tp_reduce(F.linear(h, ctx.weight(lin.weight, tp_dim=1)))
+        return out + ctx.weight(lin.bias)
+
+    def forward(self, x, attn_impl: str = "auto", ctx=SINGLE):
+        q, k, v = self.qkv(x, ctx)
+        split = ctx.tp_divides(self.cfg.n_heads)
+        return self.finish(x, ctx.attention(q, k, v, heads=split, impl=attn_impl), ctx)
 
 
 class GPT2(nn.Module):
@@ -215,39 +248,58 @@ class GPT2(nn.Module):
         """The head's weight: the token embedding itself."""
         return self.wte.weight
 
-    def _embed(self, tokens, pos: int = 0):
+    def _embed(self, tokens, pos: int = 0, ctx=SINGLE):
         t = tokens.shape[1]
         if pos + t > self.cfg.max_seq_len:
             raise ValueError(f"positions up to {pos + t} exceed cfg.max_seq_len "
                              f"({self.cfg.max_seq_len})")
-        return self.wte(tokens) + self.wpe.weight[pos:pos + t][None]
+        wpe = ctx.weight(self.wpe.weight)
+        return F.embedding(tokens, ctx.weight(self.wte.weight)) + wpe[pos:pos + t][None]
 
-    def _head(self, x):
+    def _head(self, x, ctx=SINGLE):
         """Final norm and tied head in ``cfg.dtype`` (not yet f32)."""
-        return F.linear(self.ln_f(x), self.head_weight)
+        return F.linear(self.ln_f(x, ctx), ctx.weight(self.head_weight))
 
-    def _hidden(self, tokens, attn_impl: str):
-        x = self._embed(tokens)
+    def _hidden(self, tokens, attn_impl: str, ctx=SINGLE, pos: int = 0):
+        x = self._embed(tokens, pos, ctx)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
             if remat:
-                x = checkpoint(blk, x, attn_impl, use_reentrant=False)
+                x = checkpoint(blk, x, attn_impl, ctx, use_reentrant=False)
             else:
-                x = blk(x, attn_impl)
+                x = blk(x, attn_impl, ctx)
         return x
 
-    def forward(self, tokens, attn_impl: str = "auto"):
-        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32."""
-        return self._head(self._hidden(tokens, attn_impl)).float()
+    def _logits(self, tokens, targets, attn_impl, mesh, seq_axis):
+        """``(ctx, targets, logits in cfg.dtype)`` of this rank's block."""
+        ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
+            tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
+        del positions  # contiguous: this rank's columns start at its offset
+        pos = ctx.seq_offset(tokens.shape[1])
+        return ctx, targets, self._head(self._hidden(tokens, attn_impl, ctx, pos), ctx)
 
-    def loss(self, tokens, targets, attn_impl: str = "auto"):
+    def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
+                seq_axis: Optional[str] = None):
+        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.  With
+        ``mesh``, ``tokens`` is the global batch on every rank and the
+        logits are a ``DTensor`` (this rank's rows and columns)."""
+        ctx, _, logits = self._logits(tokens, None, attn_impl, mesh, seq_axis)
+        if mesh is None:
+            return logits.float()
+        return ctx.dtensor(logits.float(), ctx.placements(heads=False))
+
+    def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
+             seq_axis: Optional[str] = None):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``:
         logits in ``cfg.dtype``, ``logsumexp`` of their f32 upcast minus
-        the target's logit)."""
-        logits = self._head(self._hidden(tokens, attn_impl))
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0].float()
-        return (lse - tgt).mean()
+        the target's logit); with ``mesh``, the global batch's on every
+        rank."""
+        ctx, targets, logits = self._logits(tokens, targets, attn_impl, mesh, seq_axis)
+        nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
+            -1, targets[..., None])[..., 0].float()
+        if mesh is None:
+            return nll.mean()
+        return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
 
     def init_cache(self, batch: int, max_len: int, *, device: Optional[Any] = None):
         """Static-shape KV cache: ``(L, B, Smax, H, Dh)`` per k/v in the

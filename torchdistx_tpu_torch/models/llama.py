@@ -16,6 +16,15 @@ JAX ``loss_fn``.  With ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` when gradients are on, so its activations are
 recomputed in the backward (the flash forward then runs twice per layer).
 
+On a mesh (``mesh=``, ``seq_axis=``, ``seq_layout=``, as the JAX
+``forward`` / ``loss_fn``), the parameters are ``DTensor``s placed by
+:func:`param_specs` and each rank computes its block of the global batch
+through a :class:`~torchdistx_tpu_torch.parallel.spmd.SpmdContext`:
+Megatron tensor parallelism over ``tp`` (the projections column- and
+row-parallel, attention on the rank's heads, when ``tp`` divides both head
+counts), the batch over ``dp``/``fsdp``, the sequence over ``seq_axis``
+(ring attention; RoPE at each column's global position).
+
 Decoding (:meth:`Llama.forward_cached`) fuses ``wq|wk|wv`` and
 ``w_gate|w_up`` (:meth:`Llama.prep_decode`) and updates the KV cache in
 place, which keeps one cache in memory instead of a copy per step.
@@ -33,8 +42,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import attention, cached_attention
+from ..ops.attention import cached_attention
 from ..parallel.sharding import PartitionSpec as P
+from ..parallel.spmd import SINGLE, local_inputs
 
 __all__ = [
     "LlamaConfig",
@@ -171,8 +181,8 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
 
-    def forward(self, x):
-        return _rmsnorm(x, self.weight, self.eps)
+    def forward(self, x, ctx=SINGLE):
+        return _rmsnorm(x, ctx.weight(self.weight), self.eps)
 
 
 class Block(nn.Module):
@@ -200,23 +210,39 @@ class Block(nn.Module):
         self.w_up = nn.Linear(d, f, **kw)
         self.w_down = nn.Linear(f, d, **kw)
 
-    def attend(self, x, cos, sin, attn_impl: str = "auto"):
-        """The attention half with its residual: ``x + wo(attn(norm(x)))``."""
+    def attend(self, x, cos, sin, attn_impl: str = "auto", ctx=SINGLE,
+               pre_permuted: bool = False):
+        """The attention half with its residual: ``x + wo(attn(norm(x)))``
+        (on a mesh, ``ctx`` gives the local weights and collectives)."""
         cfg = self.cfg
         b, s = x.shape[0], x.shape[1]
-        h = self.attn_norm(x)
-        q = self.wq(h).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = self.wk(h).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(h).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        split = ctx.tp_divides(cfg.n_heads, cfg.n_kv_heads)
+        col, row = (0, 1) if split else (None, None)
+        h = self.attn_norm(x, ctx)
+        if split:
+            h = ctx.tp_copy(h)
+        q = F.linear(h, ctx.weight(self.wq.weight, tp_dim=col)).reshape(b, s, -1, cfg.head_dim)
+        k = F.linear(h, ctx.weight(self.wk.weight, tp_dim=col)).reshape(b, s, -1, cfg.head_dim)
+        v = F.linear(h, ctx.weight(self.wv.weight, tp_dim=col)).reshape(b, s, -1, cfg.head_dim)
         q = _rope_apply(q, cos, sin)
         k = _rope_apply(k, cos, sin)
-        attn = attention(q, k, v, causal=True, impl=attn_impl)
-        return x + self.wo(attn.reshape(b, s, -1))
+        attn = ctx.attention(q, k, v, heads=split, impl=attn_impl, pre_permuted=pre_permuted)
+        out = F.linear(attn.reshape(b, s, -1), ctx.weight(self.wo.weight, tp_dim=row))
+        return x + (ctx.tp_reduce(out) if split else out)
 
-    def forward(self, x, cos, sin, attn_impl: str = "auto"):
-        x = self.attend(x, cos, sin, attn_impl)
-        h = self.mlp_norm(x)
-        return x + self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
+    def forward(self, x, cos, sin, attn_impl: str = "auto", ctx=SINGLE,
+                pre_permuted: bool = False):
+        cfg = self.cfg
+        x = self.attend(x, cos, sin, attn_impl, ctx, pre_permuted)
+        split = ctx.tp_divides(cfg.ffn_dim)
+        col, row = (0, 1) if split else (None, None)
+        h = self.mlp_norm(x, ctx)
+        if split:
+            h = ctx.tp_copy(h)
+        gated = (F.silu(F.linear(h, ctx.weight(self.w_gate.weight, tp_dim=col)))
+                 * F.linear(h, ctx.weight(self.w_up.weight, tp_dim=col)))
+        out = F.linear(gated, ctx.weight(self.w_down.weight, tp_dim=row))
+        return x + (ctx.tp_reduce(out) if split else out)
 
 
 class Llama(nn.Module):
@@ -258,37 +284,62 @@ class Llama(nn.Module):
         """Final norm and head in ``cfg.dtype``, then f32 logits."""
         return self.lm_head(self.norm(x)).float()
 
-    def _hidden(self, tokens, attn_impl: str):
+    def _hidden(self, tokens, attn_impl: str, ctx=SINGLE, positions=None,
+                pre_permuted: bool = False):
         """The blocks' output ``(B, S, dim)`` before the final norm."""
         cfg = self.cfg
-        s = tokens.shape[1]
-        x = self.embed(tokens)
-        positions = torch.arange(s, device=tokens.device)[None]
+        x = F.embedding(tokens, ctx.weight(self.embed.weight))
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
             if remat:
-                x = checkpoint(blk, x, cos, sin, attn_impl, use_reentrant=False)
+                x = checkpoint(blk, x, cos, sin, attn_impl, ctx, pre_permuted,
+                               use_reentrant=False)
             else:
-                x = blk(x, cos, sin, attn_impl)
+                x = blk(x, cos, sin, attn_impl, ctx, pre_permuted)
         return x
 
-    def forward(self, tokens, attn_impl: str = "auto"):
-        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32."""
-        return self._head(self._hidden(tokens, attn_impl))
+    def _logits(self, x, ctx):
+        """The head's logits in ``cfg.dtype`` (the whole vocabulary)."""
+        return F.linear(self.norm(x, ctx), ctx.weight(self.lm_head.weight))
 
-    def loss(self, tokens, targets, attn_impl: str = "auto"):
+    def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
+                seq_axis: Optional[str] = None, seq_layout: str = "contiguous"):
+        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.
+
+        With ``mesh``, ``tokens`` is the global batch on every rank and the
+        logits are a ``DTensor`` (this rank's rows and columns); under
+        ``seq_layout="zigzag"`` they are in zigzag order, as in JAX (invert
+        with ``parallel.ring_attention._zigzag_perm(S, sp)[1]``)."""
+        if mesh is None and seq_axis is None and seq_layout == "contiguous":
+            return self._head(self._hidden(tokens, attn_impl))
+        ctx, tokens, _, positions, attn_impl, pre = local_inputs(
+            tokens, None, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
+            attn_impl=attn_impl)
+        logits = self._logits(self._hidden(tokens, attn_impl, ctx, positions, pre), ctx)
+        return ctx.dtensor(logits.float(), ctx.placements(heads=False))
+
+    def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
+             seq_axis: Optional[str] = None, seq_layout: str = "contiguous"):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``).
 
         The head's logits stay in the parameters' dtype, as the JAX
         ``_head_ce`` keeps them; the loss is ``logsumexp`` of their f32
-        upcast minus the target's logit, averaged over ``(B, S)``.
+        upcast minus the target's logit, averaged over ``(B, S)``.  With
+        ``mesh``, ``tokens`` and ``targets`` are the global batch on every
+        rank, and every rank returns the global mean.
         """
-        x = self._hidden(tokens, attn_impl)
-        logits = self.lm_head(self.norm(x))
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0].float()
-        return (lse - tgt).mean()
+        ctx, tokens, targets, positions, attn_impl, pre = local_inputs(
+            tokens, targets, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
+            attn_impl=attn_impl)
+        logits = self._logits(self._hidden(tokens, attn_impl, ctx, positions, pre), ctx)
+        nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
+            -1, targets[..., None])[..., 0].float()
+        if mesh is None:
+            return nll.mean()
+        return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
 
     def init_cache(self, batch: int, max_len: int, *, device: Optional[Any] = None):
         """Static-shape KV cache: ``(L, B, Smax, Hkv, Dh)`` per k/v in the

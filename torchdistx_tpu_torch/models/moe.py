@@ -11,8 +11,13 @@ load-balancing aux loss (the mean over layers of E * sum_e f_e * p_e, f
 counting all k choices) is added to the loss with ``router_aux_coef``.
 
 One device runs every expert: the JAX ``ep`` sharding (all-to-alls over
-the expert axis) and the pipeline pieces belong to the multi-device port;
-:func:`param_specs` gives the ``ep`` layout already.  Expert weights keep
+the expert axis) and the pipeline pieces are not ported yet (a mesh with an
+``ep`` axis larger than 1 raises); :func:`param_specs` gives the ``ep``
+layout already.  On a mesh (``mesh=``, ``seq_axis=``) the attention half
+computes as Llama's (see :mod:`~torchdistx_tpu_torch.models.llama`), and
+each layer's routed FFN runs on every rank over all the tokens (gathered
+over the data axes), so that the capacity and the positions are the global
+batch's, as under the JAX ``jit``; each rank keeps its rows.  Expert weights keep
 the JAX layout ``(E, in, out)``, so the products are plain ``bmm``; the
 router is an ``nn.Linear`` like the other projections.
 """
@@ -30,7 +35,8 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..parallel.sharding import PartitionSpec as P
+from ..parallel.sharding import PartitionSpec as P, mesh_axis_sizes
+from ..parallel.spmd import SINGLE, local_inputs
 from . import llama as llama_mod
 from .llama import LlamaConfig, RMSNorm, _rope_tables
 
@@ -178,11 +184,14 @@ class MoEBlock(llama_mod.Block):
         self.e_up = nn.Parameter(torch.empty(e, d, f, **like))
         self.e_down = nn.Parameter(torch.empty(e, f, d, **like))
 
-    def forward(self, x, cos, sin, attn_impl: str = "auto"):
-        x = self.attend(x, cos, sin, attn_impl)
-        out, aux = moe_ffn(self.mlp_norm(x), self.router.weight, self.e_gate, self.e_up,
-                           self.e_down, self.cfg)
-        return x + out, aux
+    def forward(self, x, cos, sin, attn_impl: str = "auto", ctx=SINGLE,
+                pre_permuted: bool = False):
+        x = self.attend(x, cos, sin, attn_impl, ctx, pre_permuted)
+        h = self.mlp_norm(x, ctx)
+        out, aux = moe_ffn(ctx.gather_tokens(h), ctx.weight(self.router.weight),
+                           ctx.weight(self.e_gate), ctx.weight(self.e_up),
+                           ctx.weight(self.e_down), self.cfg)
+        return x + ctx.local_tokens(out, h), aux
 
 
 class MoE(nn.Module):
@@ -219,34 +228,53 @@ class MoE(nn.Module):
                 nn.init.normal_(w, 0.0, resid_std)
         nn.init.normal_(self.lm_head.weight, 0.0, std)
 
-    def _hidden(self, tokens, attn_impl: str):
+    def _hidden(self, tokens, attn_impl: str, ctx=SINGLE, positions=None):
         """The blocks' output before the final norm, and the sum of the
         layers' aux losses (f32)."""
         cfg = self.cfg
-        x = self.embed(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x = F.embedding(tokens, ctx.weight(self.embed.weight))
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if remat:
-                x, aux = checkpoint(blk, x, cos, sin, attn_impl, use_reentrant=False)
+                x, aux = checkpoint(blk, x, cos, sin, attn_impl, ctx, use_reentrant=False)
             else:
-                x, aux = blk(x, cos, sin, attn_impl)
+                x, aux = blk(x, cos, sin, attn_impl, ctx)
             aux_sum = aux_sum + aux
         return x, aux_sum
 
-    def forward(self, tokens, attn_impl: str = "auto", return_aux: bool = False):
-        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32; with
-        ``return_aux`` also the aux loss averaged over layers."""
-        x, aux_sum = self._hidden(tokens, attn_impl)
-        logits = self.lm_head(self.norm(x)).float()
-        return (logits, aux_sum / self.cfg.n_layers) if return_aux else logits
+    def _run(self, tokens, targets, attn_impl, mesh, seq_axis):
+        if mesh is not None and mesh_axis_sizes(mesh).get("ep", 1) > 1:
+            raise ValueError("MoE on a mesh with an 'ep' axis larger than 1 needs the "
+                             "expert all-to-all, which is not ported yet (ROADMAP A5b)")
+        ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
+            tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
+        x, aux_sum = self._hidden(tokens, attn_impl, ctx, positions)
+        logits = F.linear(self.norm(x, ctx), ctx.weight(self.lm_head.weight)).float()
+        return ctx, targets, logits, aux_sum / self.cfg.n_layers
 
-    def loss(self, tokens, targets, attn_impl: str = "auto"):
+    def forward(self, tokens, attn_impl: str = "auto", return_aux: bool = False, *,
+                mesh=None, seq_axis: Optional[str] = None):
+        """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32; with
+        ``return_aux`` also the aux loss averaged over layers.  With
+        ``mesh``, ``tokens`` is the global batch on every rank and the
+        logits are a ``DTensor`` (this rank's rows and columns)."""
+        ctx, _, logits, aux = self._run(tokens, None, attn_impl, mesh, seq_axis)
+        if mesh is not None:
+            logits = ctx.dtensor(logits, ctx.placements(heads=False))
+        return (logits, aux) if return_aux else logits
+
+    def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
+             seq_axis: Optional[str] = None):
         """Mean next-token cross-entropy plus ``router_aux_coef`` times the
-        aux loss (the JAX ``loss_fn``), f32 scalar."""
-        logits, aux = self.forward(tokens, attn_impl, return_aux=True)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        return (lse - tgt).mean() + self.cfg.router_aux_coef * aux
+        aux loss (the JAX ``loss_fn``), f32 scalar; with ``mesh``, the
+        global batch's on every rank."""
+        ctx, targets, logits, aux = self._run(tokens, targets, attn_impl, mesh, seq_axis)
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
+        if mesh is None:
+            return nll.mean() + self.cfg.router_aux_coef * aux
+        return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce,
+                        replicated=self.cfg.router_aux_coef * aux)

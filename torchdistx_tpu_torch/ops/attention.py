@@ -4,9 +4,17 @@ implementation dispatcher.
 Counterpart of ``torchdistx_tpu/ops/attention.py``.  Layout everywhere is
 ``(B, S, H, D)``; grouped-query attention (``Hq % Hkv == 0``) maps query
 head ``h`` to kv head ``h // (Hq // Hkv)`` with no head expansion.
+
+With a mesh, q, k and v are the global arrays as ``DTensor``s (or plain
+tensors, each rank holding the whole array), as the JAX ``attention`` takes
+global arrays under ``jit``: the flash kernel and the plain attention run
+on each rank's block (batch over ``dp``/``fsdp``, heads over ``tp``, the
+sequence whole), ring attention over ``seq_axis``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -74,25 +82,78 @@ def cached_attention(q, k_cache, v_cache, pos: int):
     return _attend_cached(q, k_cache, v_cache, valid[None, :, None, None, :])
 
 
-def attention(q, k, v, *, causal: bool = True, impl: str = "auto"):
+_IMPLS = "auto|plain|flash|ring|ring_zigzag"
+
+
+def _select_impl(impl, seq_axis, *, cuda: bool) -> str:
+    """Resolve ``impl="auto"``: ring when ``seq_axis`` is set; else the
+    plain attention off CUDA and the flash kernel on CUDA, under a mesh on
+    each rank's block.  The JAX ``_select_impl`` takes XLA's attention
+    under a mesh whose shapes do not divide (or that has an axis it does
+    not know); here the kernel runs on whatever block divides instead, so
+    CUDA tensors never take the plain version."""
+    if impl != "auto":
+        return impl
+    if seq_axis is not None:
+        return "ring"
+    return "flash" if cuda else "plain"
+
+
+def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,
+              seq_axis: Optional[str] = None, pre_permuted: bool = False):
     """Dispatching attention entry point used by the model.
 
-    ``impl``: ``"auto" | "plain" | "flash"``.  ``auto`` takes the
+    ``impl``: ``"auto" | "plain" | "flash" | "ring" | "ring_zigzag"``.
+    ``auto`` is ring attention when ``seq_axis`` is set; else the
     hand-written flash kernel for CUDA tensors and :func:`mha_reference`
-    for CPU tensors.  ``"flash"`` on a tensor that is not on CUDA raises.
+    otherwise.  Under ``mesh`` either runs on each rank's block: the batch
+    over ``dp``/``fsdp`` and the heads over ``tp`` as far as they divide
+    (:func:`~torchdistx_tpu_torch.ops.cuda.flash_attention.
+    flash_attention_sharded` when both do).  ``"flash"`` on a tensor that is not on
+    CUDA raises.  ``ring_zigzag`` is the load-balanced causal ring
+    schedule; ``pre_permuted`` (zigzag only) means the sequence is already
+    in zigzag order (see
+    :func:`~torchdistx_tpu_torch.parallel.ring_attention.ring_attention`).
     """
-    if impl == "auto":
-        impl = "flash" if q.is_cuda else "plain"
+    cuda = q.device.type == "cuda"
+    impl = _select_impl(impl, seq_axis, cuda=cuda)
+    if impl in ("ring", "ring_zigzag"):
+        if mesh is None or seq_axis is None:
+            raise ValueError("ring attention needs mesh= and seq_axis=")
+        from ..parallel.ring_attention import ring_attention
+
+        return ring_attention(
+            q, k, v, mesh=mesh, axis=seq_axis, causal=causal,
+            schedule="zigzag" if impl == "ring_zigzag" else "contiguous",
+            pre_permuted=pre_permuted,
+        )
+    if pre_permuted:
+        raise ValueError("pre_permuted is only meaningful with ring_zigzag")
     if impl == "plain":
-        return mha_reference(q, k, v, causal=causal)
+        if mesh is None:
+            return mha_reference(q, k, v, causal=causal)
+        from .cuda.flash_attention import on_blocks
+
+        return on_blocks(lambda a, b, c: mha_reference(a, b, c, causal=causal),
+                         q, k, v, mesh=mesh)
     if impl == "flash":
-        if not q.is_cuda:
+        if not cuda:
             raise ValueError(
                 f"attention impl='flash' needs CUDA tensors, got {q.device}"
             )
-        from .cuda.flash_attention import flash_attention
+        from .cuda.flash_attention import (
+            flash_attention,
+            flash_attention_sharded,
+            on_blocks,
+            shardable,
+        )
 
-        return flash_attention(q, k, v, causal=causal)
-    raise ValueError(
-        f"unknown attention impl: {impl!r} (expected auto|plain|flash)"
-    )
+        if mesh is None:
+            return flash_attention(q, k, v, causal=causal)
+        if shardable(mesh, q.shape, k.shape):
+            return flash_attention_sharded(q, k, v, causal=causal, mesh=mesh)
+        # Shapes that do not divide over the mesh (an odd batch, kv heads
+        # fewer than tp): the kernel on the block that does divide.
+        return on_blocks(lambda a, b, c: flash_attention(a, b, c, causal=causal),
+                         q, k, v, mesh=mesh)
+    raise ValueError(f"unknown attention impl: {impl!r} (expected {_IMPLS})")

@@ -17,7 +17,9 @@ version is :func:`flash_bwd_plain` (:func:`flash_attention_backward_reference`
 from ``out`` instead of ``delta``).
 
 Layout ``(B, S, H, D)``, as everywhere in the model.  A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.  Each launch adds
+plain version; a CUDA tensor launches the kernel or raises.
+:func:`flash_attention_sharded` runs :func:`flash_attention` on each rank's
+block of a mesh (the JAX ``shard_map`` wrapper; ``shardable`` says when).  Each launch adds
 one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
 
@@ -49,6 +51,7 @@ __all__ = [
     "flash_attention_backward_reference",
     "flash_attention_fwd_with_lse",
     "flash_attention_reference",
+    "flash_attention_sharded",
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_bwd_fused",
@@ -57,6 +60,8 @@ __all__ = [
     "launches_bwd_dkv",
     "launches_bwd_dq",
     "launches_bwd_fused",
+    "on_blocks",
+    "shardable",
 ]
 
 # Finite "minus infinity" of the masked logits (see flash_fwd.cu's header).
@@ -433,3 +438,93 @@ def flash_attention(q, k, v, *, causal: bool = True):
     d = q.shape[-1]
     out = _FlashAttention.apply(*_pad_head(q, k, v), causal, _scale(d))
     return out if out.shape[-1] == d else out[..., :d]
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh: the kernel on each rank's block
+
+
+def _mesh_split(mesh, batch_axes, head_axis):
+    """The batch axes and the head axis of ``mesh`` that have size > 1."""
+    from ...parallel.sharding import mesh_axis_sizes
+
+    sizes = mesh_axis_sizes(mesh)
+    batch = tuple(a for a in batch_axes if sizes.get(a, 1) > 1)
+    head = head_axis if sizes.get(head_axis, 1) > 1 else None
+    return batch, head
+
+
+def shardable(mesh, q_shape, kv_shape, *, batch_axes=("dp", "fsdp"),
+              head_axis: str = "tp") -> bool:
+    """Whether the kernel can run under ``mesh`` through
+    :func:`flash_attention_sharded`: the product of the batch axes divides
+    the batch, and ``tp`` divides both head counts (whole GQA groups per
+    shard)."""
+    from ...parallel.sharding import mesh_axis_sizes
+
+    sizes = mesh_axis_sizes(mesh)
+    batch, head = _mesh_split(mesh, batch_axes, head_axis)
+    b, hq, hkv = q_shape[0], q_shape[2], kv_shape[2]
+    nb = math.prod(sizes[a] for a in batch)
+    tp = sizes[head] if head else 1
+    return b % nb == 0 and hq % tp == 0 and hkv % tp == 0
+
+
+def on_blocks(fn, q, k, v, *, mesh, batch_axes=("dp", "fsdp"), head_axis: str = "tp"):
+    """``fn(q, k, v)`` of attention on each rank's block of the global q, k,
+    v (``DTensor``s, or plain tensors holding the whole arrays on every
+    rank): the batch split over ``batch_axes`` and the heads over
+    ``head_axis`` as far as each divides, the sequence whole.  The inputs are redistributed to that placement (no
+    collective when they have it); the result is a ``DTensor`` so placed,
+    or the whole output for plain inputs.  Differentiable: ``fn``'s
+    backward runs on the blocks too."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ...parallel.sharding import mesh_axis_sizes
+
+    plain = not isinstance(q, DTensor)
+    if plain:
+        q, k, v = (DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                   for x in (q, k, v))
+    sizes = mesh_axis_sizes(mesh)
+    batch, head = _mesh_split(mesh, batch_axes, head_axis)
+    if q.shape[0] % math.prod(sizes[a] for a in batch):
+        batch = ()
+    if head and (q.shape[2] % sizes[head] or k.shape[2] % sizes[head]):
+        head = None
+    placements = [Shard(0) if a in batch else Shard(2) if a == head else Replicate()
+                  for a in sizes]
+    local = []
+    for x in (q, k, v):
+        if list(x.placements) != placements:
+            x = x.redistribute(mesh, placements)
+        local.append(x.to_local())
+    out = DTensor.from_local(fn(*local), mesh, placements, run_check=False,
+                             shape=q.shape, stride=q.stride())
+    return out.full_tensor() if plain else out
+
+
+def flash_attention_sharded(q, k, v, *, causal: bool = True, mesh,
+                            batch_axes=("dp", "fsdp"), head_axis: str = "tp"):
+    """:func:`flash_attention` under a mesh: the batch split over
+    ``batch_axes``, the heads over ``head_axis``, the sequence whole, no
+    collective; the kernels (forward and backward) run on each rank's
+    block.  q, k, v are the global arrays as ``DTensor``s (or plain
+    tensors, each rank holding the whole array); the result is of the same
+    kind.  With no axis of size > 1 it is the bare :func:`flash_attention`.
+    """
+    from torch.distributed.tensor import DTensor
+
+    if not shardable(mesh, q.shape, k.shape, batch_axes=batch_axes, head_axis=head_axis):
+        from ...parallel.sharding import mesh_axis_sizes
+
+        raise ValueError(
+            f"flash_attention_sharded: q {tuple(q.shape)} / kv {tuple(k.shape)} not "
+            f"divisible over mesh {mesh_axis_sizes(mesh)} "
+            f"(batch_axes={tuple(batch_axes)}, head_axis={head_axis!r})"
+        )
+    batch, head = _mesh_split(mesh, batch_axes, head_axis)
+    if not batch and head is None and not isinstance(q, DTensor):
+        return flash_attention(q, k, v, causal=causal)
+    return on_blocks(lambda a, b, c: flash_attention(a, b, c, causal=causal), q, k, v,
+                     mesh=mesh, batch_axes=batch_axes, head_axis=head_axis)

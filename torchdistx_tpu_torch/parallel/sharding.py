@@ -10,7 +10,10 @@ axis name, or a tuple of names (the dim split over several axes).
 spec into ``DTensor`` placements on a ``DeviceMesh``.
 
 The mesh rules take a ``DeviceMesh`` (its ``mesh_dim_names`` and shape) or a
-:class:`~torchdistx_tpu_torch.parallel.mesh.MeshSpec`.
+:class:`~torchdistx_tpu_torch.parallel.mesh.MeshSpec`.  :func:`fit_shardings`
+and :func:`spec_placements` turn specs into ``DTensor`` placements (the JAX
+``fit_shardings`` gives ``NamedSharding``s); :func:`batch_sharding` gives a
+rank its block of a global batch.
 """
 
 from __future__ import annotations
@@ -23,12 +26,15 @@ from .mesh import MeshSpec
 __all__ = [
     "PartitionSpec",
     "Plan",
+    "batch_sharding",
     "combine_plans",
+    "fit_shardings",
     "fit_spec_to_mesh",
     "fsdp_over",
     "fsdp_plan",
     "replicate_indivisible",
     "replicated_plan",
+    "spec_placements",
     "tp_plan_gpt2",
     "tp_plan_llama",
 ]
@@ -94,6 +100,88 @@ def replicate_indivisible(spec, shape, mesh) -> PartitionSpec:
             size *= sizes[a]
         fixed.append(axes if shape[dim] % size == 0 else None)
     return PartitionSpec(*fixed)
+
+
+def spec_placements(spec, mesh, ndim: int) -> list:
+    """``DTensor`` placements of ``spec`` on ``mesh`` for a tensor of rank
+    ``ndim``: mesh dim ``i`` is ``Shard(d)`` when its axis name is in entry
+    ``d``, else ``Replicate()``.  A tuple entry must list its axes in the
+    mesh's dim order (the earlier mesh dim the major one)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_axis_sizes(mesh))
+    placements = [Replicate() for _ in names]
+    for d, entry in enumerate(list(spec)[:ndim]):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(
+                f"spec entry {entry!r} lists its axes out of the mesh's order "
+                f"{tuple(names)}: DTensor cannot place it without strided sharding"
+            )
+        for i in dims:
+            placements[i] = Shard(d)
+    return placements
+
+
+def fit_shardings(specs, shapes, mesh) -> Dict[str, list]:
+    """``{name: placements}`` for ``{name: spec}`` and ``{name: shape}``:
+    :func:`fit_spec_to_mesh`, then :func:`replicate_indivisible`, then
+    :func:`spec_placements`, the rule of the JAX ``fit_shardings`` (and of
+    :func:`~torchdistx_tpu_torch.materialize.materialize_module_torch`)."""
+    out = {}
+    for name, shape in shapes.items():
+        spec = replicate_indivisible(fit_spec_to_mesh(specs[name], mesh), tuple(shape), mesh)
+        out[name] = spec_placements(spec, mesh, len(shape))
+    return out
+
+
+def batch_sharding(mesh, *, data_axes: Sequence[str] = ("dp", "fsdp"),
+                   seq_axis: Optional[str] = None):
+    """This rank's block of a global batch: a function from a ``{"tokens",
+    "targets", ...}`` batch of ``(B, S)`` tensors to this rank's rows (the
+    batch dim split over ``data_axes``, the earlier mesh dim the major one,
+    as ``Shard(0)`` places it) and, with ``seq_axis``, its columns (the
+    sequence split over that axis).  Other keys pass through.  Counterpart
+    of the JAX ``batch_sharding``'s ``P(data_axes, None)``; ``seq_axis`` is
+    the sharding the JAX ring attention's ``shard_map`` gives the sequence.
+    A batch or sequence that does not divide raises (as ``jax.device_put``
+    does)."""
+    sizes = mesh_axis_sizes(mesh)
+    names = list(sizes)
+    rows = [a for a in names if a in tuple(data_axes)]
+    coord = mesh.get_coordinate() if rows or seq_axis else None
+    if seq_axis is not None and seq_axis not in sizes:
+        raise ValueError(f"mesh has no axis {seq_axis!r} (axes {tuple(names)})")
+
+    def block(n, axes):
+        parts, index = 1, 0
+        for a in axes:
+            i = names.index(a)
+            parts *= sizes[a]
+            index = index * sizes[a] + coord[i]
+        return parts, index
+
+    def shard(batch):
+        out = dict(batch)
+        for key in ("tokens", "targets"):
+            if key not in batch:
+                continue
+            x = batch[key]
+            for dim, axes in ((0, rows), (1, [seq_axis] if seq_axis else [])):
+                parts, index = block(x.shape[dim], axes)
+                if x.shape[dim] % parts:
+                    raise ValueError(
+                        f"batch {key!r} dim {dim} of size {x.shape[dim]} does not split "
+                        f"over mesh axes {axes} ({parts} parts)")
+                chunk = x.shape[dim] // parts
+                x = x.narrow(dim, index * chunk, chunk)
+            out[key] = x
+        return out
+
+    return shard
 
 
 def replicated_plan() -> Plan:

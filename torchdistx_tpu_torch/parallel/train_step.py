@@ -12,12 +12,19 @@ step count.
 
 ``model=`` picks the model family as in the JAX steps: the port's
 ``models.llama`` (the default), ``models.gpt2`` or ``models.moe`` module.
-The mesh arguments of the JAX ``make_train_step`` (``mesh``, ``tp``,
-``fsdp``, ``seq_axis``, ``pp_axis``, ``n_microbatches``, ``pp_schedule``,
-``seq_layout``) belong to the multi-device port and raise here when given.
-Its ``loss_fn`` option has no counterpart yet: the step trains on the
-model's ``loss``, whose attention is the flash kernel on CUDA tensors and
-the plain version on CPU tensors.
+
+With ``mesh=`` (a ``DeviceMesh`` of :func:`~torchdistx_tpu_torch.parallel.
+mesh.make_mesh`) the step is the JAX dp/fsdp/tp/sp step: ``init_fn`` shards
+then materializes (each rank holds the ``DTensor`` shards that the family's
+``param_specs(cfg)`` give it, fitted to the mesh), the
+optimizer's moments take each parameter's own placement, and ``step_fn``
+takes the global batch on every rank; each rank computes its block (see
+:mod:`~torchdistx_tpu_torch.parallel.spmd`).  The pipeline arguments
+(``pp_axis``, ``n_microbatches``, ``pp_schedule``), a custom ``loss_fn``,
+an ``ep`` axis larger than 1 and ``tp``/``fsdp`` axis names other than
+those are not ported yet and raise (ROADMAP A5b).  The step trains on the model's ``loss``, whose attention is the
+flash kernel on CUDA tensors (on each rank's heads and rows under a mesh,
+ring attention with ``seq_axis``) and the plain version on CPU tensors.
 
 The JAX SlowMo step keeps the replicas as a stacked leading ``dp`` axis and
 vmaps the loss over it; here each rank is one replica and trains on its own
@@ -37,9 +44,11 @@ from .._device import resolve_device
 from ..deferred_init import deferred_init, materialize_module
 from ..models import gpt2, llama, moe
 from ..resilience.guard import tree_allfinite
+from .distributed import any_flags
+from .sharding import batch_sharding, mesh_axis_sizes
 from .slowmo import SlowMomentumOptimizer, _group_or_default
 
-__all__ = ["TrainState", "make_slowmo_train_step", "make_train_step",
+__all__ = ["TrainState", "batch_sharding", "make_slowmo_train_step", "make_train_step",
            "slowmo_batch_sharding"]
 
 
@@ -49,14 +58,10 @@ class TrainState(NamedTuple):
     step: int
 
 
-# Mesh argument -> the value that means "not used".
-_MESH_ARGS = {
-    "mesh": None, "tp": None, "fsdp": None, "seq_axis": None, "pp_axis": None,
-    "n_microbatches": 1, "pp_schedule": "gpipe", "seq_layout": "contiguous",
-}
-
 # Model family module -> its module class.
 _FAMILIES = {llama: llama.Llama, gpt2: gpt2.GPT2, moe: moe.MoE}
+
+_A5B = "is not ported yet (ROADMAP A5b)"
 
 
 def _model_class(model) -> type:
@@ -68,6 +73,49 @@ def _model_class(model) -> type:
     return cls
 
 
+def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
+                     pp_schedule, loss_fn):
+    """The JAX ``make_train_step``'s arguments that this step does not take
+    (yet), or not without a mesh, raise."""
+    if pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown pp_schedule: {pp_schedule!r}")
+    for name, value, default in (("pp_axis", pp_axis, None),
+                                 ("n_microbatches", n_microbatches, 1),
+                                 ("pp_schedule", pp_schedule, "gpipe"),
+                                 ("loss_fn", loss_fn, None)):
+        if value != default:
+            raise ValueError(f"make_train_step: {name}={value!r}: pipeline parallelism "
+                             f"and a custom loss_fn {_A5B}")
+    renamed = [f"{k}={v!r}" for k, v in (("tp", tp), ("fsdp", fsdp)) if v != k]
+    if renamed:
+        raise ValueError(f"make_train_step: {', '.join(renamed)}: the step computes "
+                         "tensor-parallel over the mesh's 'tp' axis and splits the batch "
+                         f"over 'dp' and 'fsdp'; other axis names {_A5B}")
+    if mesh is None:
+        given = [f"{k}={v!r}" for k, v, d in (("seq_axis", seq_axis, None),
+                                              ("seq_layout", seq_layout, "contiguous"))
+                 if v != d]
+        if given:
+            raise ValueError(f"make_train_step: {', '.join(given)} name or lay out mesh "
+                             "axes; pass mesh=")
+        return
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        raise ValueError(f"make_train_step: mesh must be a DeviceMesh with named dims "
+                         f"(parallel.make_mesh), not {mesh!r}")
+    if mesh_axis_sizes(mesh).get("ep", 1) > 1:
+        raise ValueError(f"make_train_step: an 'ep' axis larger than 1 (the expert "
+                         f"all-to-all) {_A5B}")
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
+    return dev
+
+
 def make_train_step(
     cfg,
     tx: Callable[[Any], torch.optim.Optimizer],
@@ -75,65 +123,91 @@ def make_train_step(
     model=None,
     device: Optional[Any] = None,
     nonfinite_guard: bool = True,
-    **mesh_args,
+    mesh=None,
+    tp: str = "tp",
+    fsdp: str = "fsdp",
+    seq_axis: Optional[str] = None,
+    seq_layout: str = "contiguous",
+    attn_impl: str = "auto",
+    pp_axis: Optional[str] = None,
+    n_microbatches: int = 1,
+    pp_schedule: str = "gpipe",
+    loss_fn: Optional[Callable] = None,
 ) -> Tuple[Callable, Callable]:
-    """Build ``(init_fn, step_fn)`` for training a model of ``cfg`` on one
-    device (``None``: CUDA; pass ``device="cpu"`` for the host).  ``model``
-    is the family (default Llama; see the module docstring).
+    """Build ``(init_fn, step_fn)`` for training a model of ``cfg``: on one
+    device (``None``: CUDA; pass ``device="cpu"`` for the host), or with
+    ``mesh`` on every rank of a mesh.  ``model`` is the family (default
+    Llama; see the module docstring).
 
-    ``init_fn(seed) -> TrainState``: shard-then-materialize on one device.
-    The model is recorded with ``deferred_init`` (no bytes allocated), then
-    materialized on the device with its random values drawn from
-    generators seeded by ``seed`` (the caller's RNG state is left as it
-    was), so a seed gives the same parameters every time; then
-    ``tx(model.parameters())`` and step 0.
+    ``init_fn(seed) -> TrainState``: shard-then-materialize.  The model is
+    recorded with ``deferred_init`` (no bytes allocated), then its values
+    are drawn from generators seeded by ``seed`` (the caller's RNG state is
+    left as it was), so a seed gives the same parameters every time: on one
+    device by ``materialize_module`` in place; on a mesh by
+    ``materialize_module_torch(seed=, mesh=, plan=param_specs(cfg))``,
+    each rank keeping its ``DTensor`` shards (no rank holds a
+    whole parameter beyond the one being replayed), loaded by assignment.
+    Then ``tx(model.parameters())`` and step 0.
 
-    ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is
-    ``{"tokens": (B, S), "targets": (B, S)}``; ``metrics`` holds ``loss``
-    (f32 scalar tensor of the model's ``loss``), ``step`` and, with the
+    ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is the global
+    ``{"tokens": (B, S), "targets": (B, S)}`` (on a mesh the same on every
+    rank; each rank takes its rows over ``dp``/``fsdp`` and, with
+    ``seq_axis``, its columns); ``metrics`` holds ``loss`` (f32 scalar
+    tensor, the global batch's mean, on every rank), ``step`` and, with the
     guard, ``nonfinite``.  The reserved batch key ``_tdx_nan`` poisons the
-    loss with NaN where it is true, as in the JAX step, for fault injection.
+    loss with NaN where it is true, as in the JAX step, for fault
+    injection.  ``attn_impl`` and ``seq_layout`` as in the model's
+    ``loss``.
 
     ``nonfinite_guard`` (default on): a step whose loss or any gradient is
     non-finite leaves the parameters, the optimizer's moments and the step
     count bit-identical and reports ``nonfinite=True`` (see
     :mod:`~torchdistx_tpu_torch.resilience.guard`).  The check is read on
     the host before ``optimizer.step()``, so the step synchronizes with
-    the device once.
+    the device once; on a mesh the ranks agree on it in one all-reduce, so
+    a NaN on one rank skips the step on all.
     """
-    bad = {k: v for k, v in mesh_args.items() if k not in _MESH_ARGS}
-    if bad:
-        raise TypeError(f"make_train_step got unexpected arguments {sorted(bad)}")
-    given = sorted(k for k, v in mesh_args.items() if v != _MESH_ARGS[k])
-    if given:
-        raise ValueError(
-            f"make_train_step: {given} need the multi-device port; this step "
-            "runs on one device"
-        )
+    _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
+                     pp_schedule, loss_fn)
     cls = _model_class(model)
-    device = resolve_device(device)
+    family = llama if model is None else model
+    device = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
+    loss_kw = {"attn_impl": attn_impl}
+    if mesh is not None:
+        loss_kw.update(mesh=mesh, seq_axis=seq_axis)
+    if seq_layout != "contiguous":
+        loss_kw["seq_layout"] = seq_layout
 
     def init_fn(seed: int) -> TrainState:
         net = deferred_init(cls, cfg, device=device)
-        cuda = [device] if device.type == "cuda" else []
-        with torch.random.fork_rng(devices=cuda, device_type="cuda"):
-            torch.manual_seed(seed)
-            materialize_module(net, device=device)
+        if mesh is None:
+            cuda = [device] if device.type == "cuda" else []
+            with torch.random.fork_rng(devices=cuda, device_type="cuda"):
+                torch.manual_seed(seed)
+                materialize_module(net, device=device)
+        else:
+            from ..materialize import materialize_module_torch
+
+            plan = family.param_specs(cfg)
+            net.load_state_dict(materialize_module_torch(net, mesh=mesh, plan=plan,
+                                                         seed=seed), assign=True)
         return TrainState(net, tx(net.parameters()), 0)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, dict]:
         model, opt = state.model, state.optimizer
         tokens = batch["tokens"].to(device)
         targets = batch["targets"].to(device)
-        loss = model.loss(tokens, targets)
+        loss = model.loss(tokens, targets, **loss_kw)
         if "_tdx_nan" in batch:
             poison = torch.as_tensor(batch["_tdx_nan"], device=loss.device)
             loss = torch.where(poison, torch.full_like(loss, float("nan")), loss)
         loss.backward()
         ok = True
         if nonfinite_guard:
-            grads = [p.grad for p in model.parameters()]
+            grads = [_local(p.grad) for p in model.parameters()]
             ok = bool(tree_allfinite(loss.detach(), grads))
+            if mesh is not None:
+                ok = not any_flags([not ok])[0]
         if ok:
             opt.step()
         opt.zero_grad(set_to_none=True)
@@ -146,6 +220,11 @@ def make_train_step(
     return init_fn, step_fn
 
 
+def _local(t):
+    """A ``DTensor``'s local shard (a plain tensor as it is)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 # ---------------------------------------------------------------------------
 # SlowMo training step (one replica per rank, averaged over the dp group)
 
@@ -154,8 +233,8 @@ def _dp_coordinates(mesh, dp_axis: str):
     """``(group, size, index)`` of this rank's replica: the mesh's
     ``dp_axis`` group; with ``mesh=None`` the default group's world, or one
     replica (no group) when none is initialized.  A mesh axis other than
-    ``dp_axis`` of size > 1 would shard a replica across ranks, which needs
-    the multi-device port, and raises."""
+    ``dp_axis`` of size > 1 would shard a replica across ranks, which is not
+    ported yet (ROADMAP A5b), and raises."""
     if mesh is None:
         group = _group_or_default(None)
         if group is None:
@@ -169,8 +248,8 @@ def _dp_coordinates(mesh, dp_axis: str):
     if split:
         raise ValueError(
             f"make_slowmo_train_step: mesh axes {split} would shard a replica "
-            "across ranks, which needs the multi-device port; each rank is one "
-            f"replica on the {dp_axis!r} axis"
+            f"across ranks, which {_A5B}; each rank is one replica on the "
+            f"{dp_axis!r} axis"
         )
     return mesh.get_group(dp_axis), mesh.size(names.index(dp_axis)), mesh.get_local_rank(dp_axis)
 
@@ -218,8 +297,7 @@ def make_slowmo_train_step(
     make_hybrid_mesh`) whose ``dp_axis`` group is the averaging group, or
     None for the default group's world (one replica with no group).  Its
     other axes must have size 1: ``tp``/``fsdp`` sharding within a replica
-    needs the multi-device port and raises, as ``make_train_step`` raises on
-    its mesh arguments.  ``opt`` builds the optimizer from the model's
+    is not ported yet (ROADMAP A5b) and raises.  ``opt`` builds the optimizer from the model's
     parameters, like ``make_train_step``'s ``tx``, and must return a
     :class:`SlowMomentumOptimizer`; one built with ``group=None`` averages
     over the mesh's ``dp`` group.  ``device=None`` means CUDA.
