@@ -87,17 +87,39 @@ Phases, each printing a line:
    ``mesh_rank_block`` rows) against phase 14's reference: losses, the
    first step's gradients and the parameters' change; (b) ``llama_test``
    in f32 under ``fsdp=2, tp=2`` and (c) under ``fsdp=2, sp=2`` with the
-   ring (contiguous and zigzag), the card's ranks against the CPU's.
+   ring (contiguous and zigzag), the card's ranks against the CPU's;
+16. ``[pipeline]``: ``make_train_step(mesh=, pp_axis="pp")`` on a 1-rank
+   NCCL mesh whose pp axis has size 1, the full Llama-7B, 1F1B and GPipe,
+   4 x 512 in 4 microbatches (the kernels on each microbatch's 1 x 512
+   block, phase 2's ``pp_micro_block`` rows): seeded stage materialize,
+   2 steps each with their launches, the first loss against the
+   single-device loss on the same storage, a profiled step (device ms, the
+   host's share a tick), the peak allocated; then the 1-rank runs that
+   phase 17 is held to;
+17. ``[pipeline ranks]``: 4 gloo processes on the card (a hop is an
+   ``all_to_all_single``): (a) Llama-7B's widths x 4 layers under pp=4,
+   GPipe and 1F1B; (b) pp=2 x tp=2, 1F1B; (c) GPT-2 XL's widths x 4 layers
+   under pp=2 x fsdp=2, 1F1B, the tied ``wte`` one f32 accumulator; (d)
+   ``MoEConfig()``'s widths x 2 layers under dp=2 x pp=2, GPipe; each
+   against its 1-rank run (losses, the fingerprints of the first step's
+   gradients and of the parameters' change), each rank holding its stage's
+   layers only, the kernel on the microbatch block phase 2 holds, and the
+   hop's time a tick;
+18. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
+   with no byte allocated, seeded onto it (bytes those of its parameters
+   and buffers), an eval forward, two recordings bit-equal.
 
-Nine main paths are driven, each with every launch count set to 0 just
+Ten main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
 the SlowMo path (phase 10), the mesh path (phase 14, read around each of
 its steps, so that its single-device reference forwards and its 2-layer
 reference run are not counted), the mesh ranks' runs (phase 15 (a) and
-(b), in each card rank), the GPT-2 path (phase 12: its forward part, then
-its train part) and the MoE path (phase 13).  Any failed check
+(b), in each card rank), the pipeline path (phase 16, read around each
+of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
+(phase 12: its forward part, then its train part) and the MoE path (phase
+13).  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
 matmuls run in full float32 (TF32 is switched off).  The last three lines
 are the kernels' summary, the card's name and power limit, then the result
@@ -150,6 +172,12 @@ FLASH_SHAPES = [
     # launched at 64) at MESH_RANKS_F32_SHAPE.
     ("mesh_rank_block", 2, 512, 16, 16, 128, torch.bfloat16, True),
     ("mesh_rank_f32_block", 2, 32, 2, 1, 64, torch.float32, True),
+    # The pipelines' microbatch blocks (PIPE_BLOCKS): [pipeline] and
+    # [pipeline ranks] (a), (d) at llama_7b's heads; (b) at its tp share;
+    # (c) at gpt2_xl's heads.
+    ("pp_micro_block", 1, 512, 32, 32, 128, torch.bfloat16, True),
+    ("pp_tp_block", 1, 512, 16, 16, 128, torch.bfloat16, True),
+    ("pp_gpt2_block", 1, 512, 25, 25, 64, torch.bfloat16, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -198,6 +226,9 @@ BWD_SHAPES = [
     ("gpt2_xl_heads", 4, 1024, 25, 25, 64, torch.bfloat16, True, "fused"),
     ("mesh_rank_block", 2, 512, 16, 16, 128, torch.bfloat16, True, "fused"),
     ("mesh_rank_f32_block", 2, 32, 2, 1, 64, torch.float32, True, "fused"),
+    ("pp_micro_block", 1, 512, 32, 32, 128, torch.bfloat16, True, "fused"),
+    ("pp_tp_block", 1, 512, 16, 16, 128, torch.bfloat16, True, "fused"),
+    ("pp_gpt2_block", 1, 512, 25, 25, 64, torch.bfloat16, True, "fused"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -370,6 +401,65 @@ MESH_RANKS_TIMEOUT_S = 400
 # padding to the kernel's head dim), and its phase-2 rows.
 MESH_RANK_BLOCKS = {"a": ((2, 512, 16, 16, 128), "mesh_rank_block"),
                     "b": ((2, 32, 2, 1, 16), "mesh_rank_f32_block")}
+# [pipeline]: make_train_step(mesh=, pp_axis="pp") on a 1-rank NCCL mesh
+# whose only axis is "pp" (size 1: one stage holds every layer, and the
+# parameters are plain tensors), the full llama_7b (bf16, the train path's
+# AdamW) at PIPE_SHAPE in PIPE_MICROBATCHES microbatches, PIPE_STEPS steps
+# of each schedule then one profiled step; each schedule's first loss
+# within MESH_LOSS_ATOL of the single-device loss on the same storage.
+# Then the 1-rank runs that [pipeline ranks] is held to (PIPE_RANK_RUNS).
+PIPE_SHAPE = (4, 512)
+PIPE_MICROBATCHES = 4
+PIPE_STEPS = 2
+PIPE_SCHEDULES = ("1f1b", "gpipe")
+PIPE_DATA_SEED = 12
+# [pipeline ranks]: 4 gloo processes on the card (a hop is an
+# all_to_all_single, which gloo runs on CUDA tensors), each run against
+# the same run on the 1-rank mesh of [pipeline] (same seed, same batch,
+# same schedule): (a) llama_7b's widths x 4 layers under pp=4, GPipe and
+# 1F1B; (b) the same under pp=2 x tp=2, 1F1B; (c) gpt2_xl's widths x 4
+# layers under pp=2 x fsdp=2, 1F1B (the tied wte one f32 accumulator);
+# (d) MoEConfig()'s widths x 2 layers under dp=2 x pp=2, GPipe (1F1B's f32
+# accumulators of a whole 2.2 GB expert layer on each of four ranks,
+# beside its moments, outgrow the card).  Run ->
+# (family, layers, mesh axes, schedule, batch); every run takes
+# PIPE_MICROBATCHES microbatches and PIPE_RANKS_STEPS AdamW steps.
+PIPE_RANK_RUNS = {
+    "a_gpipe": ("llama", 4, {"pp": 4}, "gpipe", (4, 512)),
+    "a_1f1b": ("llama", 4, {"pp": 4}, "1f1b", (4, 512)),
+    "b": ("llama", 4, {"pp": 2, "tp": 2}, "1f1b", (4, 512)),
+    "c": ("gpt2", 4, {"pp": 2, "fsdp": 2}, "1f1b", (8, 512)),
+    "d": ("moe", 2, {"dp": 2, "pp": 2}, "gpipe", (8, 512)),
+}
+PIPE_RANKS_STEPS = 2
+PIPE_RANKS_SEED = 9
+PIPE_RANKS_DATA_SEED = 10
+PIPE_RANKS_TIMEOUT_S = 400
+# Each run against its 1-rank run: (losses' atol, and the relative error of
+# the fingerprints (_fingerprint) of the first step's gradients and of the
+# parameters' change), about 4x the largest readings of two runs on an H100
+# 80GB HBM3 at 700 W (a: 4.7e-5, 9.9e-3, 0.084; b: 5.7e-4, 4.0e-2, 0.199;
+# c: 3.0e-4, 1.6e-2, 0.687; d: 3.0e-2, 9.6e-3, 0.230; PERF.md section 6).  (a) splits the same math over
+# stages, so only the head's and the fused dq's summation orders differ;
+# (b) adds tp's bf16 partial sums; (c)'s change is GPT-2's zero-initialized
+# biases, whose first AdamW step is +-lr by the sign of a near-zero
+# gradient (its gradients carry the check); (d)'s second loss follows top-2
+# near-ties that bf16 rounding on a 1-row block breaks otherwise.
+PIPE_RANKS_BOUNDS = {"a_gpipe": (2e-4, 0.04, 0.35), "a_1f1b": (2e-4, 0.04, 0.35),
+                     "b": (2.5e-3, 0.16, 0.8), "c": (1.2e-3, 0.064, 2.75),
+                     "d": (0.12, 0.04, 0.92)}
+# [resnet]: BASELINE config 2, "deferred_init resnet50, materialize on a
+# single chip": ResNet-50 (models/resnet_torch.py) recorded claiming the
+# card, seeded onto it, then an eval forward of RESNET_BATCH images.
+RESNET_BATCH = (8, 3, 224, 224)
+# The (B, S, Hq, Hkv, D) the kernel sees on each pipeline (a rank's rows
+# of a microbatch), and its phase-2 rows.
+PIPE_BLOCKS = {"pipeline": ((1, 512, 32, 32, 128), "pp_micro_block"),
+               "a_gpipe": ((1, 512, 32, 32, 128), "pp_micro_block"),
+               "a_1f1b": ((1, 512, 32, 32, 128), "pp_micro_block"),
+               "b": ((1, 512, 16, 16, 128), "pp_tp_block"),
+               "c": ((1, 512, 25, 25, 64), "pp_gpt2_block"),
+               "d": ((1, 512, 32, 32, 128), "pp_micro_block")}
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1857,8 +1947,9 @@ def _placed_by_plan(model, mesh, optimizer):
 
 def _fingerprint(named):
     """A tensor's fingerprint: its whole value's sums in f32 along each dim
-    with fixed random signs (a matrix's signed row and column sums; a vector
-    is its own), on the CPU; by name for ``named``.  The signs keep sums
+    with fixed random signs (a matrix's signed row and column sums, a
+    higher-rank tensor's those of its leading dims flattened; a vector is
+    its own), on the CPU; by name for ``named``.  The signs keep sums
     that cancel by construction from hiding a fault: a softmax head's
     gradient sums to 0 over the vocabulary."""
     from torchdistx_tpu_torch.parallel.spmd import whole
@@ -1866,6 +1957,8 @@ def _fingerprint(named):
     out = {}
     for name, t in named.items():
         w = whole(t).float()
+        if w.dim() > 2:  # an expert stack (E, in, out): its rows are E x in
+            w = w.reshape(-1, w.shape[-1])
         if w.dim() == 2:
             gen = torch.Generator().manual_seed(0)
             rows, cols = (torch.randint(0, 2, (n,), generator=gen).float().mul_(2).sub_(1)
@@ -1898,7 +1991,7 @@ def _fingerprinted_steps(state, step_fn, batch, steps):
     step's gradients (read by a hook before the optimizer steps) and of the
     parameters' change; returns ``(state, losses, step_ms, grads,
     change)``."""
-    named = dict(state.model.named_parameters())
+    named = {n: p for n, p in state.model.named_parameters() if not p.is_meta}
     before = _fingerprint(named)
     grads = {}
 
@@ -2485,6 +2578,464 @@ def _moe_after(model, tokens, stats):
     print(f"[moe] forward steady {stats['forward_ms']:.3f} ms")
 
 
+def _pipe_cfg(family, layers):
+    """The family's full-width configuration (llama_7b, gpt2_xl,
+    MoEConfig()) cut to ``layers`` layers, and its module."""
+    from torchdistx_tpu_torch.models import gpt2, llama, moe
+
+    mod, make = {"llama": (llama, llama.llama_7b), "gpt2": (gpt2, gpt2.gpt2_xl),
+                 "moe": (moe, moe.MoEConfig)}[family]
+    return mod, dataclasses.replace(make(), n_layers=layers)
+
+
+def _pipe_batch(vocab, b, s, seed):
+    """A pipeline run's batch, from a CPU generator (the same in every
+    process)."""
+    seq = torch.randint(0, vocab, (b, s + 1), generator=torch.Generator().manual_seed(seed))
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def _pipe_launches(schedule, n_stages, stage, layers, m_count, steps):
+    """The flash launches of one rank's ``steps`` pipeline steps at 512
+    tokens (the fused backward): each stage computation launches the
+    forward kernel once a layer of the stage, each transpose the fused
+    backward once a layer.  A step runs M forwards and M recomputes with
+    their transposes, but 1F1B's last stage, whose forward slot runs
+    nothing (its backward slot runs the stage)."""
+    per = layers // n_stages
+    forwards = m_count if schedule == "gpipe" or stage < n_stages - 1 else 0
+    return {"flash_fwd": (forwards + m_count) * per * steps,
+            "flash_bwd_fused": m_count * per * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _pipe_ticks(schedule, n_stages, m_count):
+    return m_count + n_stages - 1 if schedule == "gpipe" else 2 * m_count + 2 * n_stages - 3
+
+
+def _vocab_accumulators(shapes, vocab):
+    """The vocab-sized f32 accumulators outside the layers of a 1F1B call
+    (``pipeline.last_grad_acc_shapes``)."""
+    return [[name, list(shape)] for name, shape, dtype in shapes
+            if name != "g_lp" and shape[:1] == (vocab,) and dtype == "float32"]
+
+
+def phase_pipeline(cfg, fa, train_stats):
+    """The pipeline path: ``make_train_step(mesh=, pp_axis="pp")`` on a
+    1-rank NCCL mesh with a pp axis of size 1, the full llama_7b, each of
+    PIPE_SCHEDULES: seeded stage materialize, PIPE_STEPS steps at PIPE_SHAPE
+    with their launches (read around each step), the first loss against
+    the single-device loss on the same storage, one profiled step (device
+    ms; the host's share a tick), the peak allocated over the steps.  Then
+    the 1-rank references of [pipeline ranks]."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.models.llama import num_params
+    from torchdistx_tpu_torch.parallel import initialize, make_mesh
+    from torchdistx_tpu_torch.parallel import pipeline as pl
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    b, s = PIPE_SHAPE
+    m_count = PIPE_MICROBATCHES
+    info = initialize(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0)
+    stats = {"process": list(info.__dict__.values()), "shape": [b, s],
+             "n_microbatches": m_count,
+             "single_device_steady_step_ms": train_stats.get(f"{b}x{s}", {}).get(
+                 "steady_step_ms")}
+    path = dict.fromkeys(_counts(fa), 0)
+    refs = {}
+    try:
+        mesh = make_mesh(axis_names=("pp",), shape=(1,))
+        batch = {k: v.cuda() for k, v in _pipe_batch(cfg.vocab_size, b, s,
+                                                      PIPE_DATA_SEED).items()}
+        for schedule in PIPE_SCHEDULES:
+            init_fn, step_fn = make_train_step(cfg, _mesh_tx, mesh=mesh, pp_axis="pp",
+                                               n_microbatches=m_count, pp_schedule=schedule)
+            t0 = time.perf_counter()
+            state = init_fn(MAT_SEED)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            nbytes = sum(p.untyped_storage().nbytes() for p in state.model.parameters())
+            _check(nbytes == 2 * num_params(cfg),
+                   f"[pipeline] {schedule}: the stage holds {nbytes} bytes")
+            with torch.no_grad():  # the single-device step's loss, same storage
+                single_loss = state.model.loss(batch["tokens"], batch["targets"]).item()
+            want = _pipe_launches(schedule, 1, 0, cfg.n_layers, m_count, 1)
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+            losses, step_ms = [], []
+            with _KernelBlocks(fa) as spy:
+                for i in range(PIPE_STEPS):
+                    c0 = _counts(fa)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    state, metrics = step_fn(state, batch)
+                    end.record()
+                    end.synchronize()
+                    step_ms.append(start.elapsed_time(end))
+                    launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+                    path = {k: v + launched[k] for k, v in path.items()}
+                    losses.append(metrics["loss"].item())
+                    _check(math.isfinite(losses[-1]) and not metrics["nonfinite"],
+                           f"[pipeline] {schedule} step {i + 1}: loss {losses[-1]}")
+                    _check(launched == want, f"[pipeline] {schedule} step {i + 1}: launches "
+                           f"{launched}, expected {want}")
+            peak = torch.cuda.max_memory_allocated()
+            # cudaMalloc calls that failed and were retried after the
+            # allocator freed its cache (each synchronizes the device).
+            retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+            _check(sorted(spy.blocks) == [PIPE_BLOCKS["pipeline"][0]],
+                   f"[pipeline] {schedule}: the kernel saw {sorted(spy.blocks)}")
+            _check(abs(losses[0] - single_loss) <= MESH_LOSS_ATOL,
+                   f"[pipeline] {schedule}: first loss {losses[0]} vs single-device "
+                   f"{single_loss}")
+            _check(losses[-1] < losses[0], f"[pipeline] {schedule}: the loss did not fall")
+            held = {}
+
+            def profiled_step():
+                held["out"] = step_fn(state, batch)
+
+            c0 = _counts(fa)
+            profile = _profile(f"pipeline {schedule} step", profiled_step)
+            state, _ = held.pop("out")
+            launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+            path = {k: v + launched[k] for k, v in path.items()}
+            _check(launched == want, f"[pipeline] {schedule}: profiled step launches")
+            ticks = _pipe_ticks(schedule, 1, m_count)
+            row = {"losses": losses, "single_device_first_loss": single_loss,
+                   "step_ms": step_ms, "last_step_ms": step_ms[-1],
+                   "device_ms": profile["device_ms"], "profile": profile,
+                   "ticks": ticks, "stage_calls": dict(pl.last_stage_calls),
+                   "host_ms_per_tick": (step_ms[-1] - profile["device_ms"]) / ticks,
+                   "peak_allocated_bytes": peak, "alloc_retries": retries,
+                   "launches_per_step": want,
+                   "init_s": init_s, "stage_bytes": nbytes}
+            if schedule == "1f1b":
+                row["stash_slots"] = pl.last_stash_slots
+            stats[schedule] = row
+            print(f"[pipeline] {schedule}: llama_7b ({cfg.n_layers} layers, bf16) on a 1-rank "
+                  f"NCCL mesh (axis pp of size 1), {b}x{s} in {m_count} microbatches: losses "
+                  f"{losses} (single-device {single_loss}); step ms by events "
+                  f"{[round(x, 1) for x in step_ms]}, device {profile['device_ms']:.1f} ms, "
+                  f"host {row['host_ms_per_tick']:.2f} ms a tick over {ticks} ticks; peak "
+                  f"allocated {peak} bytes ({retries} allocator retries); flash launches a "
+                  f"step {want} (single-device "
+                  f"4x512 step {stats['single_device_steady_step_ms']} ms); {_smi()}")
+            del state, init_fn, step_fn, held
+            _free()
+        stats["path_launches"] = path
+
+        # [pipeline ranks]' 1-rank references: same seed, batch and schedule.
+        for key, (family, layers, _, schedule, (rb, rs)) in PIPE_RANK_RUNS.items():
+            mod, small = _pipe_cfg(family, layers)
+            init_fn, step_fn = make_train_step(small, _mesh_tx, model=mod, mesh=mesh,
+                                               pp_axis="pp", n_microbatches=m_count,
+                                               pp_schedule=schedule)
+            state = init_fn(PIPE_RANKS_SEED)
+            rbatch = {k: v.cuda() for k, v in _pipe_batch(small.vocab_size, rb, rs,
+                                                          PIPE_RANKS_DATA_SEED).items()}
+            state, losses, step_ms, grads, change = _fingerprinted_steps(
+                state, step_fn, rbatch, PIPE_RANKS_STEPS)
+            refs[key] = {"losses": losses, "step_ms": step_ms,
+                         "fingerprints": {"grads": grads, "change": change}}
+            if family == "gpt2":
+                refs[key]["vocab_accumulators"] = _vocab_accumulators(
+                    pl.last_grad_acc_shapes, small.vocab_size)
+            del state, init_fn, step_fn
+            _free()
+    finally:
+        dist.destroy_process_group()
+        _free()
+    stats["rank_references"] = {k: {"losses": v["losses"], "step_ms": v["step_ms"]}
+                                for k, v in refs.items()}
+    print("[pipeline] " + json.dumps({k: v for k, v in stats.items()
+                                      if k not in ("1f1b", "gpipe")}))
+    return stats, refs
+
+
+def phase_resnet():
+    """[resnet]: ``deferred_init`` ResNet-50 claiming the card (no bytes
+    allocated: every parameter and buffer a recorded fake, the BatchNorms'
+    ``num_batches_tracked`` literals too), then
+    ``materialize_module_torch(seed=MAT_SEED)`` onto it (the values' bytes
+    exactly the parameters' and buffers' storage), loaded by assignment; an
+    eval forward of RESNET_BATCH, finite; a second recording gives the same
+    values."""
+    from torchdistx_tpu_torch.deferred_init import deferred_init, is_deferred
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models.resnet_torch import resnet50
+
+    _free()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = deferred_init(resnet50, device_="cuda")
+    record_s = time.perf_counter() - t0
+    recorded = torch.cuda.memory_allocated() - before
+    _check(recorded == 0, f"[resnet]: deferred_init allocated {recorded} bytes")
+    tensors = dict(model.named_parameters())
+    tensors.update(model.named_buffers())
+    _check(all(is_deferred(t) for t in tensors.values()), "[resnet]: a tensor is not deferred")
+    want = sum(t.numel() * t.element_size() for t in tensors.values())
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    values = materialize_module_torch(model, seed=MAT_SEED)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    nbytes = sum(v.untyped_storage().nbytes() for v in values.values())
+    _check(sorted(values) == sorted(tensors) and nbytes == want,
+           f"[resnet]: {len(values)} values of {nbytes} bytes, want {len(tensors)} of {want}")
+    _check(all(v.is_cuda for v in values.values()), "[resnet]: a value is not on the card")
+    model.load_state_dict(values, assign=True)
+    model.eval()
+    x = torch.randn(RESNET_BATCH, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    with torch.inference_mode():
+        y = model(x)
+        forward_ms = _time_ms(lambda: model(x), warmup=2, reps=5, calls=3)
+    _check(y.shape == (RESNET_BATCH[0], 1000) and bool(torch.isfinite(y).all()),
+           f"[resnet]: forward {tuple(y.shape)} not finite")
+    again = materialize_module_torch(deferred_init(resnet50, device_="cuda"), seed=MAT_SEED)
+    _check(all(torch.equal(again[k], v) for k, v in values.items()),
+           "[resnet]: two recordings materialize different values")
+    stats = {"params": n_params, "tensors": len(values), "record_s": record_s,
+             "bytes_recorded": recorded, "seeded_materialize_s": mat_s,
+             "bytes_materialized": nbytes, "forward_ms": forward_ms,
+             "batch": list(RESNET_BATCH)}
+    print(f"[resnet] ResNet-50: deferred_init claiming the card, {n_params} params, "
+          f"{len(values)} tensors, bytes after record {recorded}, record {record_s:.3f} s; "
+          f"materialize_module_torch(seed={MAT_SEED}) {mat_s:.3f} s, {nbytes} bytes (the "
+          f"parameters' and buffers' storage); eval forward {RESNET_BATCH} {forward_ms:.3f} "
+          f"ms, finite; a second recording bit-equal; {_smi()}")
+    del model, values, again, x, y
+    _free()
+    return stats
+
+
+def _timed_hops(pl):
+    """Wrap the pipeline's hop to time it (synchronized); returns the
+    record ``{"ms": total, "hops": count}`` and the undo."""
+    record = {"ms": 0.0, "hops": 0}
+    bare = pl._shift
+
+    def timed(*args):
+        torch.cuda.synchronize()  # the tick's compute is not the hop's
+        t0 = time.perf_counter()
+        out = bare(*args)
+        torch.cuda.synchronize()
+        record["ms"] += (time.perf_counter() - t0) * 1e3
+        record["hops"] += 1
+        return out
+
+    pl._shift = timed
+    return record, lambda: setattr(pl, "_shift", bare)
+
+
+def _pipe_rank_run(fa, rank, family, layers, axes, schedule, shape):
+    """One [pipeline ranks] run on this rank."""
+    from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
+    from torchdistx_tpu_torch.parallel import pipeline as pl
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    mod, cfg = _pipe_cfg(family, layers)
+    mesh = make_mesh(MeshSpec(**axes), device_type="cuda")
+    init_fn, step_fn = make_train_step(cfg, _mesh_tx, model=mod, mesh=mesh, pp_axis="pp",
+                                       n_microbatches=PIPE_MICROBATCHES, pp_schedule=schedule)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(PIPE_RANKS_SEED)
+    held = [(n, p) for n, p in state.model.named_parameters() if not p.is_meta]
+    held_bytes = sum((p.to_local() if hasattr(p, "to_local") else p).untyped_storage().nbytes()
+                     for _, p in held)
+    batch = {k: v.cuda() for k, v in _pipe_batch(cfg.vocab_size, *shape,
+                                                 PIPE_RANKS_DATA_SEED).items()}
+    _reset_counts(fa)
+    hops, undo = _timed_hops(pl)
+    try:
+        with _KernelBlocks(fa) as spy:
+            state, losses, step_ms, grads, change = _fingerprinted_steps(
+                state, step_fn, batch, PIPE_RANKS_STEPS)
+    finally:
+        undo()
+    out = {"losses": losses, "step_ms": step_ms, "launches": _counts(fa),
+           "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held_bytes,
+           "held_layers": sorted({int(n.split(".")[1]) for n, _ in held
+                                  if n.startswith("layers.")}),
+           "stage": mesh.get_local_rank("pp"), "n_stages": axes["pp"],
+           "hop_ms": hops["ms"], "hops": hops["hops"],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "host_peak_rss": _host_mem()["peak_rss"],
+           "fingerprints": {"grads": grads, "change": change}}
+    if schedule == "1f1b":
+        out["vocab_accumulators"] = _vocab_accumulators(pl.last_grad_acc_shapes,
+                                                        cfg.vocab_size)
+    del state, init_fn, step_fn
+    _free()
+    return out
+
+
+def pipeline_rank(rank, store, out) -> None:
+    """One rank of ``phase_pipeline_ranks`` (4 gloo ranks on the card): each
+    run of PIPE_RANK_RUNS; saves what the parent checks."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+    got = {}
+    try:
+        for key, run in PIPE_RANK_RUNS.items():
+            got[key] = _pipe_rank_run(fa, rank, *run)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(got, out)
+
+
+def _merged_prints(ranks, which):
+    """One fingerprint dict from every rank's (each holds its stage)."""
+    out = {}
+    for r in ranks:
+        out.update(r["fingerprints"][which])
+    return out
+
+
+def _host_mem():
+    """This process's peak resident host memory (``getrusage``) and the
+    machine's available memory (``/proc/meminfo``, None where it is not
+    given), in bytes."""
+    import resource
+
+    out = {"peak_rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "available": None}
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                name, _, value = line.partition(":")
+                if name == "MemAvailable":
+                    out["available"] = int(value.split()[0]) * 1024
+    except OSError:
+        pass
+    return out
+
+
+def phase_pipeline_ranks(refs):
+    """4 gloo ranks on the card, each run of PIPE_RANK_RUNS against its
+    1-rank reference from [pipeline]."""
+    import os
+    import shutil
+    import tempfile
+
+    _free()
+    if hasattr(torch._C, "_host_emptyCache"):  # pinned host blocks that earlier phases cached
+        torch._C._host_emptyCache()
+    host_before = _host_mem()
+    card_before = {"allocated": torch.cuda.memory_allocated(),
+                   "reserved": torch.cuda.memory_reserved(),
+                   "used_by_all": torch.cuda.mem_get_info()}
+    print(f"[pipeline ranks] before the ranks: this process's card memory {card_before}")
+
+    root = tempfile.mkdtemp(prefix="tdx_pipe_")
+    outs = [os.path.join(root, f"rank{r}.pt") for r in range(4)]
+    store = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for rank, out in enumerate(outs):
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--pipeline-rank", str(rank), store, out],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=PIPE_RANKS_TIMEOUT_S)[0] for p in procs]
+        failed = [(r, p.returncode, log) for r, (p, log) in enumerate(zip(procs, logs))
+                  if p.returncode]
+        _check(not failed, "pipeline ranks exited " + "; ".join(
+            f"rank {r}: {code}:\n{log[-2000:]}" for r, code, log in failed))
+        got = [torch.load(out, weights_only=True) for out in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    stats = {"wall_s": wall_s, "runs": {}, "launches_all_ranks": {},
+             "host_mem_before": host_before, "card_mem_before": card_before,
+             "rank_peak_rss_bytes": [max(r["host_peak_rss"] for r in g.values()) for g in got]}
+    for key, (family, layers, axes, schedule, shape) in PIPE_RANK_RUNS.items():
+        ranks = [g[key] for g in got]
+        ref = refs[key]
+        losses = ranks[0]["losses"]
+        _check(all(r["losses"] == losses for r in ranks), f"({key}): the ranks' losses differ")
+        loss_err = max(abs(x - y) for x, y in zip(losses, ref["losses"]))
+        grad_err = _fingerprint_err(_merged_prints(ranks, "grads"),
+                                    ref["fingerprints"]["grads"])
+        change_err = _fingerprint_err(_merged_prints(ranks, "change"),
+                                      ref["fingerprints"]["change"])
+        loss_atol, grad_rtol, change_rtol = PIPE_RANKS_BOUNDS[key]
+        _check(loss_err <= loss_atol, f"({key}): losses {losses} vs 1-rank {ref['losses']}")
+        _check(grad_err <= grad_rtol, f"({key}): first-step gradients {grad_err}")
+        _check(change_err <= change_rtol, f"({key}): the parameters' change {change_err}")
+        n_stages = axes["pp"]
+        per = layers // n_stages
+        for rank, r in enumerate(ranks):
+            want = _pipe_launches(schedule, n_stages, r["stage"], layers, PIPE_MICROBATCHES,
+                                  PIPE_RANKS_STEPS)
+            _check(r["launches"] == want, f"({key}) rank {rank}: launches {r['launches']}, "
+                   f"expected {want}")
+            _check(r["kernel_blocks"] == [PIPE_BLOCKS[key][0]],
+                   f"({key}) rank {rank}: the kernel saw {r['kernel_blocks']}")
+            _check(r["held_layers"] == list(range(r["stage"] * per, (r["stage"] + 1) * per)),
+                   f"({key}) rank {rank}: holds layers {r['held_layers']}")
+            _check(r["hops"] == 2 * PIPE_RANKS_STEPS * (_pipe_ticks(schedule, n_stages,
+                                                                    PIPE_MICROBATCHES) - 1),
+                   f"({key}) rank {rank}: {r['hops']} hops")
+        mod, cfg = _pipe_cfg(family, layers)
+        if family == "gpt2":  # the tied wte: one (V, D) f32 accumulator, on every rank
+            one_acc = [["g_sp", [cfg.vocab_size, cfg.dim]]]
+            _check(ref["vocab_accumulators"] == one_acc
+                   and all(r["vocab_accumulators"] == one_acc for r in ranks),
+                   f"({key}): the tied wte's accumulators "
+                   f"{[r['vocab_accumulators'] for r in ranks]}")
+        if axes == {"pp": 4}:
+            one = 2 * (mod.num_params(dataclasses.replace(cfg, n_layers=1))
+                       - mod.num_params(dataclasses.replace(cfg, n_layers=0)))
+            outside = 2 * mod.num_params(dataclasses.replace(cfg, n_layers=0))
+            for rank, r in enumerate(ranks):
+                _check(r["held_param_bytes"] == outside + per * one,
+                       f"({key}) rank {rank}: holds {r['held_param_bytes']} bytes, its stage "
+                       f"{outside + per * one}")
+        n_hop = sum(r["hops"] for r in ranks)
+        stats["launches_all_ranks"][key] = {k: sum(r["launches"][k] for r in ranks)
+                                            for k in ranks[0]["launches"]}
+        stats["runs"][key] = {
+            "family": family, "layers": layers, "mesh": axes, "schedule": schedule,
+            "batch": list(shape), "losses": losses, "reference_losses": ref["losses"],
+            "loss_max_abs_err": loss_err, "grad_fingerprint_rel_err": grad_err,
+            "change_fingerprint_rel_err": change_err,
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "reference_step_ms": ref["step_ms"],
+            "hop_ms_per_tick": sum(r["hop_ms"] for r in ranks) / n_hop,
+            "held_param_bytes_by_rank": [r["held_param_bytes"] for r in ranks],
+            "peak_allocated_bytes_by_rank": [r["peak_allocated_bytes"] for r in ranks],
+            "kernel_block": PIPE_BLOCKS[key][0]}
+        row = stats["runs"][key]
+        print(f"[pipeline ranks] ({key}) {family} x {layers} layers, {axes}, {schedule}, "
+              f"{shape[0]}x{shape[1]} in {PIPE_MICROBATCHES} microbatches: losses {losses} "
+              f"vs 1-rank {ref['losses']} (max err {loss_err:.3e}, atol {loss_atol}); "
+              f"fingerprints' relative error: gradients {grad_err:.3e} (rtol {grad_rtol}), "
+              f"change {change_err:.3e} (rtol {change_rtol}); step ms by rank "
+              f"{[[round(x, 1) for x in t] for t in row['step_ms_by_rank']]}; hop "
+              f"{row['hop_ms_per_tick']:.3f} ms (synchronized around it); bytes held by rank "
+              f"{row['held_param_bytes_by_rank']}; kernel on {PIPE_BLOCKS[key][0]}")
+    print(f"[pipeline ranks] 4 gloo ranks on the card, {wall_s:.1f} s; host memory before "
+          f"{json.dumps(host_before)}, the ranks' peak RSS {stats['rank_peak_rss_bytes']}; "
+          f"{_smi()}")
+    return stats
+
+
 # Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
 # it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
 PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
@@ -2543,6 +3094,19 @@ def _gpt2_entries(rows, bwd_rows, launched):
     """The kernels line's entries for the D 64 instances that the [gpt2] path
     launches, at phase 2's GPT2_HEADS rows, with the path's launches."""
     return _path_entries(rows, bwd_rows, GPT2_HEADS, "gpt2_xl heads, D 64", "gpt2", launched)
+
+
+def _pipeline_entries(rows, bwd_rows, path_launches, rank_launches):
+    """The kernels line's entries for the pipelines' microbatch blocks: the
+    [pipeline] path's launches, then each [pipeline ranks] run's over the
+    4 card ranks."""
+    entries = _path_entries(rows, bwd_rows, PIPE_BLOCKS["pipeline"][1],
+                            "pipeline microbatch block, llama_7b", "pipeline", path_launches)
+    for key, launched in rank_launches.items():
+        entries += _path_entries(rows, bwd_rows, PIPE_BLOCKS[key][1],
+                                 f"pipeline ranks ({key}) block", f"pipeline_ranks_{key}",
+                                 launched)
+    return entries
 
 
 def _mesh_rank_entries(rows, bwd_rows, launches):
@@ -2632,6 +3196,16 @@ def main() -> int:
     for kernel, n in mesh_launches.items():
         _check(n > 0, f"{kernel} was not launched on the mesh path")
     mesh_stats["ranks"] = phase_mesh_ranks(mesh_stats)
+    _free()
+
+    pipe_stats, pipe_refs = phase_pipeline(cfg, fa, train_stats)
+    pipe_launches = pipe_stats["path_launches"]  # read around each pipeline step
+    print(f"[pipeline path] launches: {json.dumps(pipe_launches)}")
+    for kernel in ("flash_fwd", "flash_bwd_fused"):
+        _check(pipe_launches[kernel] > 0, f"{kernel} was not launched on the pipeline path")
+    pipe_stats["ranks"] = phase_pipeline_ranks(pipe_refs)
+    del pipe_refs
+    _free()
 
     from torchdistx_tpu_torch.models import gpt2, moe
 
@@ -2675,13 +3249,15 @@ def main() -> int:
     _check(sum(moe_stats["moe_test_dropping"]["dropped_choices_by_layer"]) > 0,
            "moe_test dropped no choice at its dropping capacity factor")
 
+    resnet_stats = phase_resnet()
+
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
         "forward_path_peak_allocated_bytes": fwd_peak, "train": train_stats,
         "train_gates": gate_stats, "head_dims": head_dim_stats, "fit": fit_stats,
         "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
         "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "mesh": mesh_stats,
-        "gpt2": gpt2_stats,
+        "pipeline": pipe_stats, "resnet": resnet_stats, "gpt2": gpt2_stats,
         "moe": moe_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "script_s": time.perf_counter() - t_start,
     }))
@@ -2693,7 +3269,9 @@ def main() -> int:
 
     entries = (_kernels_line(rows, bwd_rows, launches, wide_stats)
                + _gpt2_entries(rows, bwd_rows, gpt2_launches)
-               + _mesh_rank_entries(rows, bwd_rows, mesh_stats["ranks"]["launches_all_ranks"]))
+               + _mesh_rank_entries(rows, bwd_rows, mesh_stats["ranks"]["launches_all_ranks"])
+               + _pipeline_entries(rows, bwd_rows, pipe_launches,
+                                   pipe_stats["ranks"]["launches_all_ranks"]))
     print(json.dumps({"kernels": entries}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
@@ -2711,5 +3289,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         device, rank, store, out = sys.argv[2:6]
         mesh_rank(device, int(rank), store, out)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--pipeline-rank"]:
+        rank, store, out = sys.argv[2:5]
+        pipeline_rank(int(rank), store, out)
         sys.exit(0)
     sys.exit(main())

@@ -37,18 +37,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
 
 
-def launch(suite, world, directory, inputs):
+def launch(suite, world, directory, inputs, script=None):
     """For the parent test: ``world`` ranks of ``suite`` started together on
     ``inputs`` (a dict of numpy arrays); rank 0 writes ``directory /
-    out.pkl``."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    out.pkl``.  ``script``: the child module to run (default this one; it
+    takes the same arguments)."""
+    # One thread a pool in each rank: the ranks share the host's cores with
+    # the other test workers (OpenMP and MKL pools start at import).
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                             if p]))
     env.pop("LOCAL_WORLD_SIZE", None)
     with open(directory / "in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     return [
         subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), suite, str(rank), str(world),
+            [sys.executable, os.path.abspath(script or __file__), suite, str(rank), str(world),
              str(directory / "store"), str(directory / "out.pkl"), str(directory / "in.pkl")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
@@ -338,6 +343,27 @@ def _dryrun(inputs):
     return out
 
 
+def suite_eps(rank, world, inputs):
+    """ROADMAP C4's measurement: for each AdamW eps of ``inputs["eps"]``,
+    the mesh step (Llama under ``fsdp x tp``, MoE under ``dp x fsdp``) and
+    the unsharded step (``_single_run``) from the same JAX weights, three
+    steps each: losses and final whole values."""
+    from torchdistx_tpu_torch.parallel import MeshSpec
+
+    out = {}
+    for eps in inputs["eps"]:
+        kw = dict(inputs, adamw=dict(inputs["adamw"], eps=eps))
+        for family, spec in (("llama", MeshSpec(fsdp=2, tp=2)), ("moe", MeshSpec(dp=2, fsdp=2))):
+            _, _, out[f"{family}_mesh_{eps}"] = _mesh_run(family, spec, kw)
+            out[f"{family}_single_{eps}"] = _single_run(
+                family, kw, _full_values(family, inputs[f"{family}_params"]))
+        # The bisection by axis: the batch split alone, tensor parallelism
+        # alone (Llama).
+        for name, axes in inputs.get("eps_bisect", {}).items():
+            _, _, out[f"llama_{name}_{eps}"] = _mesh_run("llama", MeshSpec(**axes), kw)
+    return out
+
+
 def suite_train(rank, world, inputs):
     from torchdistx_tpu_torch.parallel import MeshSpec
 
@@ -356,14 +382,18 @@ def suite_train(rank, world, inputs):
     _, _, out["gpt2_fsdp_tp"] = _mesh_run("gpt2", MeshSpec(fsdp=2, tp=2), inputs)
     _, _, out["moe_dp_fsdp"] = _mesh_run("moe", MeshSpec(dp=2, fsdp=2), inputs)
     out["dryrun"] = _dryrun(inputs)
+    if "eps" in inputs:
+        out["eps"] = suite_eps(rank, world, inputs)
     return out
 
 
-SUITES = {"attention": suite_attention, "ring": suite_ring, "train": suite_train}
+SUITES = {"attention": suite_attention, "ring": suite_ring, "train": suite_train,
+          "eps": suite_eps}
 
 
 def main(suite, rank, world, store, out_path, in_path):
     torch.set_num_threads(1)  # the ranks share the host's cores
+    torch.set_num_interop_threads(1)
     with open(in_path, "rb") as f:
         inputs = pickle.load(f)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,

@@ -7,7 +7,9 @@ and shapes (the JAX ``_on_tpu()`` set to each value, the port's ``cuda``
 flag to the same; the port's ``"flash"``/``"plain"`` are JAX's
 ``"pallas"``/``"jnp"``), but for one designed difference: under a mesh
 whose shapes do not divide, JAX takes XLA's attention and the port the
-kernel on the block that divides.  Values: 4 gloo ranks in subprocesses
+kernel on the block that divides; and ``resolve_stage_attn_impl``
+against JAX's, whose pin of ``"auto"`` inside a pipeline stage to XLA's
+attention the port does not share on CUDA tensors.  Values: 4 gloo ranks in subprocesses
 (``_torch_mesh_child.py``, suite ``attention``) on ``MeshSpec(fsdp=2,
 tp=2)``, where the wrapper runs the kernel's plain version on each rank's
 block (this host has no card), against the JAX ``flash_attention_sharded``
@@ -156,6 +158,31 @@ def test_select_impl_equals_jax(monkeypatch, accelerator, impl):
                     want = "flash"
                 got = tattn._select_impl(port_impl, seq_axis, cuda=accelerator)
                 assert got == want, (axes, seq_axis, q_shape, kv_shape)
+
+
+@pytest.mark.parametrize("accelerator", [True, False], ids=["cuda", "cpu"])
+@pytest.mark.parametrize("impl", ["auto", "jnp", "pallas"])
+def test_resolve_stage_attn_impl_against_jax(accelerator, impl):
+    """Inside a pipeline stage JAX pins "auto" to XLA's attention and refuses
+    its Pallas kernel (the kernel's shard_map cannot nest in the
+    pipeline's); the port's stage is the rank's own computation, so "auto"
+    is the kernel on CUDA tensors and an explicit "flash" stands.  Off
+    CUDA both take the plain attention."""
+    port_impl = _NAMES.get(impl, impl)
+    if impl == "pallas":
+        with pytest.raises(ValueError, match="cannot run inside a pipeline stage"):
+            jattn.resolve_stage_attn_impl(impl)
+        assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator) == "flash"
+        return
+    want = _NAMES.get(jattn.resolve_stage_attn_impl(impl), impl)
+    if impl == "auto" and accelerator:
+        want = "flash"  # the designed difference (ROADMAP "not faults")
+    assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator) == want
+
+
+def test_resolve_stage_attn_impl_refuses_the_ring():
+    with pytest.raises(ValueError, match="cannot run inside a pipeline stage"):
+        tattn.resolve_stage_attn_impl("ring", cuda=False)
 
 
 def test_sharded_rejects_indivisible_shapes():

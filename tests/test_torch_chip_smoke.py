@@ -425,3 +425,109 @@ def test_fingerprint_err_sees_a_misplaced_gradient():
     assert chip_smoke._fingerprint_err(want, chip_smoke._fingerprint(zero)) == float("inf")
     change = chip_smoke._fingerprint_change(want, want)
     assert chip_smoke._fingerprint_err(change, chip_smoke._fingerprint(zero)) == 0.0
+
+
+@pytest.mark.parametrize("run", list(chip_smoke.PIPE_BLOCKS))
+def test_pipeline_rows_are_the_runs_own_blocks(run):
+    # A pipeline's kernel sees one rank's rows of a microbatch (the batch
+    # over PIPE_MICROBATCHES, then over the data axes) and its tp share of
+    # the heads; phase 2 holds the forward and the fused backward there.
+    if run == "pipeline":
+        family, layers, axes, shape = "llama", 32, {"pp": 1}, chip_smoke.PIPE_SHAPE
+    else:
+        family, layers, axes, _, shape = chip_smoke.PIPE_RANK_RUNS[run]
+    _, cfg = chip_smoke._pipe_cfg(family, layers)
+    b, s = shape
+    data = axes.get("dp", 1) * axes.get("fsdp", 1)
+    tp = axes.get("tp", 1)
+    assert b % (chip_smoke.PIPE_MICROBATCHES * data) == 0 and layers % axes["pp"] == 0
+    kv = getattr(cfg, "n_kv_heads", cfg.n_heads)
+    block, name = chip_smoke.PIPE_BLOCKS[run]
+    assert block == (b // chip_smoke.PIPE_MICROBATCHES // data, s, cfg.n_heads // tp,
+                     kv // tp, cfg.head_dim)
+    want = (*block[:4], fa._kernel_head_dim(block[4]), torch.bfloat16, True)
+    assert [r[1:] for r in chip_smoke.FLASH_SHAPES if r[0] == name] == [want]
+    assert [r[1:] for r in chip_smoke.BWD_SHAPES if r[0] == name] == [
+        (*want, fa.backward_route(s))]
+
+
+@pytest.mark.parametrize("n_stages", [1, 2, 4])
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipe_launches_follow_the_schedules(n_stages, schedule):
+    # A stage computation launches the forward once a layer of the stage,
+    # a transpose the fused backward once a layer: GPipe computes every
+    # microbatch forward and again in its backward; 1F1B's forward slots
+    # run the stage on all but the last stage (the port's tick tables).
+    from torchdistx_tpu_torch.parallel.pipeline import schedule_1f1b
+
+    m_count, layers, steps = 4, 8, 2
+    per = layers // n_stages
+    for p in range(n_stages):
+        got = chip_smoke._pipe_launches(schedule, n_stages, p, layers, m_count, steps)
+        if schedule == "gpipe":
+            forwards = m_count
+        else:
+            table = schedule_1f1b(n_stages, m_count, p)
+            forwards = sum(f is not None for _, f, _ in table) if p < n_stages - 1 else 0
+        assert got == {"flash_fwd": (forwards + m_count) * per * steps,
+                       "flash_bwd_fused": m_count * per * steps,
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert chip_smoke._pipe_ticks(schedule, n_stages, m_count) == (
+        m_count + n_stages - 1 if schedule == "gpipe" else 2 * m_count + 2 * n_stages - 3)
+
+
+def test_vocab_accumulators_skip_the_layers():
+    shapes = (("g_ep", (1024, 64), "float32"), ("g_lp", (256, 64), "float32"),
+              ("g_hp", (64,), "float32"), ("g_sp", (256, 64), "float32"))
+    assert chip_smoke._vocab_accumulators(shapes, 256) == [["g_sp", [256, 64]]]
+
+
+def test_pipeline_entries_take_the_pipeline_rows():
+    def row(shape, kernel=None):
+        r = {"shape": shape, "max_abs_err": 0.0, "ms": 1.0 if shape.startswith("pp_") else 9.0,
+             "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1}
+        return r if kernel is None else {**r, "kernel": kernel}
+
+    rows = [row(r[0]) for r in chip_smoke.FLASH_SHAPES]
+    bwd_rows = [row(r[0], k) for r in chip_smoke.BWD_SHAPES
+                for k in chip_smoke.BWD_KERNELS[r[8]]]
+    counts = {"flash_fwd": 8, "flash_bwd_fused": 4, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    ranks = {key: counts for key in chip_smoke.PIPE_RANK_RUNS}
+    entries = chip_smoke._pipeline_entries(rows, bwd_rows, counts, ranks)
+    assert len(entries) == 2 * (1 + len(ranks))
+    assert entries[0]["name"] == "flash_fwd (pipeline microbatch block, llama_7b)"
+    assert entries[0]["launches_by_path"] == {"pipeline": 8}
+    assert entries[-1]["launches_by_path"] == {"pipeline_ranks_d": 4}
+    assert all(e["ms"] == 1.0 for e in entries)
+
+
+def test_fingerprint_holds_no_autograd_graph():
+    # A fingerprint of a parameter that requires grad is detached: kept in
+    # a reference's results, a graph would keep the parameter alive (and
+    # its card memory held) after the run's model is gone.
+    import weakref
+
+    p = torch.nn.Parameter(torch.randn(6, 4))
+    prints = chip_smoke._fingerprint({"p": p})
+    assert all(x.grad_fn is None and not x.requires_grad for x in prints["p"])
+    ref = weakref.ref(p)
+    del p
+    assert ref() is None
+
+
+def test_fingerprint_of_an_expert_stack_is_its_flattened_rows_and_columns():
+    # An (E, in, out) expert weight is fingerprinted as the (E x in, out)
+    # matrix: two vectors, not the whole tensor (a 0.7 GB expert weight
+    # kept whole on the CPU for each fingerprint would fill the host).
+    w = torch.randn(3, 5, 4, generator=torch.Generator().manual_seed(1))
+    got = chip_smoke._fingerprint({"e": w})["e"]
+    assert [tuple(x.shape) for x in got] == [(15,), (4,)]
+    flat = chip_smoke._fingerprint({"e": w.reshape(15, 4)})["e"]
+    assert all(torch.equal(a, b) for a, b in zip(got, flat))
+
+
+def test_every_pipeline_rank_run_has_its_bounds_and_block():
+    assert set(chip_smoke.PIPE_RANKS_BOUNDS) == set(chip_smoke.PIPE_RANK_RUNS)
+    assert set(chip_smoke.PIPE_BLOCKS) == set(chip_smoke.PIPE_RANK_RUNS) | {"pipeline"}
+    for loss_atol, grad_rtol, change_rtol in chip_smoke.PIPE_RANKS_BOUNDS.values():
+        assert 0 < loss_atol and 0 < grad_rtol < 1 and 0 < change_rtol

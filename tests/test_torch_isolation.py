@@ -67,7 +67,8 @@ def test_walk_finds_every_module():
                  "resilience.retry", "resilience.faults", "resilience.preemption",
                  "parallel.distributed", "parallel.fit", "utils.checkpoint",
                  "materialize", "parallel.sharding", "parallel.mesh", "parallel.slowmo",
-                 "models.gpt2", "models.moe", "parallel.ring_attention", "parallel.spmd"):
+                 "models.gpt2", "models.moe", "parallel.ring_attention", "parallel.spmd",
+                 "parallel.pipeline"):
         assert "torchdistx_tpu_torch." + want in names
 
 

@@ -22,6 +22,9 @@ its own unsharded step: 5e-7).
 - Llama (``llama_test``) under ``MeshSpec(fsdp=2, tp=2)`` and ``MeshSpec(dp=2,
   tp=2)``, GPT-2 (``gpt2_test``) under ``fsdp=2, tp=2`` and MoE
   (``moe_test``) under ``dp=2, fsdp=2``, each against JAX;
+- at AdamW eps 1e-5 (ROADMAP C4), Llama under ``fsdp=2, tp=2`` and MoE
+  under ``dp=2, fsdp=2`` against the port's unsharded step (1e-6) and the
+  JAX unsharded step (1e-5);
 - the ``fsdp=2, tp=2`` run against the port's own step without a mesh, and
   ``fsdp=2, sp=2`` with ring attention, contiguous and zigzag, against it
   (the JAX sequence-parallel train step's test is marked slow there);
@@ -32,7 +35,7 @@ its own unsharded step: 5e-7).
 - the JAX dry run's ``train_dp_fsdp_tp``, ``flash_sharded`` and ``sp_ring``
   stages on the 4 ranks, finite;
 - in this process: the arguments that are not ported yet raise, naming
-  ROADMAP A5b.
+  ROADMAP A5b, and the pipeline arguments' misuses raise JAX's messages.
 """
 
 import os
@@ -66,6 +69,10 @@ from _torch_mesh_child import launch, wait  # noqa: E402
 
 ATOL = 1e-5
 MOE_PARAM_ATOL = 2e-5
+# ROADMAP C4: at AdamW eps 1e-5 the mesh step is held to its own unsharded
+# step at C4_SELF_ATOL and to JAX's unsharded step at ATOL.
+C4_EPS = 1e-5
+C4_SELF_ATOL = 1e-6
 STEPS = 3
 ADAMW = dict(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-6, weight_decay=1e-4)
 RUNS = {  # run -> (family, JAX mesh)
@@ -107,6 +114,47 @@ def _jax_run(family, spec, params_np):
     return {"losses": losses, "params": jax.tree.map(np.asarray, state.params)}
 
 
+def _jax_run_eps(family, spec, params_np, eps):
+    """The JAX step at AdamW ``eps`` on ``spec`` (None: one device)."""
+    jmod, jcfg, _, _ = FAMILIES[family]
+    devices = jax.devices()[:4] if spec is not None else jax.devices()[:1]
+    mesh = jax_make_mesh(spec if spec is not None else JaxMeshSpec(), devices=devices)
+    init_fn, step_fn = jts.make_train_step(jcfg(), mesh, optax.adamw(**dict(ADAMW, eps=eps)),
+                                           model=jmod)
+    state = init_fn(jax.random.PRNGKey(0))
+    state = state._replace(params=jax.tree.map(
+        lambda x, a: jax.device_put(a, x.sharding), state.params, params_np))
+    bs = jts.batch_sharding(mesh)
+    losses = []
+    for batch in _batches():
+        state, m = step_fn(state, {k: jax.device_put(jnp.asarray(v), bs)
+                                   for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "params": jax.tree.map(np.asarray, state.params)}
+
+
+def _max_diff(a, b):
+    """The largest |difference| of two port runs' losses and parameters."""
+    worst = float(np.max(np.abs(np.subtract(a["losses"], b["losses"]))))
+    for key, value in b["params"].items():
+        worst = max(worst, float(np.max(np.abs(a["params"][key] - value))))
+    return worst
+
+
+def _max_diff_jax(a, b):
+    """The same of two JAX runs."""
+    worst = float(np.max(np.abs(np.subtract(a["losses"], b["losses"]))))
+    for x, y in zip(jax.tree.leaves(a["params"]), jax.tree.leaves(b["params"])):
+        worst = max(worst, float(np.max(np.abs(x - y))))
+    return worst
+
+
+def _max_diff_port_jax(family, port_run, jax_run, params_np):
+    """The same of a port run against a JAX run."""
+    tree = _port_tree(family, port_run["params"], params_np)
+    return _max_diff_jax({"losses": port_run["losses"], "params": tree}, jax_run)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """``(jax, port)``: the JAX runs by name and rank 0's report."""
@@ -114,7 +162,7 @@ def runs(tmp_path_factory):
     params = {f: jax.tree.map(np.asarray, _jax_init(f, JaxMeshSpec(fsdp=2, tp=2))[1].params)
               for f in FAMILIES}
     rng = np.random.default_rng(4)
-    inputs = {"adamw": ADAMW, "batches": _batches(),
+    inputs = {"adamw": ADAMW, "batches": _batches(), "eps": [C4_EPS],
               "dry_tokens": rng.integers(0, 256, (8, 32)),
               "dry_tokens_sp": rng.integers(0, 256, (4, 64)),
               **{f"{f}_params": p for f, p in params.items()}}
@@ -122,6 +170,9 @@ def runs(tmp_path_factory):
     try:
         want = {name: _jax_run(family, spec, params[family])
                 for name, (family, spec) in RUNS.items()}
+        for family in ("llama", "moe"):
+            want[f"{family}_jax_single_{C4_EPS}"] = _jax_run_eps(family, None, params[family],
+                                                                 C4_EPS)
     finally:
         port = wait(procs, d, "the train suite")
     return want, port, params
@@ -153,6 +204,19 @@ def test_three_adamw_steps_match_jax(runs, name):
     for (path, g), w in zip(flat_got, flat_want):
         np.testing.assert_allclose(g, w, atol=atol, rtol=0,
                                    err_msg=f"{name} {jax.tree_util.keystr(path)}")
+
+
+@pytest.mark.parametrize("family", ["llama", "moe"])
+def test_mesh_step_at_eps_1e5_against_unsharded_steps(runs, family):
+    """ROADMAP C4 at AdamW eps 1e-5 (scripts/torch_mesh_eps_probe.py reads
+    4.8e-7 against the port's unsharded step and 8.3e-7 against JAX's):
+    the mesh step (Llama ``fsdp x tp``, MoE ``dp x fsdp``) within 1e-6 of
+    the port's unsharded step and within ATOL of JAX's unsharded step."""
+    want, port, params = runs
+    mesh, single = port["eps"][f"{family}_mesh_{C4_EPS}"], port["eps"][f"{family}_single_{C4_EPS}"]
+    assert _max_diff(mesh, single) <= C4_SELF_ATOL
+    assert _max_diff_port_jax(family, mesh, want[f"{family}_jax_single_{C4_EPS}"],
+                              params[family]) <= ATOL
 
 
 @pytest.mark.parametrize("name", ["llama_fsdp_tp", "llama_sp_contiguous", "llama_sp_zigzag"])
@@ -204,15 +268,21 @@ class _Mesh:
         self.device_type = "cpu"
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"pp_axis": "pp"}, {"n_microbatches": 2}, {"pp_schedule": "1f1b"},
-    {"loss_fn": lambda *a: 0.0}, {"mesh": _Mesh(fsdp=2, ep=2)},
-    {"mesh": _Mesh(data=2, model=2), "tp": "model"},
-    {"mesh": _Mesh(data=2, model=2), "fsdp": "data"},
+# The pipeline arguments are ported: their cases hold the JAX step's
+# validation messages (the pp axis missing from the mesh, 1F1B without
+# pp_axis, 1F1B with a sequence axis); the rest name ROADMAP A5b.
+@pytest.mark.parametrize("kwargs,match", [
+    ({"pp_axis": "pp"}, "mesh has no axis 'pp'"),
+    ({"n_microbatches": 2, "pp_schedule": "1f1b"}, "requires pp_axis="),
+    ({"pp_schedule": "1f1b", "pp_axis": "pp", "seq_axis": "sp",
+      "mesh": _Mesh(pp=2, sp=2)}, "does not compose with seq_axis"),
+    ({"loss_fn": lambda *a: 0.0}, "A5b"), ({"mesh": _Mesh(fsdp=2, ep=2)}, "A5b"),
+    ({"mesh": _Mesh(data=2, model=2), "tp": "model"}, "A5b"),
+    ({"mesh": _Mesh(data=2, model=2), "fsdp": "data"}, "A5b"),
 ], ids=["pp_axis", "n_microbatches", "pp_schedule", "loss_fn", "ep", "tp_name", "fsdp_name"])
-def test_unported_arguments_raise_naming_a5b(kwargs):
+def test_unported_arguments_raise_naming_a5b(kwargs, match):
     kw = {"mesh": _Mesh(fsdp=2, tp=2), **kwargs}
-    with pytest.raises(ValueError, match="A5b"):
+    with pytest.raises(ValueError, match=match):
         make_train_step(tllama.llama_test(), lambda ps: torch.optim.SGD(ps, lr=0.1),
                         device="cpu", **kw)
 

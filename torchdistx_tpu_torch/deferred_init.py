@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn as nn
 import torch.utils._pytree as pytree
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import _tape
@@ -88,6 +89,34 @@ class _DeferredInitMode(TorchDispatchMode):
         return out
 
 
+class _ClaimedLiteralMode(TorchFunctionMode):
+    """``torch.tensor(data)`` under a claimed device other than the CPU:
+    built on the CPU, then copied into an empty tensor of the claimed
+    device, which the recording mode makes a fake (the copy recorded, the
+    external CPU tensor guarded).  ``torch.tensor`` moves its data to the
+    device inside one call that the dispatch mode does not see, so without
+    this a literal such as a BatchNorm's ``num_batches_tracked`` would be
+    allocated on the card while recording (and fail on a host without
+    CUDA)."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.tensor:
+            device = torch.device(kwargs.get("device") or self.device)
+            if device.type != "cpu":
+                grad = kwargs.get("requires_grad", False)
+                real = func(*args, **{**kwargs, "device": "cpu", "requires_grad": False})
+                out = torch.empty(real.shape, dtype=real.dtype, device=device)
+                # The op itself, not the method: the method's binding would
+                # take a guard of the claimed device first.
+                return torch.ops.aten.copy_.default(out, real).requires_grad_(grad)
+        return func(*args, **kwargs)
+
+
 @contextlib.contextmanager
 def _deferred_init_context(device: Optional[Any] = None):
     """Enter/leave the deferred-init recording context."""
@@ -103,6 +132,7 @@ def _deferred_init_context(device: Optional[Any] = None):
             if device is not None:
                 # Factories arrive already carrying the claimed device.
                 stack.enter_context(torch.device(device))
+                stack.enter_context(_ClaimedLiteralMode(device))
             stack.enter_context(mode)
             yield tape
     finally:

@@ -60,9 +60,12 @@ from .deferred_init import _get_record, is_deferred
 from .fake import FakeTensor
 from .parallel.sharding import (
     PartitionSpec,
+    StageSpec,
     fit_spec_to_mesh,
     replicate_indivisible,
     spec_placements,
+    stage_mesh,
+    stage_of,
 )
 
 __all__ = ["materialize_tensor_torch", "materialize_module_torch"]
@@ -194,10 +197,11 @@ def _check_guards(stacks) -> None:
                 guard.check()
 
 
-def _replay_targets(targets, stacks, seed, device, finish) -> None:
+def _replay_targets(targets, stacks, seed, device, finish, ordinals=None) -> None:
     """Replay every target ``(node, index)`` and hand each value, as soon
-    as its stack has run, to ``finish(i, value)``."""
-    ordinals = _ordinals(stacks)
+    as its stack has run, to ``finish(i, value)``; ``ordinals`` (default:
+    those of ``stacks``) number the tapes."""
+    ordinals = _ordinals(stacks) if ordinals is None else ordinals
     with torch.utils._python_dispatch._disable_current_modes(), torch.no_grad():
         for group in _groups(stacks):
             nodes = {n.op_nr: n for i in group for n in stacks[i]}
@@ -297,15 +301,40 @@ def _named_fakes(module: nn.Module) -> List[Tuple[str, FakeTensor]]:
     return out
 
 
-def _resolve_spec(plan, name: str, fake: FakeTensor, mesh=None) -> PartitionSpec:
+def _plan_spec(plan, name: str, fake: FakeTensor) -> PartitionSpec:
     if plan is None:
         return PartitionSpec()
     spec = plan(name, tuple(fake.shape)) if callable(plan) else plan.get(name)
-    if spec is None:
-        return PartitionSpec()
+    return PartitionSpec() if spec is None else spec
+
+
+def _fit_spec(spec, fake: FakeTensor, mesh) -> PartitionSpec:
     if mesh is None:
         return spec
     return replicate_indivisible(fit_spec_to_mesh(spec, mesh), tuple(fake.shape), mesh)
+
+
+def _stage_filter(specs, mesh):
+    """``(placement mesh, kept indices)`` of a plan's ``specs`` on ``mesh``:
+    when a :class:`~torchdistx_tpu_torch.parallel.sharding.StageSpec` names
+    a ``pp`` axis of ``mesh``, this rank keeps the layers of its own stage
+    and every parameter that is not a layer's (held whole over ``pp``),
+    placed on the mesh of its stage (``stage_mesh``; None: plain tensors);
+    otherwise every parameter, on ``mesh``."""
+    staged = [s for s in specs if isinstance(s, StageSpec)]
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    axes = {s.pp for s in staged if s.pp in names}
+    if not axes:
+        return mesh, list(range(len(specs)))
+    if len(axes) > 1:
+        raise ValueError(f"a plan's stages name two pipeline axes: {sorted(axes)}")
+    (axis,) = axes
+    n_stages = mesh.size(names.index(axis))
+    mine = mesh.get_local_rank(axis)
+    keep = [i for i, s in enumerate(specs)
+            if not isinstance(s, StageSpec) or s.pp != axis
+            or stage_of(s.layer, s.n_layers, n_stages) == mine]
+    return stage_mesh(mesh, axis), keep
 
 
 def materialize_tensor_torch(
@@ -356,7 +385,14 @@ def materialize_module_torch(
     (replicated), a dict ``{name: PartitionSpec}``, or a callable ``(name,
     shape) -> PartitionSpec | None`` (see
     :mod:`~torchdistx_tpu_torch.parallel.sharding`), fitted to the mesh and
-    replicated on dims its axes do not divide.  ``dtype`` casts every value
+    replicated on dims its axes do not divide.  A plan whose layers carry
+    :class:`~torchdistx_tpu_torch.parallel.sharding.StageSpec` specs over a
+    ``pp`` axis of the mesh (a family's ``param_specs(cfg, pp=)``) gives
+    each rank its own pipeline stage only: the layers of the other stages
+    are not replayed and not in the result, and every value is placed on
+    the stage's mesh (the mesh without ``pp``; plain tensors when ``pp`` is
+    its only axis).  Per-node streams make a stage's values equal to the
+    same parameters of a full materialize.  ``dtype`` casts every value
     (for example ``torch.bfloat16`` for a model recorded in float32).
     ``seed`` keys the random streams.  The module is not changed; load the
     result with ``module.load_state_dict(result, assign=True)``.
@@ -368,14 +404,18 @@ def materialize_module_torch(
         named = _named_fakes(module)
         targets = [(_get_record(f).node, _get_record(f).index) for _, f in named]
         stacks = [_tape.build_call_stack(node) for node, _ in targets]
+        ordinals = _ordinals(stacks)  # of every target: a stage's values are the full run's
+        specs = [_plan_spec(plan, name, fake) for name, fake in named]
+        place, keep = _stage_filter(specs, mesh)
+        named, targets, stacks = ([xs[i] for i in keep] for xs in (named, targets, stacks))
+        specs = [_fit_spec(specs[i], fake, place) for i, (_, fake) in zip(keep, named)]
         _check_guards(stacks)
-        specs = [_resolve_spec(plan, name, fake, mesh) for name, fake in named]
         results: Dict[str, Any] = {}
 
         def finish(i, value):
-            results[named[i][0]] = _finish(value, dtype, mesh, specs[i])
+            results[named[i][0]] = _finish(value, dtype, place, specs[i])
 
-        _replay_targets(targets, stacks, seed, replay_device, finish)
+        _replay_targets(targets, stacks, seed, replay_device, finish, ordinals)
         results = {name: results[name] for name, _ in named}
     except BaseException as e:
         span.end(error=type(e).__name__)

@@ -20,9 +20,12 @@ gradients are on.  On a mesh (``mesh=``, ``seq_axis=``) the parameters are
 block as the port's Llama does (see
 :mod:`~torchdistx_tpu_torch.models.llama`); ``attn_qkv``'s ``tp`` shards
 cut across q, k and v, so each rank gathers it and takes its own heads'
-rows of each.  The JAX ``forward_paged`` (serving) and the pipeline
-pieces (``pp_pieces``, ``pp_value_and_grad``) belong to later parts of the
-port.
+rows of each.  The pipelined forward, :func:`pp_pieces` and :func:`pp_value_and_grad` are
+Llama's (:mod:`~torchdistx_tpu_torch.models.llama`), with the tied ``wte``
+read by both the embedding on stage 0 and the head on the last stage: the
+1F1B schedule carries it as a shared parameter, with one f32 gradient
+accumulator.  The JAX ``forward_paged`` (serving) belongs to a later part
+of the port.
 """
 
 from __future__ import annotations
@@ -38,6 +41,16 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import cached_attention
+from ..parallel.pipeline import (
+    contiguous_rows,
+    layer_grads,
+    pipeline_forward,
+    pipeline_value_and_grad,
+    stage_blocks,
+    stage_context,
+    stage_inputs,
+    stage_specs,
+)
 from ..parallel.sharding import PartitionSpec as P
 from ..parallel.spmd import SINGLE, local_inputs
 
@@ -48,6 +61,8 @@ __all__ = [
     "gpt2_xl",
     "num_params",
     "param_specs",
+    "pp_pieces",
+    "pp_value_and_grad",
     "GPT2",
 ]
 
@@ -97,13 +112,14 @@ def num_params(cfg: GPT2Config) -> int:
 
 
 def param_specs(cfg: GPT2Config, *, tp: Optional[str] = "tp",
-                fsdp: Optional[str] = "fsdp") -> Dict[str, P]:
+                fsdp: Optional[str] = "fsdp", pp: Optional[str] = None) -> Dict[str, P]:
     """Megatron-TP + FSDP partition specs of :class:`GPT2`'s parameters, by
     name: the JAX ``param_specs`` on this module's names, each weight's two
     matrix dims swapped (``nn.Linear`` is ``(out, in)``) and the stacked
     layer axis dropped, as :func:`~torchdistx_tpu_torch.models.llama.
     param_specs` does.  qkv and fc are column-parallel, the projections
-    row-parallel, the embeddings ``(fsdp, tp)``, norms replicated."""
+    row-parallel, the embeddings ``(fsdp, tp)``, norms replicated; ``pp``
+    gives each layer to its pipeline stage, as Llama's does."""
     column, row = P(tp, fsdp), P(fsdp, tp)
     specs = {"wte.weight": P(fsdp, tp), "wpe.weight": P(fsdp, tp)}
     for i in range(cfg.n_layers):
@@ -119,7 +135,7 @@ def param_specs(cfg: GPT2Config, *, tp: Optional[str] = "tp",
             specs[pre + name + ".bias"] = P()
     specs["ln_f.weight"] = P()
     specs["ln_f.bias"] = P()
-    return specs
+    return specs if pp is None else stage_specs(specs, pp=pp)
 
 
 def _layernorm(x, weight, bias, eps: float):
@@ -270,8 +286,20 @@ class GPT2(nn.Module):
                 x = blk(x, attn_impl, ctx)
         return x
 
-    def _logits(self, tokens, targets, attn_impl, mesh, seq_axis):
-        """``(ctx, targets, logits in cfg.dtype)`` of this rank's block."""
+    def _logits(self, tokens, targets, attn_impl, mesh, seq_axis, pp_axis=None,
+                n_microbatches=1):
+        """``(ctx, targets, logits in cfg.dtype)`` of this rank's block (with
+        ``pp_axis``, of its rows of each microbatch, through the GPipe
+        pipeline)."""
+        if pp_axis is not None:
+            ctx, tokens, targets, impl = stage_inputs(
+                tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
+                attn_impl=attn_impl, seq_axis=seq_axis)
+            _, blocks = stage_blocks(self.layers, mesh, pp_axis)
+            x = pipeline_forward(self._embed(tokens, 0, ctx), blocks,
+                                 lambda h, blk: blk(h, impl, ctx), mesh=mesh, axis=pp_axis,
+                                 n_microbatches=n_microbatches)
+            return ctx, targets, self._head(x, ctx)
         ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
             tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
         del positions  # contiguous: this rank's columns start at its offset
@@ -279,25 +307,33 @@ class GPT2(nn.Module):
         return ctx, targets, self._head(self._hidden(tokens, attn_impl, ctx, pos), ctx)
 
     def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
-                seq_axis: Optional[str] = None):
+                seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
+                n_microbatches: int = 1):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.  With
         ``mesh``, ``tokens`` is the global batch on every rank and the
-        logits are a ``DTensor`` (this rank's rows and columns)."""
-        ctx, _, logits = self._logits(tokens, None, attn_impl, mesh, seq_axis)
-        if mesh is None:
+        logits are a ``DTensor`` (this rank's rows and columns);
+        ``pp_axis`` / ``n_microbatches`` run the blocks through the GPipe
+        pipeline (as Llama's ``forward``)."""
+        ctx, _, logits = self._logits(tokens, None, attn_impl, mesh, seq_axis, pp_axis,
+                                      n_microbatches)
+        if pp_axis is not None:
+            logits = contiguous_rows(logits, ctx, n_microbatches)
+        if ctx is SINGLE:
             return logits.float()
         return ctx.dtensor(logits.float(), ctx.placements(heads=False))
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
-             seq_axis: Optional[str] = None):
+             seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
+             n_microbatches: int = 1):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``:
         logits in ``cfg.dtype``, ``logsumexp`` of their f32 upcast minus
         the target's logit); with ``mesh``, the global batch's on every
-        rank."""
-        ctx, targets, logits = self._logits(tokens, targets, attn_impl, mesh, seq_axis)
+        rank; ``pp_axis`` as in :meth:`forward`."""
+        ctx, targets, logits = self._logits(tokens, targets, attn_impl, mesh, seq_axis,
+                                            pp_axis, n_microbatches)
         nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
             -1, targets[..., None])[..., 0].float()
-        if mesh is None:
+        if ctx is SINGLE:
             return nll.mean()
         return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
 
@@ -331,3 +367,54 @@ class GPT2(nn.Module):
             cache["v"][i, :, pos:pos + t] = v
             x = blk.finish(x, cached_attention(q, cache["k"][i], cache["v"][i], pos))
         return self._head(x).float(), cache
+
+
+# ---------------------------------------------------------------------------
+# 1F1B pipeline pieces: wte + wpe on stage 0, the blocks pipelined, ln_f and
+# the tied head inside the last stage.
+
+
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+    """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
+    schedule, as Llama's :func:`~torchdistx_tpu_torch.models.llama.
+    pp_pieces`; ``embed_fn(ep, tokens_mb, sp)`` and ``head_loss_fn(hp, h,
+    targets_mb, sp)`` take the tied embedding ``sp["wte.weight"]`` last."""
+    from ..ops.attention import resolve_stage_attn_impl
+
+    ctx, rows = stage_context(mesh, pp_axis)
+
+    def embed_fn(ep, tokens_mb, sp):
+        tokens = rows(tokens_mb)
+        wpe = ctx.weight(ep["wpe.weight"])
+        return (F.embedding(tokens, ctx.weight(sp["wte.weight"]))
+                + wpe[:tokens.shape[1]][None])
+
+    def block_fn(h, blk):
+        return blk(h, resolve_stage_attn_impl(attn_impl, cuda=h.is_cuda), ctx)
+
+    def head_loss_fn(hp, h, targets_mb, sp):
+        logits = F.linear(model.ln_f(h, ctx), ctx.weight(sp["wte.weight"]))
+        targets = rows(targets_mb)
+        nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
+            -1, targets[..., None])[..., 0].float()
+        return nll.mean() if ctx is SINGLE else ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
+
+    return embed_fn, block_fn, head_loss_fn
+
+
+def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
+                      n_microbatches: int = 1, attn_impl: str = "auto"):
+    """``(loss, grads)`` of ``model`` by the 1F1B pipeline, as Llama's.
+    The tied ``wte`` rides the pipeline's ``shared_params``: stage 0's
+    embedding and the last stage's head both read it, and its gradient
+    (the two contributions, summed over ``pp``) has one f32 accumulator."""
+    embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
+                                                 attn_impl=attn_impl)
+    first, blocks = stage_blocks(model.layers, mesh, pp_axis)
+    loss, (g_ep, g_lp, g_hp, g_sp) = pipeline_value_and_grad(
+        {"wpe.weight": model.wpe.weight}, blocks,
+        {"ln_f.weight": model.ln_f.weight, "ln_f.bias": model.ln_f.bias},
+        tokens, targets, embed_fn, block_fn, head_loss_fn,
+        mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
+        shared_params={"wte.weight": model.wte.weight})
+    return loss, {**g_sp, **g_ep, **g_hp, **layer_grads(first, g_lp)}

@@ -43,6 +43,16 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import cached_attention
+from ..parallel.pipeline import (
+    contiguous_rows,
+    layer_grads,
+    pipeline_forward,
+    pipeline_value_and_grad,
+    stage_blocks,
+    stage_context,
+    stage_inputs,
+    stage_specs,
+)
 from ..parallel.sharding import PartitionSpec as P
 from ..parallel.spmd import SINGLE, local_inputs
 
@@ -54,6 +64,8 @@ __all__ = [
     "llama_70b",
     "num_params",
     "param_specs",
+    "pp_pieces",
+    "pp_value_and_grad",
     "Llama",
 ]
 
@@ -122,7 +134,7 @@ def num_params(cfg: LlamaConfig) -> int:
 
 
 def param_specs(cfg: LlamaConfig, *, tp: Optional[str] = "tp",
-                fsdp: Optional[str] = "fsdp") -> Dict[str, P]:
+                fsdp: Optional[str] = "fsdp", pp: Optional[str] = None) -> Dict[str, P]:
     """Megatron-TP + FSDP partition specs of :class:`Llama`'s parameters, by
     name: a plan for
     :func:`~torchdistx_tpu_torch.materialize.materialize_module_torch`.
@@ -134,7 +146,9 @@ def param_specs(cfg: LlamaConfig, *, tp: Optional[str] = "tp",
     in)`` where the JAX leaves are ``(in, out)`` (the transpose that
     ``models/convert.py`` applies), so each spec is the JAX leaf's with its
     two matrix dims swapped, and the JAX stacked layer axis (its ``pp``
-    entry) is dropped: every layer has its own parameters here.
+    entry) is dropped: every layer has its own parameters here.  ``pp``
+    (if given) gives each layer to its pipeline stage over that axis
+    (:func:`~torchdistx_tpu_torch.parallel.pipeline.stage_specs`).
     """
     column, row = P(tp, fsdp), P(fsdp, tp)
     specs = {"embed.weight": P(fsdp, tp)}
@@ -147,7 +161,7 @@ def param_specs(cfg: LlamaConfig, *, tp: Optional[str] = "tp",
             specs[f"layers.{i}.{name}.weight"] = row
     specs["norm.weight"] = P()
     specs["lm_head.weight"] = P(tp, fsdp)
-    return specs
+    return specs if pp is None else stage_specs(specs, pp=pp)
 
 
 def _rmsnorm(x, weight, eps: float):
@@ -305,14 +319,39 @@ class Llama(nn.Module):
         """The head's logits in ``cfg.dtype`` (the whole vocabulary)."""
         return F.linear(self.norm(x, ctx), ctx.weight(self.lm_head.weight))
 
+    def _stage_hidden(self, tokens, attn_impl, ctx, mesh, pp_axis, n_microbatches):
+        """The blocks' output through the GPipe pipeline over ``pp_axis``
+        (this rank's stage of them; ``tokens`` are its rows of each
+        microbatch)."""
+        cfg = self.cfg
+        x = F.embedding(tokens, ctx.weight(self.embed.weight))
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        _, blocks = stage_blocks(self.layers, mesh, pp_axis)
+        return pipeline_forward(x, blocks, lambda h, blk: blk(h, cos, sin, attn_impl, ctx),
+                                mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches)
+
     def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
-                seq_axis: Optional[str] = None, seq_layout: str = "contiguous"):
+                seq_axis: Optional[str] = None, seq_layout: str = "contiguous",
+                pp_axis: Optional[str] = None, n_microbatches: int = 1):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.
 
         With ``mesh``, ``tokens`` is the global batch on every rank and the
         logits are a ``DTensor`` (this rank's rows and columns); under
         ``seq_layout="zigzag"`` they are in zigzag order, as in JAX (invert
-        with ``parallel.ring_attention._zigzag_perm(S, sp)[1]``)."""
+        with ``parallel.ring_attention._zigzag_perm(S, sp)[1]``).
+        ``pp_axis`` runs the blocks through the GPipe pipeline
+        (:func:`~torchdistx_tpu_torch.parallel.pipeline.pipeline_forward`)
+        with ``n_microbatches`` microbatches, each rank its stage; every
+        rank returns the logits (a ``DTensor`` on the stage's mesh, or the
+        whole tensor when ``pp`` is the mesh's only axis)."""
+        if pp_axis is not None:
+            ctx, tokens, _, impl = stage_inputs(
+                tokens, None, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
+                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout)
+            x = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
+            logits = self._logits(contiguous_rows(x, ctx, n_microbatches), ctx).float()
+            return logits if ctx is SINGLE else ctx.dtensor(logits, ctx.placements(heads=False))
         if mesh is None and seq_axis is None and seq_layout == "contiguous":
             return self._head(self._hidden(tokens, attn_impl))
         ctx, tokens, _, positions, attn_impl, pre = local_inputs(
@@ -322,22 +361,32 @@ class Llama(nn.Module):
         return ctx.dtensor(logits.float(), ctx.placements(heads=False))
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
-             seq_axis: Optional[str] = None, seq_layout: str = "contiguous"):
+             seq_axis: Optional[str] = None, seq_layout: str = "contiguous",
+             pp_axis: Optional[str] = None, n_microbatches: int = 1):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``).
 
         The head's logits stay in the parameters' dtype, as the JAX
         ``_head_ce`` keeps them; the loss is ``logsumexp`` of their f32
         upcast minus the target's logit, averaged over ``(B, S)``.  With
         ``mesh``, ``tokens`` and ``targets`` are the global batch on every
-        rank, and every rank returns the global mean.
+        rank, and every rank returns the global mean.  ``pp_axis`` /
+        ``n_microbatches`` as in :meth:`forward` (the GPipe schedule; its
+        backward is the pipeline's transposed schedule).
         """
-        ctx, tokens, targets, positions, attn_impl, pre = local_inputs(
-            tokens, targets, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
-            attn_impl=attn_impl)
-        logits = self._logits(self._hidden(tokens, attn_impl, ctx, positions, pre), ctx)
+        if pp_axis is not None:
+            ctx, tokens, targets, impl = stage_inputs(
+                tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
+                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout)
+            x = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
+        else:
+            ctx, tokens, targets, positions, attn_impl, pre = local_inputs(
+                tokens, targets, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
+                attn_impl=attn_impl)
+            x = self._hidden(tokens, attn_impl, ctx, positions, pre)
+        logits = self._logits(x, ctx)
         nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
             -1, targets[..., None])[..., 0].float()
-        if mesh is None:
+        if ctx is SINGLE:
             return nll.mean()
         return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
 
@@ -400,3 +449,71 @@ class Llama(nn.Module):
             gu = F.linear(h, decode_weights["wgu"][i])
             x = x + blk.w_down(F.silu(gu[..., :cfg.ffn_dim]) * gu[..., cfg.ffn_dim:])
         return self._head(x), cache
+
+
+# ---------------------------------------------------------------------------
+# 1F1B pipeline pieces (see parallel.pipeline.pipeline_value_and_grad):
+# the embedding on stage 0, the blocks pipelined, the loss head inside the
+# last stage.
+
+
+def _rope_cache(cfg):
+    """``(cos, sin)`` of positions ``arange(S)``, made once per ``(S,
+    device, dtype)``."""
+    tables = {}
+
+    def get(h):
+        key = (h.shape[1], h.device, h.dtype)
+        if key not in tables:
+            positions = torch.arange(h.shape[1], device=h.device)[None]
+            tables[key] = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, h.dtype)
+        return tables[key]
+
+    return get
+
+
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+    """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
+    schedule, on this rank's stage context (the mesh without ``pp_axis``):
+    ``embed_fn(ep, tokens_mb)`` and ``head_loss_fn(hp, h, targets_mb)`` take
+    the global microbatch and compute on this rank's rows of it (the loss
+    is the microbatch's global mean); ``block_fn(h, block)`` is one block,
+    without remat (the pipeline recomputes the stage)."""
+    from ..ops.attention import resolve_stage_attn_impl
+
+    ctx, rows = stage_context(mesh, pp_axis)
+    rope = _rope_cache(model.cfg)
+
+    def embed_fn(ep, tokens_mb):
+        return F.embedding(rows(tokens_mb), ctx.weight(ep["embed.weight"]))
+
+    def block_fn(h, blk):
+        cos, sin = rope(h)
+        return blk(h, cos, sin, resolve_stage_attn_impl(attn_impl, cuda=h.is_cuda), ctx)
+
+    def head_loss_fn(hp, h, targets_mb):
+        logits = F.linear(model.norm(h, ctx), ctx.weight(hp["lm_head.weight"]))
+        targets = rows(targets_mb)
+        nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
+            -1, targets[..., None])[..., 0].float()
+        return nll.mean() if ctx is SINGLE else ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce)
+
+    return embed_fn, block_fn, head_loss_fn
+
+
+def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
+                      n_microbatches: int = 1, attn_impl: str = "auto"):
+    """``(loss, grads)`` of ``model`` by the 1F1B pipeline: the global
+    batch's loss on every rank and ``{name: gradient}`` of this rank's
+    parameters (its stage's layers, the embedding and the head), placed as
+    the parameters; a drop-in for ``loss`` + ``backward`` in pipeline
+    training, with O(P) stashed activations where GPipe keeps O(M)."""
+    embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
+                                                 attn_impl=attn_impl)
+    first, blocks = stage_blocks(model.layers, mesh, pp_axis)
+    loss, (g_ep, g_lp, g_hp) = pipeline_value_and_grad(
+        {"embed.weight": model.embed.weight}, blocks,
+        {"norm.weight": model.norm.weight, "lm_head.weight": model.lm_head.weight},
+        tokens, targets, embed_fn, block_fn, head_loss_fn,
+        mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches)
+    return loss, {**g_ep, **g_hp, **layer_grads(first, g_lp)}

@@ -11,9 +11,12 @@ load-balancing aux loss (the mean over layers of E * sum_e f_e * p_e, f
 counting all k choices) is added to the loss with ``router_aux_coef``.
 
 One device runs every expert: the JAX ``ep`` sharding (all-to-alls over
-the expert axis) and the pipeline pieces are not ported yet (a mesh with an
-``ep`` axis larger than 1 raises); :func:`param_specs` gives the ``ep``
-layout already.  On a mesh (``mesh=``, ``seq_axis=``) the attention half
+the expert axis) is not ported yet (a mesh with an ``ep`` axis larger than
+1 raises); :func:`param_specs` gives the ``ep`` layout already.  Under a
+pipeline (``pp_axis=``, :func:`pp_value_and_grad`) the router's aux loss
+rides the pipelined activation as a second leaf, one value per row (each
+row of a microbatch carries its microbatch's running sum over the layers),
+and routing and capacity are per microbatch, as in JAX.  On a mesh (``mesh=``, ``seq_axis=``) the attention half
 computes as Llama's (see :mod:`~torchdistx_tpu_torch.models.llama`), and
 each layer's routed FFN runs on every rank over all the tokens (gathered
 over the data axes), so that the capacity and the positions are the global
@@ -35,6 +38,16 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..parallel.pipeline import (
+    contiguous_rows,
+    layer_grads,
+    pipeline_forward,
+    pipeline_value_and_grad,
+    stage_blocks,
+    stage_context,
+    stage_inputs,
+    stage_specs,
+)
 from ..parallel.sharding import PartitionSpec as P, mesh_axis_sizes
 from ..parallel.spmd import SINGLE, local_inputs
 from . import llama as llama_mod
@@ -47,6 +60,8 @@ __all__ = [
     "param_specs",
     "route",
     "moe_ffn",
+    "pp_pieces",
+    "pp_value_and_grad",
     "MoE",
 ]
 
@@ -76,11 +91,12 @@ def num_params(cfg: MoEConfig) -> int:
 
 
 def param_specs(cfg: MoEConfig, *, tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp",
-                ep: Optional[str] = "ep") -> Dict[str, P]:
+                ep: Optional[str] = "ep", pp: Optional[str] = None) -> Dict[str, P]:
     """Partition specs of :class:`MoE`'s parameters, by name: the Llama
     specs for the attention half, the router replicated, and the experts
     over ``ep`` (the JAX ``(ep, fsdp, tp)`` / ``(ep, tp, fsdp)``, in the
-    same layout, since the expert weights keep it)."""
+    same layout, since the expert weights keep it); ``pp`` gives each
+    layer to its pipeline stage."""
     specs = {k: v for k, v in llama_mod.param_specs(cfg, tp=tp, fsdp=fsdp).items()
              if not k.endswith(("w_gate.weight", "w_up.weight", "w_down.weight"))}
     for i in range(cfg.n_layers):
@@ -88,7 +104,7 @@ def param_specs(cfg: MoEConfig, *, tp: Optional[str] = "tp", fsdp: Optional[str]
         specs[f"layers.{i}.e_gate"] = P(ep, fsdp, tp)
         specs[f"layers.{i}.e_up"] = P(ep, fsdp, tp)
         specs[f"layers.{i}.e_down"] = P(ep, tp, fsdp)
-    return specs
+    return specs if pp is None else stage_specs(specs, pp=pp)
 
 
 def _capacity(cfg: MoEConfig, n_tokens: int) -> int:
@@ -246,35 +262,130 @@ class MoE(nn.Module):
             aux_sum = aux_sum + aux
         return x, aux_sum
 
-    def _run(self, tokens, targets, attn_impl, mesh, seq_axis):
+    def _run(self, tokens, targets, attn_impl, mesh, seq_axis, pp_axis=None,
+             n_microbatches=1):
         if mesh is not None and mesh_axis_sizes(mesh).get("ep", 1) > 1:
             raise ValueError("MoE on a mesh with an 'ep' axis larger than 1 needs the "
                              "expert all-to-all, which is not ported yet (ROADMAP A5b)")
-        ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
-            tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
-        x, aux_sum = self._hidden(tokens, attn_impl, ctx, positions)
+        if pp_axis is not None:
+            ctx, tokens, targets, impl = stage_inputs(
+                tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
+                attn_impl=attn_impl, seq_axis=seq_axis)
+            x, aux_sum = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
+        else:
+            ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
+                tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
+            x, aux_sum = self._hidden(tokens, attn_impl, ctx, positions)
         logits = F.linear(self.norm(x, ctx), ctx.weight(self.lm_head.weight)).float()
         return ctx, targets, logits, aux_sum / self.cfg.n_layers
 
+    def _stage_hidden(self, tokens, attn_impl, ctx, mesh, pp_axis, n_microbatches):
+        """The blocks' output through the GPipe pipeline, and the mean over
+        rows of each row's aux sum (the microbatches' mean: routing and
+        capacity are per microbatch, as in JAX)."""
+        cfg = self.cfg
+        x = F.embedding(tokens, ctx.weight(self.embed.weight))
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        _, blocks = stage_blocks(self.layers, mesh, pp_axis)
+        act = {"h": x, "aux": torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)}
+        out = pipeline_forward(act, blocks, _pp_block(cos, sin, attn_impl, ctx), mesh=mesh,
+                               axis=pp_axis, n_microbatches=n_microbatches)
+        return out["h"], out["aux"].mean()
+
     def forward(self, tokens, attn_impl: str = "auto", return_aux: bool = False, *,
-                mesh=None, seq_axis: Optional[str] = None):
+                mesh=None, seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
+                n_microbatches: int = 1):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32; with
         ``return_aux`` also the aux loss averaged over layers.  With
         ``mesh``, ``tokens`` is the global batch on every rank and the
-        logits are a ``DTensor`` (this rank's rows and columns)."""
-        ctx, _, logits, aux = self._run(tokens, None, attn_impl, mesh, seq_axis)
-        if mesh is not None:
+        logits are a ``DTensor`` (this rank's rows and columns);
+        ``pp_axis`` / ``n_microbatches`` run the blocks through the GPipe
+        pipeline (as Llama's ``forward``; routing per microbatch)."""
+        ctx, _, logits, aux = self._run(tokens, None, attn_impl, mesh, seq_axis, pp_axis,
+                                        n_microbatches)
+        if pp_axis is not None:
+            logits = contiguous_rows(logits, ctx, n_microbatches)
+        if ctx is not SINGLE:
             logits = ctx.dtensor(logits, ctx.placements(heads=False))
         return (logits, aux) if return_aux else logits
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
-             seq_axis: Optional[str] = None):
+             seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
+             n_microbatches: int = 1):
         """Mean next-token cross-entropy plus ``router_aux_coef`` times the
         aux loss (the JAX ``loss_fn``), f32 scalar; with ``mesh``, the
-        global batch's on every rank."""
-        ctx, targets, logits, aux = self._run(tokens, targets, attn_impl, mesh, seq_axis)
+        global batch's on every rank; ``pp_axis`` as in :meth:`forward`."""
+        ctx, targets, logits, aux = self._run(tokens, targets, attn_impl, mesh, seq_axis,
+                                              pp_axis, n_microbatches)
         nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
-        if mesh is None:
+        if ctx is SINGLE:
             return nll.mean() + self.cfg.router_aux_coef * aux
         return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce,
                         replicated=self.cfg.router_aux_coef * aux)
+
+
+def _pp_block(cos, sin, attn_impl, ctx):
+    """One MoE block over the pipelined activation ``{"h", "aux"}``: the
+    layer's aux loss added to every row's running sum."""
+
+    def block(act, blk):
+        h, aux = blk(act["h"], cos, sin, attn_impl, ctx)
+        return {"h": h, "aux": act["aux"] + aux}
+
+    return block
+
+
+# ---------------------------------------------------------------------------
+# 1F1B pipeline pieces: the aux channel rides the pipeline beside the hidden
+# state; the last stage folds it into the loss.
+
+
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+    """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
+    schedule, as Llama's, over the activation ``{"h", "aux"}``; the head's
+    loss adds ``router_aux_coef`` times the microbatch's aux sum over the
+    layers, averaged per layer, as :meth:`MoE.loss` does."""
+    from ..ops.attention import resolve_stage_attn_impl
+
+    cfg = model.cfg
+    ctx, rows = stage_context(mesh, pp_axis)
+    rope = llama_mod._rope_cache(cfg)
+
+    def embed_fn(ep, tokens_mb):
+        x = F.embedding(rows(tokens_mb), ctx.weight(ep["embed.weight"]))
+        return {"h": x, "aux": torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)}
+
+    def block_fn(act, blk):
+        h = act["h"]
+        impl = resolve_stage_attn_impl(attn_impl, cuda=h.is_cuda)
+        return _pp_block(*rope(h), impl, ctx)(act, blk)
+
+    def head_loss_fn(hp, act, targets_mb):
+        logits = F.linear(model.norm(act["h"], ctx), ctx.weight(hp["lm_head.weight"])).float()
+        targets = rows(targets_mb)
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
+        aux = cfg.router_aux_coef * act["aux"].mean() / cfg.n_layers
+        if ctx is SINGLE:
+            return nll.mean() + aux
+        return ctx.loss(nll.sum(), nll.numel() * ctx.n_reduce, replicated=aux)
+
+    return embed_fn, block_fn, head_loss_fn
+
+
+def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
+                      n_microbatches: int = 1, attn_impl: str = "auto"):
+    """``(loss, grads)`` of ``model`` by the 1F1B pipeline, as Llama's;
+    routing and capacity per microbatch, as in the GPipe path."""
+    if mesh_axis_sizes(mesh).get("ep", 1) > 1:
+        raise ValueError("MoE on a mesh with an 'ep' axis larger than 1 needs the "
+                         "expert all-to-all, which is not ported yet (ROADMAP A5b)")
+    embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
+                                                 attn_impl=attn_impl)
+    first, blocks = stage_blocks(model.layers, mesh, pp_axis)
+    loss, (g_ep, g_lp, g_hp) = pipeline_value_and_grad(
+        {"embed.weight": model.embed.weight}, blocks,
+        {"norm.weight": model.norm.weight, "lm_head.weight": model.lm_head.weight},
+        tokens, targets, embed_fn, block_fn, head_loss_fn,
+        mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches)
+    return loss, {**g_ep, **g_hp, **layer_grads(first, g_lp)}

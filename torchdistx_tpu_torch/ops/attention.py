@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention", "cached_attention", "mha_reference"]
+__all__ = ["attention", "cached_attention", "mha_reference", "resolve_stage_attn_impl"]
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -97,6 +97,25 @@ def _select_impl(impl, seq_axis, *, cuda: bool) -> str:
     if seq_axis is not None:
         return "ring"
     return "flash" if cuda else "plain"
+
+
+def resolve_stage_attn_impl(attn_impl: str, *, cuda: bool) -> str:
+    """The attention impl for code inside a pipeline stage (shared by every
+    family's pipeline path).  ``"auto"`` is the flash kernel on CUDA
+    tensors (``cuda``) and the plain attention otherwise; an explicit
+    ``"flash"`` or ``"plain"`` stands.  The JAX function pins ``"auto"`` to
+    XLA's attention and refuses its Pallas kernel because the kernel's
+    ``shard_map`` cannot nest in the pipeline's; here a stage is this
+    rank's own computation, and under ``tp`` the kernel runs on the
+    stage's mesh through ``on_blocks`` / ``flash_attention_sharded``.
+    The ring needs a sequence axis, which a pipeline stage does not take
+    (raises)."""
+    if attn_impl in ("ring", "ring_zigzag"):
+        raise ValueError(f"attn_impl={attn_impl!r} cannot run inside a pipeline stage "
+                         "(it needs seq_axis); use 'auto', 'flash' or 'plain'")
+    if attn_impl == "auto":
+        return "flash" if cuda else "plain"
+    return attn_impl
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,

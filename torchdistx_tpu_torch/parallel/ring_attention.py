@@ -28,13 +28,13 @@ array) and returns the same kind.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
 from .sharding import mesh_axis_sizes
+from .spmd import _Hop
 
 __all__ = ["ring_attention"]
 
@@ -129,36 +129,6 @@ def _pairs(src, idx, n, sl, causal, zigzag):
 
 def _parts(x, zigzag):
     return list(x.chunk(2, dim=1)) if zigzag else [x]
-
-
-class _Hop:
-    """One hop of the ring: ``tensors`` sent to the next rank, the previous
-    rank's received, as one ``all_to_all_single`` (its non-empty parts go to
-    the next rank and come from the previous one), packed in their dtype
-    (f32 when they differ; bf16 widens to f32 exactly)."""
-
-    def __init__(self, tensors, group, n, idx):
-        self.shapes = [t.shape for t in tensors]
-        self.dtypes = [t.dtype for t in tensors]
-        wire = self.dtypes[0] if len(set(self.dtypes)) == 1 else torch.float32
-        send = torch.cat([t.reshape(-1).to(wire) for t in tensors])
-        self.recv = torch.empty_like(send)
-        size = send.numel()
-        nxt, prv = (idx + 1) % n, (idx - 1) % n
-        self.work = dist.all_to_all_single(
-            self.recv, send,
-            output_split_sizes=[size if j == prv else 0 for j in range(n)],
-            input_split_sizes=[size if j == nxt else 0 for j in range(n)],
-            group=group, async_op=True)
-
-    def wait(self):
-        self.work.wait()
-        out, start = [], 0
-        for shape, dtype in zip(self.shapes, self.dtypes):
-            numel = math.prod(shape)
-            out.append(self.recv[start:start + numel].view(shape).to(dtype))
-            start += numel
-        return out
 
 
 class _Ring(torch.autograd.Function):

@@ -26,6 +26,7 @@ from .mesh import MeshSpec
 __all__ = [
     "PartitionSpec",
     "Plan",
+    "StageSpec",
     "batch_sharding",
     "combine_plans",
     "fit_shardings",
@@ -35,6 +36,8 @@ __all__ = [
     "replicate_indivisible",
     "replicated_plan",
     "spec_placements",
+    "stage_mesh",
+    "stage_of",
     "tp_plan_gpt2",
     "tp_plan_llama",
 ]
@@ -55,6 +58,49 @@ class PartitionSpec(tuple):
 
 
 Plan = Callable[[str, Tuple[int, ...]], Optional[PartitionSpec]]
+
+
+class StageSpec(PartitionSpec):
+    """The spec of one layer's parameter under pipeline parallelism: its
+    entries place it over the mesh's other axes, and the ``pp`` axis gives
+    the layer to one pipeline stage, the pp rank ``stage_of(layer,
+    n_layers, mesh's pp size)``.  The JAX package stacks the layers and
+    shards that stacked dim over ``pp`` (``P(pp, ...)``); here every layer
+    has its own parameters, so the spec names its layer.  On a mesh
+    without the ``pp`` axis it is its plain spec (every rank holds every
+    layer, as fitting ``P(pp, ...)`` to such a mesh replicates the layer
+    dim)."""
+
+    def __new__(cls, *entries, pp: str = "pp", layer: int, n_layers: int):
+        self = super().__new__(cls, *entries)
+        self.pp, self.layer, self.n_layers = pp, layer, n_layers
+        return self
+
+    def __repr__(self):
+        return (f"StageSpec{tuple.__repr__(self)}(pp={self.pp!r}, layer={self.layer}, "
+                f"n_layers={self.n_layers})")
+
+
+def stage_of(layer: int, n_layers: int, n_stages: int) -> int:
+    """The pipeline stage that holds ``layer``: stage ``p`` holds the
+    contiguous layers ``p * n_layers / n_stages`` up to the next stage's
+    first (the JAX ``P(pp, ...)`` split of the stacked layer dim, which
+    needs ``n_stages`` to divide ``n_layers``)."""
+    if n_stages < 1 or n_layers % n_stages:
+        raise ValueError(f"{n_layers} layers do not split into {n_stages} pipeline stages")
+    return layer // (n_layers // n_stages)
+
+
+def stage_mesh(mesh, axis: str):
+    """``mesh`` without its ``axis`` dim: the mesh of one pipeline stage's
+    ranks (this rank's), on which a stage's parameters are placed and its
+    tensor- and data-parallel collectives run; None when ``axis`` is the
+    mesh's only dim (a stage is one rank)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r} (axes: {names})")
+    rest = tuple(n for n in names if n != axis)
+    return mesh[rest] if rest else None
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:

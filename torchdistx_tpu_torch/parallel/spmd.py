@@ -37,6 +37,7 @@ graph is the same on each), over the groups of ``mesh.get_group(axis)``.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -85,17 +86,54 @@ def whole(t):
     partial) on every rank, detached, gathered by c10d all-gathers over its sharded
     mesh dims.  ``DTensor.full_tensor`` issues functional collectives,
     which gloo does not run on CUDA tensors (the process faults); c10d's
-    run there.  A plain tensor is returned as it is."""
+    run there.  A plain tensor is returned detached (a parameter's whole
+    value must not hold its autograd graph, nor through it the
+    parameter)."""
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(t, DTensor):
-        return t
+        return t.detach()
     x, mesh = t.to_local().detach(), t.device_mesh
     for i in reversed(range(mesh.ndim)):
         p = t.placements[i]
         if isinstance(p, Shard) and mesh.size(i) > 1:
             x = _all_gather(x, p.dim, mesh.get_group(i))
     return x
+
+
+class _Hop:
+    """One neighbour hop over ``group`` (``n`` ranks, this one at ``idx``):
+    ``tensors`` sent to rank ``idx + shift`` and the same shapes received
+    from rank ``idx - shift`` (mod ``n``), as one ``all_to_all_single``
+    whose only non-empty parts are those two, packed in their dtype (f32
+    when they differ; bf16 and integers below 2^24 widen to f32 exactly).
+    Ring attention hops up (``shift=1``); the pipeline hops activations up
+    and cotangents down (``shift=-1``).  An ``all_to_all_single`` and not
+    point-to-point ops: gloo's ``isend``/``irecv`` abort or hang on CUDA
+    tensors, its all-to-all runs on them."""
+
+    def __init__(self, tensors, group, n, idx, shift: int = 1):
+        self.shapes = [t.shape for t in tensors]
+        self.dtypes = [t.dtype for t in tensors]
+        wire = self.dtypes[0] if len(set(self.dtypes)) == 1 else torch.float32
+        send = torch.cat([t.reshape(-1).to(wire) for t in tensors])
+        self.recv = torch.empty_like(send)
+        size = send.numel()
+        dst, src = (idx + shift) % n, (idx - shift) % n
+        self.work = dist.all_to_all_single(
+            self.recv, send,
+            output_split_sizes=[size if j == src else 0 for j in range(n)],
+            input_split_sizes=[size if j == dst else 0 for j in range(n)],
+            group=group, async_op=True)
+
+    def wait(self):
+        self.work.wait()
+        out, start = [], 0
+        for shape, dtype in zip(self.shapes, self.dtypes):
+            numel = math.prod(shape)
+            out.append(self.recv[start:start + numel].view(shape).to(dtype))
+            start += numel
+        return out
 
 
 class _Unshard(torch.autograd.Function):

@@ -19,12 +19,18 @@ then materializes (each rank holds the ``DTensor`` shards that the family's
 ``param_specs(cfg)`` give it, fitted to the mesh), the
 optimizer's moments take each parameter's own placement, and ``step_fn``
 takes the global batch on every rank; each rank computes its block (see
-:mod:`~torchdistx_tpu_torch.parallel.spmd`).  The pipeline arguments
-(``pp_axis``, ``n_microbatches``, ``pp_schedule``), a custom ``loss_fn``,
-an ``ep`` axis larger than 1 and ``tp``/``fsdp`` axis names other than
-those are not ported yet and raise (ROADMAP A5b).  The step trains on the model's ``loss``, whose attention is the
-flash kernel on CUDA tensors (on each rank's heads and rows under a mesh,
-ring attention with ``seq_axis``) and the plain version on CPU tensors.
+:mod:`~torchdistx_tpu_torch.parallel.spmd`).  With ``pp_axis`` the step is
+pipeline-parallel over that mesh axis (:mod:`~torchdistx_tpu_torch.
+parallel.pipeline`): each rank holds and materializes its stage's layers
+only (plus the embedding and head, whole over ``pp``), placed on the mesh
+without ``pp``, and ``pp_schedule`` is ``"gpipe"`` (the model's ``loss``
+through the GPipe pipeline) or ``"1f1b"`` (the family's
+``pp_value_and_grad``).  A custom ``loss_fn``, an ``ep`` axis larger than
+1, sequence parallelism inside a pipeline stage and ``tp``/``fsdp`` axis
+names other than those are not ported yet and raise (ROADMAP A5b).  The
+step trains on the model's ``loss``, whose attention is the flash kernel
+on CUDA tensors (on each rank's heads and rows under a mesh, ring
+attention with ``seq_axis``) and the plain version on CPU tensors.
 
 The JAX SlowMo step keeps the replicas as a stacked leading ``dp`` axis and
 vmaps the loss over it; here each rank is one replica and trains on its own
@@ -74,18 +80,29 @@ def _model_class(model) -> type:
 
 
 def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
-                     pp_schedule, loss_fn):
-    """The JAX ``make_train_step``'s arguments that this step does not take
-    (yet), or not without a mesh, raise."""
+                     pp_schedule, loss_fn, family):
+    """The JAX ``make_train_step``'s checks of its pipeline arguments (and
+    its messages), then the arguments that this step does not take (yet),
+    or not without a mesh, raise."""
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule: {pp_schedule!r}")
-    for name, value, default in (("pp_axis", pp_axis, None),
-                                 ("n_microbatches", n_microbatches, 1),
-                                 ("pp_schedule", pp_schedule, "gpipe"),
-                                 ("loss_fn", loss_fn, None)):
-        if value != default:
-            raise ValueError(f"make_train_step: {name}={value!r}: pipeline parallelism "
-                             f"and a custom loss_fn {_A5B}")
+    if pp_schedule == "1f1b":
+        if pp_axis is None:
+            raise ValueError("pp_schedule='1f1b' requires pp_axis=")
+        if loss_fn is not None:
+            raise ValueError("pp_schedule='1f1b' computes the loss inside the pipeline "
+                             "and cannot wrap a custom loss_fn")
+        if seq_axis is not None or seq_layout != "contiguous":
+            raise ValueError("pp_schedule='1f1b' does not compose with seq_axis/"
+                             "seq_layout — use pp_schedule='gpipe' for sp×pp")
+        if not hasattr(family, "pp_value_and_grad"):
+            raise ValueError(f"pp_schedule='1f1b' requires {family.__name__} to expose "
+                             "pp_value_and_grad (see models.llama / models.gpt2)")
+    if pp_axis is None and n_microbatches != 1:
+        raise ValueError(f"make_train_step: n_microbatches={n_microbatches!r} splits a "
+                         "pipeline's batch; pass pp_axis=")
+    if loss_fn is not None:
+        raise ValueError(f"make_train_step: loss_fn={loss_fn!r}: a custom loss_fn {_A5B}")
     renamed = [f"{k}={v!r}" for k, v in (("tp", tp), ("fsdp", fsdp)) if v != k]
     if renamed:
         raise ValueError(f"make_train_step: {', '.join(renamed)}: the step computes "
@@ -93,7 +110,8 @@ def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatch
                          f"over 'dp' and 'fsdp'; other axis names {_A5B}")
     if mesh is None:
         given = [f"{k}={v!r}" for k, v, d in (("seq_axis", seq_axis, None),
-                                              ("seq_layout", seq_layout, "contiguous"))
+                                              ("seq_layout", seq_layout, "contiguous"),
+                                              ("pp_axis", pp_axis, None))
                  if v != d]
         if given:
             raise ValueError(f"make_train_step: {', '.join(given)} name or lay out mesh "
@@ -102,9 +120,25 @@ def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatch
     if getattr(mesh, "mesh_dim_names", None) is None:
         raise ValueError(f"make_train_step: mesh must be a DeviceMesh with named dims "
                          f"(parallel.make_mesh), not {mesh!r}")
+    if pp_axis is not None and pp_axis not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh has no axis {pp_axis!r} (axes: {tuple(mesh.mesh_dim_names)})")
     if mesh_axis_sizes(mesh).get("ep", 1) > 1:
         raise ValueError(f"make_train_step: an 'ep' axis larger than 1 (the expert "
                          f"all-to-all) {_A5B}")
+
+
+def _drop_other_stages(net: nn.Module) -> None:
+    """The parameters left fake after a stage-only materialize (the other
+    pipeline stages' layers) replaced by ``meta`` parameters of their
+    shapes: held by no rank here, read by nothing."""
+    from ..deferred_init import is_deferred
+
+    for mod in net.modules():
+        for key, t in list(mod._parameters.items()):
+            if t is not None and is_deferred(t):
+                mod._parameters[key] = nn.Parameter(
+                    torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                    requires_grad=t.requires_grad)
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -167,16 +201,18 @@ def make_train_step(
     the device once; on a mesh the ranks agree on it in one all-reduce, so
     a NaN on one rank skips the step on all.
     """
-    _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
-                     pp_schedule, loss_fn)
     cls = _model_class(model)
     family = llama if model is None else model
+    _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
+                     pp_schedule, loss_fn, family)
     device = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
     loss_kw = {"attn_impl": attn_impl}
     if mesh is not None:
         loss_kw.update(mesh=mesh, seq_axis=seq_axis)
     if seq_layout != "contiguous":
         loss_kw["seq_layout"] = seq_layout
+    if pp_axis is not None:
+        loss_kw.update(pp_axis=pp_axis, n_microbatches=n_microbatches)
 
     def init_fn(seed: int) -> TrainState:
         net = deferred_init(cls, cfg, device=device)
@@ -188,23 +224,39 @@ def make_train_step(
         else:
             from ..materialize import materialize_module_torch
 
-            plan = family.param_specs(cfg)
+            plan = family.param_specs(cfg, **({} if pp_axis is None else {"pp": pp_axis}))
             net.load_state_dict(materialize_module_torch(net, mesh=mesh, plan=plan,
-                                                         seed=seed), assign=True)
-        return TrainState(net, tx(net.parameters()), 0)
+                                                         seed=seed),
+                                assign=True, strict=pp_axis is None)
+            if pp_axis is not None:
+                _drop_other_stages(net)
+        return TrainState(net, tx([p for p in net.parameters() if not p.is_meta]), 0)
+
+    def poisoned(loss, batch):
+        if "_tdx_nan" not in batch:
+            return loss
+        poison = torch.as_tensor(batch["_tdx_nan"], device=loss.device)
+        return torch.where(poison, torch.full_like(loss, float("nan")), loss)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, dict]:
         model, opt = state.model, state.optimizer
         tokens = batch["tokens"].to(device)
         targets = batch["targets"].to(device)
-        loss = model.loss(tokens, targets, **loss_kw)
-        if "_tdx_nan" in batch:
-            poison = torch.as_tensor(batch["_tdx_nan"], device=loss.device)
-            loss = torch.where(poison, torch.full_like(loss, float("nan")), loss)
-        loss.backward()
+        if pp_schedule == "1f1b":
+            loss, grads = family.pp_value_and_grad(
+                model, tokens, targets, mesh=mesh, pp_axis=pp_axis,
+                n_microbatches=n_microbatches, attn_impl=attn_impl)
+            for name, p in model.named_parameters():
+                if name in grads:
+                    p.grad = grads[name]
+            loss = poisoned(loss, batch)
+        else:
+            loss = poisoned(model.loss(tokens, targets, **loss_kw), batch)
+            loss.backward()
+            loss = loss.detach()
         ok = True
         if nonfinite_guard:
-            grads = [_local(p.grad) for p in model.parameters()]
+            grads = [_local(p.grad) for p in model.parameters() if p.grad is not None]
             ok = bool(tree_allfinite(loss.detach(), grads))
             if mesh is not None:
                 ok = not any_flags([not ok])[0]
@@ -212,7 +264,7 @@ def make_train_step(
             opt.step()
         opt.zero_grad(set_to_none=True)
         new_state = TrainState(model, opt, state.step + int(ok))
-        metrics = {"loss": loss.detach(), "step": new_state.step}
+        metrics = {"loss": loss, "step": new_state.step}
         if nonfinite_guard:
             metrics["nonfinite"] = not ok
         return new_state, metrics
