@@ -61,7 +61,12 @@ Phases, each printing a line:
    its bound), with the launch, ``prev``, momentum and loss gates below;
 11. ``[slowmo replicas]``: two SlowMo replicas on the one card (two
    processes over gloo, ``llama_test`` in f32) against the same two-rank run
-   on the CPU, bit-equal after each averaging step;
+   on the CPU, bit-equal after each averaging step; ``[slowmo ranks]``:
+   replicas of two ranks (4 gloo processes on the card): (a) llama_7b's
+   widths x 2 layers under dp=2 x tp=2 against two whole replicas (2 more
+   processes) on the same weights and batches, (b) ``llama_test`` f32 under
+   dp=2 x fsdp=2 against 4 CPU ranks; replicas bit-equal after each
+   averaging step and only then;
 12. ``[gpt2]``: the full GPT-2 XL (48 layers, dim 1600, 25 heads of 64,
    bf16): ``deferred_init`` (no bytes), ``materialize_module_torch(seed=0)``
    (bytes 2 x params, the head the embedding's own tensor), the 4 x 1024
@@ -75,19 +80,29 @@ Phases, each printing a line:
    (streamed), each shape's profiled step split between routing, the
    expert GEMMs and attention; then ``moe_test`` on the card against the
    CPU port, its routing exactly, at its own capacity factor and at one
-   that drops choices;
+   that drops choices; ``[ep ranks]``: expert parallelism, 4 gloo
+   processes on the card: (a) ``MoEConfig()``'s widths x 2 layers under
+   ep=4 and (b) fsdp=2 x ep=2 against a 1-rank NCCL run of the same model
+   (losses, fingerprints), each rank holding E / ep experts a layer, the
+   all-to-all's ms; (c) ``moe_test`` f32 under ep=4 against 4 CPU ranks,
+   routing exact;
 14. ``[mesh]`` (run after phase 11): ``make_train_step(mesh=)`` on a 1-rank
    NCCL mesh at the full Llama-7B (seeded shard-then-materialize, the
    train path's shapes with its launches a step, each shape's first loss
    against the single-device loss on the same weights, one profiled 4 x
-   512 step), then the 2-layer reference run of phase 15 (a);
+   512 step, and a second step function with a custom ``loss_fn`` on the
+   same state, whose loss at lr 0 is the default step's bit for bit), then
+   the 2-layer reference run of phase 15 (a);
 15. ``[mesh ranks]``: 4 gloo processes sharing the card and 4 on the CPU:
    (a) Llama-7B's widths at 2 layers under ``MeshSpec(fsdp=2, tp=2)``
    (the kernels on each rank's 2 rows and 16 of 32 heads, phase 2's
    ``mesh_rank_block`` rows) against phase 14's reference: losses, the
    first step's gradients and the parameters' change; (b) ``llama_test``
    in f32 under ``fsdp=2, tp=2`` and (c) under ``fsdp=2, sp=2`` with the
-   ring (contiguous and zigzag), the card's ranks against the CPU's;
+   ring (contiguous and zigzag), and (d) on a mesh named ``("data",
+   "model")`` with ``fsdp="data", tp="model"`` and a custom ``loss_fn``
+   (cross-entropy plus a z-loss in torch ops on the ``DTensor`` logits),
+   the card's ranks against the CPU's;
 16. ``[pipeline]``: ``make_train_step(mesh=, pp_axis="pp")`` on a 1-rank
    NCCL mesh whose pp axis has size 1, the full Llama-7B, 1F1B and GPipe,
    4 x 512 in 4 microbatches (the kernels on each microbatch's 1 x 512
@@ -100,8 +115,10 @@ Phases, each printing a line:
    ``all_to_all_single``): (a) Llama-7B's widths x 4 layers under pp=4,
    GPipe and 1F1B; (b) pp=2 x tp=2, 1F1B; (c) GPT-2 XL's widths x 4 layers
    under pp=2 x fsdp=2, 1F1B, the tied ``wte`` one f32 accumulator; (d)
-   ``MoEConfig()``'s widths x 2 layers under dp=2 x pp=2, GPipe; each
-   against its 1-rank run (losses, the fingerprints of the first step's
+   ``MoEConfig()``'s widths x 2 layers under dp=2 x pp=2, GPipe; (e)
+   llama_7b's widths x 4 layers under pp=2 x sp=2, GPipe, 2 x 1024 in 2
+   microbatches, the ring in each stage (no flash launch); each against its
+   1-rank run (losses, the fingerprints of the first step's
    gradients and of the parameters' change), each rank holding its stage's
    layers only, the kernel on the microbatch block phase 2 holds, and the
    hop's time a tick;
@@ -115,8 +132,10 @@ forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
 the SlowMo path (phase 10), the mesh path (phase 14, read around each of
 its steps, so that its single-device reference forwards and its 2-layer
-reference run are not counted), the mesh ranks' runs (phase 15 (a) and
-(b), in each card rank), the pipeline path (phase 16, read around each
+reference run are not counted), the mesh ranks' runs (phase 15 (a), (b)
+and (d), in each card rank), the SlowMo ranks' runs and the ep ranks'
+runs (in each card rank; their references are not counted), the pipeline
+path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
 (phase 12: its forward part, then its train part) and the MoE path (phase
 13).  Any failed check
@@ -178,6 +197,12 @@ FLASH_SHAPES = [
     ("pp_micro_block", 1, 512, 32, 32, 128, torch.bfloat16, True),
     ("pp_tp_block", 1, 512, 16, 16, 128, torch.bfloat16, True),
     ("pp_gpt2_block", 1, 512, 25, 25, 64, torch.bfloat16, True),
+    # [ep ranks] (b)'s block (EP_BLOCKS: MoEConfig()'s heads at
+    # EP_RANKS_SHAPE over fsdp=2; (a)'s is llama7b_main's), and [slowmo
+    # ranks] (b)'s (SLOWMO_RANK_BLOCKS: llama_test's heads over fsdp=2; (a)'s
+    # is mesh_rank_block's).
+    ("ep_fsdp_block", 2, 512, 32, 32, 128, torch.bfloat16, True),
+    ("slowmo_f32_block", 2, 32, 4, 2, 64, torch.float32, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -229,6 +254,8 @@ BWD_SHAPES = [
     ("pp_micro_block", 1, 512, 32, 32, 128, torch.bfloat16, True, "fused"),
     ("pp_tp_block", 1, 512, 16, 16, 128, torch.bfloat16, True, "fused"),
     ("pp_gpt2_block", 1, 512, 25, 25, 64, torch.bfloat16, True, "fused"),
+    ("ep_fsdp_block", 2, 512, 32, 32, 128, torch.bfloat16, True, "fused"),
+    ("slowmo_f32_block", 2, 32, 4, 2, 64, torch.float32, True, "fused"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -421,7 +448,7 @@ PIPE_DATA_SEED = 12
 # layers under pp=2 x fsdp=2, 1F1B (the tied wte one f32 accumulator);
 # (d) MoEConfig()'s widths x 2 layers under dp=2 x pp=2, GPipe (1F1B's f32
 # accumulators of a whole 2.2 GB expert layer on each of four ranks,
-# beside its moments, outgrow the card).  Run ->
+# beside its moments, outgrow the card); (e) below.  Run ->
 # (family, layers, mesh axes, schedule, batch); every run takes
 # PIPE_MICROBATCHES microbatches and PIPE_RANKS_STEPS AdamW steps.
 PIPE_RANK_RUNS = {
@@ -430,7 +457,13 @@ PIPE_RANK_RUNS = {
     "b": ("llama", 4, {"pp": 2, "tp": 2}, "1f1b", (4, 512)),
     "c": ("gpt2", 4, {"pp": 2, "fsdp": 2}, "1f1b", (8, 512)),
     "d": ("moe", 2, {"dp": 2, "pp": 2}, "gpipe", (8, 512)),
+    "e": ("llama", 4, {"pp": 2, "sp": 2}, "gpipe", (2, 1024)),
 }
+# (e) is sequence parallelism inside each GPipe stage: 2 microbatches of one
+# row, each stage's attention the ring over sp (its block math plain torch,
+# as the JAX ring's is jnp: no flash launch), against the 1-rank run, whose
+# attention is the kernel over the whole sequence.
+PIPE_RANK_OPTIONS = {"e": {"n_microbatches": 2, "seq_axis": "sp"}}
 PIPE_RANKS_STEPS = 2
 PIPE_RANKS_SEED = 9
 PIPE_RANKS_DATA_SEED = 10
@@ -444,10 +477,12 @@ PIPE_RANKS_TIMEOUT_S = 400
 # (b) adds tp's bf16 partial sums; (c)'s change is GPT-2's zero-initialized
 # biases, whose first AdamW step is +-lr by the sign of a near-zero
 # gradient (its gradients carry the check); (d)'s second loss follows top-2
-# near-ties that bf16 rounding on a 1-row block breaks otherwise.
+# near-ties that bf16 rounding on a 1-row block breaks otherwise; (e)
+# (one run: 2.5e-4, 5.4e-2, 0.23) sums the ring's blocks in f32 where the
+# 1-rank run's kernel rounds p to bf16.
 PIPE_RANKS_BOUNDS = {"a_gpipe": (2e-4, 0.04, 0.35), "a_1f1b": (2e-4, 0.04, 0.35),
                      "b": (2.5e-3, 0.16, 0.8), "c": (1.2e-3, 0.064, 2.75),
-                     "d": (0.12, 0.04, 0.92)}
+                     "d": (0.12, 0.04, 0.92), "e": (1e-3, 0.22, 0.92)}
 # [resnet]: BASELINE config 2, "deferred_init resnet50, materialize on a
 # single chip": ResNet-50 (models/resnet_torch.py) recorded claiming the
 # card, seeded onto it, then an eval forward of RESNET_BATCH images.
@@ -459,7 +494,63 @@ PIPE_BLOCKS = {"pipeline": ((1, 512, 32, 32, 128), "pp_micro_block"),
                "a_1f1b": ((1, 512, 32, 32, 128), "pp_micro_block"),
                "b": ((1, 512, 16, 16, 128), "pp_tp_block"),
                "c": ((1, 512, 25, 25, 64), "pp_gpt2_block"),
-               "d": ((1, 512, 32, 32, 128), "pp_micro_block")}
+               "d": ((1, 512, 32, 32, 128), "pp_micro_block"),
+               "e": (None, None)}  # the ring: no kernel block
+# [ep ranks]: 4 gloo processes sharing the card and 4 on the CPU.  (a)
+# MoEConfig()'s widths (dim 4096, 8 experts of ffn 11008, top-2) x
+# EP_RANKS_LAYERS layers, bf16, remat, under MeshSpec(ep=4), and (b) under
+# MeshSpec(fsdp=2, ep=2): EP_RANKS_STEPS AdamW steps at EP_RANKS_SHAPE each,
+# against the same steps on a 1-rank NCCL mesh from the same seeded weights
+# (phase_ep_reference): losses, and the fingerprints of the first step's
+# gradients and of the parameters' change within EP_RANKS_BOUNDS; each
+# rank's expert stacks E / ep experts a layer and its bytes those of its
+# shards by the plan; the all-to-all's time.  (c) moe_test in f32 under
+# ep=4, EP_RANKS_F32_STEPS AdamW steps, the card's ranks against the CPU's
+# within MESH_RANKS_F32_ATOL, every layer's routing equal.
+EP_RANKS_LAYERS = 2
+EP_RANKS_STEPS = 3
+EP_RANKS_SHAPE = (4, 512)
+EP_RANKS_SEED = 15
+EP_RANKS_DATA_SEED = 16
+EP_RANK_RUNS = {"a": {"ep": 4}, "b": {"fsdp": 2, "ep": 2}}
+# (losses' atol, the fingerprints' relative errors: first-step gradients,
+# the parameters' change): about 4x the readings of a run on an H100 80GB
+# HBM3 at 700 W (a: 3.5e-2, 3.2e-3, 0.23; b: 5.2e-2, 8.8e-3, 0.24): bf16
+# expert GEMMs on a share's rows round otherwise than on the whole buffer,
+# and top-2 near-ties then route otherwise from the second step.
+EP_RANKS_BOUNDS = {"a": (0.14, 0.013, 0.92), "b": (0.2, 0.036, 0.96)}
+EP_RANKS_F32_STEPS = 3
+EP_RANKS_TIMEOUT_S = 400
+# The (B, S, Hq, Hkv, D) each run hands the kernel, and its phase-2 rows:
+# (a)'s batch is not split (ep does not split the batch), (b)'s over fsdp.
+EP_BLOCKS = {"a": ((4, 512, 32, 32, 128), "llama7b_main"),
+             "b": ((2, 512, 32, 32, 128), "ep_fsdp_block")}
+# [slowmo ranks]: replicas of two ranks.  4 gloo processes on the card: (a)
+# llama_7b's widths x SLOWMO_RANKS_LAYERS layers, bf16, remat, under
+# MeshSpec(dp=2, tp=2), SGD base at SLOWMO_LR averaging every SLOWMO_FREQ,
+# SLOWMO_RANKS_STEPS steps on a (dp, B, S) = (2,) + SLOWMO_RANKS_SHAPE batch,
+# against the same run with whole replicas (2 gloo processes, MeshSpec(dp=2),
+# phase 11's kind) on the same seeded weights and batches: the mean losses
+# within SLOWMO_RANKS_BOUNDS[0] and the fingerprints of the parameters'
+# change within [1]; the replicas bit-equal after each averaging step and
+# only then.  (b) llama_test in f32 under MeshSpec(dp=2, fsdp=2), the same
+# steps, the card's ranks against 4 CPU ranks within SLOWMO_REPLICA_ATOL.
+SLOWMO_RANKS_LAYERS = 2
+SLOWMO_RANKS_STEPS = 4
+SLOWMO_RANKS_SHAPE = (2, 512)
+SLOWMO_RANKS_F32_SHAPE = (4, 32)
+SLOWMO_RANKS_SEED = 17
+SLOWMO_RANKS_DATA_SEED = 18
+# About 4x the readings of a run on an H100 80GB HBM3 at 700 W (1.7e-3,
+# 0.19): tp's bf16 partial sums, carried by SGD at 0.1 on a repeated batch
+# (the loss falls from 11.2 to 0.4 in a step).
+SLOWMO_RANKS_BOUNDS = (7e-3, 0.8)
+SLOWMO_RANKS_TIMEOUT_S = 400
+SLOWMO_RANK_BLOCKS = {"a": ((2, 512, 16, 16, 128), "mesh_rank_block"),
+                      "b": ((2, 32, 4, 2, 16), "slowmo_f32_block")}
+# [mesh ranks] (d) and [mesh]'s custom loss: cross-entropy plus Z_LOSS times
+# the mean squared log-partition, torch ops on the model's logits.
+Z_LOSS = 1e-3
 
 
 def _check(ok: bool, what: str) -> None:
@@ -1800,6 +1891,37 @@ def phase_slowmo(cfg, fa):
     return stats
 
 
+def _spawn_ranks(flag, devices, outs, timeout):
+    """The ranks of ``chip_smoke.py <flag> <device> <rank> <store> <out>``,
+    one for each output of ``outs[device]``, for each device of
+    ``devices``, all started together; every rank's saved dict, by
+    device."""
+    import os
+
+    procs, names = [], []
+    root = os.path.dirname(next(iter(outs.values()))[0])
+    try:
+        for device in devices:
+            store = os.path.join(root, f"store_{flag.strip('-')}_{device}")
+            for rank, out in enumerate(outs[device]):
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, flag, device, str(rank), store, out],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                names.append(f"{device} rank {rank}")
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        failed = [(n, p.returncode, log) for n, p, log in zip(names, procs, logs)
+                  if p.returncode]
+        _check(not failed, f"{flag} ranks exited " + "; ".join(
+            f"{n}: {code}:\n{log[-2000:]}" for n, code, log in failed))
+        return {device: [torch.load(out, weights_only=True) for out in outs[device]]
+                for device in devices}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def slowmo_replica(device, rank, store, out) -> None:
     """One rank of ``phase_slowmo_replicas``: 2 gloo ranks, llama_test in
     f32 from the CPU port's seeded weights, SLOWMO_REPLICA_STEPS steps of
@@ -1852,24 +1974,9 @@ def phase_slowmo_replicas():
     runs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(2)]
             for device in ("cuda", "cpu")}
     t0 = time.perf_counter()
-    procs = []
     try:
-        for device, outs in runs.items():
-            store = os.path.join(root, f"store_{device}")
-            for rank, out in enumerate(outs):
-                procs.append(subprocess.Popen(
-                    [sys.executable, __file__, "--slowmo-replica", device, str(rank), store,
-                     out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate(timeout=SLOWMO_REPLICA_TIMEOUT_S)[0] for p in procs]
-        for p, log in zip(procs, logs):
-            _check(p.returncode == 0, f"a SlowMo replica exited {p.returncode}:\n{log[-3000:]}")
-        got = {device: [torch.load(out, weights_only=True) for out in outs]
-               for device, outs in runs.items()}
+        got = _spawn_ranks("--slowmo-replica", tuple(runs), runs, SLOWMO_REPLICA_TIMEOUT_S)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
         shutil.rmtree(root, ignore_errors=True)
     wall_s = time.perf_counter() - t0
     n_layers = 2  # llama_test
@@ -2144,6 +2251,36 @@ def phase_mesh(cfg, fa, train_stats):
                   f"{row['steady_step_ms']:.3f} ms, {row['tokens_per_s']:.1f} tokens/s "
                   f"(single-device {row['single_device_steady_step_ms']} ms, "
                   f"{row['single_device_tokens_per_s']} tokens/s); launches a step {want}")
+        # A second step function with a custom loss_fn (the model's own loss
+        # through the step's keywords) on the same TrainState.  At lr 0
+        # AdamW leaves every weight as it is, so the default step and the
+        # custom one take their losses on the same weights: the same bits.
+        _, custom_step = make_train_step(cfg, _mesh_tx, mesh=mesh,
+                                         loss_fn=lambda m, t, y, **kw: m.loss(t, y, **kw))
+        b, s = TRAIN_SHAPES[0][0]
+        seq = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda")
+        batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+        lrs = [group["lr"] for group in state.optimizer.param_groups]
+        for group in state.optimizer.param_groups:
+            group["lr"] = 0.0
+        pair = {}
+        for name, fn in (("default", step_fn), ("custom", custom_step)):
+            c0 = _counts(fa)
+            state, metrics = fn(state, batch)
+            launched = {k: v - c0[k] for k, v in _counts(fa).items()}
+            path = {k: v + launched[k] for k, v in path.items()}
+            pair[name] = metrics["loss"]
+            _check(launched == stats[f"{b}x{s}"]["launches_per_step"],
+                   f"[mesh] {name}-loss step: launches {launched}")
+        for group, lr in zip(state.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        _check(torch.equal(pair["default"], pair["custom"]),
+               f"[mesh] custom loss_fn {pair['custom'].item()!r} vs the default step's "
+               f"{pair['default'].item()!r} on the same weights")
+        stats["custom_loss_fn"] = {k: v.item() for k, v in pair.items()}
+        print(f"[mesh] a custom loss_fn (the model's loss through the step's keywords) on the "
+              f"same TrainState at lr 0: loss {pair['custom'].item()!r}, the default step's "
+              f"{pair['default'].item()!r}: bit-equal")
         stats["path_launches"] = path
         stats["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
         stats["placed_by_plan_after_steps"] = _placed_by_plan(state.model, mesh,
@@ -2188,9 +2325,25 @@ def _rank_weights(mesh, model, values):
             p.to_local().copy_(_local_shard(values[name].to(dev), mesh, p.placements))
 
 
+def _ce_z_loss(model, tokens, targets, **kw):
+    """A custom ``loss_fn``: mean cross-entropy plus Z_LOSS times the mean
+    squared log-partition, torch ops on the model's logits (a ``DTensor`` on
+    a mesh, the targets placed beside them with no collective)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    logits = model(tokens, **kw)
+    if isinstance(logits, DTensor):
+        targets = distribute_tensor(targets, logits.device_mesh, logits.placements,
+                                    src_data_rank=None)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, targets[..., None])[..., 0]
+    return nll.mean() + Z_LOSS * (lse * lse).mean()
+
+
 def _rank_f32(device, spec, kw):
-    """[mesh ranks] (b)/(c): llama_test in f32 from the CPU port's seeded
-    weights, MESH_RANKS_F32_STEPS AdamW steps on the mesh."""
+    """[mesh ranks] (b)/(c)/(d): llama_test in f32 from the CPU port's seeded
+    weights, MESH_RANKS_F32_STEPS AdamW steps on the mesh (``spec``: a
+    ``MeshSpec``, or ``make_mesh``'s ``axis_names`` / ``shape``)."""
     from torchdistx_tpu_torch.models.llama import llama_test
     from torchdistx_tpu_torch.parallel import make_mesh
     from torchdistx_tpu_torch.parallel.spmd import whole
@@ -2202,7 +2355,8 @@ def _rank_f32(device, spec, kw):
         return torch.optim.AdamW(params, lr=1e-3, eps=1e-6, foreach=False)
 
     cfg = llama_test()
-    mesh = make_mesh(spec, device_type=device)
+    mesh = (make_mesh(**spec, device_type=device) if isinstance(spec, dict)
+            else make_mesh(spec, device_type=device))
     init_fn, step_fn = make_train_step(cfg, tx, mesh=mesh, **kw)
     state = init_fn(TRAIN_SEED)
     _rank_weights(mesh, state.model,
@@ -2272,6 +2426,12 @@ def mesh_rank(device, rank, store, out) -> None:
                                   {"seq_axis": "sp", "attn_impl": "ring"})
         got["c_zigzag"] = _rank_f32(device, MeshSpec(fsdp=2, sp=2),
                                     {"seq_axis": "sp", "seq_layout": "zigzag"})
+        _reset_counts(fa)
+        with _KernelBlocks(fa) as spy:
+            got["d"] = _rank_f32(device, {"axis_names": ("data", "model"), "shape": (2, 2)},
+                                 {"fsdp": "data", "tp": "model", "loss_fn": _ce_z_loss})
+        got["d_launches"] = _counts(fa)
+        got["d_kernel_blocks"] = sorted(spy.blocks)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2291,26 +2451,9 @@ def phase_mesh_ranks(mesh_stats):
     runs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(4)]
             for device in ("cuda", "cpu")}
     t0 = time.perf_counter()
-    procs = []
     try:
-        for device, outs in runs.items():
-            store = os.path.join(root, f"store_{device}")
-            for rank, out in enumerate(outs):
-                procs.append(subprocess.Popen(
-                    [sys.executable, __file__, "--mesh-rank", device, str(rank), store, out],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate(timeout=MESH_RANKS_TIMEOUT_S)[0] for p in procs]
-        names = [f"{device} rank {r}" for device in runs for r in range(4)]
-        failed = [(n, p.returncode, log) for n, p, log in zip(names, procs, logs) if p.returncode]
-        _check(not failed, "mesh ranks exited " + "; ".join(
-            f"{n}: {code}:\n{log[-2000:]}" for n, code, log in failed))
-        got = {device: [torch.load(out, weights_only=True) for out in outs]
-               for device, outs in runs.items()}
+        got = _spawn_ranks("--mesh-rank", tuple(runs), runs, MESH_RANKS_TIMEOUT_S)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
         shutil.rmtree(root, ignore_errors=True)
     wall_s = time.perf_counter() - t0
 
@@ -2352,7 +2495,7 @@ def phase_mesh_ranks(mesh_stats):
                f"(a) rank {rank}: holds {r['held_param_bytes']} of {total} bytes")
     # (b), (c): the card's ranks against the CPU's.
     errs = {}
-    for key in ("b", "c_ring", "c_zigzag"):
+    for key in ("b", "c_ring", "c_zigzag", "d"):
         card, cpu = got["cuda"][0][key], got["cpu"][0][key]
         loss_err = max(abs(x - y) for x, y in zip(card["losses"], cpu["losses"]))
         param_err = max((card["params"][n] - cpu["params"][n]).abs().max().item()
@@ -2366,9 +2509,18 @@ def phase_mesh_ranks(mesh_stats):
     _check(all(r["b_kernel_blocks"] == [MESH_RANK_BLOCKS["b"][0]] for r in got["cuda"]),
            f"(b): the kernel saw (B, S, Hq, Hkv, D) {got['cuda'][0]['b_kernel_blocks']}")
     _check(not any(got["cpu"][0]["b_launches"].values()), "a CPU rank launched a kernel")
+    # (d): the mesh named ("data", "model") with a custom loss; its kernel
+    # block is (b)'s (the batch over "data", the heads over "model").
+    d_launches = got["cuda"][0]["d_launches"]
+    _check(d_launches["flash_fwd"] > 0 and d_launches["flash_bwd_fused"] > 0,
+           f"(d): the card's ranks did not launch the kernels: {d_launches}")
+    _check(all(r["d_kernel_blocks"] == [MESH_RANK_BLOCKS["b"][0]] for r in got["cuda"]),
+           f"(d): the kernel saw (B, S, Hq, Hkv, D) {got['cuda'][0]['d_kernel_blocks']}")
+    _check(not any(got["cpu"][0]["d_launches"].values()), "a CPU rank launched a kernel")
     # Each run's launches over the 4 card ranks, for the kernels line.
     launches = {key: {k: sum(r[field][k] for r in rs) for k in want_a}
-                for key, field, rs in (("a", "launches", a), ("b", "b_launches", got["cuda"]))}
+                for key, field, rs in (("a", "launches", a), ("b", "b_launches", got["cuda"]),
+                                       ("d", "d_launches", got["cuda"]))}
     stats = {"a_losses": a[0]["losses"], "a_reference_losses": ref, "a_loss_max_abs_err": a_err,
              "a_grad_fingerprint_rel_err": grad_err,
              "a_change_fingerprint_rel_err": change_err,
@@ -2388,8 +2540,10 @@ def phase_mesh_ranks(mesh_stats):
           f"{[[round(x, 1) for x in r['step_ms']] for r in a]}; the kernel on (B, S, Hq, "
           f"Hkv, D) {local}; launches per rank {want_a}; bytes held per rank "
           f"{a[0]['held_param_bytes']} of {total} (total / 4 = {total // 4}, norms "
-          f"replicated); (b) llama_test f32 fsdp x tp and (c) fsdp x sp ring / zigzag vs 4 "
-          f"CPU ranks: {json.dumps(errs)} (atol {MESH_RANKS_F32_ATOL}); {wall_s:.1f} s")
+          f"replicated); (b) llama_test f32 fsdp x tp, (c) fsdp x sp ring / zigzag and (d) "
+          f"a mesh named (data, model) with fsdp=data, tp=model and a custom loss_fn "
+          f"(cross-entropy + {Z_LOSS} z-loss on the DTensor logits) vs 4 CPU ranks: "
+          f"{json.dumps(errs)} (atol {MESH_RANKS_F32_ATOL}); {wall_s:.1f} s")
     return stats
 
 
@@ -2729,8 +2883,9 @@ def phase_pipeline(cfg, fa, train_stats):
         # [pipeline ranks]' 1-rank references: same seed, batch and schedule.
         for key, (family, layers, _, schedule, (rb, rs)) in PIPE_RANK_RUNS.items():
             mod, small = _pipe_cfg(family, layers)
+            micro = PIPE_RANK_OPTIONS.get(key, {}).get("n_microbatches", m_count)
             init_fn, step_fn = make_train_step(small, _mesh_tx, model=mod, mesh=mesh,
-                                               pp_axis="pp", n_microbatches=m_count,
+                                               pp_axis="pp", n_microbatches=micro,
                                                pp_schedule=schedule)
             state = init_fn(PIPE_RANKS_SEED)
             rbatch = {k: v.cuda() for k, v in _pipe_batch(small.vocab_size, rb, rs,
@@ -2832,16 +2987,35 @@ def _timed_hops(pl):
     return record, lambda: setattr(pl, "_shift", bare)
 
 
-def _pipe_rank_run(fa, rank, family, layers, axes, schedule, shape):
-    """One [pipeline ranks] run on this rank."""
+def _counted_ring():
+    """Count the calls of ``ring_attention`` (the attention dispatcher looks
+    it up at each call); returns the record ``{"calls": n}`` and the
+    undo."""
+    from torchdistx_tpu_torch.parallel import ring_attention as ra
+
+    record, bare = {"calls": 0}, ra.ring_attention
+
+    def counted(*args, **kwargs):
+        record["calls"] += 1
+        return bare(*args, **kwargs)
+
+    ra.ring_attention = counted
+    return record, lambda: setattr(ra, "ring_attention", bare)
+
+
+def _pipe_rank_run(fa, rank, family, layers, axes, schedule, shape, options):
+    """One [pipeline ranks] run on this rank (``options``: its
+    PIPE_RANK_OPTIONS)."""
     from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
     from torchdistx_tpu_torch.parallel import pipeline as pl
     from torchdistx_tpu_torch.parallel.train_step import make_train_step
 
     mod, cfg = _pipe_cfg(family, layers)
     mesh = make_mesh(MeshSpec(**axes), device_type="cuda")
-    init_fn, step_fn = make_train_step(cfg, _mesh_tx, model=mod, mesh=mesh, pp_axis="pp",
-                                       n_microbatches=PIPE_MICROBATCHES, pp_schedule=schedule)
+    init_fn, step_fn = make_train_step(
+        cfg, _mesh_tx, model=mod, mesh=mesh, pp_axis="pp", pp_schedule=schedule,
+        n_microbatches=options.get("n_microbatches", PIPE_MICROBATCHES),
+        seq_axis=options.get("seq_axis"))
     torch.cuda.reset_peak_memory_stats()
     state = init_fn(PIPE_RANKS_SEED)
     held = [(n, p) for n, p in state.model.named_parameters() if not p.is_meta]
@@ -2851,13 +3025,16 @@ def _pipe_rank_run(fa, rank, family, layers, axes, schedule, shape):
                                                  PIPE_RANKS_DATA_SEED).items()}
     _reset_counts(fa)
     hops, undo = _timed_hops(pl)
+    ring, ring_undo = _counted_ring()
     try:
         with _KernelBlocks(fa) as spy:
             state, losses, step_ms, grads, change = _fingerprinted_steps(
                 state, step_fn, batch, PIPE_RANKS_STEPS)
     finally:
         undo()
+        ring_undo()
     out = {"losses": losses, "step_ms": step_ms, "launches": _counts(fa),
+           "ring_calls": ring["calls"],
            "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held_bytes,
            "held_layers": sorted({int(n.split(".")[1]) for n, _ in held
                                   if n.startswith("layers.")}),
@@ -2888,7 +3065,7 @@ def pipeline_rank(rank, store, out) -> None:
     got = {}
     try:
         for key, run in PIPE_RANK_RUNS.items():
-            got[key] = _pipe_rank_run(fa, rank, *run)
+            got[key] = _pipe_rank_run(fa, rank, *run, PIPE_RANK_OPTIONS.get(key, {}))
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2980,18 +3157,28 @@ def phase_pipeline_ranks(refs):
         _check(change_err <= change_rtol, f"({key}): the parameters' change {change_err}")
         n_stages = axes["pp"]
         per = layers // n_stages
+        options = PIPE_RANK_OPTIONS.get(key, {})
+        micro = options.get("n_microbatches", PIPE_MICROBATCHES)
+        ring = options.get("seq_axis") is not None  # no flash launch: the ring
         for rank, r in enumerate(ranks):
-            want = _pipe_launches(schedule, n_stages, r["stage"], layers, PIPE_MICROBATCHES,
+            want = _pipe_launches(schedule, n_stages, r["stage"], layers, micro,
                                   PIPE_RANKS_STEPS)
+            if ring:
+                want = dict.fromkeys(want, 0)
             _check(r["launches"] == want, f"({key}) rank {rank}: launches {r['launches']}, "
                    f"expected {want}")
-            _check(r["kernel_blocks"] == [PIPE_BLOCKS[key][0]],
+            _check(r["kernel_blocks"] == ([] if ring else [PIPE_BLOCKS[key][0]]),
                    f"({key}) rank {rank}: the kernel saw {r['kernel_blocks']}")
             _check(r["held_layers"] == list(range(r["stage"] * per, (r["stage"] + 1) * per)),
                    f"({key}) rank {rank}: holds layers {r['held_layers']}")
             _check(r["hops"] == 2 * PIPE_RANKS_STEPS * (_pipe_ticks(schedule, n_stages,
-                                                                    PIPE_MICROBATCHES) - 1),
+                                                                    micro) - 1),
                    f"({key}) rank {rank}: {r['hops']} hops")
+            if ring:
+                # A step runs each stage once a microbatch forward and once
+                # again in the backward's recompute.
+                _check(r["ring_calls"] == 2 * micro * per * PIPE_RANKS_STEPS,
+                       f"({key}) rank {rank}: {r['ring_calls']} ring calls")
         mod, cfg = _pipe_cfg(family, layers)
         if family == "gpt2":  # the tied wte: one (V, D) f32 accumulator, on every rank
             one_acc = [["g_sp", [cfg.vocab_size, cfg.dim]]]
@@ -3023,15 +3210,505 @@ def phase_pipeline_ranks(refs):
             "kernel_block": PIPE_BLOCKS[key][0]}
         row = stats["runs"][key]
         print(f"[pipeline ranks] ({key}) {family} x {layers} layers, {axes}, {schedule}, "
-              f"{shape[0]}x{shape[1]} in {PIPE_MICROBATCHES} microbatches: losses {losses} "
+              f"{shape[0]}x{shape[1]} in {micro} microbatches: losses {losses} "
               f"vs 1-rank {ref['losses']} (max err {loss_err:.3e}, atol {loss_atol}); "
               f"fingerprints' relative error: gradients {grad_err:.3e} (rtol {grad_rtol}), "
               f"change {change_err:.3e} (rtol {change_rtol}); step ms by rank "
               f"{[[round(x, 1) for x in t] for t in row['step_ms_by_rank']]}; hop "
               f"{row['hop_ms_per_tick']:.3f} ms (synchronized around it); bytes held by rank "
-              f"{row['held_param_bytes_by_rank']}; kernel on {PIPE_BLOCKS[key][0]}")
+              f"{row['held_param_bytes_by_rank']}; "
+              + (f"the ring in every stage's attention ({ranks[0]['ring_calls']} calls a "
+                 f"rank), no flash launch" if ring else f"kernel on {PIPE_BLOCKS[key][0]}"))
     print(f"[pipeline ranks] 4 gloo ranks on the card, {wall_s:.1f} s; host memory before "
           f"{json.dumps(host_before)}, the ranks' peak RSS {stats['rank_peak_rss_bytes']}; "
+          f"{_smi()}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# [ep ranks]: MoE expert parallelism, 4 gloo ranks on the card
+
+
+def _timed_exchange():
+    """Wrap ``SpmdContext.ep_exchange`` (the expert rows' all-to-all, in the
+    forward and its recompute) to time it, synchronized; returns the record
+    ``{"ms": total, "calls": count}`` and the undo."""
+    from torchdistx_tpu_torch.parallel.spmd import SpmdContext
+
+    record, bare = {"ms": 0.0, "calls": 0}, SpmdContext.ep_exchange
+
+    def timed(self, *args):
+        torch.cuda.synchronize()  # the layer's compute is not the exchange's
+        t0 = time.perf_counter()
+        out = bare(self, *args)
+        torch.cuda.synchronize()
+        record["ms"] += (time.perf_counter() - t0) * 1e3
+        record["calls"] += 1
+        return out
+
+    SpmdContext.ep_exchange = timed
+    return record, lambda: setattr(SpmdContext, "ep_exchange", bare)
+
+
+def _plan_bytes(mod, cfg, axes):
+    """The bytes a rank holds of ``cfg``'s parameters in bf16 on a mesh of
+    ``axes`` by the family's plan: each parameter's elements over the
+    sizes of the axes that shard it."""
+    from torch.distributed.tensor import Shard
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.parallel import MeshSpec
+    from torchdistx_tpu_torch.parallel.sharding import fit_shardings
+
+    cls = {"MoEConfig": "MoE", "LlamaConfig": "Llama"}[type(cfg).__name__]
+    shapes = {n: tuple(p.shape) for n, p in
+              deferred_init(getattr(mod, cls), cfg, device="cpu").named_parameters()}
+    spec = MeshSpec(**axes)
+    sizes = dict(spec.axes())
+    total = 0
+    for name, placements in fit_shardings(mod.param_specs(cfg), shapes, spec).items():
+        parts = math.prod(sizes[a] for a, p in zip(sizes, placements) if isinstance(p, Shard))
+        total += math.prod(shapes[name]) // parts
+    return 2 * total
+
+
+def _ep_rank_run(fa, rank, key):
+    """[ep ranks] (a)/(b) on this rank."""
+    from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    mod, cfg = _pipe_cfg("moe", EP_RANKS_LAYERS)
+    mesh = make_mesh(MeshSpec(**EP_RANK_RUNS[key]), device_type="cuda")
+    init_fn, step_fn = make_train_step(cfg, _mesh_tx, model=mod, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(EP_RANKS_SEED)
+    held = sum(p.to_local().untyped_storage().nbytes() for p in state.model.parameters())
+    experts = [tuple(blk.e_gate.to_local().shape) for blk in state.model.layers]
+    batch = {k: v.cuda() for k, v in _pipe_batch(cfg.vocab_size, *EP_RANKS_SHAPE,
+                                                 EP_RANKS_DATA_SEED).items()}
+    _reset_counts(fa)
+    a2a, undo = _timed_exchange()
+    try:
+        with _KernelBlocks(fa) as spy:
+            state, losses, step_ms, grads, change = _fingerprinted_steps(
+                state, step_fn, batch, EP_RANKS_STEPS)
+    finally:
+        undo()
+    out = {"losses": losses, "step_ms": step_ms, "launches": _counts(fa),
+           "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held,
+           "expert_stacks": experts, "a2a_ms": a2a["ms"], "a2a_calls": a2a["calls"],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "fingerprints": {"grads": grads, "change": change} if rank == 0 else None}
+    del state, init_fn, step_fn
+    _free()
+    return out
+
+
+def _ep_rank_f32(device):
+    """[ep ranks] (c): moe_test in f32 under ep=4 from the CPU port's seeded
+    weights, EP_RANKS_F32_STEPS AdamW steps; the first step's routing of
+    every layer (the tokens' experts, positions and kept choices)."""
+    from torchdistx_tpu_torch.models import moe
+    from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
+    from torchdistx_tpu_torch.parallel.spmd import whole
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    def tx(params):
+        return torch.optim.AdamW(params, lr=1e-3, eps=1e-6, foreach=False)
+
+    cfg = moe.moe_test()
+    mesh = make_mesh(MeshSpec(ep=4), device_type=device)
+    init_fn, step_fn = make_train_step(cfg, tx, model=moe, mesh=mesh)
+    state = init_fn(TRAIN_SEED)
+    _rank_weights(mesh, state.model, make_train_step(cfg, tx, model=moe, device="cpu")[0](
+        TRAIN_SEED).model.state_dict())
+    batch = _mesh_ranks_batch(cfg.vocab_size, *MESH_RANKS_F32_SHAPE)
+    routing, bare = [], moe.route
+
+    def spy(*args, **kwargs):
+        r = bare(*args, **kwargs)
+        if len(routing) < cfg.n_layers:
+            routing.append([getattr(r, n).cpu() for n in ("experts", "pos", "keep")])
+        return r
+
+    moe.route = spy
+    losses = []
+    try:
+        for _ in range(EP_RANKS_F32_STEPS):
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+    finally:
+        moe.route = bare
+    return {"losses": losses, "routing": routing,
+            "params": {n: whole(p).detach().cpu() for n, p in state.model.named_parameters()}}
+
+
+def ep_rank(device, rank, store, out) -> None:
+    """One rank of ``phase_ep_ranks`` (4 gloo ranks on ``device``): (a) and
+    (b) on the card only, then (c); saves what the parent checks."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+    got = {"device": device}
+    try:
+        if device == "cuda":
+            for key in EP_RANK_RUNS:
+                got[key] = _ep_rank_run(fa, rank, key)
+        _reset_counts(fa)
+        got["c"] = _ep_rank_f32(device)
+        got["c_launches"] = _counts(fa)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(got, out)
+
+
+def phase_ep_reference():
+    """[ep ranks]' reference: the same MoE model, seed, batch and steps on a
+    1-rank NCCL mesh (every expert on the one rank)."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.parallel import MeshSpec, initialize, make_mesh
+    from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+    mod, cfg = _pipe_cfg("moe", EP_RANKS_LAYERS)
+    initialize(f"127.0.0.1:{_free_port()}", num_processes=1, process_id=0)
+    try:
+        mesh = make_mesh(MeshSpec())
+        init_fn, step_fn = make_train_step(cfg, _mesh_tx, model=mod, mesh=mesh)
+        state = init_fn(EP_RANKS_SEED)
+        batch = {k: v.cuda() for k, v in _pipe_batch(cfg.vocab_size, *EP_RANKS_SHAPE,
+                                                     EP_RANKS_DATA_SEED).items()}
+        state, losses, step_ms, grads, change = _fingerprinted_steps(state, step_fn, batch,
+                                                                     EP_RANKS_STEPS)
+        del state, init_fn, step_fn
+    finally:
+        dist.destroy_process_group()
+        _free()
+    print(f"[ep ranks] the 1-rank reference: MoEConfig() widths x {cfg.n_layers} layers, "
+          f"bf16, {EP_RANKS_SHAPE[0]}x{EP_RANKS_SHAPE[1]}: losses {losses}; step ms "
+          f"{[round(x, 1) for x in step_ms]}")
+    return {"losses": losses, "step_ms": step_ms,
+            "fingerprints": {"grads": grads, "change": change}}
+
+
+def phase_ep_ranks(ref):
+    """4 gloo ranks on the card and 4 on the CPU, all started together; (a)
+    and (b) against the 1-rank reference ``ref``, (c) against the CPU
+    ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    from torchdistx_tpu_torch.models import moe
+
+    root = tempfile.mkdtemp(prefix="tdx_ep_")
+    outs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(4)]
+            for device in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    try:
+        got = _spawn_ranks("--ep-rank", ("cuda", "cpu"), outs, EP_RANKS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    mod, cfg = _pipe_cfg("moe", EP_RANKS_LAYERS)
+    whole_bytes = 2 * moe.num_params(cfg)
+    stats = {"wall_s": wall_s, "runs": {}, "launches_all_ranks": {},
+             "reference_losses": ref["losses"], "reference_step_ms": ref["step_ms"],
+             "whole_param_bytes": whole_bytes}
+    per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}  # remat: the forward twice
+    want_launches = {k: v * EP_RANKS_STEPS for k, v in per_step.items()}
+    for key, axes in EP_RANK_RUNS.items():
+        ranks = [r[key] for r in got["cuda"]]
+        losses = ranks[0]["losses"]
+        _check(all(r["losses"] == losses for r in ranks), f"({key}): the ranks' losses differ")
+        loss_err = max(abs(x - y) for x, y in zip(losses, ref["losses"]))
+        grad_err = _fingerprint_err(ranks[0]["fingerprints"]["grads"],
+                                    ref["fingerprints"]["grads"])
+        change_err = _fingerprint_err(ranks[0]["fingerprints"]["change"],
+                                      ref["fingerprints"]["change"])
+        print(f"[ep ranks] ({key}) {axes} vs the 1-rank run: losses {losses} vs "
+              f"{ref['losses']}; the fingerprints' relative error: first-step gradients "
+              f"{grad_err}, the parameters' change {change_err}")
+        loss_atol, grad_rtol, change_rtol = EP_RANKS_BOUNDS[key]
+        _check(loss_err <= loss_atol, f"({key}): losses {losses} vs 1-rank {ref['losses']}")
+        _check(grad_err <= grad_rtol, f"({key}): first-step gradients {grad_err}")
+        _check(change_err <= change_rtol, f"({key}): the parameters' change {change_err}")
+        plan_bytes = _plan_bytes(mod, cfg, axes)
+        e_loc = cfg.n_experts // axes["ep"]
+        for rank, r in enumerate(ranks):
+            _check(all(shape[0] == e_loc for shape in r["expert_stacks"]),
+                   f"({key}) rank {rank}: expert stacks {r['expert_stacks']}")
+            _check(r["held_param_bytes"] == plan_bytes,
+                   f"({key}) rank {rank}: holds {r['held_param_bytes']} bytes, the plan's "
+                   f"{plan_bytes}")
+            _check(r["launches"] == want_launches, f"({key}) rank {rank}: launches "
+                   f"{r['launches']}, expected {want_launches}")
+            _check(r["kernel_blocks"] == [EP_BLOCKS[key][0]],
+                   f"({key}) rank {rank}: the kernel saw {r['kernel_blocks']}")
+            # Each layer's forward exchanges twice (rows out, outputs back),
+            # once in the step and again in remat's recompute.
+            _check(r["a2a_calls"] == 4 * cfg.n_layers * EP_RANKS_STEPS,
+                   f"({key}) rank {rank}: {r['a2a_calls']} exchanges")
+        a2a_ms = statistics.mean(r["a2a_ms"] / r["a2a_calls"] for r in ranks)
+        stats["launches_all_ranks"][key] = {k: sum(r["launches"][k] for r in ranks)
+                                            for k in want_launches}
+        stats["runs"][key] = {
+            "mesh": axes, "losses": losses, "loss_max_abs_err": loss_err,
+            "grad_fingerprint_rel_err": grad_err, "change_fingerprint_rel_err": change_err,
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "held_param_bytes_per_rank": ranks[0]["held_param_bytes"],
+            "experts_per_layer_per_rank": e_loc,
+            "a2a_ms_per_exchange": a2a_ms, "a2a_ms_per_layer_forward": 2 * a2a_ms,
+            "peak_allocated_bytes_by_rank": [r["peak_allocated_bytes"] for r in ranks],
+            "kernel_block": EP_BLOCKS[key][0]}
+        print(f"[ep ranks] ({key}) MoEConfig() widths x {cfg.n_layers} layers, bf16, {axes}, "
+              f"{EP_RANKS_SHAPE[0]}x{EP_RANKS_SHAPE[1]}: losses {losses} vs 1-rank "
+              f"{ref['losses']} (max err {loss_err:.3e}, atol {loss_atol}); fingerprints' "
+              f"relative error: gradients {grad_err:.3e} (rtol {grad_rtol}), change "
+              f"{change_err:.3e} (rtol {change_rtol}); step ms by rank "
+              f"{[[round(x, 1) for x in r['step_ms']] for r in ranks]}; {e_loc} of "
+              f"{cfg.n_experts} experts a layer on each rank, {ranks[0]['held_param_bytes']} "
+              f"bytes of {whole_bytes}; the all-to-all {a2a_ms:.3f} ms an exchange, "
+              f"{2 * a2a_ms:.3f} ms a layer's forward (synchronized around it); kernel on "
+              f"{EP_BLOCKS[key][0]}")
+    # (c): the card's ranks against the CPU's, routing exactly.
+    card, cpu = got["cuda"][0]["c"], got["cpu"][0]["c"]
+    loss_err = max(abs(x - y) for x, y in zip(card["losses"], cpu["losses"]))
+    param_err = max((card["params"][n] - cpu["params"][n]).abs().max().item()
+                    for n in cpu["params"])
+    _check(loss_err <= MESH_RANKS_F32_ATOL and param_err <= MESH_RANKS_F32_ATOL,
+           f"(c) card vs CPU ranks: loss err {loss_err}, param err {param_err}")
+    for r_card, r_cpu in zip(got["cuda"], got["cpu"]):
+        for layer, (a, b) in enumerate(zip(r_card["c"]["routing"], r_cpu["c"]["routing"],
+                                           strict=True)):
+            _check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                   f"(c) layer {layer}: the card's ranks route differently from the CPU's")
+    c_launches = got["cuda"][0]["c_launches"]
+    _check(c_launches["flash_fwd"] > 0 and c_launches["flash_bwd_fused"] > 0,
+           f"(c): the card's ranks did not launch the kernels: {c_launches}")
+    _check(not any(got["cpu"][0]["c_launches"].values()), "a CPU rank launched a kernel")
+    stats["f32"] = {"loss": loss_err, "param": param_err, "losses": card["losses"]}
+    print(f"[ep ranks] (c) moe_test f32 under ep=4, 4 card ranks vs 4 CPU ranks: loss err "
+          f"{loss_err:.3e}, param err {param_err:.3e} (atol {MESH_RANKS_F32_ATOL}); every "
+          f"layer's experts, positions and kept choices equal; {wall_s:.1f} s; {_smi()}")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# [slowmo ranks]: SlowMo replicas of two ranks (tp / fsdp within a replica)
+
+
+def _digests(model):
+    """A digest of each parameter's local shard (its bytes), for bit
+    equality across processes."""
+    import hashlib
+
+    out = []
+    for p in model.parameters():
+        local = p.to_local() if hasattr(p, "to_local") else p
+        raw = local.detach().contiguous().view(torch.uint8 if local.element_size() == 1
+                                               else torch.int16)
+        out.append(hashlib.sha1(raw.cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def _slowmo_opt(params):
+    from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+
+    return SlowMomentumOptimizer(torch.optim.SGD(params, lr=SLOWMO_LR), base_lr=SLOWMO_LR,
+                                 slowmo_freq=SLOWMO_FREQ, slowmo_factor=SLOWMO_FACTOR,
+                                 slowmo_lr=SLOWMO_SLR)
+
+
+def _slowmo_batch(vocab, b, s):
+    """The (dp, B, S) batch of [slowmo ranks], rows that differ by replica,
+    from a CPU generator."""
+    seq = torch.randint(0, vocab, (2, b, s + 1),
+                        generator=torch.Generator().manual_seed(SLOWMO_RANKS_DATA_SEED))
+    return {"tokens": seq[..., :-1], "targets": seq[..., 1:]}
+
+
+def _slowmo_run(fa, spec, cfg, device, values=None):
+    """SLOWMO_RANKS_STEPS SlowMo steps on a mesh of ``spec``: each step's
+    mean loss, this rank's shard digests and (f32) its replica's whole
+    values; the fingerprints of the parameters' change (its replica's)."""
+    from torchdistx_tpu_torch.parallel import make_mesh
+    from torchdistx_tpu_torch.parallel.spmd import whole
+    from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step
+
+    mesh = make_mesh(spec, device_type=device)
+    init_fn, step_fn = make_slowmo_train_step(cfg, mesh, _slowmo_opt, device=device)
+    state = init_fn(SLOWMO_RANKS_SEED)
+    if values is not None:
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                if hasattr(p, "to_local"):
+                    from torchdistx_tpu_torch.materialize import _local_shard
+
+                    p.to_local().copy_(_local_shard(values[name].to(p.to_local().device),
+                                                    p.device_mesh, p.placements))
+                else:
+                    p.copy_(values[name])
+    shape = SLOWMO_RANKS_F32_SHAPE if cfg.dtype == torch.float32 else SLOWMO_RANKS_SHAPE
+    batch = {k: v.to(device) for k, v in _slowmo_batch(cfg.vocab_size, *shape).items()}
+    named = dict(state.model.named_parameters())
+    before = _fingerprint(named) if cfg.dtype != torch.float32 else None
+    _reset_counts(fa)
+    losses, step_ms, digests, params = [], [], [], []
+    with _KernelBlocks(fa) as spy:
+        for _ in range(SLOWMO_RANKS_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            digests.append(_digests(state.model))
+            if cfg.dtype == torch.float32:  # copies: whole() of a replicated shard is a view
+                params.append({n: whole(p).cpu().clone() for n, p in named.items()})
+    out = {"losses": losses, "step_ms": step_ms, "digests": digests, "params": params,
+           "launches": _counts(fa), "kernel_blocks": sorted(spy.blocks),
+           "coordinate": list(mesh.get_coordinate())}
+    if before is not None:
+        out["change"] = _fingerprint_change(_fingerprint(named), before)
+    del state, init_fn, step_fn
+    _free()
+    return out
+
+
+def slowmo_rank(device, rank, store, out) -> None:
+    """One rank of ``phase_slowmo_ranks``: ``device`` "cuda" (4 ranks: (a),
+    then (b)), "cpu" (4 ranks: (b)) or "whole" (2 ranks on the card: (a)'s
+    reference with whole replicas, on the values of a seeded materialize
+    of the whole model)."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b, llama_test
+    from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+    from torchdistx_tpu_torch.parallel import MeshSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = 2 if device == "whole" else 4
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    big = dataclasses.replace(llama_7b(), n_layers=SLOWMO_RANKS_LAYERS)
+    got = {"device": device}
+    try:
+        if device == "whole":
+            values = materialize_module_torch(deferred_init(Llama, big, device="cuda"),
+                                              device="cuda", seed=SLOWMO_RANKS_SEED)
+            got["a"] = _slowmo_run(fa, MeshSpec(dp=2), big, "cuda", values)
+        else:
+            if device == "cuda":
+                got["a"] = _slowmo_run(fa, MeshSpec(dp=2, tp=2), big, "cuda")
+            from torchdistx_tpu_torch.parallel.train_step import make_train_step
+
+            values = make_train_step(llama_test(), _slowmo_opt, device="cpu")[0](
+                TRAIN_SEED).model.state_dict()
+            got["b"] = _slowmo_run(fa, MeshSpec(dp=2, fsdp=2), llama_test(), device, values)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(got, out)
+
+
+def phase_slowmo_ranks():
+    """4 gloo ranks on the card, 4 on the CPU and the 2 whole-replica ranks
+    on the card, all started together."""
+    import os
+    import shutil
+    import tempfile
+
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    root = tempfile.mkdtemp(prefix="tdx_slowmo_ranks_")
+    worlds = {"cuda": 4, "cpu": 4, "whole": 2}
+    outs = {device: [os.path.join(root, f"{device}{r}.pt") for r in range(n)]
+            for device, n in worlds.items()}
+    t0 = time.perf_counter()
+    try:
+        got = _spawn_ranks("--slowmo-rank", tuple(worlds), outs, SLOWMO_RANKS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(llama_7b(), n_layers=SLOWMO_RANKS_LAYERS)
+    averaged = [(i + 1) % SLOWMO_FREQ == 0 for i in range(SLOWMO_RANKS_STEPS)]
+
+    def replicas_equal(ranks, run, peers):
+        """By step: whether the ranks of each ``peers`` pair (the same
+        shard of the two replicas) hold the same bits."""
+        return [all(ranks[i][run]["digests"][step] == ranks[j][run]["digests"][step]
+                    for i, j in peers) for step in range(SLOWMO_RANKS_STEPS)]
+
+    # (a): replicas of 2 ranks (dp=2 x tp=2) against whole replicas.
+    a, whole_a = [r["a"] for r in got["cuda"]], [r["a"] for r in got["whole"]]
+    losses, ref = a[0]["losses"], whole_a[0]["losses"]
+    _check(all(r["losses"] == losses for r in a), "(a): the ranks' mean losses differ")
+    loss_err = max(abs(x - y) for x, y in zip(losses, ref))
+    change_err = _fingerprint_err(a[0]["change"], whole_a[0]["change"])
+    print(f"[slowmo ranks] (a) dp=2 x tp=2 vs whole replicas: mean losses {losses} vs {ref}; "
+          f"the change's fingerprints' relative error {change_err} (replica 0)")
+    _check(loss_err <= SLOWMO_RANKS_BOUNDS[0], f"(a): losses {losses} vs {ref}")
+    _check(change_err <= SLOWMO_RANKS_BOUNDS[1], f"(a): the change {change_err}")
+    eq_a = replicas_equal(got["cuda"], "a", ((0, 2), (1, 3)))
+    eq_whole = replicas_equal(got["whole"], "a", ((0, 1),))
+    _check(eq_a == averaged and eq_whole == averaged,
+           f"(a): replicas bit-equal by step {eq_a}, whole replicas {eq_whole}")
+    want_a = {"flash_fwd": 2 * cfg.n_layers * SLOWMO_RANKS_STEPS,
+              "flash_bwd_fused": cfg.n_layers * SLOWMO_RANKS_STEPS,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for rank, r in enumerate(a):
+        _check(r["launches"] == want_a, f"(a) rank {rank}: launches {r['launches']}")
+        _check(r["kernel_blocks"] == [SLOWMO_RANK_BLOCKS["a"][0]],
+               f"(a) rank {rank}: the kernel saw {r['kernel_blocks']}")
+    # (b): llama_test f32, dp=2 x fsdp=2, the card's ranks against the CPU's.
+    loss_err_b = max(abs(x - y) for c, p in zip(got["cuda"], got["cpu"])
+                     for x, y in zip(c["b"]["losses"], p["b"]["losses"]))
+    param_err_b = max((x[n] - y[n]).abs().max().item()
+                      for c, p in zip(got["cuda"], got["cpu"])
+                      for x, y in zip(c["b"]["params"], p["b"]["params"]) for n in y)
+    _check(loss_err_b <= SLOWMO_REPLICA_ATOL and param_err_b <= SLOWMO_REPLICA_ATOL,
+           f"(b) card vs CPU ranks: loss err {loss_err_b}, param err {param_err_b}")
+    eq_b = {device: replicas_equal(got[device], "b", ((0, 2), (1, 3)))
+            for device in ("cuda", "cpu")}
+    _check(all(v == averaged for v in eq_b.values()), f"(b): replicas bit-equal by step {eq_b}")
+    b_launches = got["cuda"][0]["b"]["launches"]
+    _check(b_launches["flash_fwd"] > 0 and b_launches["flash_bwd_fused"] > 0,
+           f"(b): the card's ranks did not launch the kernels: {b_launches}")
+    _check(all(r["b"]["kernel_blocks"] == [SLOWMO_RANK_BLOCKS["b"][0]] for r in got["cuda"]),
+           f"(b): the kernel saw {got['cuda'][0]['b']['kernel_blocks']}")
+    _check(not any(got["cpu"][0]["b"]["launches"].values()), "a CPU rank launched a kernel")
+    launches = {"a": {k: sum(r["launches"][k] for r in a) for k in want_a},
+                "b": {k: sum(r["b"]["launches"][k] for r in got["cuda"]) for k in want_a}}
+    stats = {"wall_s": wall_s, "a_losses": losses, "a_whole_replica_losses": ref,
+             "a_loss_max_abs_err": loss_err, "a_change_fingerprint_rel_err": change_err,
+             "a_step_ms_by_rank": [r["step_ms"] for r in a],
+             "a_whole_replica_step_ms": [r["step_ms"] for r in whole_a],
+             "replicas_bit_equal_by_step": {"a": eq_a, "a_whole": eq_whole, **eq_b},
+             "b_loss_max_abs_err": loss_err_b, "b_param_max_abs_err": param_err_b,
+             "launches_all_ranks": launches}
+    print(f"[slowmo ranks] (a) llama_7b widths x {cfg.n_layers} layers, bf16, dp=2 x tp=2, "
+          f"SGD {SLOWMO_LR}, averaging every {SLOWMO_FREQ}, {SLOWMO_RANKS_STEPS} steps of "
+          f"(2, {SLOWMO_RANKS_SHAPE[0]}, {SLOWMO_RANKS_SHAPE[1]}): losses {losses} vs whole "
+          f"replicas {ref} (max err {loss_err:.3e}, atol {SLOWMO_RANKS_BOUNDS[0]}); the "
+          f"change's fingerprints {change_err:.3e} (rtol {SLOWMO_RANKS_BOUNDS[1]}); replicas "
+          f"bit-equal by step {eq_a}; step ms by rank "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in a]}, whole replicas "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in whole_a]}; kernel on "
+          f"{SLOWMO_RANK_BLOCKS['a'][0]}; (b) llama_test f32 dp=2 x fsdp=2 vs 4 CPU ranks: "
+          f"loss err {loss_err_b:.3e}, param err {param_err_b:.3e} (atol "
+          f"{SLOWMO_REPLICA_ATOL}), replicas bit-equal by step {eq_b}; {wall_s:.1f} s; "
           f"{_smi()}")
     return stats
 
@@ -3103,18 +3780,31 @@ def _pipeline_entries(rows, bwd_rows, path_launches, rank_launches):
     entries = _path_entries(rows, bwd_rows, PIPE_BLOCKS["pipeline"][1],
                             "pipeline microbatch block, llama_7b", "pipeline", path_launches)
     for key, launched in rank_launches.items():
+        if PIPE_BLOCKS[key][1] is None:  # the ring: no kernel launched
+            continue
         entries += _path_entries(rows, bwd_rows, PIPE_BLOCKS[key][1],
                                  f"pipeline ranks ({key}) block", f"pipeline_ranks_{key}",
                                  launched)
     return entries
 
 
+def _slowmo_rank_entries(rows, bwd_rows, launches):
+    """The kernels line's entries for [slowmo ranks]' kernel blocks, with
+    each run's launches over the 4 card ranks."""
+    return [entry for key, label in (("a", "slowmo rank block, llama_7b widths, dp=2 x tp=2"),
+                                     ("b", "slowmo rank block, llama_test f32, dp=2 x fsdp=2"))
+            for entry in _path_entries(rows, bwd_rows, SLOWMO_RANK_BLOCKS[key][1], label,
+                                       f"slowmo_ranks_{key}", launches[key])]
+
+
 def _mesh_rank_entries(rows, bwd_rows, launches):
     """The kernels line's entries for [mesh ranks]' kernel blocks, with each
     run's launches over the 4 card ranks (``launches["a"]``, ``["b"]``)."""
-    return [entry for key, label in (("a", "mesh rank block, llama_7b widths"),
-                                     ("b", "mesh rank block, llama_test f32"))
-            for entry in _path_entries(rows, bwd_rows, MESH_RANK_BLOCKS[key][1], label,
+    return [entry for key, block, label in (
+                ("a", "a", "mesh rank block, llama_7b widths"),
+                ("b", "b", "mesh rank block, llama_test f32"),
+                ("d", "b", "mesh rank block, llama_test f32, data/model mesh, custom loss"))
+            for entry in _path_entries(rows, bwd_rows, MESH_RANK_BLOCKS[block][1], label,
                                        f"mesh_ranks_{key}", launches[key])]
 
 
@@ -3188,6 +3878,7 @@ def main() -> int:
     _check(slowmo_launches["flash_bwd_dq"] == slowmo_launches["flash_bwd_dkv"] == 0,
            "the streamed pair was launched on the SlowMo path")
     replica_stats = phase_slowmo_replicas()
+    replica_stats["ranks"] = phase_slowmo_ranks()
     _free()
 
     mesh_stats = phase_mesh(cfg, fa, train_stats)
@@ -3248,6 +3939,10 @@ def main() -> int:
         seed=14, label="moe")
     _check(sum(moe_stats["moe_test_dropping"]["dropped_choices_by_layer"]) > 0,
            "moe_test dropped no choice at its dropping capacity factor")
+    _free()
+    moe_stats["ep_ranks"] = phase_ep_ranks(phase_ep_reference())
+    ep_launches = moe_stats["ep_ranks"]["launches_all_ranks"]
+    _free()
 
     resnet_stats = phase_resnet()
 
@@ -3265,13 +3960,19 @@ def main() -> int:
     def launches(kernel):
         return {"forward": fwd_launches[kernel], "train": train_launches[kernel],
                 "fit": fit_launches[kernel], "slowmo": slowmo_launches[kernel],
-                "mesh": mesh_launches[kernel], "moe": moe_launches[kernel]}
+                "mesh": mesh_launches[kernel], "moe": moe_launches[kernel],
+                "ep_ranks_a": ep_launches["a"][kernel]}
 
     entries = (_kernels_line(rows, bwd_rows, launches, wide_stats)
                + _gpt2_entries(rows, bwd_rows, gpt2_launches)
                + _mesh_rank_entries(rows, bwd_rows, mesh_stats["ranks"]["launches_all_ranks"])
                + _pipeline_entries(rows, bwd_rows, pipe_launches,
-                                   pipe_stats["ranks"]["launches_all_ranks"]))
+                                   pipe_stats["ranks"]["launches_all_ranks"])
+               + _path_entries(rows, bwd_rows, EP_BLOCKS["b"][1],
+                               "ep rank block, MoEConfig() widths, fsdp=2 x ep=2", "ep_ranks_b",
+                               ep_launches["b"])
+               + _slowmo_rank_entries(rows, bwd_rows,
+                                      replica_stats["ranks"]["launches_all_ranks"]))
     print(json.dumps({"kernels": entries}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
@@ -3289,6 +3990,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         device, rank, store, out = sys.argv[2:6]
         mesh_rank(device, int(rank), store, out)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ep-rank"]:
+        device, rank, store, out = sys.argv[2:6]
+        ep_rank(device, int(rank), store, out)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--slowmo-rank"]:
+        device, rank, store, out = sys.argv[2:6]
+        slowmo_rank(device, int(rank), store, out)
         sys.exit(0)
     if sys.argv[1:2] == ["--pipeline-rank"]:
         rank, store, out = sys.argv[2:5]

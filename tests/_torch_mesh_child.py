@@ -18,8 +18,11 @@ rank checks its own invariants and fails (exit code 1) when one breaks.
   pre-permuted): outputs and gradients;
 - ``train``: ``make_train_step(mesh=)`` from the JAX weights (Llama under
   ``fsdp x tp`` and ``dp x tp``, GPT-2 under ``fsdp x tp``, MoE under ``dp x
-  fsdp``) for three AdamW steps; Llama under ``fsdp x sp`` with the ring
-  and with the zigzag layout against the unsharded step; placements of
+  fsdp``) for three AdamW steps; Llama on a mesh named ``("data",
+  "model")`` with ``fsdp="data", tp="model"``, under ``fsdp x tp`` with
+  ``tp=None``, and with a custom ``loss_fn`` (cross-entropy plus a z-loss,
+  torch ops on the ``DTensor`` logits); Llama under ``fsdp x sp`` with the
+  ring and with the zigzag layout against the unsharded step; placements of
   parameters, gradients and moments; a NaN on one rank; the dry-run
   stages ``train_dp_fsdp_tp``, ``flash_sharded`` and ``sp_ring``.
 """
@@ -200,14 +203,35 @@ def _whole(model):
     return {n: p.full_tensor().detach().numpy().copy() for n, p in model.named_parameters()}
 
 
+Z_LOSS = 1e-3
+
+
+def ce_z_loss(model, tokens, targets, **kw):
+    """A custom ``loss_fn``: mean cross-entropy plus ``Z_LOSS`` times the mean
+    squared log-partition, torch ops on the model's logits (a ``DTensor`` on
+    a mesh, the targets placed beside them)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    logits = model(tokens, **kw)
+    if isinstance(logits, DTensor):
+        targets = distribute_tensor(targets, logits.device_mesh, logits.placements,
+                                    src_data_rank=None)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, targets[..., None])[..., 0]
+    return nll.mean() + Z_LOSS * (lse * lse).mean()
+
+
 def _mesh_run(family, spec, inputs, *, steps=3, **kw):
     """``steps`` AdamW steps of ``make_train_step(mesh=)`` from the JAX
-    weights on the inputs' batches: losses and the final whole values."""
+    weights on the inputs' batches: losses and the final whole values.
+    ``spec``: a ``MeshSpec``, or ``make_mesh``'s ``axis_names`` / ``shape``
+    as a dict."""
     from torchdistx_tpu_torch.parallel import make_mesh
     from torchdistx_tpu_torch.parallel.train_step import make_train_step
 
     fam, cfg, _ = _family(family)
-    mesh = make_mesh(spec, device_type="cpu")
+    mesh = (make_mesh(**spec, device_type="cpu") if isinstance(spec, dict)
+            else make_mesh(spec, device_type="cpu"))
     init_fn, step_fn = make_train_step(cfg(), _adamw(inputs["adamw"]), model=fam, mesh=mesh,
                                        **kw)
     state = init_fn(0)
@@ -376,6 +400,12 @@ def suite_train(rank, world, inputs):
     del state
     out["llama_single"] = _single_run("llama", inputs, llama_values)
     _, _, out["llama_dp_tp"] = _mesh_run("llama", MeshSpec(dp=2, tp=2), inputs)
+    _, _, out["llama_named_axes"] = _mesh_run(
+        "llama", {"axis_names": ("data", "model"), "shape": (2, 2)}, inputs, fsdp="data",
+        tp="model")
+    _, _, out["llama_tp_none"] = _mesh_run("llama", MeshSpec(fsdp=2, tp=2), inputs, tp=None)
+    _, _, out["llama_custom_loss"] = _mesh_run("llama", MeshSpec(fsdp=2, tp=2), inputs,
+                                               loss_fn=ce_z_loss)
     for layout in ("contiguous", "zigzag"):
         _, _, out[f"llama_sp_{layout}"] = _mesh_run(
             "llama", MeshSpec(fsdp=2, sp=2), inputs, seq_axis="sp", seq_layout=layout)

@@ -16,9 +16,13 @@ layers (``llama_test``, ``gpt2_test``, ``moe_test``), ``M`` microbatches:
   ``backward``), the 1F1B loss and gradients (``pp_value_and_grad``), each
   rank's stage computations and block calls, and the 1F1B accumulators
   (MoE on the first and last mesh only);
+- on ``pp=2 x sp=2``, GPipe with the ring inside each stage: the forward's
+  logits, the loss and gradients, and the ring's calls a stage;
 - ``make_train_step(mesh=, pp_axis="pp")`` on ``pp=2 x tp=2``, both
   schedules, three SGD steps: losses and final parameters; a ``_tdx_nan``
-  batch on one rank skips the step on every rank;
+  batch on one rank skips the step on every rank; the same GPipe steps with
+  a custom ``loss_fn`` (``_torch_mesh_child.ce_z_loss``), and on ``pp=2 x
+  sp=2`` with ``seq_axis="sp"``;
 - the stage-only materialize of each family on ``pp=2 x fsdp=2``: the keys
   a rank holds and their values against a full ``materialize_module_torch``
   on the same seed.
@@ -33,10 +37,11 @@ import torch
 import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _torch_mesh_child import main  # noqa: E402
+from _torch_mesh_child import ce_z_loss, main  # noqa: E402
 
 MESHES = {"pp4": {"pp": 4}, "pp2_tp2": {"pp": 2, "tp": 2}, "pp2_fsdp2": {"pp": 2, "fsdp": 2}}
 FAMILY_MESHES = {"llama": list(MESHES), "gpt2": list(MESHES), "moe": ["pp4", "pp2_fsdp2"]}
+SP_MESH = {"pp": 2, "sp": 2}
 
 
 def _t(x):
@@ -146,12 +151,44 @@ def _grads_case(family, spec, inputs, m_count):
     return out
 
 
-def _train_case(family, spec, inputs, m_count, schedule):
+def _sp_case(family, inputs, m_count):
+    """GPipe on ``pp=2 x sp=2``: the forward's logits, the loss and the
+    gradients, and the ring attention calls of this rank."""
+    from torchdistx_tpu_torch.parallel import ring_attention
+    from torchdistx_tpu_torch.parallel.spmd import whole
+
+    values = _full_values(family, inputs[f"{family}_params"])
+    _, mesh, state, _ = _stage_model(family, SP_MESH, values)
+    model = state.model
+    tok, tgt = _t(inputs["tokens"]), _t(inputs["targets"])
+    kw = dict(mesh=mesh, pp_axis="pp", n_microbatches=m_count, seq_axis="sp")
+    ring = ring_attention.ring_attention
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return ring(*a, **k)
+
+    ring_attention.ring_attention = counted
+    try:
+        with torch.no_grad():
+            logits = model(tok, **kw)
+        forward_calls = calls[0]
+        loss = model.loss(tok, tgt, **kw)
+        loss.backward()
+    finally:
+        ring_attention.ring_attention = ring
+    return {"logits": whole(logits).numpy(), "loss": loss.item(),
+            "grads": _merged(_whole_grads({n: p.grad for n, p in model.named_parameters()})),
+            "ring_calls": _merged({dist.get_rank(): (forward_calls, calls[0])})}
+
+
+def _train_case(family, spec, inputs, m_count, schedule, **kw):
     from torchdistx_tpu_torch.parallel.spmd import whole
 
     values = _full_values(family, inputs[f"{family}_params"])
     _, _, state, step_fn = _stage_model(family, spec, values, n_microbatches=m_count,
-                                        pp_schedule=schedule)
+                                        pp_schedule=schedule, **kw)
     batch = {"tokens": _t(inputs["tokens"]), "targets": _t(inputs["targets"])}
     losses = []
     for i in range(3):
@@ -201,9 +238,15 @@ def suite_pipeline(rank, world, inputs):
     for family, meshes in FAMILY_MESHES.items():
         for name in meshes:
             out[f"{family}_{name}"] = _grads_case(family, MESHES[name], inputs, m_count)
+    for family in FAMILY_MESHES:
+        out[f"{family}_pp2_sp2"] = _sp_case(family, inputs, m_count)
     for schedule in ("gpipe", "1f1b"):
         out[f"train_{schedule}"] = _train_case("llama", MESHES["pp2_tp2"], inputs, m_count,
                                                schedule)
+    out["train_gpipe_custom_loss"] = _train_case("llama", MESHES["pp2_tp2"], inputs, m_count,
+                                                 "gpipe", loss_fn=ce_z_loss)
+    out["train_gpipe_sp"] = _train_case("llama", SP_MESH, inputs, m_count, "gpipe",
+                                        seq_axis="sp")
     for family in FAMILY_MESHES:
         out[f"materialize_{family}"] = _materialize_case(family, MESHES["pp2_fsdp2"])
     return out

@@ -14,7 +14,10 @@ for ``step``.
 - ``mesh`` (4 ranks): ``make_hybrid_mesh`` and collectives over its axes;
 - ``step`` (2 ranks): ``make_slowmo_train_step`` on ``llama_test`` (or, when
   ``<in_npz>`` holds ``family="gpt2"``, on ``gpt2_test`` with
-  ``model=gpt2``) from the JAX weights and batch in ``<in_npz>``.
+  ``model=gpt2``) from the JAX weights and batch in ``<in_npz>``;
+- ``step_mesh`` (4 ranks): the same on ``llama_test`` with replicas of 2
+  ranks, ``MeshSpec(dp=2, tp=2)`` then ``MeshSpec(dp=2, fsdp=2)``: each
+  step's mean loss and the whole parameters of this rank's replica.
 """
 
 import io
@@ -36,7 +39,7 @@ def launch(suite, world, directory, extra=None):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     env.pop("LOCAL_WORLD_SIZE", None)
-    ext = "npz" if suite == "step" else "json"
+    ext = "npz" if suite.startswith("step") else "json"
     args = [] if extra is None else [str(extra)]
     return [
         subprocess.Popen(
@@ -301,7 +304,61 @@ def suite_step(rank, world, extra):
     return out
 
 
-SUITES = {"optimizer": suite_optimizer, "mesh": suite_mesh, "step": suite_step}
+def suite_step_mesh(rank, world, extra):
+    from torch.distributed.tensor import distribute_tensor
+
+    from torchdistx_tpu_torch.models import llama
+    from torchdistx_tpu_torch.models.convert import llama_from_jax_params, to_jax_params
+    from torchdistx_tpu_torch.parallel import MeshSpec, make_mesh
+    from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
+    from torchdistx_tpu_torch.parallel.spmd import whole
+    from torchdistx_tpu_torch.parallel.train_step import (
+        make_slowmo_train_step,
+        slowmo_batch_sharding,
+    )
+
+    params = _jax_tree({k[len("param/"):]: v for k, v in extra.items()
+                        if k.startswith("param/")})
+    batch = {"tokens": torch.from_numpy(extra["tokens"]),
+             "targets": torch.from_numpy(extra["targets"])}
+    cfg = llama.llama_test()
+    plain = llama_from_jax_params(params, cfg, device="cpu")
+    values = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+
+    def opt(ps):
+        return SlowMomentumOptimizer(torch.optim.SGD(ps, lr=0.1), base_lr=0.1, slowmo_freq=2)
+
+    out = {}
+    for label, spec in (("dp2_tp2", MeshSpec(dp=2, tp=2)), ("dp2_fsdp2", MeshSpec(dp=2, fsdp=2))):
+        mesh = make_mesh(spec, device_type="cpu")
+        out[f"{label}/coordinate"] = np.array(mesh.get_coordinate())
+        out[f"{label}/batch_block"] = slowmo_batch_sharding(mesh)(batch)["tokens"].numpy()
+        init_fn, step_fn = make_slowmo_train_step(cfg, mesh, opt, device="cpu")
+        state = init_fn(0)
+        named = dict(state.model.named_parameters())
+        out[f"{label}/sharded"] = np.array([all(
+            hasattr(p, "placements") and p.to_local().numel() <= p.numel()
+            for p in named.values())])
+        with torch.no_grad():
+            for name, p in named.items():
+                p.to_local().copy_(distribute_tensor(values[name], p.device_mesh,
+                                                     p.placements).to_local())
+        for i in range(1, 5):
+            state, metrics = step_fn(state, batch)
+            out[f"{label}/loss/{i}"] = np.array([metrics["loss"].item()])
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    plain.get_parameter(name).copy_(whole(p))
+            for key, value in _flat(to_jax_params(plain)).items():
+                out[f"{label}/params/{i}/{key}"] = value.copy()
+        view = state.optimizer.slowmo_state
+        out[f"{label}/prev_is_local_shard"] = np.array([all(
+            t.shape == p.to_local().shape for t, p in zip(view.prev, named.values()))])
+    return out
+
+
+SUITES = {"optimizer": suite_optimizer, "mesh": suite_mesh, "step": suite_step,
+          "step_mesh": suite_step_mesh}
 
 
 def main() -> None:

@@ -9,7 +9,9 @@ flag to the same; the port's ``"flash"``/``"plain"`` are JAX's
 whose shapes do not divide, JAX takes XLA's attention and the port the
 kernel on the block that divides; and ``resolve_stage_attn_impl``
 against JAX's, whose pin of ``"auto"`` inside a pipeline stage to XLA's
-attention the port does not share on CUDA tensors.  Values: 4 gloo ranks in subprocesses
+attention the port does not share on CUDA tensors, nor with a sequence
+axis (GPipe's sp x pp), where the port runs the ring on the stage's ``sp``
+group.  Values: 4 gloo ranks in subprocesses
 (``_torch_mesh_child.py``, suite ``attention``) on ``MeshSpec(fsdp=2,
 tp=2)``, where the wrapper runs the kernel's plain version on each rank's
 block (this host has no card), against the JAX ``flash_attention_sharded``
@@ -167,22 +169,35 @@ def test_resolve_stage_attn_impl_against_jax(accelerator, impl):
     its Pallas kernel (the kernel's shard_map cannot nest in the
     pipeline's); the port's stage is the rank's own computation, so "auto"
     is the kernel on CUDA tensors and an explicit "flash" stands.  Off
-    CUDA both take the plain attention."""
+    CUDA both take the plain attention.  With a sequence axis (sp x pp
+    under GPipe) JAX pins "auto" to XLA's full attention all the same; the
+    port's "auto" is the ring over the stage's sequence axis (the same
+    values), and an explicit impl stands."""
     port_impl = _NAMES.get(impl, impl)
     if impl == "pallas":
         with pytest.raises(ValueError, match="cannot run inside a pipeline stage"):
             jattn.resolve_stage_attn_impl(impl)
         assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator) == "flash"
+        assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator,
+                                             seq_axis="sp") == "flash"
         return
     want = _NAMES.get(jattn.resolve_stage_attn_impl(impl), impl)
-    if impl == "auto" and accelerator:
-        want = "flash"  # the designed difference (ROADMAP "not faults")
+    with_sp = want
+    if impl == "auto":
+        with_sp = "ring"  # the designed difference (ROADMAP "not faults")
+        if accelerator:
+            want = "flash"  # the designed difference (ROADMAP "not faults")
     assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator) == want
+    assert tattn.resolve_stage_attn_impl(port_impl, cuda=accelerator,
+                                         seq_axis="sp") == with_sp
 
 
 def test_resolve_stage_attn_impl_refuses_the_ring():
     with pytest.raises(ValueError, match="cannot run inside a pipeline stage"):
         tattn.resolve_stage_attn_impl("ring", cuda=False)
+    with pytest.raises(ValueError, match="cannot run inside a pipeline stage"):
+        tattn.resolve_stage_attn_impl("ring_zigzag", cuda=False, seq_axis="sp")
+    assert tattn.resolve_stage_attn_impl("ring", cuda=True, seq_axis="sp") == "ring"
 
 
 def test_sharded_rejects_indivisible_shapes():

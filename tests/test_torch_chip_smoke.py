@@ -393,13 +393,20 @@ def test_mesh_rank_entries_take_the_mesh_rank_rows():
     launches = {"a": {"flash_fwd": 32, "flash_bwd_fused": 16, "flash_bwd_dq": 0,
                       "flash_bwd_dkv": 0},
                 "b": {"flash_fwd": 24, "flash_bwd_fused": 24, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0},
+                "d": {"flash_fwd": 12, "flash_bwd_fused": 12, "flash_bwd_dq": 0,
                       "flash_bwd_dkv": 0}}
     entries = chip_smoke._mesh_rank_entries(rows, bwd_rows, launches)
+    # (d), the (data, model) mesh with a custom loss, hands the kernel (b)'s
+    # block, so it takes (b)'s rows.
     assert [(e["name"], e["launches"]) for e in entries] == [
         ("flash_fwd (mesh rank block, llama_7b widths)", 32),
         ("flash_bwd_fused (mesh rank block, llama_7b widths)", 16),
         ("flash_fwd (mesh rank block, llama_test f32)", 24),
-        ("flash_bwd_fused (mesh rank block, llama_test f32)", 24)]
+        ("flash_bwd_fused (mesh rank block, llama_test f32)", 24),
+        ("flash_fwd (mesh rank block, llama_test f32, data/model mesh, custom loss)", 12),
+        ("flash_bwd_fused (mesh rank block, llama_test f32, data/model mesh, custom loss)",
+         12)]
     assert all(e["ms"] == 1.0 for e in entries)
     assert entries[1]["launches_by_path"] == {"mesh_ranks_a": 16}
 
@@ -432,19 +439,25 @@ def test_pipeline_rows_are_the_runs_own_blocks(run):
     # A pipeline's kernel sees one rank's rows of a microbatch (the batch
     # over PIPE_MICROBATCHES, then over the data axes) and its tp share of
     # the heads; phase 2 holds the forward and the fused backward there.
+    # A run with a sequence axis runs the ring in each stage: no kernel
+    # block, no row.
     if run == "pipeline":
         family, layers, axes, shape = "llama", 32, {"pp": 1}, chip_smoke.PIPE_SHAPE
     else:
         family, layers, axes, _, shape = chip_smoke.PIPE_RANK_RUNS[run]
+    options = chip_smoke.PIPE_RANK_OPTIONS.get(run, {})
+    micro = options.get("n_microbatches", chip_smoke.PIPE_MICROBATCHES)
     _, cfg = chip_smoke._pipe_cfg(family, layers)
     b, s = shape
     data = axes.get("dp", 1) * axes.get("fsdp", 1)
     tp = axes.get("tp", 1)
-    assert b % (chip_smoke.PIPE_MICROBATCHES * data) == 0 and layers % axes["pp"] == 0
-    kv = getattr(cfg, "n_kv_heads", cfg.n_heads)
+    assert b % (micro * data) == 0 and layers % axes["pp"] == 0
     block, name = chip_smoke.PIPE_BLOCKS[run]
-    assert block == (b // chip_smoke.PIPE_MICROBATCHES // data, s, cfg.n_heads // tp,
-                     kv // tp, cfg.head_dim)
+    if options.get("seq_axis"):
+        assert (block, name) == (None, None) and s % axes[options["seq_axis"]] == 0
+        return
+    kv = getattr(cfg, "n_kv_heads", cfg.n_heads)
+    assert block == (b // micro // data, s, cfg.n_heads // tp, kv // tp, cfg.head_dim)
     want = (*block[:4], fa._kernel_head_dim(block[4]), torch.bfloat16, True)
     assert [r[1:] for r in chip_smoke.FLASH_SHAPES if r[0] == name] == [want]
     assert [r[1:] for r in chip_smoke.BWD_SHAPES if r[0] == name] == [
@@ -494,7 +507,10 @@ def test_pipeline_entries_take_the_pipeline_rows():
     counts = {"flash_fwd": 8, "flash_bwd_fused": 4, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     ranks = {key: counts for key in chip_smoke.PIPE_RANK_RUNS}
     entries = chip_smoke._pipeline_entries(rows, bwd_rows, counts, ranks)
-    assert len(entries) == 2 * (1 + len(ranks))
+    # The ring runs (no kernel block) have no entry.
+    with_block = [k for k in ranks if chip_smoke.PIPE_BLOCKS[k][1] is not None]
+    assert len(with_block) == len(ranks) - 1
+    assert len(entries) == 2 * (1 + len(with_block))
     assert entries[0]["name"] == "flash_fwd (pipeline microbatch block, llama_7b)"
     assert entries[0]["launches_by_path"] == {"pipeline": 8}
     assert entries[-1]["launches_by_path"] == {"pipeline_ranks_d": 4}
@@ -531,3 +547,33 @@ def test_every_pipeline_rank_run_has_its_bounds_and_block():
     assert set(chip_smoke.PIPE_BLOCKS) == set(chip_smoke.PIPE_RANK_RUNS) | {"pipeline"}
     for loss_atol, grad_rtol, change_rtol in chip_smoke.PIPE_RANKS_BOUNDS.values():
         assert 0 < loss_atol and 0 < grad_rtol < 1 and 0 < change_rtol
+
+
+@pytest.mark.parametrize("axes, params", [
+    ({"ep": 4}, 937_512_960),
+    ({"fsdp": 2, "ep": 2}, 739_332_096),
+], ids=["ep4", "fsdp2_ep2"])
+def test_ep_rank_bytes_by_the_plan(axes, params):
+    """[ep ranks]' bytes a rank at MoEConfig()'s widths x 2 layers: ep=4
+    holds 2 of 8 experts a layer and every other parameter whole; fsdp=2 x
+    ep=2 halves the embedding, the head and the projections and holds 4 of
+    8 experts a layer, each split over fsdp."""
+    from torchdistx_tpu_torch.models import moe
+
+    mod, cfg = chip_smoke._pipe_cfg("moe", chip_smoke.EP_RANKS_LAYERS)
+    assert moe.num_params(cfg) == 2_560_708_608
+    assert chip_smoke._plan_bytes(mod, cfg, axes) == 2 * params
+
+
+def test_every_new_rank_run_has_its_bounds_and_block():
+    assert set(chip_smoke.EP_RANKS_BOUNDS) == set(chip_smoke.EP_RANK_RUNS) == set(
+        chip_smoke.EP_BLOCKS)
+    assert set(chip_smoke.PIPE_RANK_OPTIONS) <= set(chip_smoke.PIPE_RANK_RUNS)
+    rows = {name for name, *_ in chip_smoke.FLASH_SHAPES}
+    bwd = {name for name, *_ in chip_smoke.BWD_SHAPES}
+    for _, row in (*chip_smoke.EP_BLOCKS.values(), *chip_smoke.SLOWMO_RANK_BLOCKS.values()):
+        assert row in rows
+    for key in ("b",):
+        assert chip_smoke.EP_BLOCKS[key][1] in bwd
+    for _, row in chip_smoke.SLOWMO_RANK_BLOCKS.values():
+        assert row in bwd

@@ -12,6 +12,13 @@ replica's parameters after every step (float32, the same arithmetic summed
 in different orders).  The replicas must be bit-equal after the averaging
 steps 2 and 4 and differ after steps 1 and 3.
 
+Replicas of two ranks (suite ``step_mesh``, 4 gloo ranks): the same run on
+``MeshSpec(dp=2, tp=2)`` and ``MeshSpec(dp=2, fsdp=2)`` against JAX's
+``make_slowmo_train_step`` on the same mesh shapes (4 virtual devices),
+each replica's parameters ``DTensor`` shards over its ``tp`` / ``fsdp``
+ranks, held to the same tolerance and the same bit-equality; the batch
+block of ``slowmo_batch_sharding`` is JAX's ``P(dp, fsdp, None)``.
+
 Also here, in this process: the ``slowmo_freq=1`` closed-form oracle of
 ``tests/test_train_step.py``; ``fit`` over the SlowMo step with one replica
 (no group), stopped at a checkpoint between two averaging steps and resumed,
@@ -210,10 +217,8 @@ class _Mesh:
 
 
 @pytest.mark.parametrize("mesh, match", [
-    (_Mesh(dp=2, tp=4), "would shard a replica"),
-    (_Mesh(dp=1, fsdp=2), "would shard a replica"),
     (_Mesh(fsdp=1), "has no 'dp' axis"),
-], ids=["tp", "fsdp", "no_dp"])
+], ids=["no_dp"])
 def test_mesh_axes_within_a_replica_raise(mesh, match):
     with pytest.raises(ValueError, match=match):
         make_slowmo_train_step(tllama.llama_test(), mesh, _sgd_slowmo, device="cpu")
@@ -232,3 +237,103 @@ def test_argument_checks():
     assert shard({"tokens": t, "targets": t})["tokens"].shape == (2, 8)
     with pytest.raises(ValueError, match=r"must be \(dp=1, B, S\)"):
         shard({"tokens": t[0], "targets": t[0]})
+
+
+# ---------------------------------------------------------------------------
+# Replicas of two ranks: tp / fsdp within a replica
+
+REPLICA_MESHES = {"dp2_tp2": dict(dp=2, tp=2), "dp2_fsdp2": dict(dp=2, fsdp=2)}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """``(jax, ranks)``: the JAX runs on each replica mesh (each step's
+    mean loss and stacked params) and the 4 ranks' ``.npz`` reports."""
+    d = tmp_path_factory.mktemp("slowmo_step_mesh")
+    cfg = jllama.llama_test()
+    opt = JaxSlowMo(optax.sgd(0.1), base_lr=0.1, slowmo_freq=2)
+    tokens, targets = _batch()
+    want = {}
+    procs = None
+    try:
+        for label, spec in REPLICA_MESHES.items():
+            mesh = jax_make_mesh(JaxMeshSpec(**spec), devices=jax.devices()[:4])
+            init_fn, step_fn = jts.make_slowmo_train_step(cfg, mesh, opt)
+            state = init_fn(jax.random.PRNGKey(0))
+            if procs is None:
+                replica0 = jax.tree.map(lambda x: np.asarray(x[0]), state.params)
+                np.savez(d / "in.npz", tokens=tokens, targets=targets,
+                         **{f"param/{k}": v for k, v in _flat(replica0).items()})
+                procs = launch("step_mesh", 4, d, d / "in.npz")
+            bs = jts.slowmo_batch_sharding(mesh)
+            batch = {"tokens": jax.device_put(jnp.asarray(tokens), bs),
+                     "targets": jax.device_put(jnp.asarray(targets), bs)}
+            for i in range(1, STEPS + 1):
+                state, metrics = step_fn(state, batch)
+                want[f"{label}/loss/{i}"] = float(metrics["loss"])
+                want[f"{label}/params/{i}"] = _flat(jax.tree.map(np.asarray, state.params))
+    finally:
+        if procs is not None:
+            wait(procs, "the step_mesh suite")
+    return want, [dict(np.load(d / f"rank{r}.npz")) for r in range(4)]
+
+
+@pytest.mark.parametrize("label", list(REPLICA_MESHES))
+def test_replica_mesh_losses_match_jax(mesh_runs, label):
+    want, ranks = mesh_runs
+    for i in range(1, STEPS + 1):
+        assert all(r[f"{label}/loss/{i}"] == ranks[0][f"{label}/loss/{i}"] for r in ranks)
+        np.testing.assert_allclose(ranks[0][f"{label}/loss/{i}"][0], want[f"{label}/loss/{i}"],
+                                   atol=ATOL, rtol=0, err_msg=f"{label} step {i}")
+
+
+@pytest.mark.parametrize("step", range(1, STEPS + 1))
+@pytest.mark.parametrize("label", list(REPLICA_MESHES))
+def test_replica_mesh_every_replica_matches_jax(mesh_runs, label, step):
+    """Each rank's replica (its ``dp`` coordinate) against JAX's stacked
+    replica of that index."""
+    want, ranks = mesh_runs
+    for rank, rep in enumerate(ranks):
+        replica = int(rep[f"{label}/coordinate"][0])
+        for key, value in want[f"{label}/params/{step}"].items():
+            np.testing.assert_allclose(rep[f"{label}/params/{step}/{key}"], value[replica],
+                                       atol=ATOL, rtol=0,
+                                       err_msg=f"{label} rank {rank} step {step} {key}")
+
+
+@pytest.mark.parametrize("label", list(REPLICA_MESHES))
+def test_replica_mesh_replicas_bit_equal_only_after_averaging(mesh_runs, label):
+    """Ranks 0 and 2 hold the same shard of replicas 0 and 1; ranks of one
+    replica hold its same whole values."""
+    _, ranks = mesh_runs
+    for step in range(1, STEPS + 1):
+        keys = [k for k in ranks[0] if k.startswith(f"{label}/params/{step}/")]
+        across = all(np.array_equal(ranks[0][k], ranks[2][k]) for k in keys)
+        assert across == (step % 2 == 0), step
+        within = all(np.array_equal(ranks[0][k], ranks[1][k])
+                     and np.array_equal(ranks[2][k], ranks[3][k]) for k in keys)
+        assert within, step
+
+
+@pytest.mark.parametrize("label", list(REPLICA_MESHES))
+def test_replica_mesh_state_is_per_shard(mesh_runs, label):
+    """Parameters are ``DTensor`` shards, and ``prev`` holds each rank's
+    local shard."""
+    _, ranks = mesh_runs
+    for rep in ranks:
+        assert bool(rep[f"{label}/sharded"][0]) and bool(rep[f"{label}/prev_is_local_shard"][0])
+
+
+@pytest.mark.parametrize("label", list(REPLICA_MESHES))
+def test_replica_mesh_batch_block_is_jax_placement(mesh_runs, label):
+    """``slowmo_batch_sharding``: row ``dp``, then its rows over ``fsdp``
+    (JAX's ``P(dp, fsdp, None)``)."""
+    _, ranks = mesh_runs
+    tokens, _ = _batch()
+    n_fsdp = REPLICA_MESHES[label].get("fsdp", 1)
+    for rep in ranks:
+        coord = rep[f"{label}/coordinate"]
+        block = tokens[coord[0]]
+        if n_fsdp > 1:
+            block = np.split(block, n_fsdp)[coord[1]]
+        np.testing.assert_array_equal(rep[f"{label}/batch_block"], block)

@@ -22,6 +22,12 @@ its own unsharded step: 5e-7).
 - Llama (``llama_test``) under ``MeshSpec(fsdp=2, tp=2)`` and ``MeshSpec(dp=2,
   tp=2)``, GPT-2 (``gpt2_test``) under ``fsdp=2, tp=2`` and MoE
   (``moe_test``) under ``dp=2, fsdp=2``, each against JAX;
+- Llama on a mesh named ``("data", "model")`` with ``fsdp="data",
+  tp="model"``, under ``fsdp=2, tp=2`` with ``tp=None`` (the ``tp`` axis
+  replicates the compute), and under ``fsdp=2, tp=2`` with a custom
+  ``loss_fn`` (cross-entropy plus a z-loss in torch ops on the ``DTensor``
+  logits; JAX's the same in ``jnp`` on its logits), each against JAX's
+  step with the same arguments;
 - at AdamW eps 1e-5 (ROADMAP C4), Llama under ``fsdp=2, tp=2`` and MoE
   under ``dp=2, fsdp=2`` against the port's unsharded step (1e-6) and the
   JAX unsharded step (1e-5);
@@ -34,8 +40,8 @@ its own unsharded step: 5e-7).
 - a ``_tdx_nan`` batch on one rank skips the step on every rank;
 - the JAX dry run's ``train_dp_fsdp_tp``, ``flash_sharded`` and ``sp_ring``
   stages on the 4 ranks, finite;
-- in this process: the arguments that are not ported yet raise, naming
-  ROADMAP A5b, and the pipeline arguments' misuses raise JAX's messages.
+- in this process: the pipeline arguments' misuses and a custom loss with
+  the zigzag layout raise JAX's messages.
 """
 
 import os
@@ -75,11 +81,26 @@ C4_EPS = 1e-5
 C4_SELF_ATOL = 1e-6
 STEPS = 3
 ADAMW = dict(learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-6, weight_decay=1e-4)
-RUNS = {  # run -> (family, JAX mesh)
-    "llama_fsdp_tp": ("llama", JaxMeshSpec(fsdp=2, tp=2)),
-    "llama_dp_tp": ("llama", JaxMeshSpec(dp=2, tp=2)),
-    "gpt2_fsdp_tp": ("gpt2", JaxMeshSpec(fsdp=2, tp=2)),
-    "moe_dp_fsdp": ("moe", JaxMeshSpec(dp=2, fsdp=2)),
+Z_LOSS = 1e-3
+
+
+def _jax_ce_z_loss(params, tokens, targets):
+    """The port child's ``ce_z_loss`` in ``jnp``: the JAX custom ``loss_fn``."""
+    logits = jllama.forward(params, tokens, jllama.llama_test(), attn_impl="jnp")
+    lse = jax.nn.logsumexp(logits, axis=-1)
+    nll = lse - jnp.take_along_axis(logits, targets[..., None], axis=-1)[..., 0]
+    return nll.mean() + Z_LOSS * (lse * lse).mean()
+
+
+RUNS = {  # run -> (family, JAX mesh: a MeshSpec or make_mesh's keywords, step keywords)
+    "llama_fsdp_tp": ("llama", JaxMeshSpec(fsdp=2, tp=2), {}),
+    "llama_dp_tp": ("llama", JaxMeshSpec(dp=2, tp=2), {}),
+    "gpt2_fsdp_tp": ("gpt2", JaxMeshSpec(fsdp=2, tp=2), {}),
+    "moe_dp_fsdp": ("moe", JaxMeshSpec(dp=2, fsdp=2), {}),
+    "llama_named_axes": ("llama", {"axis_names": ("data", "model"), "shape": (2, 2)},
+                         {"fsdp": "data", "tp": "model"}),
+    "llama_tp_none": ("llama", JaxMeshSpec(fsdp=2, tp=2), {"tp": None}),
+    "llama_custom_loss": ("llama", JaxMeshSpec(fsdp=2, tp=2), {"loss_fn": _jax_ce_z_loss}),
 }
 FAMILIES = {  # family -> (JAX module, JAX config, port builder from JAX params)
     "llama": (jllama, jllama.llama_test, llama_from_jax_params, tllama.llama_test),
@@ -94,15 +115,19 @@ def _batches():
             for _ in range(STEPS)]
 
 
-def _jax_init(family, spec):
+def _jax_init(family, spec, **kw):
     jmod, jcfg, _, _ = FAMILIES[family]
-    mesh = jax_make_mesh(spec, devices=jax.devices()[:4])
-    init_fn, step_fn = jts.make_train_step(jcfg(), mesh, optax.adamw(**ADAMW), model=jmod)
+    if isinstance(spec, dict):
+        mesh = jax_make_mesh(**spec, devices=jax.devices()[:4])
+    else:
+        mesh = jax_make_mesh(spec, devices=jax.devices()[:4])
+    init_fn, step_fn = jts.make_train_step(jcfg(), mesh, optax.adamw(**ADAMW), model=jmod,
+                                           **kw)
     return mesh, init_fn(jax.random.PRNGKey(0)), step_fn
 
 
-def _jax_run(family, spec, params_np):
-    mesh, state, step_fn = _jax_init(family, spec)
+def _jax_run(family, spec, params_np, **kw):
+    mesh, state, step_fn = _jax_init(family, spec, **kw)
     state = state._replace(params=jax.tree.map(
         lambda x, a: jax.device_put(a, x.sharding), state.params, params_np))
     bs = jts.batch_sharding(mesh)
@@ -168,8 +193,8 @@ def runs(tmp_path_factory):
               **{f"{f}_params": p for f, p in params.items()}}
     procs = launch("train", 4, d, inputs)
     try:
-        want = {name: _jax_run(family, spec, params[family])
-                for name, (family, spec) in RUNS.items()}
+        want = {name: _jax_run(family, spec, params[family], **kw)
+                for name, (family, spec, kw) in RUNS.items()}
         for family in ("llama", "moe"):
             want[f"{family}_jax_single_{C4_EPS}"] = _jax_run_eps(family, None, params[family],
                                                                  C4_EPS)
@@ -268,23 +293,35 @@ class _Mesh:
         self.device_type = "cpu"
 
 
-# The pipeline arguments are ported: their cases hold the JAX step's
-# validation messages (the pp axis missing from the mesh, 1F1B without
-# pp_axis, 1F1B with a sequence axis); the rest name ROADMAP A5b.
+# The step takes every argument the JAX step does; these cases hold the JAX
+# step's validation messages (the pp axis missing from the mesh, 1F1B
+# without pp_axis, 1F1B with a sequence axis).  The custom loss, ep and
+# axis-name arguments run against JAX above and in test_torch_moe_ep.py.
 @pytest.mark.parametrize("kwargs,match", [
     ({"pp_axis": "pp"}, "mesh has no axis 'pp'"),
     ({"n_microbatches": 2, "pp_schedule": "1f1b"}, "requires pp_axis="),
     ({"pp_schedule": "1f1b", "pp_axis": "pp", "seq_axis": "sp",
       "mesh": _Mesh(pp=2, sp=2)}, "does not compose with seq_axis"),
-    ({"loss_fn": lambda *a: 0.0}, "A5b"), ({"mesh": _Mesh(fsdp=2, ep=2)}, "A5b"),
-    ({"mesh": _Mesh(data=2, model=2), "tp": "model"}, "A5b"),
-    ({"mesh": _Mesh(data=2, model=2), "fsdp": "data"}, "A5b"),
-], ids=["pp_axis", "n_microbatches", "pp_schedule", "loss_fn", "ep", "tp_name", "fsdp_name"])
+], ids=["pp_axis", "n_microbatches", "pp_schedule"])
 def test_unported_arguments_raise_naming_a5b(kwargs, match):
     kw = {"mesh": _Mesh(fsdp=2, tp=2), **kwargs}
     with pytest.raises(ValueError, match=match):
         make_train_step(tllama.llama_test(), lambda ps: torch.optim.SGD(ps, lr=0.1),
                         device="cpu", **kw)
+
+
+def test_custom_loss_with_zigzag_layout_raises_as_jax():
+    """A custom loss cannot take the zigzag layout (the model applies it
+    inside its own loss): JAX's check and message."""
+    msg = "cannot be combined with a custom loss_fn"
+    mesh = jax_make_mesh(JaxMeshSpec(sp=4), devices=jax.devices()[:4])
+    with pytest.raises(ValueError, match=msg):
+        jts.make_train_step(jllama.llama_test(), mesh, optax.sgd(0.1), seq_axis="sp",
+                            seq_layout="zigzag", loss_fn=lambda p, t, y: jnp.float32(0))
+    with pytest.raises(ValueError, match=msg):
+        make_train_step(tllama.llama_test(), lambda ps: torch.optim.SGD(ps, lr=0.1),
+                        device="cpu", mesh=_Mesh(sp=4), seq_axis="sp", seq_layout="zigzag",
+                        loss_fn=lambda m, t, y, **kw: m.loss(t, y, **kw))
 
 
 def test_unknown_pp_schedule_raises():

@@ -287,35 +287,39 @@ class GPT2(nn.Module):
         return x
 
     def _logits(self, tokens, targets, attn_impl, mesh, seq_axis, pp_axis=None,
-                n_microbatches=1):
+                n_microbatches=1, axes=None):
         """``(ctx, targets, logits in cfg.dtype)`` of this rank's block (with
-        ``pp_axis``, of its rows of each microbatch, through the GPipe
-        pipeline)."""
+        ``pp_axis``, of its block of each microbatch, through the GPipe
+        pipeline); ``axes`` the ``tp`` / ``fsdp`` names."""
+        axes = axes or {}
         if pp_axis is not None:
             ctx, tokens, targets, impl = stage_inputs(
                 tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
-                attn_impl=attn_impl, seq_axis=seq_axis)
+                attn_impl=attn_impl, seq_axis=seq_axis, **axes)
             _, blocks = stage_blocks(self.layers, mesh, pp_axis)
-            x = pipeline_forward(self._embed(tokens, 0, ctx), blocks,
-                                 lambda h, blk: blk(h, impl, ctx), mesh=mesh, axis=pp_axis,
-                                 n_microbatches=n_microbatches)
+            # Each column's learned position is its global one.
+            x = self._embed(tokens, ctx.seq_offset(tokens.shape[1]), ctx)
+            x = pipeline_forward(x, blocks, lambda h, blk: blk(h, impl, ctx), mesh=mesh,
+                                 axis=pp_axis, n_microbatches=n_microbatches)
             return ctx, targets, self._head(x, ctx)
         ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
-            tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
+            tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl, **axes)
         del positions  # contiguous: this rank's columns start at its offset
         pos = ctx.seq_offset(tokens.shape[1])
         return ctx, targets, self._head(self._hidden(tokens, attn_impl, ctx, pos), ctx)
 
     def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
                 seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
-                n_microbatches: int = 1):
+                n_microbatches: int = 1, tp: Optional[str] = "tp",
+                fsdp: Optional[str] = "fsdp"):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.  With
         ``mesh``, ``tokens`` is the global batch on every rank and the
         logits are a ``DTensor`` (this rank's rows and columns);
         ``pp_axis`` / ``n_microbatches`` run the blocks through the GPipe
-        pipeline (as Llama's ``forward``)."""
+        pipeline (as Llama's ``forward``); ``tp`` / ``fsdp`` name the mesh
+        axes of those roles."""
         ctx, _, logits = self._logits(tokens, None, attn_impl, mesh, seq_axis, pp_axis,
-                                      n_microbatches)
+                                      n_microbatches, {"tp": tp, "fsdp": fsdp})
         if pp_axis is not None:
             logits = contiguous_rows(logits, ctx, n_microbatches)
         if ctx is SINGLE:
@@ -324,13 +328,14 @@ class GPT2(nn.Module):
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
              seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
-             n_microbatches: int = 1):
+             n_microbatches: int = 1, tp: Optional[str] = "tp",
+             fsdp: Optional[str] = "fsdp"):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``:
         logits in ``cfg.dtype``, ``logsumexp`` of their f32 upcast minus
         the target's logit); with ``mesh``, the global batch's on every
-        rank; ``pp_axis`` as in :meth:`forward`."""
+        rank; ``pp_axis``, ``tp`` and ``fsdp`` as in :meth:`forward`."""
         ctx, targets, logits = self._logits(tokens, targets, attn_impl, mesh, seq_axis,
-                                            pp_axis, n_microbatches)
+                                            pp_axis, n_microbatches, {"tp": tp, "fsdp": fsdp})
         nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
             -1, targets[..., None])[..., 0].float()
         if ctx is SINGLE:
@@ -374,14 +379,15 @@ class GPT2(nn.Module):
 # the tied head inside the last stage.
 
 
-def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto",
+              tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
     schedule, as Llama's :func:`~torchdistx_tpu_torch.models.llama.
     pp_pieces`; ``embed_fn(ep, tokens_mb, sp)`` and ``head_loss_fn(hp, h,
     targets_mb, sp)`` take the tied embedding ``sp["wte.weight"]`` last."""
     from ..ops.attention import resolve_stage_attn_impl
 
-    ctx, rows = stage_context(mesh, pp_axis)
+    ctx, rows = stage_context(mesh, pp_axis, tp=tp, fsdp=fsdp)
 
     def embed_fn(ep, tokens_mb, sp):
         tokens = rows(tokens_mb)
@@ -403,13 +409,14 @@ def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto")
 
 
 def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
-                      n_microbatches: int = 1, attn_impl: str = "auto"):
+                      n_microbatches: int = 1, attn_impl: str = "auto",
+                      tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(loss, grads)`` of ``model`` by the 1F1B pipeline, as Llama's.
     The tied ``wte`` rides the pipeline's ``shared_params``: stage 0's
     embedding and the last stage's head both read it, and its gradient
     (the two contributions, summed over ``pp``) has one f32 accumulator."""
     embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
-                                                 attn_impl=attn_impl)
+                                                 attn_impl=attn_impl, tp=tp, fsdp=fsdp)
     first, blocks = stage_blocks(model.layers, mesh, pp_axis)
     loss, (g_ep, g_lp, g_hp, g_sp) = pipeline_value_and_grad(
         {"wpe.weight": model.wpe.weight}, blocks,

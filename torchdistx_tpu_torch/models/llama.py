@@ -325,15 +325,16 @@ class Llama(nn.Module):
         microbatch)."""
         cfg = self.cfg
         x = F.embedding(tokens, ctx.weight(self.embed.weight))
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        cos, sin = _rope_tables(_stage_positions(tokens, ctx), cfg.rope_theta,
+                                cfg.head_dim // 2, x.dtype)
         _, blocks = stage_blocks(self.layers, mesh, pp_axis)
         return pipeline_forward(x, blocks, lambda h, blk: blk(h, cos, sin, attn_impl, ctx),
                                 mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches)
 
     def forward(self, tokens, attn_impl: str = "auto", *, mesh=None,
                 seq_axis: Optional[str] = None, seq_layout: str = "contiguous",
-                pp_axis: Optional[str] = None, n_microbatches: int = 1):
+                pp_axis: Optional[str] = None, n_microbatches: int = 1,
+                tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32.
 
         With ``mesh``, ``tokens`` is the global batch on every rank and the
@@ -344,11 +345,14 @@ class Llama(nn.Module):
         (:func:`~torchdistx_tpu_torch.parallel.pipeline.pipeline_forward`)
         with ``n_microbatches`` microbatches, each rank its stage; every
         rank returns the logits (a ``DTensor`` on the stage's mesh, or the
-        whole tensor when ``pp`` is the mesh's only axis)."""
+        whole tensor when ``pp`` is the mesh's only axis); with
+        ``seq_axis`` each stage's attention is the ring over it.  ``tp`` /
+        ``fsdp`` name the mesh axes of those roles (``None``: none)."""
+        axes = {"tp": tp, "fsdp": fsdp}
         if pp_axis is not None:
             ctx, tokens, _, impl = stage_inputs(
                 tokens, None, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
-                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout)
+                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout, **axes)
             x = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
             logits = self._logits(contiguous_rows(x, ctx, n_microbatches), ctx).float()
             return logits if ctx is SINGLE else ctx.dtensor(logits, ctx.placements(heads=False))
@@ -356,13 +360,14 @@ class Llama(nn.Module):
             return self._head(self._hidden(tokens, attn_impl))
         ctx, tokens, _, positions, attn_impl, pre = local_inputs(
             tokens, None, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, **axes)
         logits = self._logits(self._hidden(tokens, attn_impl, ctx, positions, pre), ctx)
         return ctx.dtensor(logits.float(), ctx.placements(heads=False))
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
              seq_axis: Optional[str] = None, seq_layout: str = "contiguous",
-             pp_axis: Optional[str] = None, n_microbatches: int = 1):
+             pp_axis: Optional[str] = None, n_microbatches: int = 1,
+             tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
         """Mean next-token cross-entropy, f32 scalar (the JAX ``loss_fn``).
 
         The head's logits stay in the parameters' dtype, as the JAX
@@ -371,17 +376,19 @@ class Llama(nn.Module):
         ``mesh``, ``tokens`` and ``targets`` are the global batch on every
         rank, and every rank returns the global mean.  ``pp_axis`` /
         ``n_microbatches`` as in :meth:`forward` (the GPipe schedule; its
-        backward is the pipeline's transposed schedule).
+        backward is the pipeline's transposed schedule), as are ``tp`` and
+        ``fsdp``.
         """
+        axes = {"tp": tp, "fsdp": fsdp}
         if pp_axis is not None:
             ctx, tokens, targets, impl = stage_inputs(
                 tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
-                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout)
+                attn_impl=attn_impl, seq_axis=seq_axis, seq_layout=seq_layout, **axes)
             x = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
         else:
             ctx, tokens, targets, positions, attn_impl, pre = local_inputs(
                 tokens, targets, mesh=mesh, seq_axis=seq_axis, seq_layout=seq_layout,
-                attn_impl=attn_impl)
+                attn_impl=attn_impl, **axes)
             x = self._hidden(tokens, attn_impl, ctx, positions, pre)
         logits = self._logits(x, ctx)
         nll = torch.logsumexp(logits.float(), dim=-1) - logits.gather(
@@ -457,6 +464,13 @@ class Llama(nn.Module):
 # last stage.
 
 
+def _stage_positions(tokens, ctx):
+    """``(1, s)``: the global positions of a pipeline stage's columns (its
+    offset along the sequence axis, if the stage has one)."""
+    s = tokens.shape[1]
+    return (torch.arange(s, device=tokens.device) + ctx.seq_offset(s))[None]
+
+
 def _rope_cache(cfg):
     """``(cos, sin)`` of positions ``arange(S)``, made once per ``(S,
     device, dtype)``."""
@@ -472,7 +486,8 @@ def _rope_cache(cfg):
     return get
 
 
-def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto",
+              tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
     schedule, on this rank's stage context (the mesh without ``pp_axis``):
     ``embed_fn(ep, tokens_mb)`` and ``head_loss_fn(hp, h, targets_mb)`` take
@@ -481,7 +496,7 @@ def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto")
     without remat (the pipeline recomputes the stage)."""
     from ..ops.attention import resolve_stage_attn_impl
 
-    ctx, rows = stage_context(mesh, pp_axis)
+    ctx, rows = stage_context(mesh, pp_axis, tp=tp, fsdp=fsdp)
     rope = _rope_cache(model.cfg)
 
     def embed_fn(ep, tokens_mb):
@@ -502,14 +517,15 @@ def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto")
 
 
 def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
-                      n_microbatches: int = 1, attn_impl: str = "auto"):
+                      n_microbatches: int = 1, attn_impl: str = "auto",
+                      tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(loss, grads)`` of ``model`` by the 1F1B pipeline: the global
     batch's loss on every rank and ``{name: gradient}`` of this rank's
     parameters (its stage's layers, the embedding and the head), placed as
     the parameters; a drop-in for ``loss`` + ``backward`` in pipeline
     training, with O(P) stashed activations where GPipe keeps O(M)."""
     embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
-                                                 attn_impl=attn_impl)
+                                                 attn_impl=attn_impl, tp=tp, fsdp=fsdp)
     first, blocks = stage_blocks(model.layers, mesh, pp_axis)
     loss, (g_ep, g_lp, g_hp) = pipeline_value_and_grad(
         {"embed.weight": model.embed.weight}, blocks,

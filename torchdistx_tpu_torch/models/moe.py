@@ -10,19 +10,29 @@ over the expert dim, and the outputs are combined gate-weighted.  A
 load-balancing aux loss (the mean over layers of E * sum_e f_e * p_e, f
 counting all k choices) is added to the loss with ``router_aux_coef``.
 
-One device runs every expert: the JAX ``ep`` sharding (all-to-alls over
-the expert axis) is not ported yet (a mesh with an ``ep`` axis larger than
-1 raises); :func:`param_specs` gives the ``ep`` layout already.  Under a
-pipeline (``pp_axis=``, :func:`pp_value_and_grad`) the router's aux loss
-rides the pipelined activation as a second leaf, one value per row (each
-row of a microbatch carries its microbatch's running sum over the layers),
-and routing and capacity are per microbatch, as in JAX.  On a mesh (``mesh=``, ``seq_axis=``) the attention half
-computes as Llama's (see :mod:`~torchdistx_tpu_torch.models.llama`), and
-each layer's routed FFN runs on every rank over all the tokens (gathered
-over the data axes), so that the capacity and the positions are the global
-batch's, as under the JAX ``jit``; each rank keeps its rows.  Expert weights keep
-the JAX layout ``(E, in, out)``, so the products are plain ``bmm``; the
-router is an ``nn.Linear`` like the other projections.
+Under a pipeline (``pp_axis=``, :func:`pp_value_and_grad`) the router's
+aux loss rides the pipelined activation as a second leaf, one value per
+row (each row of a microbatch carries its microbatch's running sum over the
+layers), and routing and capacity are per microbatch, as in JAX.  On a mesh
+(``mesh=``, ``seq_axis=``) the attention half computes as Llama's (see
+:mod:`~torchdistx_tpu_torch.models.llama`), and each layer routes on every
+rank over all the tokens (gathered over the data axes), so that the
+capacity and the positions are the global batch's, as under the JAX
+``jit``; each rank keeps its rows.  Expert weights keep the JAX layout
+``(E, in, out)``, so the products are plain ``bmm``; the router is an
+``nn.Linear`` like the other projections.
+
+Expert parallelism (a mesh with an ``ep`` axis, :func:`param_specs`'
+layout): each rank holds its ``E / ep`` experts of every layer, and
+:func:`moe_ffn_ep` moves rows to them: the ``ep`` ranks of a data block
+hold the same tokens (the batch is not split over ``ep``), so each takes
+the ``1 / ep`` contiguous share of them of its ``ep`` coordinate, sends its
+share's kept choices to their experts' owners and gets their outputs back
+by ``all_to_all_single`` over the ``ep`` group (the collective that XLA's
+partitioner makes of the JAX dispatch and combine einsums), and the
+shares' outputs are gathered over ``ep`` again.  Routing stays the global
+one, so ``experts``, ``pos`` and ``keep`` are the JAX values exactly and a
+dropped choice is never sent.
 """
 
 from __future__ import annotations
@@ -48,10 +58,10 @@ from ..parallel.pipeline import (
     stage_inputs,
     stage_specs,
 )
-from ..parallel.sharding import PartitionSpec as P, mesh_axis_sizes
+from ..parallel.sharding import PartitionSpec as P
 from ..parallel.spmd import SINGLE, local_inputs
 from . import llama as llama_mod
-from .llama import LlamaConfig, RMSNorm, _rope_tables
+from .llama import LlamaConfig, RMSNorm, _rope_tables, _stage_positions
 
 __all__ = [
     "MoEConfig",
@@ -60,6 +70,7 @@ __all__ = [
     "param_specs",
     "route",
     "moe_ffn",
+    "moe_ffn_ep",
     "pp_pieces",
     "pp_value_and_grad",
     "MoE",
@@ -148,6 +159,22 @@ def route(h, router_w, cfg: MoEConfig) -> Routing:
     return Routing(probs, gates, experts, pos, pos < cap, cap)
 
 
+def _route_and_aux(h, router_w, cfg: MoEConfig):
+    """:func:`route` and the load-balancing aux loss (E * sum_e f_e * p_e,
+    f counting all k choices) of ``h (B, S, D)``."""
+    r = route(h, router_w, cfg)
+    frac = F.one_hot(r.experts, cfg.n_experts).float().sum(dim=1).mean(dim=0)
+    frac = frac / cfg.experts_per_token
+    return r, cfg.n_experts * (frac * r.probs.mean(dim=0)).sum()
+
+
+def _expert(x, w_gate, w_up, w_down):
+    """The SiLU-gated expert FFN, batched over a leading expert dim or of
+    one expert."""
+    mm = torch.bmm if x.dim() == 3 else torch.mm
+    return mm(F.silu(mm(x, w_gate)) * mm(x, w_up), w_down)
+
+
 def moe_ffn(h, router_w, e_gate, e_up, e_down, cfg: MoEConfig):
     """Top-k routed expert FFN: ``h (B, S, D)`` -> ``(out (B, S, D), aux)``.
 
@@ -168,29 +195,87 @@ def moe_ffn(h, router_w, e_gate, e_up, e_down, cfg: MoEConfig):
     e, k = cfg.n_experts, cfg.experts_per_token
     ht = h.reshape(b * s, d)
     with record_function("moe.route"):
-        r = route(h, router_w, cfg)
+        r, aux = _route_and_aux(h, router_w, cfg)
         cap = r.capacity
         experts, keep = r.experts.reshape(-1), r.keep.reshape(-1)
         slot = experts * cap + r.pos.reshape(-1).clamp(max=cap - 1)
-        frac = F.one_hot(r.experts, e).float().sum(dim=1).mean(dim=0) / k
-        aux = e * (frac * r.probs.mean(dim=0)).sum()
     with record_function("moe.dispatch"):
         dump = torch.where(keep, slot, e * cap)
         dispatch = ht.new_zeros(e * cap + 1, d).index_copy(
             0, dump, ht.repeat_interleave(k, dim=0))[:-1].view(e, cap, d)
     with record_function("moe.experts"):
-        gated = F.silu(torch.bmm(dispatch, e_gate))
-        up = torch.bmm(dispatch, e_up)
-        expert_out = torch.bmm(gated * up, e_down).reshape(e * cap, d)
+        expert_out = _expert(dispatch, e_gate, e_up, e_down).reshape(e * cap, d)
     with record_function("moe.combine"):
         weights = (r.gates.reshape(-1) * keep).to(ht.dtype)
         out = (expert_out[slot] * weights[:, None]).reshape(b * s, k, d).sum(dim=1)
     return out.reshape(b, s, d), aux
 
 
+def moe_ffn_ep(h, router_w, e_gate, e_up, e_down, cfg: MoEConfig, ctx):
+    """:func:`moe_ffn` of this rank's block ``h (b, s, D)`` under an ``ep``
+    axis of ``ctx`` (an ``SpmdContext``): ``(out (b, s, D), aux)``, with
+    ``e_gate``/``e_up``/``e_down`` this rank's ``E / ep`` experts.
+
+    Routing is the global batch's on every rank (the tokens gathered over
+    the data axes), the same bits everywhere.  The ``ep`` ranks of a block
+    hold the same ``T`` tokens; rank ``j`` takes the contiguous ``T / ep``
+    of coordinate ``j`` (an even split of the tokens, so of the rows sent
+    on average, with no exchange needed to agree on it), sorts its share's
+    kept choices by expert (dropped ones are never sent), swaps the
+    per-expert counts with the group (one ``all_to_all_single`` of ``E``
+    counts), sends the rows to the experts' owners and gets their outputs
+    back by ``all_to_all_single`` (whose backward is the transposed
+    exchange).  An owner runs each of its experts on the rows it got,
+    grouped by expert.  The combine weights each choice's output by its
+    gate as :func:`moe_ffn` does, a dropped choice by 0, and the shares'
+    outputs are gathered over ``ep``.  The counts are read on the host
+    once a layer (the split sizes)."""
+    b, s, d = h.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    n_ep, e_loc = ctx.ep_size, e_gate.shape[0]
+    t = b * s
+    if e % n_ep or e_loc != e // n_ep:
+        raise ValueError(f"{e} experts do not split over ep={n_ep} "
+                         f"(this rank holds {e_loc})")
+    if t % n_ep:
+        raise ValueError(f"a rank's {t} tokens do not split over ep={n_ep}")
+    t_s = t // n_ep
+    with record_function("moe.route"):
+        h_all = ctx.gather_tokens(h)
+        r, aux = _route_and_aux(h_all, router_w, cfg)
+        block = [ctx.local_tokens(x.reshape(h_all.shape[:2] + (k,)), h).reshape(t, k)
+                 for x in (r.experts, r.keep, r.gates)]
+        start = ctx.mesh.get_local_rank(ctx.ep) * t_s
+        experts, keep = (x.narrow(0, start, t_s).reshape(-1) for x in block[:2])
+        gates = ctx.ep_share(block[2]).reshape(-1)
+    with record_function("moe.dispatch"):
+        # Kept choices by expert, then the dropped ones (never sent).
+        key = torch.where(keep, experts, e)
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=e + 1)[:e]
+        got = ctx.ep_counts(counts).view(n_ep, e_loc)  # rows from each rank, per expert
+        sizes = torch.cat([counts.view(n_ep, e_loc).sum(1), got.sum(1), got.sum(0)]).tolist()
+        send, recv, per_expert = sizes[:n_ep], sizes[n_ep:2 * n_ep], sizes[2 * n_ep:]
+        sent = order[:sum(send)]
+        rows = ctx.ep_exchange(ctx.ep_share(h.reshape(t, d))[sent // k], send, recv)
+        # The rows arrive by sender, then by expert: grouped by expert here.
+        local = torch.arange(e_loc, device=h.device).repeat(n_ep)
+        group = torch.argsort(torch.repeat_interleave(local, got.reshape(-1)), stable=True)
+    with record_function("moe.experts"):
+        outs = [_expert(x, e_gate[j], e_up[j], e_down[j])
+                for j, x in enumerate(rows[group].split(per_expert))]
+        y = torch.cat(outs).index_select(0, torch.argsort(group))
+        back = ctx.ep_exchange(y, recv, send)
+    with record_function("moe.combine"):
+        out = back.new_zeros(t_s * k, d).index_copy(0, sent, back)
+        weights = (gates * keep).to(h.dtype)
+        out = (out * weights[:, None]).reshape(t_s, k, d).sum(dim=1)
+    return ctx.ep_gather(out).reshape(b, s, d), aux
+
+
 class MoEBlock(llama_mod.Block):
-    """A Llama block whose feed-forward half is :func:`moe_ffn`; returns
-    ``(x, aux)``."""
+    """A Llama block whose feed-forward half is :func:`moe_ffn` (or, under
+    an ``ep`` axis, :func:`moe_ffn_ep`); returns ``(x, aux)``."""
 
     def _build_mlp(self, cfg: MoEConfig, kw: dict) -> None:
         d, f, e = cfg.dim, cfg.ffn_dim, cfg.n_experts
@@ -204,9 +289,12 @@ class MoEBlock(llama_mod.Block):
                 pre_permuted: bool = False):
         x = self.attend(x, cos, sin, attn_impl, ctx, pre_permuted)
         h = self.mlp_norm(x, ctx)
-        out, aux = moe_ffn(ctx.gather_tokens(h), ctx.weight(self.router.weight),
-                           ctx.weight(self.e_gate), ctx.weight(self.e_up),
-                           ctx.weight(self.e_down), self.cfg)
+        router = ctx.weight(self.router.weight)
+        stacks = [ctx.weight(w, experts=True) for w in (self.e_gate, self.e_up, self.e_down)]
+        if ctx.ep_size > 1:
+            out, aux = moe_ffn_ep(h, router, *stacks, self.cfg, ctx)
+            return x + out, aux
+        out, aux = moe_ffn(ctx.gather_tokens(h), router, *stacks, self.cfg)
         return x + ctx.local_tokens(out, h), aux
 
 
@@ -263,18 +351,16 @@ class MoE(nn.Module):
         return x, aux_sum
 
     def _run(self, tokens, targets, attn_impl, mesh, seq_axis, pp_axis=None,
-             n_microbatches=1):
-        if mesh is not None and mesh_axis_sizes(mesh).get("ep", 1) > 1:
-            raise ValueError("MoE on a mesh with an 'ep' axis larger than 1 needs the "
-                             "expert all-to-all, which is not ported yet (ROADMAP A5b)")
+             n_microbatches=1, axes=None):
+        axes = axes or {}
         if pp_axis is not None:
             ctx, tokens, targets, impl = stage_inputs(
                 tokens, targets, mesh=mesh, axis=pp_axis, n_microbatches=n_microbatches,
-                attn_impl=attn_impl, seq_axis=seq_axis)
+                attn_impl=attn_impl, seq_axis=seq_axis, **axes)
             x, aux_sum = self._stage_hidden(tokens, impl, ctx, mesh, pp_axis, n_microbatches)
         else:
             ctx, tokens, targets, positions, attn_impl, _ = local_inputs(
-                tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl)
+                tokens, targets, mesh=mesh, seq_axis=seq_axis, attn_impl=attn_impl, **axes)
             x, aux_sum = self._hidden(tokens, attn_impl, ctx, positions)
         logits = F.linear(self.norm(x, ctx), ctx.weight(self.lm_head.weight)).float()
         return ctx, targets, logits, aux_sum / self.cfg.n_layers
@@ -285,8 +371,8 @@ class MoE(nn.Module):
         capacity are per microbatch, as in JAX)."""
         cfg = self.cfg
         x = F.embedding(tokens, ctx.weight(self.embed.weight))
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        cos, sin = _rope_tables(_stage_positions(tokens, ctx), cfg.rope_theta,
+                                cfg.head_dim // 2, x.dtype)
         _, blocks = stage_blocks(self.layers, mesh, pp_axis)
         act = {"h": x, "aux": torch.zeros(x.shape[0], 1, dtype=torch.float32, device=x.device)}
         out = pipeline_forward(act, blocks, _pp_block(cos, sin, attn_impl, ctx), mesh=mesh,
@@ -295,15 +381,18 @@ class MoE(nn.Module):
 
     def forward(self, tokens, attn_impl: str = "auto", return_aux: bool = False, *,
                 mesh=None, seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
-                n_microbatches: int = 1):
+                n_microbatches: int = 1, tp: Optional[str] = "tp",
+                fsdp: Optional[str] = "fsdp"):
         """Token ids ``(B, S)`` -> logits ``(B, S, V)`` float32; with
         ``return_aux`` also the aux loss averaged over layers.  With
         ``mesh``, ``tokens`` is the global batch on every rank and the
-        logits are a ``DTensor`` (this rank's rows and columns);
-        ``pp_axis`` / ``n_microbatches`` run the blocks through the GPipe
-        pipeline (as Llama's ``forward``; routing per microbatch)."""
+        logits are a ``DTensor`` (this rank's rows and columns), the experts
+        over the mesh's ``ep`` axis if it has one; ``pp_axis`` /
+        ``n_microbatches`` run the blocks through the GPipe pipeline (as
+        Llama's ``forward``; routing per microbatch); ``tp`` / ``fsdp``
+        name the mesh axes of those roles."""
         ctx, _, logits, aux = self._run(tokens, None, attn_impl, mesh, seq_axis, pp_axis,
-                                        n_microbatches)
+                                        n_microbatches, {"tp": tp, "fsdp": fsdp})
         if pp_axis is not None:
             logits = contiguous_rows(logits, ctx, n_microbatches)
         if ctx is not SINGLE:
@@ -312,12 +401,14 @@ class MoE(nn.Module):
 
     def loss(self, tokens, targets, attn_impl: str = "auto", *, mesh=None,
              seq_axis: Optional[str] = None, pp_axis: Optional[str] = None,
-             n_microbatches: int = 1):
+             n_microbatches: int = 1, tp: Optional[str] = "tp",
+             fsdp: Optional[str] = "fsdp"):
         """Mean next-token cross-entropy plus ``router_aux_coef`` times the
         aux loss (the JAX ``loss_fn``), f32 scalar; with ``mesh``, the
-        global batch's on every rank; ``pp_axis`` as in :meth:`forward`."""
+        global batch's on every rank; ``pp_axis``, ``tp`` and ``fsdp`` as in
+        :meth:`forward`."""
         ctx, targets, logits, aux = self._run(tokens, targets, attn_impl, mesh, seq_axis,
-                                              pp_axis, n_microbatches)
+                                              pp_axis, n_microbatches, {"tp": tp, "fsdp": fsdp})
         nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
         if ctx is SINGLE:
             return nll.mean() + self.cfg.router_aux_coef * aux
@@ -341,7 +432,8 @@ def _pp_block(cos, sin, attn_impl, ctx):
 # state; the last stage folds it into the loss.
 
 
-def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto"):
+def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto",
+              tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(embed_fn, block_fn, head_loss_fn)`` of ``model`` for the 1F1B
     schedule, as Llama's, over the activation ``{"h", "aux"}``; the head's
     loss adds ``router_aux_coef`` times the microbatch's aux sum over the
@@ -349,7 +441,7 @@ def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto")
     from ..ops.attention import resolve_stage_attn_impl
 
     cfg = model.cfg
-    ctx, rows = stage_context(mesh, pp_axis)
+    ctx, rows = stage_context(mesh, pp_axis, tp=tp, fsdp=fsdp)
     rope = llama_mod._rope_cache(cfg)
 
     def embed_fn(ep, tokens_mb):
@@ -374,14 +466,13 @@ def pp_pieces(model, *, mesh=None, pp_axis: str = "pp", attn_impl: str = "auto")
 
 
 def pp_value_and_grad(model, tokens, targets, *, mesh, pp_axis: str = "pp",
-                      n_microbatches: int = 1, attn_impl: str = "auto"):
+                      n_microbatches: int = 1, attn_impl: str = "auto",
+                      tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(loss, grads)`` of ``model`` by the 1F1B pipeline, as Llama's;
-    routing and capacity per microbatch, as in the GPipe path."""
-    if mesh_axis_sizes(mesh).get("ep", 1) > 1:
-        raise ValueError("MoE on a mesh with an 'ep' axis larger than 1 needs the "
-                         "expert all-to-all, which is not ported yet (ROADMAP A5b)")
+    routing and capacity per microbatch, as in the GPipe path (the experts
+    over ``ep`` as there)."""
     embed_fn, block_fn, head_loss_fn = pp_pieces(model, mesh=mesh, pp_axis=pp_axis,
-                                                 attn_impl=attn_impl)
+                                                 attn_impl=attn_impl, tp=tp, fsdp=fsdp)
     first, blocks = stage_blocks(model.layers, mesh, pp_axis)
     loss, (g_ep, g_lp, g_hp) = pipeline_value_and_grad(
         {"embed.weight": model.embed.weight}, blocks,

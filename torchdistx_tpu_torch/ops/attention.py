@@ -89,9 +89,10 @@ def _select_impl(impl, seq_axis, *, cuda: bool) -> str:
     """Resolve ``impl="auto"``: ring when ``seq_axis`` is set; else the
     plain attention off CUDA and the flash kernel on CUDA, under a mesh on
     each rank's block.  The JAX ``_select_impl`` takes XLA's attention
-    under a mesh whose shapes do not divide (or that has an axis it does
-    not know); here the kernel runs on whatever block divides instead, so
-    CUDA tensors never take the plain version."""
+    under a mesh whose shapes do not divide, or that has an axis it does
+    not know (such as a ``"data"`` / ``"model"`` mesh); here the kernel
+    runs on whatever block divides, over the axes it is told are the batch
+    and head axes, so CUDA tensors never take the plain version."""
     if impl != "auto":
         return impl
     if seq_axis is not None:
@@ -99,34 +100,41 @@ def _select_impl(impl, seq_axis, *, cuda: bool) -> str:
     return "flash" if cuda else "plain"
 
 
-def resolve_stage_attn_impl(attn_impl: str, *, cuda: bool) -> str:
+def resolve_stage_attn_impl(attn_impl: str, *, cuda: bool,
+                            seq_axis: Optional[str] = None) -> str:
     """The attention impl for code inside a pipeline stage (shared by every
     family's pipeline path).  ``"auto"`` is the flash kernel on CUDA
-    tensors (``cuda``) and the plain attention otherwise; an explicit
-    ``"flash"`` or ``"plain"`` stands.  The JAX function pins ``"auto"`` to
-    XLA's attention and refuses its Pallas kernel because the kernel's
-    ``shard_map`` cannot nest in the pipeline's; here a stage is this
-    rank's own computation, and under ``tp`` the kernel runs on the
-    stage's mesh through ``on_blocks`` / ``flash_attention_sharded``.
-    The ring needs a sequence axis, which a pipeline stage does not take
-    (raises)."""
-    if attn_impl in ("ring", "ring_zigzag"):
+    tensors (``cuda``) and the plain attention otherwise; with a sequence
+    axis (``seq_axis``, GPipe's sp x pp) it is the contiguous ring over
+    that axis of the stage's mesh.  An explicit ``"flash"``, ``"plain"``
+    or (with ``seq_axis``) ``"ring"`` stands.  The JAX function pins
+    ``"auto"`` to XLA's full attention and refuses its Pallas kernel
+    because the kernel's ``shard_map`` cannot nest in the pipeline's; here
+    a stage is this rank's own computation, and under ``tp`` the kernel
+    runs on the stage's mesh through ``on_blocks`` /
+    ``flash_attention_sharded``, and under ``seq_axis`` the ring runs on
+    its ``sp`` group (the same values as the full attention).  The zigzag
+    ring, and the ring without a sequence axis, raise."""
+    if attn_impl == "ring_zigzag" or (attn_impl == "ring" and seq_axis is None):
         raise ValueError(f"attn_impl={attn_impl!r} cannot run inside a pipeline stage "
-                         "(it needs seq_axis); use 'auto', 'flash' or 'plain'")
+                         "(the ring needs seq_axis, and the zigzag layout does not compose "
+                         "with pp); use 'auto', 'flash' or 'plain'")
     if attn_impl == "auto":
-        return "flash" if cuda else "plain"
+        return "ring" if seq_axis is not None else "flash" if cuda else "plain"
     return attn_impl
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,
-              seq_axis: Optional[str] = None, pre_permuted: bool = False):
+              seq_axis: Optional[str] = None, pre_permuted: bool = False,
+              batch_axes=("dp", "fsdp"), head_axis: Optional[str] = "tp"):
     """Dispatching attention entry point used by the model.
 
     ``impl``: ``"auto" | "plain" | "flash" | "ring" | "ring_zigzag"``.
     ``auto`` is ring attention when ``seq_axis`` is set; else the
     hand-written flash kernel for CUDA tensors and :func:`mha_reference`
     otherwise.  Under ``mesh`` either runs on each rank's block: the batch
-    over ``dp``/``fsdp`` and the heads over ``tp`` as far as they divide
+    over ``batch_axes`` and the heads over ``head_axis`` (``None``: whole)
+    as far as they divide
     (:func:`~torchdistx_tpu_torch.ops.cuda.flash_attention.
     flash_attention_sharded` when both do).  ``"flash"`` on a tensor that is not on
     CUDA raises.  ``ring_zigzag`` is the load-balanced causal ring
@@ -144,7 +152,8 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,
         return ring_attention(
             q, k, v, mesh=mesh, axis=seq_axis, causal=causal,
             schedule="zigzag" if impl == "ring_zigzag" else "contiguous",
-            pre_permuted=pre_permuted,
+            pre_permuted=pre_permuted, batch_axes=batch_axes,
+            head_axes=() if head_axis is None else (head_axis,),
         )
     if pre_permuted:
         raise ValueError("pre_permuted is only meaningful with ring_zigzag")
@@ -154,7 +163,7 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,
         from .cuda.flash_attention import on_blocks
 
         return on_blocks(lambda a, b, c: mha_reference(a, b, c, causal=causal),
-                         q, k, v, mesh=mesh)
+                         q, k, v, mesh=mesh, batch_axes=batch_axes, head_axis=head_axis)
     if impl == "flash":
         if not cuda:
             raise ValueError(
@@ -169,10 +178,11 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto", mesh=None,
 
         if mesh is None:
             return flash_attention(q, k, v, causal=causal)
-        if shardable(mesh, q.shape, k.shape):
-            return flash_attention_sharded(q, k, v, causal=causal, mesh=mesh)
+        axes = dict(batch_axes=batch_axes, head_axis=head_axis)
+        if shardable(mesh, q.shape, k.shape, **axes):
+            return flash_attention_sharded(q, k, v, causal=causal, mesh=mesh, **axes)
         # Shapes that do not divide over the mesh (an odd batch, kv heads
         # fewer than tp): the kernel on the block that does divide.
         return on_blocks(lambda a, b, c: flash_attention(a, b, c, causal=causal),
-                         q, k, v, mesh=mesh)
+                         q, k, v, mesh=mesh, **axes)
     raise ValueError(f"unknown attention impl: {impl!r} (expected {_IMPLS})")

@@ -120,66 +120,72 @@ def stage_blocks(layers: Sequence, mesh, axis: str = "pp") -> Tuple[int, list]:
 
 
 def microbatch_rows(x: torch.Tensor, n_microbatches: int, shard) -> torch.Tensor:
-    """This rank's rows of a global batch ``x (B, ...)`` for a pipeline of
+    """This rank's block of a global batch ``x (B, ...)`` for a pipeline of
     ``n_microbatches``: microbatch ``m`` is the global rows ``m * B / M`` up
-    to the next one's (the JAX split), and ``shard`` cuts each microbatch's
-    rows over the data axes (``SpmdContext.shard_batch``; None: whole).  The
-    result holds the rank's part of microbatch 0, then of 1, ..."""
+    to the next one's (the JAX split), and ``shard`` cuts each microbatch
+    to this rank's block of it, its rows over the data axes and, with a
+    sequence axis, its columns (``SpmdContext.shard_batch``; None: whole).
+    The result holds the rank's block of microbatch 0, then of 1, ..."""
     b = x.shape[0]
     if b % n_microbatches:
         raise ValueError(f"batch {b} not divisible by {n_microbatches} microbatches")
     if shard is None:
         return x
-    micro = x.reshape((n_microbatches, b // n_microbatches) + tuple(x.shape[1:]))
-    local = shard({"tokens": micro.transpose(0, 1)})["tokens"].transpose(0, 1)
-    return local.reshape((-1,) + tuple(x.shape[1:]))
+    return torch.cat([shard({"tokens": micro})["tokens"]
+                      for micro in x.chunk(n_microbatches)])
 
 
 def stage_inputs(tokens, targets, *, mesh, axis: str, n_microbatches: int,
                  attn_impl: str = "auto", seq_axis: Optional[str] = None,
-                 seq_layout: str = "contiguous"):
+                 seq_layout: str = "contiguous", tp: Optional[str] = "tp",
+                 fsdp: Optional[str] = "fsdp"):
     """What a family's pipelined forward runs on: ``(ctx, tokens, targets,
     attn_impl)``, the context of this rank's stage (an ``SpmdContext`` on
-    the stage's mesh, or ``SINGLE`` when a stage is one rank), the global
-    ``(B, S)`` batch's rows of this rank (:func:`microbatch_rows`), and
-    the attention impl inside a stage (``resolve_stage_attn_impl``).  The
-    zigzag layout does not compose with a pipeline (the JAX message), and
-    sequence parallelism inside a stage is not ported yet."""
+    the stage's mesh with ``seq_axis``, ``tp`` and ``fsdp``, or ``SINGLE``
+    when a stage is one rank), the global ``(B, S)`` batch's block of this
+    rank (:func:`microbatch_rows`), and the attention impl inside a stage
+    (``resolve_stage_attn_impl``: the ring over ``seq_axis`` when there is
+    one).  The zigzag layout does not compose with a pipeline (the JAX
+    message)."""
     from ..ops.attention import resolve_stage_attn_impl
 
     if seq_layout != "contiguous":
         raise ValueError("seq_layout='zigzag' does not compose with pp")
-    if seq_axis is not None:
-        raise ValueError(f"seq_axis={seq_axis!r} with pp_axis={axis!r}: sequence parallelism "
-                         "inside a pipeline stage is not ported yet (ROADMAP A5b)")
-    ctx, _ = stage_context(mesh, axis)
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if seq_axis is not None and seq_axis not in names:
+        raise ValueError(f"mesh has no axis {seq_axis!r} (axes: {names})")
+    ctx, _ = stage_context(mesh, axis, seq_axis=seq_axis, tp=tp, fsdp=fsdp)
     shard = getattr(ctx, "shard_batch", None)
     tokens = microbatch_rows(tokens, n_microbatches, shard)
     if targets is not None:
         targets = microbatch_rows(targets, n_microbatches, shard)
-    return ctx, tokens, targets, resolve_stage_attn_impl(attn_impl, cuda=tokens.is_cuda)
+    return ctx, tokens, targets, resolve_stage_attn_impl(attn_impl, cuda=tokens.is_cuda,
+                                                         seq_axis=seq_axis)
 
 
-def stage_context(mesh, axis: str):
+def stage_context(mesh, axis: str, *, seq_axis: Optional[str] = None,
+                  tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """``(ctx, rows)``: the context of this rank's stage (an
     ``SpmdContext`` on the mesh without ``axis``, or ``SINGLE`` when a
     stage is one rank or there is no mesh), and the function that cuts a
-    global ``(b, ...)`` microbatch to this rank's rows of it over the data
-    axes (the 1F1B pieces' inputs)."""
+    global ``(b, ...)`` microbatch to this rank's block of it (the 1F1B
+    pieces' inputs)."""
     from .sharding import stage_mesh
     from .spmd import model_context
 
-    ctx = model_context(None if mesh is None else stage_mesh(mesh, axis), None)
+    ctx = model_context(None if mesh is None else stage_mesh(mesh, axis), seq_axis,
+                        tp=tp, fsdp=fsdp)
     if not hasattr(ctx, "shard_batch"):
         return ctx, lambda x: x
     return ctx, lambda x: ctx.shard_batch({"tokens": x})["tokens"]
 
 
 def contiguous_rows(x, ctx, n_microbatches: int):
-    """This rank's rows of ``x`` in the batch's contiguous split over the
-    data axes (``batch_sharding``'s), from its rows in the pipeline's
-    split (:func:`microbatch_rows`): gathered over the data axes and cut
-    again (differentiable).  Without data axes the two are the same."""
+    """This rank's block of ``x`` in the batch's contiguous split over the
+    data axes (``batch_sharding``'s), from its block in the pipeline's
+    split (:func:`microbatch_rows`): gathered over the data (and sequence)
+    axes and cut again (differentiable).  Without data axes the two are
+    the same."""
     if not getattr(ctx, "batch_axes", None):
         return x
     full = ctx.gather_tokens(x)  # (ranks, M, rows) ...

@@ -16,7 +16,10 @@ averages with a ``mean`` over it, the port's replicas are processes and
 ``init`` / ``update`` pair over a :class:`SlowMoState`; here
 :class:`SlowMomentumOptimizer` is a ``torch.optim.Optimizer`` whose
 ``step()`` updates the parameters in place, and ``prev`` and ``momentum``
-are its per-parameter state.
+are its per-parameter state.  A replica sharded over ranks (``DTensor``
+parameters, ``tp`` / ``fsdp`` within it) averages each rank's local shard
+over ``group``, whose ranks hold the same shard of every replica, and keeps
+``prev`` and ``momentum`` per shard.
 """
 
 from __future__ import annotations
@@ -55,6 +58,12 @@ def _group_or_default(group):
     if dist.is_available() and dist.is_initialized():
         return dist.group.WORLD
     return None
+
+
+def _local(p: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` parameter's local shard (a view), a plain one as it
+    is."""
+    return p.to_local() if hasattr(p, "to_local") else p
 
 
 def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
@@ -159,8 +168,9 @@ class SlowMomentumOptimizer(torch.optim.Optimizer):
         params = self._params()
         for p in params:
             if p not in self.state:
-                self.state[p] = {"prev": p.detach().clone(),
-                                 "momentum": torch.zeros_like(p)}
+                local = _local(p)
+                self.state[p] = {"prev": local.detach().clone(),
+                                 "momentum": torch.zeros_like(local)}
         loss = self.base.step(closure)
         self.slowmo_step += 1
         if self.slowmo_step % self.slowmo_freq == 0:
@@ -170,13 +180,14 @@ class SlowMomentumOptimizer(torch.optim.Optimizer):
     def _average(self, params) -> None:
         group = _group_or_default(self.group)
         for p in params:  # one parameter at a time: one float32 copy in flight
+            local = _local(p)  # a view of the parameter's own shard
             # One replica: the mean is the parameter itself.
-            avg = p if group is None else _group_mean(p, group)
+            avg = local if group is None else _group_mean(local, group)
             state = self.state[p]
             prev, m = state["prev"], state["momentum"]
             m.mul_(self.slowmo_factor).add_((prev - avg).div_(self.base_lr))
             prev.sub_(m, alpha=self.slowmo_lr * self.base_lr)
-            p.copy_(prev)
+            local.copy_(prev)
 
     # -- checkpointing ------------------------------------------------------
     # The reference's contract (slowmo_optimizer.py:156-189): the

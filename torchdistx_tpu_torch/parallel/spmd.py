@@ -26,32 +26,36 @@ own blocks, and :class:`SpmdContext` supplies what the partitioner inserts:
   :func:`~torchdistx_tpu_torch.ops.attention.attention`, which runs the
   kernel on each rank's block or the ring over the sequence axis;
 - **tokens** (:meth:`gather_tokens`): every rank's rows of an activation
-  (the MoE router's global capacity needs all tokens).
+  (the MoE router's global capacity needs all tokens);
+- **experts** (:meth:`ep_share`, :meth:`ep_exchange`, :meth:`ep_gather`):
+  under an ``ep`` axis, this rank's share of its block's tokens, the rows
+  sent to their experts' owners and back by ``all_to_all_single``, and the
+  shares gathered again.
 
-Axes: ``dp`` and ``fsdp`` split the batch (the JAX ``batch_sharding``), the
-sequence axis splits the sequence, ``tp`` splits heads and the MLP width,
-and any other axis replicates the compute.  Axes of size 1 take no part.
-Every collective is issued in the same order on every rank (the autograd
-graph is the same on each), over the groups of ``mesh.get_group(axis)``.
+Axes: ``dp`` and the ``fsdp`` axis split the batch (the JAX
+``batch_sharding``), the sequence axis splits the sequence, the ``tp`` axis
+splits heads and the MLP width, ``ep`` splits the MoE expert stacks, and
+any other axis replicates the compute.  The ``tp`` and ``fsdp`` roles take
+the names that the train step is given (``tp=``/``fsdp=``, ``None`` for
+none).  Axes of size 1 take no part.  Every collective is issued in the
+same order on every rank (the autograd graph is the same on each), over the
+groups of ``mesh.get_group(axis)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
 from .sharding import mesh_axis_sizes
 
-__all__ = ["DATA_AXES", "SINGLE", "SpmdContext", "local_inputs", "model_context", "whole"]
+__all__ = ["SINGLE", "SpmdContext", "local_inputs", "model_context", "replicated", "whole"]
 
-# Mesh axes that split the batch (the JAX ``batch_sharding``'s data axes),
-# and the axis the model computes tensor-parallel over (the attention
-# wrappers' head axis).
-DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
-TP_AXIS = "tp"
+# The mesh axis that holds MoE experts (the JAX ``param_specs``' ``ep``).
+EP_AXIS = "ep"
 
 
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -182,23 +186,104 @@ class _ReduceForward(torch.autograd.Function):
 
 
 class _ReduceBackward(torch.autograd.Function):
-    """Identity forward; all-reduce (sum) over ``group`` in the backward."""
+    """Identity forward; all-reduce (sum, or with ``mean`` the mean) over
+    ``group`` in the backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, mean=False):
+        ctx.group, ctx.mean = group, mean
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.group), None
+        grad = _all_reduce(grad, ctx.group)
+        if ctx.mean:
+            grad.div_(dist.get_world_size(ctx.group))
+        return grad, None, None
+
+
+class _Share(torch.autograd.Function):
+    """Forward: this rank's part of ``x`` along dim 0 (``group``'s ranks
+    take contiguous equal parts); backward: the parts' gradients gathered
+    (every rank of ``group`` held the whole ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shard_of(x, 0, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad.contiguous(), 0, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Rows of ``x (N, ...)`` exchanged over ``group``: ``send[j]`` rows
+    (in order) to rank ``j``, ``recv[j]`` rows from it; the backward sends
+    the gradients back the same way reversed."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _exchange(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.recv, ctx.send, ctx.group), None, None, None
+
+
+def _exchange(x, send, recv, group):
+    x = x.contiguous()
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group)
+    return out
+
+
+class _PartialToReplicate(torch.autograd.Function):
+    """A ``DTensor`` scalar's local value reduced over its ``Partial`` mesh
+    dims by c10d all-reduces (``groups``, each with its size when the
+    partial is a mean); identity backward: ``to_local``'s backward treats
+    the gradient as the global value's, as ``DTensor`` ops do."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.detach().clone()
+        for group, mean in groups:
+            dist.all_reduce(x, group=group)
+            if mean:
+                x = x / dist.get_world_size(group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def replicated(t):
+    """The global value of a ``DTensor`` scalar as a plain tensor on every
+    rank, reduced over its ``Partial`` mesh dims by c10d all-reduces
+    (differentiable; gloo runs them on CUDA tensors, where ``DTensor``'s
+    functional collectives fault); a plain tensor as it is.  A loss written
+    in torch ops on a mesh model's ``DTensor`` logits ends ``Partial`` over
+    the data axes."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    groups = tuple((mesh.get_group(i), p.reduce_op == "avg")
+                   for i, p in enumerate(t.placements)
+                   if isinstance(p, Partial) and mesh.size(i) > 1)
+    return _PartialToReplicate.apply(t.to_local(), groups)
 
 
 class SpmdContext:
     """The collectives of one rank on ``mesh`` (a named ``DeviceMesh``) for a
     model step whose sequence is split over ``seq_axis`` (or not)."""
 
-    def __init__(self, mesh, *, seq_axis: Optional[str] = None):
+    def __init__(self, mesh, *, seq_axis: Optional[str] = None, tp: Optional[str] = "tp",
+                 fsdp: Optional[str] = "fsdp"):
         sizes = mesh_axis_sizes(mesh)
         if seq_axis is not None and seq_axis not in sizes:
             raise ValueError(f"mesh has no axis {seq_axis!r} (axes {tuple(sizes)})")
@@ -206,9 +291,11 @@ class SpmdContext:
         self.names: List[str] = list(sizes)
         self.sizes = sizes
         live = [a for a in self.names if sizes[a] > 1]
-        self.batch_axes = [a for a in live if a in DATA_AXES]
+        # The batch splits over dp and the fsdp axis (the JAX batch_sharding).
+        self.batch_axes = [a for a in live if a in ("dp", fsdp)]
         self.seq_axis = seq_axis
-        self.tp = TP_AXIS if TP_AXIS in live else None
+        self.tp = tp if tp in live else None
+        self.ep = EP_AXIS if EP_AXIS in live else None
         self.reduce_axes = self.batch_axes + ([seq_axis] if seq_axis in live else [])
         self._groups = {a: mesh.get_group(a) for a in live}
 
@@ -227,6 +314,10 @@ class SpmdContext:
     @property
     def tp_rank(self) -> int:
         return self.mesh.get_local_rank(self.tp) if self.tp else 0
+
+    @property
+    def ep_size(self) -> int:
+        return self.sizes[self.ep] if self.ep else 1
 
     def tp_divides(self, *counts: int) -> bool:
         """Whether ``tp`` splits each count (heads, widths) evenly."""
@@ -258,14 +349,19 @@ class SpmdContext:
     # -- parameters -------------------------------------------------------
 
     def weight(self, param, *, tp_dim: Optional[int] = None,
-               tp_partial: bool = False) -> torch.Tensor:
+               tp_partial: bool = False, experts: bool = False) -> torch.Tensor:
         """``param``'s local compute tensor: gathered over every mesh axis
         but ``tp``, and over ``tp`` too unless ``tp_dim`` is given, where it
         is this rank's ``tp`` share of that dim (the dim the model computes
         tensor-parallel: kept as placed when ``param`` is split there, else
         cut from the gathered tensor).  ``tp_partial``: the model uses only
         part of the gathered tensor (its heads), so the gradient is partial
-        over ``tp``.  A plain tensor counts as replicated."""
+        over ``tp``.  ``experts``: ``param`` is an expert stack, whose
+        ``ep`` shard (this rank's experts) stays as placed; any other
+        parameter's gradient is averaged over ``ep``, whose ranks compute
+        it alike (their data is the same) but may round it otherwise where
+        a kernel sums in a varying order, so that their copies stay
+        bit-equal.  A plain tensor counts as replicated."""
         from torch.distributed.tensor import DTensor, Shard
 
         if isinstance(param, DTensor):
@@ -278,7 +374,7 @@ class SpmdContext:
         steps = []
         for i in reversed(range(len(self.names))):
             a = self.names[i]
-            if self.sizes[a] == 1:
+            if self.sizes[a] == 1 or (experts and a == self.ep):
                 continue
             p = placements[i]
             dim = p.dim if isinstance(p, Shard) else None
@@ -288,6 +384,8 @@ class SpmdContext:
                 cut = True
             partial = a in self.reduce_axes or (a == self.tp and (tp_partial or cut))
             steps.append((self._groups[a], dim, partial))
+        if self.ep and not experts:
+            local = _ReduceBackward.apply(local, self._groups[self.ep], True)
         out = _Unshard.apply(local, tuple(steps)) if steps else local
         if cut:
             out = _shard_of(out, tp_dim, self._groups[self.tp])
@@ -318,6 +416,30 @@ class SpmdContext:
         if self.seq_axis in self.reduce_axes:
             steps.insert(0, (self._groups[self.seq_axis], 1, True))
         return _Unshard.apply(x, tuple(steps)) if steps else x
+
+    def ep_share(self, x):
+        """This rank's share of ``x (T, ...)``, which every rank of its
+        ``ep`` group holds whole: the ``T / ep`` contiguous rows of its
+        ``ep`` coordinate (the backward gathers the shares' gradients)."""
+        return _Share.apply(x, self._groups[self.ep])
+
+    def ep_gather(self, x):
+        """Every ``ep`` rank's share ``x`` in order: the whole ``(T, ...)``
+        (the backward cuts this rank's share again: every rank of the group
+        computes the same downstream)."""
+        return _Unshard.apply(x, ((self._groups[self.ep], 0, False),))
+
+    def ep_counts(self, counts):
+        """``counts (ep * n,)``, ``n`` to each ``ep`` rank in order, swapped
+        over the group: the ``n`` counts each rank sent this one."""
+        return _exchange(counts, [counts.numel() // self.ep_size] * self.ep_size,
+                         [counts.numel() // self.ep_size] * self.ep_size,
+                         self._groups[self.ep])
+
+    def ep_exchange(self, x, send, recv):
+        """Rows of ``x`` to the ``ep`` group's ranks, ``send[j]`` to rank
+        ``j``, and ``recv[j]`` from each (differentiable)."""
+        return _AllToAll.apply(x, send, recv, self._groups[self.ep])
 
     def local_tokens(self, full, like):
         """This rank's block of a global ``(B, S, ...)`` tensor, ``like``'s
@@ -370,7 +492,8 @@ class SpmdContext:
         placements = self.placements(heads=heads)
         qd, kd, vd = (self.dtensor(t, placements) for t in (q, k, v))
         out = attention(qd, kd, vd, causal=True, impl=impl, mesh=self.mesh,
-                        seq_axis=self.seq_axis, pre_permuted=pre_permuted)
+                        seq_axis=self.seq_axis, pre_permuted=pre_permuted,
+                        batch_axes=tuple(self.batch_axes), head_axis=self.tp if heads else None)
         if list(out.placements) != placements:
             out = out.redistribute(self.mesh, placements)
         return out.to_local()
@@ -380,8 +503,8 @@ class _Single:
     """The context of a model on one device: weights as they are, no
     collective."""
 
-    tp = None
-    tp_size = 1
+    tp = ep = None
+    tp_size = ep_size = 1
     tp_rank = 0
     n_reduce = 1
 
@@ -442,25 +565,26 @@ def _layout(s: int, mesh, seq_axis, seq_layout: str, attn_impl: str):
     return perm, "ring_zigzag", True
 
 
-def model_context(mesh, seq_axis):
-    """:data:`SINGLE` without a mesh, else an :class:`SpmdContext`."""
+def model_context(mesh, seq_axis, *, tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
+    """:data:`SINGLE` without a mesh, else an :class:`SpmdContext` whose
+    ``tp`` and ``fsdp`` roles are the axes so named."""
     if mesh is None:
         if seq_axis is not None:
             raise ValueError("seq_axis needs mesh=")
         return SINGLE
-    return SpmdContext(mesh, seq_axis=seq_axis)
+    return SpmdContext(mesh, seq_axis=seq_axis, tp=tp, fsdp=fsdp)
 
 
 def local_inputs(tokens, targets, *, mesh, seq_axis, seq_layout="contiguous",
-                 attn_impl="auto"):
+                 attn_impl="auto", tp: Optional[str] = "tp", fsdp: Optional[str] = "fsdp"):
     """What a model's forward runs on: ``(ctx, tokens, targets, positions,
     attn_impl, pre_permuted)``.  Without a mesh, the inputs as given and
     positions ``arange(S)[None]``.  With one, ``tokens`` and ``targets`` are
     the global ``(B, S)`` batch (the same on every rank), permuted by the
     sequence layout and cut to this rank's block; ``positions`` ``(1, s)``
     are its columns' global positions (the original ones under zigzag, for
-    RoPE)."""
-    ctx = model_context(mesh, seq_axis)
+    RoPE).  ``tp`` / ``fsdp`` name the mesh axes of those roles."""
+    ctx = model_context(mesh, seq_axis, tp=tp, fsdp=fsdp)
     s = tokens.shape[1]
     perm, attn_impl, pre = _layout(s, mesh, seq_axis, seq_layout, attn_impl)
     if perm is None:

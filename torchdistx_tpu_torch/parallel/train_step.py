@@ -24,18 +24,20 @@ pipeline-parallel over that mesh axis (:mod:`~torchdistx_tpu_torch.
 parallel.pipeline`): each rank holds and materializes its stage's layers
 only (plus the embedding and head, whole over ``pp``), placed on the mesh
 without ``pp``, and ``pp_schedule`` is ``"gpipe"`` (the model's ``loss``
-through the GPipe pipeline) or ``"1f1b"`` (the family's
-``pp_value_and_grad``).  A custom ``loss_fn``, an ``ep`` axis larger than
-1, sequence parallelism inside a pipeline stage and ``tp``/``fsdp`` axis
-names other than those are not ported yet and raise (ROADMAP A5b).  The
-step trains on the model's ``loss``, whose attention is the flash kernel
-on CUDA tensors (on each rank's heads and rows under a mesh, ring
-attention with ``seq_axis``) and the plain version on CPU tensors.
+through the GPipe pipeline, with ``seq_axis`` the ring inside each stage)
+or ``"1f1b"`` (the family's ``pp_value_and_grad``).  An ``ep`` axis holds
+the MoE experts (:func:`~torchdistx_tpu_torch.models.moe.moe_ffn_ep`);
+``tp`` / ``fsdp`` name the mesh axes of those roles, as in JAX.  The step
+trains on the model's ``loss``, or on a custom ``loss_fn``, whose
+attention is the flash kernel on CUDA tensors (on each rank's heads and
+rows under a mesh, ring attention with ``seq_axis``) and the plain version
+on CPU tensors.
 
 The JAX SlowMo step keeps the replicas as a stacked leading ``dp`` axis and
-vmaps the loss over it; here each rank is one replica and trains on its own
-row of the ``(dp, B, S)`` batch, and the averaging is a collective over the
-mesh's ``dp`` group (see :mod:`~torchdistx_tpu_torch.parallel.slowmo`).
+vmaps the loss over it; here a replica is the ranks that share a ``dp``
+coordinate (one rank, or a ``tp`` / ``fsdp`` mesh of them), trains on its
+own row of the ``(dp, B, S)`` batch, and the averaging is a collective over
+the mesh's ``dp`` group (see :mod:`~torchdistx_tpu_torch.parallel.slowmo`).
 """
 
 from __future__ import annotations
@@ -51,8 +53,9 @@ from ..deferred_init import deferred_init, materialize_module
 from ..models import gpt2, llama, moe
 from ..resilience.guard import tree_allfinite
 from .distributed import any_flags
-from .sharding import batch_sharding, mesh_axis_sizes
-from .slowmo import SlowMomentumOptimizer, _group_or_default
+from .sharding import batch_sharding, stage_mesh
+from .slowmo import SlowMomentumOptimizer, _group_or_default, _local
+from .spmd import replicated
 
 __all__ = ["TrainState", "batch_sharding", "make_slowmo_train_step", "make_train_step",
            "slowmo_batch_sharding"]
@@ -67,8 +70,6 @@ class TrainState(NamedTuple):
 # Model family module -> its module class.
 _FAMILIES = {llama: llama.Llama, gpt2: gpt2.GPT2, moe: moe.MoE}
 
-_A5B = "is not ported yet (ROADMAP A5b)"
-
 
 def _model_class(model) -> type:
     """The module class of the family ``model`` (``None``: Llama)."""
@@ -81,9 +82,18 @@ def _model_class(model) -> type:
 
 def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
                      pp_schedule, loss_fn, family):
-    """The JAX ``make_train_step``'s checks of its pipeline arguments (and
-    its messages), then the arguments that this step does not take (yet),
-    or not without a mesh, raise."""
+    """The JAX ``make_train_step``'s checks of its custom loss and pipeline
+    arguments (and its messages), then the arguments that name mesh axes
+    without a mesh raise."""
+    if loss_fn is not None and seq_layout != "contiguous":
+        # The layout is applied inside the model's own loss (token
+        # permutation + target alignment); it cannot be injected into a
+        # user-provided loss, so silently ignoring it would train on a
+        # contiguous layout the caller did not ask for.
+        raise ValueError(
+            f"seq_layout={seq_layout!r} cannot be combined with a custom "
+            "loss_fn — apply the layout inside your loss_fn and pass "
+            "seq_layout='contiguous'.")
     if pp_schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown pp_schedule: {pp_schedule!r}")
     if pp_schedule == "1f1b":
@@ -101,15 +111,9 @@ def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatch
     if pp_axis is None and n_microbatches != 1:
         raise ValueError(f"make_train_step: n_microbatches={n_microbatches!r} splits a "
                          "pipeline's batch; pass pp_axis=")
-    if loss_fn is not None:
-        raise ValueError(f"make_train_step: loss_fn={loss_fn!r}: a custom loss_fn {_A5B}")
-    renamed = [f"{k}={v!r}" for k, v in (("tp", tp), ("fsdp", fsdp)) if v != k]
-    if renamed:
-        raise ValueError(f"make_train_step: {', '.join(renamed)}: the step computes "
-                         "tensor-parallel over the mesh's 'tp' axis and splits the batch "
-                         f"over 'dp' and 'fsdp'; other axis names {_A5B}")
     if mesh is None:
-        given = [f"{k}={v!r}" for k, v, d in (("seq_axis", seq_axis, None),
+        given = [f"{k}={v!r}" for k, v, d in (("tp", tp, "tp"), ("fsdp", fsdp, "fsdp"),
+                                              ("seq_axis", seq_axis, None),
                                               ("seq_layout", seq_layout, "contiguous"),
                                               ("pp_axis", pp_axis, None))
                  if v != d]
@@ -122,9 +126,6 @@ def _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatch
                          f"(parallel.make_mesh), not {mesh!r}")
     if pp_axis is not None and pp_axis not in mesh.mesh_dim_names:
         raise ValueError(f"mesh has no axis {pp_axis!r} (axes: {tuple(mesh.mesh_dim_names)})")
-    if mesh_axis_sizes(mesh).get("ep", 1) > 1:
-        raise ValueError(f"make_train_step: an 'ep' axis larger than 1 (the expert "
-                         f"all-to-all) {_A5B}")
 
 
 def _drop_other_stages(net: nn.Module) -> None:
@@ -158,8 +159,8 @@ def make_train_step(
     device: Optional[Any] = None,
     nonfinite_guard: bool = True,
     mesh=None,
-    tp: str = "tp",
-    fsdp: str = "fsdp",
+    tp: Optional[str] = "tp",
+    fsdp: Optional[str] = "fsdp",
     seq_axis: Optional[str] = None,
     seq_layout: str = "contiguous",
     attn_impl: str = "auto",
@@ -185,13 +186,38 @@ def make_train_step(
 
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` is the global
     ``{"tokens": (B, S), "targets": (B, S)}`` (on a mesh the same on every
-    rank; each rank takes its rows over ``dp``/``fsdp`` and, with
-    ``seq_axis``, its columns); ``metrics`` holds ``loss`` (f32 scalar
+    rank; each rank takes its rows over ``dp`` and the ``fsdp`` axis and,
+    with ``seq_axis``, its columns); ``metrics`` holds ``loss`` (f32 scalar
     tensor, the global batch's mean, on every rank), ``step`` and, with the
     guard, ``nonfinite``.  The reserved batch key ``_tdx_nan`` poisons the
     loss with NaN where it is true, as in the JAX step, for fault
     injection.  ``attn_impl`` and ``seq_layout`` as in the model's
     ``loss``.
+
+    ``tp`` / ``fsdp`` (a mesh axis name, or ``None`` for none) are the axes
+    that the family's ``param_specs`` place parameters over and that the
+    step computes tensor-parallel over and splits the batch over (with
+    ``dp``), as the JAX step's; an axis of another name replicates the
+    compute.
+
+    ``loss_fn(model, tokens, targets, **kw) -> f32 scalar``, the
+    counterpart of the JAX ``loss_fn(params, tokens, targets)``, replaces
+    the model's ``loss``.  ``kw`` holds the step's own loss keywords:
+    ``attn_impl``; on a mesh ``mesh`` and ``seq_axis``, ``tp`` / ``fsdp``
+    when they are not the default names, and under ``pp_axis`` (GPipe)
+    ``pp_axis`` and ``n_microbatches``, so that a loss written on the
+    model's own ``forward`` / ``loss`` (``model.loss(tokens, targets,
+    **kw)``) runs as the step's does.  ``tokens`` and ``targets`` are the
+    global batch on every rank.  On a mesh the model's ``forward`` returns
+    a ``DTensor``, so a loss written in torch ops on its logits reduces
+    globally by ``DTensor``'s rules (put ``targets`` beside them with
+    ``distribute_tensor(targets, logits.device_mesh, logits.placements,
+    src_data_rank=None)``); a ``DTensor`` result is reduced over its
+    ``Partial`` mesh dims by c10d collectives
+    (:func:`~torchdistx_tpu_torch.parallel.spmd.replicated`).  As in JAX,
+    a custom loss does not take ``seq_layout`` (raises) nor the 1F1B
+    schedule; with ``pp_axis`` the JAX step calls it unpipelined, and MoE's
+    routing is then the whole batch's there and per microbatch here.
 
     ``nonfinite_guard`` (default on): a step whose loss or any gradient is
     non-finite leaves the parameters, the optimizer's moments and the step
@@ -206,9 +232,10 @@ def make_train_step(
     _check_mesh_args(mesh, tp, fsdp, seq_axis, seq_layout, pp_axis, n_microbatches,
                      pp_schedule, loss_fn, family)
     device = resolve_device(device) if mesh is None else _mesh_device(mesh, device)
+    axes = {k: v for k, v in (("tp", tp), ("fsdp", fsdp)) if v != k}
     loss_kw = {"attn_impl": attn_impl}
     if mesh is not None:
-        loss_kw.update(mesh=mesh, seq_axis=seq_axis)
+        loss_kw.update(mesh=mesh, seq_axis=seq_axis, **axes)
     if seq_layout != "contiguous":
         loss_kw["seq_layout"] = seq_layout
     if pp_axis is not None:
@@ -224,7 +251,8 @@ def make_train_step(
         else:
             from ..materialize import materialize_module_torch
 
-            plan = family.param_specs(cfg, **({} if pp_axis is None else {"pp": pp_axis}))
+            plan = family.param_specs(cfg, tp=tp, fsdp=fsdp,
+                                      **({} if pp_axis is None else {"pp": pp_axis}))
             net.load_state_dict(materialize_module_torch(net, mesh=mesh, plan=plan,
                                                          seed=seed),
                                 assign=True, strict=pp_axis is None)
@@ -245,13 +273,17 @@ def make_train_step(
         if pp_schedule == "1f1b":
             loss, grads = family.pp_value_and_grad(
                 model, tokens, targets, mesh=mesh, pp_axis=pp_axis,
-                n_microbatches=n_microbatches, attn_impl=attn_impl)
+                n_microbatches=n_microbatches, attn_impl=attn_impl, **axes)
             for name, p in model.named_parameters():
                 if name in grads:
                     p.grad = grads[name]
             loss = poisoned(loss, batch)
         else:
-            loss = poisoned(model.loss(tokens, targets, **loss_kw), batch)
+            if loss_fn is None:
+                loss = model.loss(tokens, targets, **loss_kw)
+            else:
+                loss = replicated(loss_fn(model, tokens, targets, **loss_kw))
+            loss = poisoned(loss, batch)
             loss.backward()
             loss = loss.detach()
         ok = True
@@ -272,60 +304,65 @@ def make_train_step(
     return init_fn, step_fn
 
 
-def _local(t):
-    """A ``DTensor``'s local shard (a plain tensor as it is)."""
-    return t.to_local() if hasattr(t, "to_local") else t
-
-
 # ---------------------------------------------------------------------------
-# SlowMo training step (one replica per rank, averaged over the dp group)
+# SlowMo training step (replicas averaged over the dp group)
 
 
-def _dp_coordinates(mesh, dp_axis: str):
-    """``(group, size, index)`` of this rank's replica: the mesh's
-    ``dp_axis`` group; with ``mesh=None`` the default group's world, or one
-    replica (no group) when none is initialized.  A mesh axis other than
-    ``dp_axis`` of size > 1 would shard a replica across ranks, which is not
-    ported yet (ROADMAP A5b), and raises."""
+def _replicas(mesh, dp_axis: str):
+    """``(group, size, index, replica)`` of this rank's replica: the mesh's
+    ``dp_axis`` group, its size and this rank's coordinate on it, and the
+    replica's mesh (the mesh without ``dp_axis``, whose ranks share this
+    rank's ``dp`` coordinate), or None when a replica is this rank alone
+    (no other axis of size > 1).  With ``mesh=None``: the default group's
+    world, one rank a replica, or one replica (no group) when none is
+    initialized."""
     if mesh is None:
         group = _group_or_default(None)
         if group is None:
-            return None, 1, 0
-        return group, dist.get_world_size(group), dist.get_rank(group)
+            return None, 1, 0, None
+        return group, dist.get_world_size(group), dist.get_rank(group), None
     names = mesh.mesh_dim_names or ()
     if dp_axis not in names:
         raise ValueError(f"make_slowmo_train_step: the mesh has no {dp_axis!r} axis "
                          f"(axes {tuple(names)})")
-    split = {n: mesh.size(i) for i, n in enumerate(names) if n != dp_axis and mesh.size(i) > 1}
-    if split:
-        raise ValueError(
-            f"make_slowmo_train_step: mesh axes {split} would shard a replica "
-            f"across ranks, which {_A5B}; each rank is one replica on the "
-            f"{dp_axis!r} axis"
-        )
-    return mesh.get_group(dp_axis), mesh.size(names.index(dp_axis)), mesh.get_local_rank(dp_axis)
+    split = any(mesh.size(i) > 1 for i, n in enumerate(names) if n != dp_axis)
+    replica = stage_mesh(mesh, dp_axis) if split else None
+    return (mesh.get_group(dp_axis), mesh.size(names.index(dp_axis)),
+            mesh.get_local_rank(dp_axis), replica)
 
 
-def slowmo_batch_sharding(mesh, *, dp_axis: str = "dp"):
-    """The placement of a SlowMo batch: a function from a ``{"tokens",
-    "targets"}`` batch of shape ``(dp, B, S)`` to this rank's ``(B, S)``
-    rows, those of its ``dp_axis`` coordinate (``mesh=None``: its rank in
-    the default group).  Counterpart of the JAX ``slowmo_batch_sharding``,
-    whose ``P(dp_axis, ...)`` puts row ``i`` on the replica at coordinate
-    ``i``."""
-    _, size, index = _dp_coordinates(mesh, dp_axis)
+def _replica_rows(mesh, dp_axis):
+    """A function from a ``(dp, B, S)`` batch to this rank's replica's
+    ``(B, S)`` row."""
+    _, size, index, _ = _replicas(mesh, dp_axis)
 
-    def shard(batch):
-        rows = {}
+    def rows(batch):
+        out = {}
         for key in ("tokens", "targets"):
             x = batch[key]
             if x.dim() != 3 or x.shape[0] != size:
                 raise ValueError(f"SlowMo batch {key!r} must be (dp={size}, B, S), "
                                  f"not {tuple(x.shape)}")
-            rows[key] = x[index]
-        return rows
+            out[key] = x[index]
+        return out
 
-    return shard
+    return rows
+
+
+def slowmo_batch_sharding(mesh, *, dp_axis: str = "dp", data_axes=("fsdp",)):
+    """The placement of a SlowMo batch: a function from a ``{"tokens",
+    "targets"}`` batch of shape ``(dp, B, S)`` to this rank's block: the
+    row of its ``dp_axis`` coordinate (``mesh=None``: its rank in the
+    default group), then its rows of that over ``data_axes`` within the
+    replica.  Counterpart of the JAX ``slowmo_batch_sharding``, whose
+    ``P(dp_axis, data_axes, None)`` puts row ``i`` on the replica at
+    coordinate ``i`` and splits it over the data axes."""
+    rows = _replica_rows(mesh, dp_axis)
+    replica = _replicas(mesh, dp_axis)[3]
+    if replica is None:
+        return rows
+    within = batch_sharding(replica, data_axes=data_axes)
+    return lambda batch: within(rows(batch))
 
 
 def make_slowmo_train_step(
@@ -341,38 +378,47 @@ def make_slowmo_train_step(
     device: Optional[Any] = None,
 ) -> Tuple[Callable, Callable]:
     """Build ``(init_fn, step_fn)`` for SlowMo training of a model of
-    ``cfg``, one replica per rank; ``model`` is the family, as in
-    :func:`make_train_step`.
+    ``cfg``; ``model`` is the family, as in :func:`make_train_step`.
 
     ``mesh`` is a ``DeviceMesh`` (:func:`~torchdistx_tpu_torch.parallel.mesh.
     make_mesh`, :func:`~torchdistx_tpu_torch.parallel.distributed.
     make_hybrid_mesh`) whose ``dp_axis`` group is the averaging group, or
-    None for the default group's world (one replica with no group).  Its
-    other axes must have size 1: ``tp``/``fsdp`` sharding within a replica
-    is not ported yet (ROADMAP A5b) and raises.  ``opt`` builds the optimizer from the model's
-    parameters, like ``make_train_step``'s ``tx``, and must return a
+    None for the default group's world (one rank a replica; one replica
+    with no group).  A replica is the ranks that share a ``dp``
+    coordinate: this rank alone when the mesh's other axes have size 1,
+    else the mesh without ``dp_axis``, on which the replica's model is
+    placed as ``DTensor`` shards by the family's ``param_specs`` (``tp`` /
+    ``fsdp`` name its axes, as in :func:`make_train_step`; within a
+    replica they shard as usual) and steps as ``make_train_step(mesh=)``
+    does.  ``opt`` builds the optimizer from the model's parameters, like
+    ``make_train_step``'s ``tx``, and must return a
     :class:`SlowMomentumOptimizer`; one built with ``group=None`` averages
-    over the mesh's ``dp`` group.  ``device=None`` means CUDA.
+    over the mesh's ``dp`` group, each rank its local shards.
+    ``device=None`` means CUDA (the mesh's device with a replica mesh).
 
     ``init_fn(seed) -> TrainState``: the model recorded with
     ``deferred_init`` and materialized from ``seed`` (the same values on
-    every rank, so the replicas start equal), then ``opt(parameters)``.
+    every replica, so the replicas start equal), then ``opt(parameters)``.
 
     ``step_fn(state, batch) -> (state, metrics)``: ``batch`` holds
-    ``"tokens"`` and ``"targets"`` of shape ``(dp, B, S)``; each rank trains
-    on the row of its ``dp`` coordinate.  ``metrics["loss"]`` is the mean
-    of the replicas' losses (one scalar all-reduce, queued without a host
-    sync), ``metrics["step"]`` the step count.  ``attn_impl="auto"`` is the
-    flash kernels on CUDA and the plain attention on the CPU: unlike the JAX
-    step, whose loss is vmapped over stacked replicas and takes XLA's
-    attention, nothing here is vmapped.
+    ``"tokens"`` and ``"targets"`` of shape ``(dp, B, S)`` on every rank;
+    each replica trains on the row of its ``dp`` coordinate (its ranks
+    split it as ``make_train_step``'s do).  ``metrics["loss"]`` is the
+    mean of the replicas' losses (one scalar all-reduce, queued without a
+    host sync), ``metrics["step"]`` the step count.  ``attn_impl="auto"``
+    is the flash kernels on CUDA and the plain attention on the CPU:
+    unlike the JAX step, whose loss is vmapped over stacked replicas and
+    takes XLA's attention, nothing here is vmapped.
     """
-    del tp, fsdp  # named axes of size > 1 raise in _dp_coordinates
-    device = resolve_device(device)
-    group, _, _ = _dp_coordinates(mesh, dp_axis)
-    shard = slowmo_batch_sharding(mesh, dp_axis=dp_axis)
-    init_model, _ = make_train_step(cfg, opt, model=model, device=device,
-                                    nonfinite_guard=False)
+    group, _, _, replica = _replicas(mesh, dp_axis)
+    rows = _replica_rows(mesh, dp_axis)
+    step_kw = dict(model=model, attn_impl=attn_impl, nonfinite_guard=False)
+    if replica is None:
+        init_model, replica_step = make_train_step(cfg, opt, device=resolve_device(device),
+                                                   **step_kw)
+    else:
+        init_model, replica_step = make_train_step(cfg, opt, device=device, mesh=replica,
+                                                   tp=tp, fsdp=fsdp, **step_kw)
 
     def init_fn(seed: int) -> TrainState:
         state = init_model(seed)
@@ -386,18 +432,11 @@ def make_slowmo_train_step(
         return state
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, dict]:
-        model, sm = state.model, state.optimizer
-        rows = shard(batch)
-        loss = model.loss(rows["tokens"].to(device), rows["targets"].to(device),
-                          attn_impl=attn_impl)
-        loss.backward()
-        mean = loss.detach().clone()
+        state, metrics = replica_step(state, rows(batch))
+        mean = metrics["loss"].clone()
         if group is not None:
             dist.all_reduce(mean, op=dist.ReduceOp.SUM, group=group)
             mean.div_(dist.get_world_size(group))
-        sm.step()
-        sm.zero_grad(set_to_none=True)
-        step = state.step + 1
-        return TrainState(model, sm, step), {"loss": mean, "step": step}
+        return state, {"loss": mean, "step": state.step}
 
     return init_fn, step_fn
