@@ -122,11 +122,29 @@ Phases, each printing a line:
    gradients and of the parameters' change), each rank holding its stage's
    layers only, the kernel on the microbatch block phase 2 holds, and the
    hop's time a tick;
-18. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
+18. ``[serve]`` (run after phase 13): the continuous-batching ``Engine``
+   (``torchdistx_tpu_torch/serving``): (a) the full Llama-7B (bf16,
+   seeded materialize) behind ``Engine(**SERVE_KW)``, greedy, 24 requests
+   submitted at once (``serve_traffic``: a backlog three deep, prompts
+   spanning two prefill chunks, 7 sharing request 0's 512-token prefix,
+   2 of them exactly it); each stream against solo ``generate`` under the
+   bf16 margin rule, the idle pages the prefix index's own, the prefix
+   hits and copy-on-write copies, one decode graph, no flash launch;
+   committed tokens/s, TTFT, TPOT, the graph's decode chunk by events and
+   on the device beside the eager chunk, a step's profile, its bound and
+   the paged gather's share, each prefill bucket's time, the peak; (d) the
+   captured chunk replayed from a saved state equals the eager chunk from
+   it, tokens and pages; (b) ``llama_test`` and ``gpt2_test`` in f32,
+   greedy and sampled, against solo ``generate(key=)`` on the card and
+   greedy against the CPU port's engine, token for token; (c) recovery:
+   two consecutive ``serve.step`` io faults (the supervisor zeroes the
+   pool in place and replays) and a nan-skipped chunk, streams equal to
+   the unfaulted run;
+19. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
    with no byte allocated, seeded onto it (bytes those of its parameters
    and buffers), an eval forward, two recordings bit-equal.
 
-Ten main paths are driven, each with every launch count set to 0 just
+Eleven main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
@@ -137,8 +155,10 @@ and (d), in each card rank), the SlowMo ranks' runs and the ep ranks'
 runs (in each card rank; their references are not counted), the pipeline
 path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
-(phase 12: its forward part, then its train part) and the MoE path (phase
-13).  Any failed check
+(phase 12: its forward part, then its train part), the MoE path (phase
+13) and the serve path (phase 18 (a)'s requests, submitted and drained),
+which launches no kernel: the engine's attention is the paged plain
+attention, as the JAX engine's is ``jnp``.  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
 matmuls run in full float32 (TF32 is switched off).  The last three lines
 are the kernels' summary, the card's name and power limit, then the result
@@ -3713,6 +3733,382 @@ def phase_slowmo_ranks():
     return stats
 
 
+# [serve]: the continuous-batching engine (torchdistx_tpu_torch/serving).
+# (a) runs at full llama_7b in bf16 with SERVE_KW: 24 requests submitted at
+# once (slots recycle under a backlog three deep), prompt lengths drawn
+# from SERVE_PROMPT_LENS, budgets from SERVE_BUDGETS; request 0 carries a
+# 512-token prefix (32 full pages) that the requests at SERVE_SHARERS
+# share, five extending it and those at SERVE_EXACT being exactly it (a
+# full-prompt hit recomputes its last token into the shared last page:
+# copy-on-write).
+SERVE_SEED = 0
+SERVE_KW = dict(num_slots=8, block_size=16, max_model_len=1024, decode_chunk=8,
+                prefill_chunk=512, prefix_cache=True)
+SERVE_REQUESTS = 24
+SERVE_PREFIX_LEN = 512
+SERVE_PROMPT_LENS = (64, 900)
+SERVE_BUDGETS = (16, 32, 64)
+SERVE_SHARERS = (9, 10, 11, 12, 13, 14, 15)
+SERVE_EXACT = (11, 14)
+SERVE_MIN_HITS = 7
+SERVE_MIN_COW = 2
+# bf16 at llama_7b: the engine batches 8 slots where solo generate runs one
+# row, and attends over padded pages where solo attends over its own
+# length, so the sums round otherwise; the head's logits are bf16, spaced
+# 1/32 to 1/16 at their top, so near-ties are common and a greedy token
+# flips at one.  A stream is held token for token to its solo run up to
+# its first differing step t; there, in a forward over prompt + solo[:t],
+# the engine's token must be at most SERVE_MARGIN below the top 1 and have
+# at most SERVE_MAX_RANK tokens strictly above it.  The first whole run
+# read gaps up to 0.125 (4 units of the last place) and ranks up to 3 in
+# 19 of 24 streams; the bounds are about 4x those.
+SERVE_MARGIN = 0.5
+SERVE_MAX_RANK = 12
+SERVE_BUCKETS = (16, 32, 64, 128, 256, 512)
+# The profiler's name for the kernel of ``aten::index`` over the page pool.
+SERVE_GATHER_KERNEL = "vectorized_gather_kernel"
+# (b)-(c): the *_test configs in f32 on the card, the JAX serving tests'
+# geometry, against solo generate on the card and the CPU port's engine.
+SERVE_SMALL_KW = dict(num_slots=2, block_size=8, max_model_len=64, decode_chunk=4,
+                      prefix_cache=False)
+SERVE_SMALL_EOS = 5
+SERVE_SAMPLED = dict(temperature=0.8, top_k=20)
+SERVE_FAULTS = "serve.step:2:io,serve.step:3:io,serve.step:6:nan"
+
+
+def serve_traffic(vocab, seed=SERVE_SEED):
+    """[serve] (a)'s requests: ``[(prompt int32, max_new_tokens)]``, made
+    from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=SERVE_PREFIX_LEN)
+    lo, hi = SERVE_PROMPT_LENS
+    out = []
+    for i in range(SERVE_REQUESTS):
+        budget = int(rng.choice(SERVE_BUDGETS))
+        if i in SERVE_EXACT:
+            prompt = prefix
+        elif i == 0 or i in SERVE_SHARERS:
+            suffix = rng.integers(0, vocab, size=int(rng.integers(1, hi - SERVE_PREFIX_LEN + 1)))
+            prompt = np.concatenate([prefix, suffix])
+        else:
+            prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
+        out.append((prompt.astype(np.int32), budget))
+    return out
+
+
+def _serve_margin(model, prompt, got, want):
+    """None when the engine's stream ``got`` equals the solo stream
+    ``want``; else ``(t, gap, rank)`` at their first differing step ``t``
+    from a forward over ``prompt + want[:t]`` (the cached forward: plain
+    attention, no flash launch): ``gap`` is its top-1 logit minus that of
+    ``got[t]``, ``rank`` the number of tokens strictly above ``got[t]``
+    (bf16 logits tie at one unit of their last place, so a tie shares a
+    rank)."""
+    t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if t is None:
+        _check(len(got) == len(want), "an engine stream's length differs from solo's")
+        return None
+    seq = torch.tensor([list(prompt) + want[:t]], device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(1, seq.shape[1])
+        logits = model.forward_cached(seq, cache, 0)[0][0, -1]
+    mine = logits[got[t]]
+    gap = (logits.max() - mine).item()
+    rank = int((logits > mine).sum())
+    del cache
+    return t, gap, rank
+
+
+def _serve_state(eng, rng):
+    """A decode state of full slots on distinct pages (each slot's table
+    its own SERVE_KW pages, positions mid-table), as host arrays."""
+    import numpy as np
+
+    s, m = eng.num_slots, eng._table_width
+    return (rng.integers(0, eng.cfg.vocab_size, size=s), rng.integers(m * 4, m * 12, size=s),
+            np.ones(s, np.int64), np.zeros(s, bool),
+            rng.integers(0, 2**32, size=(s, 2)), 1 + np.arange(s * m).reshape(s, m))
+
+
+def _serve_decode_bound(eng):
+    """(bound_ms of one decode step, weight bytes, gathered K/V bytes): the
+    weights a step reads once (the fused decode weights, the rest of each
+    layer, the head, one embedding row a slot) and the K/V pages the
+    gather reads (M*bs positions a slot and layer), over the memory rate."""
+    model, cfg = eng.model, eng.cfg
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    w = nbytes(eng._weights["wqkv"] + eng._weights["wgu"])
+    for blk in model.layers:
+        w += nbytes([blk.wo.weight, blk.w_down.weight, blk.attn_norm.weight,
+                     blk.mlp_norm.weight])
+    w += nbytes([model.norm.weight, model.lm_head.weight])
+    w += eng.num_slots * cfg.dim * model.embed.weight.element_size()
+    pool = eng._cache["k"]
+    kv = (2 * cfg.n_layers * eng.num_slots * eng._table_width * eng.block_size
+          * cfg.n_kv_heads * cfg.head_dim * pool.element_size())
+    return (w + kv) / PEAK_BYTES_PER_S * 1e3, w, kv
+
+
+def _serve_small(family_cls, cfg, seed):
+    """(b): ``cfg`` (f32) on the card, greedy and sampled, against solo
+    ``generate(key=)`` on the card, token for token; greedy against the
+    CPU port's engine on the same weights.  Returns the greedy streams,
+    the model on the card and the requests."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.models.generate import generate
+    from torchdistx_tpu_torch.serving import Engine
+
+    torch.manual_seed(seed)
+    cpu_model = family_cls(cfg, device="cpu")
+    model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(rng.integers(3, 16))).astype(np.int32),
+             int(rng.choice([5, 9, 16])), i) for i in range(6)]
+    name = family_cls.__name__
+
+    def run(m, device, **sample):
+        eng = Engine(m, device=device, eos_id=SERVE_SMALL_EOS, **SERVE_SMALL_KW, **sample)
+        hs = [eng.submit(p, max_new_tokens=b, key=k) for p, b, k in reqs]
+        eng.drain()
+        return [h.result() for h in hs], eng.stats()
+
+    out = {}
+    for label, sample in (("greedy", {}), ("sampled", SERVE_SAMPLED)):
+        streams, st = run(model, "cuda", **sample)
+        _check(st["decode_graphs"] == 1 and st["decode_replays"] > 0,
+               f"[serve] (b) {name} {label}: decode graphs {st}")
+        for (p, b, k), got in zip(reqs, streams):
+            want = generate(model, torch.from_numpy(p).long().cuda()[None], max_new_tokens=b,
+                            eos_id=SERVE_SMALL_EOS, key=k, **sample)[0].tolist()
+            if SERVE_SMALL_EOS in want:
+                want = want[: want.index(SERVE_SMALL_EOS) + 1]
+            _check(got == want, f"[serve] (b) {name} {label} request {k}: {got} vs solo {want}")
+        out[label] = streams
+    cpu_streams, _ = run(cpu_model, "cpu")
+    _check(cpu_streams == out["greedy"], f"[serve] (b) {name}: the card's greedy streams "
+           "differ from the CPU port engine's")
+    print(f"[serve] (b) {name} f32 on the card: greedy and sampled streams equal solo "
+          f"generate(key=) on the card ({sum(map(len, out['greedy']))} and "
+          f"{sum(map(len, out['sampled']))} tokens); greedy equal to the CPU engine's")
+    return out["greedy"], model, reqs
+
+
+def _measured(ms):
+    """A device time from the profiler, or None where it saw no kernel
+    (not measured, never 0)."""
+    return ms if ms > 0 else None
+
+
+def _ms(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def _telemetry_counter(name):
+    from torchdistx_tpu_torch import telemetry
+
+    return telemetry.counter(name).value
+
+
+def phase_serve(fa):
+    """[serve]: (a) full llama_7b (bf16, seeded materialize) behind
+    ``Engine(**SERVE_KW)``, greedy, serving ``serve_traffic``; its gates:
+    each stream against solo ``generate`` under the margin rule, the pages
+    held at idle those of the prefix index, at least SERVE_MIN_HITS prefix
+    hits and SERVE_MIN_COW copy-on-write copies, one decode graph, no flash
+    launch; its numbers: committed tokens/s, TTFT, TPOT, the graph's chunk
+    by events and on the device beside the eager chunk, the decode bound
+    and the gather's device share, each prefill bucket, the peak.  (d) the
+    captured chunk from a saved state equals the eager chunk (tokens and
+    pages).  (b) ``llama_test`` / ``gpt2_test`` f32 on the card; (c)
+    recovery on the card."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models import gpt2
+    from torchdistx_tpu_torch.models.generate import generate
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b, llama_test
+    from torchdistx_tpu_torch.resilience import faults
+    from torchdistx_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    cfg = llama_7b()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    model.load_state_dict(materialize_module_torch(model, seed=MAT_SEED), assign=True)
+    traffic = serve_traffic(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, **SERVE_KW)
+    _reset_counts(fa)  # the serve path starts here
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+    eng.drain()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts(fa)  # the serve path ends here
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve path] launches: {json.dumps(launches)}")
+    _check(not any(launches.values()), "a flash kernel was launched on the serve path "
+           "(paged attention is plain torch, as the JAX engine's jnp)")
+    st = eng.stats()
+    streams = [h.result() for h in handles]
+    _check([len(s) for s in streams] == [b for _, b in traffic], "[serve] stream lengths")
+    _check(st["prefix_hits"] >= SERVE_MIN_HITS and st["cow_copies"] >= SERVE_MIN_COW,
+           f"[serve] prefix hits {st['prefix_hits']}, copy-on-write {st['cow_copies']}")
+    _check(eng.allocator.num_in_use == len(eng.prefix)
+           and eng.prefix.check(eng.allocator) is None,
+           f"[serve] idle pages {eng.allocator.num_in_use} vs prefix {len(eng.prefix)}")
+    _check(st["decode_graphs"] == 1, f"[serve] {st['decode_graphs']} decode graphs")
+    committed = sum(map(len, streams))
+    tokens_per_s = committed / run_s
+    ttft = [eng._h_ttft.percentile(50), eng._h_ttft.percentile(99)]
+    tpot_p50 = eng._h_tpot.percentile(50)
+    chunk_host_ms = st["decode_s"] / st["decode_replays"] * 1e3
+
+    # Each stream against its solo generate (bf16 margin rule).
+    t0 = time.perf_counter()
+    diverged = []
+    for i, ((prompt, budget), got) in enumerate(zip(traffic, streams)):
+        want = generate(model, torch.from_numpy(prompt).long().cuda()[None],
+                        max_new_tokens=budget)[0].tolist()
+        at = _serve_margin(model, prompt, got, want)
+        if at is not None:
+            diverged.append([i, *at])
+    solo_s = time.perf_counter() - t0
+    identical = SERVE_REQUESTS - len(diverged)
+    _check(all(gap <= SERVE_MARGIN and rank <= SERVE_MAX_RANK for _, _, gap, rank in diverged),
+           f"[serve] streams off solo beyond the margin rule: [request, step, gap, rank] "
+           f"{diverged} (gap bound {SERVE_MARGIN}, rank bound {SERVE_MAX_RANK})")
+
+    # (d) the captured chunk against the eager chunk from one saved state.
+    dec = eng.decoder()
+    rng = np.random.default_rng(SERVE_SEED)
+    state = _serve_state(eng, rng)
+    saved = {n: p.clone() for n, p in eng._cache.items()}
+    dec.load(*state)
+    dec.replay()
+    torch.cuda.synchronize()
+    graph_out = dec.out.clone()
+    graph_pages = {n: p.clone() for n, p in eng._cache.items()}
+    for n, p in eng._cache.items():
+        p.copy_(saved[n])
+    dec.run_eager()
+    torch.cuda.synchronize()
+    _check(torch.equal(dec.out, graph_out), "[serve] (d) graph tokens differ from eager")
+    pages_equal = all(torch.equal(p[:, 1:], graph_pages[n][:, 1:])
+                      for n, p in eng._cache.items())
+    _check(pages_equal, "[serve] (d) graph pages differ from eager")
+    del saved, graph_pages
+
+    # The decode chunk on that state: the graph's replay by events and on
+    # the device, the eager chunk, one eager step's profile, the gather.
+    graph_ms = _time_ms(dec.replay, warmup=2, reps=11, calls=1)
+    graph_device_ms = _measured(_device_ms(dec.replay, calls=3))
+    eager_ms = _time_ms(dec.run_eager, warmup=1, reps=3, calls=1)
+    eager_device_ms = _measured(_device_ms(dec.run_eager, calls=1))
+    inp = dec.inputs
+
+    def one_step():
+        with torch.no_grad():
+            model.forward_paged(inp["tokens"][:, None], eng._cache, inp["tables"],
+                                inp["positions"], eng._weights)
+
+    def gather_split(prof):
+        # The paged gather's kernels: aten::index over a layer's page pool.
+        return {"gather": sum(ev.time_range.elapsed_us() for ev in _device_events(prof)
+                              if SERVE_GATHER_KERNEL in ev.name) / 1e3}
+
+    step = _profile("serve decode step", one_step, split=gather_split)
+    step_ms = _measured(step["device_ms"])
+    gather_ms = _measured(step["split_ms"]["gather"])
+    gather_share = gather_ms / step_ms if gather_ms and step_ms else None
+    bound_ms, w_bytes, kv_bytes = _serve_decode_bound(eng)
+
+    # Each prefill bucket: one chunk of that many tokens at position 0.
+    prefill_ms = {}
+    table = inp["tables"][:1]
+    start = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    for bucket in SERVE_BUCKETS:
+        toks = torch.randint(0, cfg.vocab_size, (1, bucket), device="cuda")
+
+        def chunk(toks=toks):
+            with torch.no_grad():
+                model.forward_paged(toks, eng._cache, table, start, eng._weights)
+
+        prefill_ms[bucket] = _time_ms(chunk, warmup=1, reps=5, calls=1)
+    eng.close()
+    stats = {
+        "requests": SERVE_REQUESTS, "committed_tokens": committed, "run_s": run_s,
+        "tokens_per_s": tokens_per_s, "ttft_p50_s": ttft[0], "ttft_p99_s": ttft[1],
+        "tpot_p50_s": tpot_p50, "prefix_hits": st["prefix_hits"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"], "cow_copies": st["cow_copies"],
+        "prefix_evictions": st["prefix_evictions"], "ticks": st["ticks"],
+        "decode_replays": st["decode_replays"], "chunk_host_ms": chunk_host_ms,
+        "graph_chunk_ms": graph_ms, "graph_chunk_device_ms": graph_device_ms,
+        "eager_chunk_ms": eager_ms, "eager_chunk_device_ms": eager_device_ms,
+        "step_device_ms": step_ms, "step_gemm_ms": step["gemm_ms"],
+        "gather_ms_per_step": gather_ms, "gather_share": gather_share,
+        "step_bound_ms": bound_ms, "step_weight_bytes": w_bytes, "step_kv_bytes": kv_bytes,
+        "prefill_ms_by_bucket": prefill_ms, "peak_bytes": peak,
+        "identical_streams": identical, "diverged": diverged, "solo_s": solo_s,
+        "launches": launches,
+    }
+    print(f"[serve] (a) llama_7b bf16, {SERVE_REQUESTS} requests, {SERVE_KW}: {committed} "
+          f"tokens in {run_s:.3f} s, {tokens_per_s:.1f} committed tokens/s; TTFT p50 "
+          f"{ttft[0]:.4f} s p99 {ttft[1]:.4f} s; TPOT p50 {tpot_p50:.5f} s; prefix hits "
+          f"{st['prefix_hits']} ({st['prefix_hit_tokens']} tokens), copy-on-write "
+          f"{st['cow_copies']}, evictions {st['prefix_evictions']}; {st['ticks']} ticks, "
+          f"{st['decode_replays']} graph replays (one graph), {chunk_host_ms:.3f} ms a chunk "
+          f"on the host's clock; streams equal to solo generate: {identical} of "
+          f"{SERVE_REQUESTS}, the rest [request, step, gap, rank] {diverged} (bounds "
+          f"{SERVE_MARGIN}, {SERVE_MAX_RANK}); "
+          f"peak {peak} bytes")
+    print(f"[serve] decode chunk ({SERVE_KW['decode_chunk']} steps, 8 full slots): graph "
+          f"{graph_ms:.3f} ms by events, {_ms(graph_device_ms)} on the device; eager "
+          f"{eager_ms:.3f} ms by events, {_ms(eager_device_ms)} on the device; a step "
+          f"{_ms(step_ms)} on the device (GEMMs {step['gemm_ms']:.3f} ms), the paged gather "
+          f"{_ms(gather_ms)} of it (share {gather_share}); step bound {bound_ms:.3f} ms "
+          f"({w_bytes} weight bytes + {kv_bytes} gathered K/V bytes at "
+          f"{PEAK_BYTES_PER_S:.3g} B/s); prefill ms by bucket "
+          f"{json.dumps({k: round(v, 3) for k, v in prefill_ms.items()})}; (d) graph = "
+          f"eager, tokens and pages; {_smi()}")
+    del eng, model, handles, dec, inp, table
+    _free()
+
+    # (b) the test configs in f32 on the card.
+    greedy, small, reqs = _serve_small(Llama, llama_test(), seed=21)
+    _serve_small(gpt2.GPT2, gpt2.gpt2_test(), seed=22)
+
+    # (c) recovery on the card: two consecutive io faults at serve.step
+    # (the second goes to the supervisor), then a nan-poisoned chunk.
+    skipped = _telemetry_counter("serve.skipped_steps")
+    faults.reset(SERVE_FAULTS)
+    try:
+        eng = Engine(small, eos_id=SERVE_SMALL_EOS, **SERVE_SMALL_KW)
+        hs = [eng.submit(p, max_new_tokens=b, key=k) for p, b, k in reqs]
+        eng.drain()
+    finally:
+        faults.reset("")
+    rec = eng.stats()
+    _check([h.result() for h in hs] == greedy, "[serve] (c) faulted streams differ")
+    skipped = _telemetry_counter("serve.skipped_steps") - skipped
+    _check(rec["recoveries"] == 1 and skipped == 1 and rec["decode_graphs"] == 1,
+           f"[serve] (c) recoveries {rec['recoveries']}, skipped {skipped}, graphs "
+           f"{rec['decode_graphs']}")
+    stats["recovery"] = {"spec": SERVE_FAULTS, "recoveries": rec["recoveries"],
+                         "skipped_chunks": skipped}
+    print(f"[serve] (c) Llama f32 on the card under {SERVE_FAULTS}: {rec['recoveries']} "
+          f"recovery (pool zeroed in place, one graph kept), {skipped} chunk skipped, "
+          "streams equal to the unfaulted "
+          f"run; [serve] {time.perf_counter() - t_phase:.1f} s")
+    del eng, small
+    _free()
+    return stats
+
+
 # Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
 # it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
 PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
@@ -3944,6 +4340,7 @@ def main() -> int:
     ep_launches = moe_stats["ep_ranks"]["launches_all_ranks"]
     _free()
 
+    serve_stats = phase_serve(fa)  # the serve path is read inside
     resnet_stats = phase_resnet()
 
     print("[summary] " + json.dumps({
@@ -3953,7 +4350,7 @@ def main() -> int:
         "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
         "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "mesh": mesh_stats,
         "pipeline": pipe_stats, "resnet": resnet_stats, "gpt2": gpt2_stats,
-        "moe": moe_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
+        "moe": moe_stats, "serve": serve_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "script_s": time.perf_counter() - t_start,
     }))
 

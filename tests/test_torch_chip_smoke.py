@@ -577,3 +577,59 @@ def test_every_new_rank_run_has_its_bounds_and_block():
         assert chip_smoke.EP_BLOCKS[key][1] in bwd
     for _, row in chip_smoke.SLOWMO_RANK_BLOCKS.values():
         assert row in bwd
+
+
+def test_serve_traffic_shape():
+    """[serve] (a)'s requests: 24, each admissible at max_model_len 1024,
+    budgets from the menu; request 0 and the SERVE_SHARERS start with one
+    512-token prefix (32 full pages), SERVE_EXACT are exactly it; the same
+    seed gives the same requests."""
+    import numpy as np
+
+    reqs = chip_smoke.serve_traffic(32000)
+    assert len(reqs) == chip_smoke.SERVE_REQUESTS == 24
+    prefix = reqs[0][0][:chip_smoke.SERVE_PREFIX_LEN]
+    assert chip_smoke.SERVE_PREFIX_LEN // chip_smoke.SERVE_KW["block_size"] == 32
+    lo, hi = chip_smoke.SERVE_PROMPT_LENS
+    for i, (prompt, budget) in enumerate(reqs):
+        assert prompt.dtype == np.int32 and budget in chip_smoke.SERVE_BUDGETS
+        assert len(prompt) + budget <= chip_smoke.SERVE_KW["max_model_len"]
+        shares = i == 0 or i in chip_smoke.SERVE_SHARERS
+        assert np.array_equal(prompt[:len(prefix)], prefix) == shares, i
+        assert (len(prompt) == len(prefix)) == (i in chip_smoke.SERVE_EXACT), i
+        if not shares:
+            assert lo <= len(prompt) <= hi
+    assert sum(len(p) > chip_smoke.SERVE_KW["prefill_chunk"] for p, _ in reqs) >= 4
+    again = chip_smoke.serve_traffic(32000)
+    assert all(np.array_equal(a, b) and x == y for (a, x), (b, y) in zip(reqs, again))
+
+
+def test_serve_traffic_hits_and_copies_on_a_small_model():
+    """[serve] (a)'s scheduling on the CPU: the requests through an Engine
+    of SERVE_KW over a one-layer model at max_seq_len 1024 give the prefix
+    hits and copy-on-write copies that (a) gates on (they depend on the
+    schedule, not the weights), and the bound's bytes count the fused
+    decode weights, the rest of each layer, the head, one embedding row a
+    slot and the gathered K/V pages."""
+    import dataclasses
+
+    from torchdistx_tpu_torch.models import llama as tllama
+    from torchdistx_tpu_torch.serving import Engine
+
+    cfg = dataclasses.replace(tllama.llama_test(), vocab_size=32000, dim=32, n_heads=2,
+                              n_kv_heads=2, n_layers=1, ffn_dim=32, max_seq_len=1024)
+    torch.manual_seed(0)
+    eng = Engine(tllama.Llama(cfg, device="cpu"), device="cpu", **chip_smoke.SERVE_KW)
+    handles = [eng.submit(p, max_new_tokens=b, key=i)
+               for i, (p, b) in enumerate(chip_smoke.serve_traffic(cfg.vocab_size))]
+    eng.drain()
+    st = eng.stats()
+    assert st["prefix_hits"] >= chip_smoke.SERVE_MIN_HITS
+    assert st["cow_copies"] >= chip_smoke.SERVE_MIN_COW
+    assert eng.allocator.num_in_use == len(eng.prefix)
+    assert all(h.done and h.error is None for h in handles)
+    bound_ms, w, kv = chip_smoke._serve_decode_bound(eng)
+    layer = (3 * 32 * 32 + 2 * 32 * 32) + 32 * 32 + 32 * 32 + 2 * 32  # wqkv+wgu, wo, w_down, norms
+    assert w == 4 * (layer + 32 + 32000 * 32 + 8 * 32)
+    assert kv == 2 * 1 * 8 * 64 * 16 * 2 * 16 * 4
+    assert bound_ms == pytest.approx((w + kv) / chip_smoke.PEAK_BYTES_PER_S * 1e3)

@@ -493,3 +493,65 @@ def test_narrow_bf16_model_on_cuda_like_the_cpu_port(cuda, family_name):
     assert (fa.launches - n0[0], fa.launches_bwd_fused - n0[1]) == (2 * cfg.n_layers,
                                                                     cfg.n_layers)
     assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= 2e-2
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_decode_chunk_graph_replay_equals_eager(cuda, sampled):
+    """The serving engine's decode chunk captured as one CUDA graph: a
+    replay from a saved state gives the tokens and pages that the eager
+    chunk gives from the same state, and a second replay with new inputs
+    reuses the one capture."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.models import llama as tllama
+    from torchdistx_tpu_torch.serving import Engine
+
+    torch.manual_seed(0)
+    model = tllama.Llama(tllama.llama_test(), device=cuda).float()
+    sample = dict(temperature=0.8, top_k=20) if sampled else {}
+    eng = Engine(model, num_slots=2, block_size=8, max_model_len=64, decode_chunk=4,
+                 prefix_cache=False, **sample)
+    for i in range(2):
+        eng.submit(np.arange(1, 9, dtype=np.int32) + i, max_new_tokens=30, key=i)
+    eng.step()
+    eng.step()  # both admitted; the graph is captured and replayed
+    dec = eng.decoder()
+    assert dec.graph is not None and eng.stats()["decode_graphs"] == 1
+    state = (eng._tokens.copy(), eng._positions.copy(), eng._n_gen.copy(),
+             eng._done.copy(), eng._keys.copy(), eng._tables.copy())
+    pages = {n: p.clone() for n, p in eng._cache.items()}
+    dec.load(*state)
+    dec.replay()
+    replayed = dec.out.clone()
+    replayed_pages = {n: p.clone() for n, p in eng._cache.items()}
+    for n, p in eng._cache.items():
+        p.copy_(pages[n])
+    dec.load(*state)
+    dec.run_eager()
+    torch.testing.assert_close(dec.out, replayed, rtol=0, atol=0)
+    for n, p in eng._cache.items():
+        torch.testing.assert_close(p[:, 1:], replayed_pages[n][:, 1:], rtol=0, atol=0)
+    eng.drain()
+    assert eng.stats()["decode_graphs"] == 1
+
+
+def test_decode_chunk_failed_capture_raises(cuda, monkeypatch):
+    """A failed capture of the decode chunk raises GraphCaptureError out of
+    step(): the engine never falls back to eager decode on the card."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.models import llama as tllama
+    from torchdistx_tpu_torch.serving import Engine, GraphCaptureError
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("capture refused")
+
+    torch.manual_seed(0)
+    model = tllama.Llama(tllama.llama_test(), device=cuda)
+    eng = Engine(model, num_slots=2, block_size=8, max_model_len=64, decode_chunk=4,
+                 prefix_cache=False)
+    eng.submit(np.arange(1, 9, dtype=np.int32), max_new_tokens=8, key=0)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    with pytest.raises(GraphCaptureError, match="capture refused"):
+        eng.step()
+    assert eng.decoder().graph is None

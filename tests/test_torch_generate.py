@@ -94,6 +94,24 @@ def test_sampling_reproducible_with_generator(setup):
     assert ((a >= 0) & (a < 256)).all()
 
 
+def test_keyed_sampling_reproducible_and_row_distinct(setup):
+    """``key=`` samples by the keyed hash: the same key gives the same
+    tokens, each row draws on its own counter row (two equal prompts
+    sample apart), and row 0 of a batch equals the row sampled alone."""
+    _, _, model, prompt = setup
+    twin = torch.from_numpy(np.repeat(prompt[:1], 2, axis=0))
+
+    def run(p, key):
+        return generate(model, p, max_new_tokens=8, temperature=1.0, top_k=50, key=key)
+
+    a = run(twin, 3)
+    assert torch.equal(a, run(twin, 3))
+    assert not torch.equal(a[0], a[1])
+    assert torch.equal(a[0], run(twin[:1], 3)[0])
+    assert not torch.equal(a, run(twin, 4))
+    assert torch.equal(run(twin, 3), run(twin, np.asarray([0, 3], np.uint32)))
+
+
 def test_too_long_raises(setup):
     _, _, model, prompt = setup
     with pytest.raises(ValueError, match="max_seq_len"):

@@ -27,6 +27,7 @@ from torchdistx_tpu_torch.parallel.distributed import initialize, make_hybrid_me
 from torchdistx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
 from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step, make_train_step
+from torchdistx_tpu_torch.serving import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -68,7 +69,9 @@ def test_walk_finds_every_module():
                  "parallel.distributed", "parallel.fit", "utils.checkpoint",
                  "materialize", "parallel.sharding", "parallel.mesh", "parallel.slowmo",
                  "models.gpt2", "models.moe", "parallel.ring_attention", "parallel.spmd",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "telemetry.audit", "serving", "serving.blocks",
+                 "serving.cache", "serving.engine", "serving.lifecycle", "serving.prefix",
+                 "serving.scheduler"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -98,11 +101,12 @@ def _no_cuda():
         lambda: initialize(),
         lambda: make_hybrid_mesh(MeshSpec(tp=2), MeshSpec(dp=2)),
         lambda: make_slowmo_train_step(tllama.llama_test(), None, _slowmo)[0](0),
+        lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu")),
     ],
     ids=["resolve_device", "Llama", "llama_from_jax_params", "GPT2", "MoE",
          "gpt2_from_jax_params", "make_train_step", "make_train_step_moe",
          "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
-         "make_hybrid_mesh", "make_slowmo_train_step_init_fn"],
+         "make_hybrid_mesh", "make_slowmo_train_step_init_fn", "Engine"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -3,27 +3,84 @@
 Counterpart of ``torchdistx_tpu/models/generate.py``.  The cache is
 allocated at ``prompt_len + max_new_tokens`` up front and updated in place;
 the decode weights are fused once per call.  Greedy decoding
-(``temperature=0``) is token-identical to the JAX version; sampling draws
-from ``generator`` (PyTorch's default one when ``None``).
+(``temperature=0``) is token-identical to the JAX version.
+
+Sampling takes one of two sources.  ``key=`` (an int seed or two 32-bit
+words, as the JAX ``generate`` takes a key) samples step ``n`` by
+:func:`sample_keyed`: Gumbel-max over the masked logits, its uniforms a
+counter-based hash of ``(key, n, column)``, so a step's draw depends on
+the key and the step alone, never on the batch, the row's slot or the
+generator state.  The serving engine samples the same way, so its streams
+equal ``generate(key=k)`` on the same device.  JAX's values are not
+matched: threefry's ``fold_in(key, n)`` is not reproduced.  Without a key,
+``generator`` is drawn from (PyTorch's default one when ``None``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
-__all__ = ["generate"]
+__all__ = ["generate", "keyed_uniform", "sample_keyed"]
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mix32(x):
+    """A 32-bit avalanche hash (lowbias32's shifts and multipliers) on int64
+    tensors that hold values below ``2**32``; both multipliers are below
+    ``2**31``, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def keyed_uniform(keys, steps, n_cols: int, rows=None):
+    """Uniforms in (0, 1), float32 ``(B, n_cols)``: element ``(b, c)`` is a
+    function of ``keys[b]`` (two 32-bit words, int64 ``(B, 2)``),
+    ``steps[b]`` (int64 ``(B,)``) and the counter ``c + rows[b] * n_cols``
+    (``rows`` int64 ``(B,)``, zero when ``None``) alone.  Integer ops only
+    until the last cast, so CPU and CUDA give the same bits."""
+    keys = keys.long()
+    seed = _mix32(_mix32(_mix32(keys[:, 0]) ^ keys[:, 1]) ^ (steps.long() & _M32))
+    cols = torch.arange(n_cols, device=keys.device, dtype=torch.int64)[None]
+    if rows is not None:
+        cols = cols + rows.long()[:, None] * n_cols
+    h = _mix32((_mix32((cols & _M32) ^ seed[:, None]) + _GOLDEN) & _M32)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_keyed(logits, keys, steps, temperature: float, top_k: Optional[int], rows=None):
+    """One token a row of ``logits (B, V)`` (float32): ``argmax`` at
+    ``temperature == 0``; else Gumbel-max over ``logits / temperature``
+    with everything below the ``top_k``-th value masked, the noise from
+    :func:`keyed_uniform` (``keys``, ``steps``, ``rows`` as there).  No
+    generator state and no host sync, so it runs inside a CUDA graph."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = _scaled(logits, temperature, top_k)
+    u = keyed_uniform(keys, steps, logits.shape[-1], rows)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def _scaled(logits, temperature: float, top_k: Optional[int]):
+    """``logits / temperature``, everything below the ``top_k``-th value
+    at ``-inf``."""
+    logits = logits / temperature
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    return logits
 
 
 def _sample(logits, temperature: float, top_k: Optional[int], generator):
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits / temperature
-    if top_k is not None:
-        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, float("-inf"), logits)
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(_scaled(logits, temperature, top_k), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
@@ -36,6 +93,7 @@ def generate(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     eos_id: Optional[int] = None,
+    key: Any = None,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Generate ``max_new_tokens`` continuations of ``prompt (B, S)``.
@@ -46,7 +104,10 @@ def generate(
     Returns ``(B, max_new_tokens)`` int64 tokens on the prompt's device.
     After ``eos_id`` (if given) a sequence keeps emitting ``eos_id``; once
     every sequence is done, the remaining steps skip the model and emit
-    ``eos_id``.
+    ``eos_id``.  ``key`` (an int seed or two 32-bit words, normalized by
+    :func:`~torchdistx_tpu_torch.telemetry.audit.canonical_key`) samples
+    step ``n`` of row ``r`` by :func:`sample_keyed` at counter row ``r``;
+    ``generator`` is then unused.
     """
     cfg = model.cfg
     b, s = prompt.shape
@@ -59,8 +120,22 @@ def generate(
     cache = model.init_cache(b, total, device=prompt.device)
     weights = model.prep_decode()
 
+    if key is not None:
+        from ..telemetry.audit import canonical_key
+
+        words = torch.as_tensor(canonical_key(key).astype("int64"), device=prompt.device)
+        keys = words[None].expand(b, 2)
+        rows = torch.arange(b, device=prompt.device)
+
+        def sample(logits, step):
+            steps = torch.full((b,), step, dtype=torch.int64, device=prompt.device)
+            return sample_keyed(logits, keys, steps, temperature, top_k, rows)
+    else:
+        def sample(logits, step):
+            return _sample(logits, temperature, top_k, generator)
+
     logits, cache = model.forward_cached(prompt, cache, 0, weights)
-    tok = _sample(logits[:, -1], temperature, top_k, generator)
+    tok = sample(logits[:, -1], 0)
     done = tok == eos_id if eos_id is not None else None
     out = [tok]
     for i in range(max_new_tokens - 1):
@@ -69,7 +144,7 @@ def generate(
             out.append(torch.full_like(tok, eos_id))
             continue
         logits, cache = model.forward_cached(tok[:, None], cache, s + i, weights)
-        tok = _sample(logits[:, -1], temperature, top_k, generator)
+        tok = sample(logits[:, -1], i + 1)
         if done is not None:
             tok = torch.where(done, eos_id, tok)
             done = done | (tok == eos_id)

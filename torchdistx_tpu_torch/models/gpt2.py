@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import cached_attention
+from ..ops.attention import cached_attention, paged_attention, paged_write_index
 from ..parallel.pipeline import (
     contiguous_rows,
     layer_grads,
@@ -371,6 +371,28 @@ class GPT2(nn.Module):
             cache["k"][i, :, pos:pos + t] = k
             cache["v"][i, :, pos:pos + t] = v
             x = blk.finish(x, cached_attention(q, cache["k"][i], cache["v"][i], pos))
+        return self._head(x).float(), cache
+
+    def forward_paged(self, tokens, cache, block_tables, positions, decode_weights=None):
+        """``tokens (B, T)`` against a paged KV cache, slot ``b`` at its own
+        positions ``positions[b] ..`` (see
+        :meth:`~torchdistx_tpu_torch.models.llama.Llama.forward_paged`):
+        learned positions at each slot's offsets, clamped to the table as
+        the JAX ``jnp.take`` clamps them (a padding tail past
+        ``max_seq_len`` reads the last row; its K/V lands in the trash
+        page).  Returns ``(logits (B, T, V) f32, cache)``."""
+        del decode_weights
+        b, t = tokens.shape
+        pos_bt = positions[:, None] + torch.arange(t, device=tokens.device)[None]
+        x = self.wte(tokens) + self.wpe(pos_bt.clamp(0, self.cfg.max_seq_len - 1))
+        blk_idx, off = paged_write_index(block_tables, pos_bt, cache["k"].shape[2])
+        blk_idx, off = blk_idx.long(), off.long()
+        for i, blk in enumerate(self.layers):
+            q, k, v = blk.qkv(x)
+            cache["k"][i, blk_idx, off] = k
+            cache["v"][i, blk_idx, off] = v
+            x = blk.finish(x, paged_attention(q, cache["k"][i], cache["v"][i], block_tables,
+                                              positions))
         return self._head(x).float(), cache
 
 

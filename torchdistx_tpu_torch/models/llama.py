@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from ..ops.attention import cached_attention
+from ..ops.attention import cached_attention, paged_attention, paged_write_index
 from ..parallel.pipeline import (
     contiguous_rows,
     layer_grads,
@@ -451,6 +451,47 @@ class Llama(nn.Module):
             cache["k"][i, :, pos:pos + t] = k
             cache["v"][i, :, pos:pos + t] = v
             attn = cached_attention(q, cache["k"][i], cache["v"][i], pos)
+            x = x + blk.wo(attn.reshape(b, t, -1))
+            h = blk.mlp_norm(x)
+            gu = F.linear(h, decode_weights["wgu"][i])
+            x = x + blk.w_down(F.silu(gu[..., :cfg.ffn_dim]) * gu[..., cfg.ffn_dim:])
+        return self._head(x), cache
+
+    def forward_paged(self, tokens, cache, block_tables, positions, decode_weights=None):
+        """``tokens (B, T)`` against a paged KV cache (the serving path),
+        slot ``b`` at its own positions ``positions[b] .. positions[b]+T-1``:
+        ``T == 1`` is a decode step, ``T > 1`` a chunked-prefill block whose
+        queries attend the slot's cached pages (shared ones included) and
+        the block itself.  ``cache`` is the page pool ``{"k","v"}: (L, NB,
+        bs, Hkv, Dh)``, written in place; ``block_tables (B, M)`` maps each
+        slot's logical blocks to pages.  :meth:`forward_cached`'s layer loop
+        with the slice write swapped for the page scatter
+        (:func:`~torchdistx_tpu_torch.ops.attention.paged_write_index`:
+        positions past the table land in the trash page 0) and the slice
+        read for :func:`~torchdistx_tpu_torch.ops.attention.paged_attention`.
+        Returns ``(logits (B, T, V) f32, cache)``."""
+        cfg = self.cfg
+        if decode_weights is None:
+            decode_weights = self.prep_decode()
+        b, t = tokens.shape
+        x = self.embed(tokens)
+        pos_bt = positions[:, None] + torch.arange(t, device=tokens.device)[None]
+        cos, sin = _rope_tables(pos_bt, cfg.rope_theta, cfg.head_dim // 2, x.dtype)
+        blk_idx, off = paged_write_index(block_tables, pos_bt, cache["k"].shape[2])
+        blk_idx, off = blk_idx.long(), off.long()
+        n_q = cfg.n_heads * cfg.head_dim
+        n_kv = cfg.n_kv_heads * cfg.head_dim
+        for i, blk in enumerate(self.layers):
+            h = blk.attn_norm(x)
+            qkv = F.linear(h, decode_weights["wqkv"][i])
+            q = qkv[..., :n_q].reshape(b, t, cfg.n_heads, cfg.head_dim)
+            k = qkv[..., n_q:n_q + n_kv].reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+            v = qkv[..., n_q + n_kv:].reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+            q = _rope_apply(q, cos, sin)
+            k = _rope_apply(k, cos, sin)
+            cache["k"][i, blk_idx, off] = k
+            cache["v"][i, blk_idx, off] = v
+            attn = paged_attention(q, cache["k"][i], cache["v"][i], block_tables, positions)
             x = x + blk.wo(attn.reshape(b, t, -1))
             h = blk.mlp_norm(x)
             gu = F.linear(h, decode_weights["wgu"][i])

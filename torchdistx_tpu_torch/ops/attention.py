@@ -1,5 +1,5 @@
-"""Attention ops: the plain reference, decode-time cached attention, and the
-implementation dispatcher.
+"""Attention ops: the plain reference, decode-time cached and paged attention,
+and the implementation dispatcher.
 
 Counterpart of ``torchdistx_tpu/ops/attention.py``.  Layout everywhere is
 ``(B, S, H, D)``; grouped-query attention (``Hq % Hkv == 0``) maps query
@@ -18,7 +18,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["attention", "cached_attention", "mha_reference", "resolve_stage_attn_impl"]
+__all__ = ["attention", "cached_attention", "mha_reference", "paged_attention",
+           "paged_write_index", "resolve_stage_attn_impl"]
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -80,6 +81,57 @@ def cached_attention(q, k_cache, v_cache, pos: int):
         <= (pos + torch.arange(t, device=dev))[:, None]
     )
     return _attend_cached(q, k_cache, v_cache, valid[None, :, None, None, :])
+
+
+def paged_write_index(block_tables, positions, block_size: int):
+    """Page and offset each token writes to: ``(blk, off)``, shaped like
+    ``positions``, in ``block_tables``' dtype.
+
+    ``positions`` is ``(B,)`` (each slot's one decode token) or ``(B, T)``
+    (a chunked-prefill block of ``T`` tokens a slot).  The one steering
+    rule of the paged cache, shared by both families' ``forward_paged``
+    and ``serving.cache.write_prompt``: a position past its table
+    (``pos // bs >= M``) steers into page 0, the trash page the allocator
+    never hands out, so a retired slot still in the batch, or a chunk's
+    padding, never writes on a live slot's pages.
+    """
+    m = block_tables.shape[1]
+    blk_no = torch.div(positions, block_size, rounding_mode="floor")
+    idx = blk_no.clamp(0, m - 1).long()
+    if positions.ndim == 1:
+        blk = block_tables.gather(1, idx[:, None])[:, 0]
+    else:  # (B, T): T gathers a slot from its own table row
+        blk = block_tables.gather(1, idx)
+    blk = torch.where(blk_no < m, blk, torch.zeros_like(blk))
+    return blk, (positions % block_size).to(block_tables.dtype)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, positions):
+    """Decode-time attention against a paged KV cache (the serving path).
+
+    q ``(B, T, Hq, D)`` holds slot ``b``'s queries of positions
+    ``positions[b] .. positions[b]+T-1``; ``k_pages`` / ``v_pages``
+    ``(NB, bs, Hkv, D)`` are one layer's page pools; ``block_tables (B, M)``
+    maps slot ``b``'s logical block ``j`` to its page.  Each slot's pages
+    are gathered into a ``(B, M*bs, Hkv, D)`` view and attended through
+    :func:`_attend_cached` with the mask ``key j <= positions[b] + i``:
+    pages past a slot's history, and the trash page, get exactly zero
+    probability.  The gather reads ``M*bs`` positions a slot whatever the
+    history, so ``M`` (the engine's ``max_model_len``) sets the step's
+    bytes.
+    """
+    b, t = q.shape[0], q.shape[1]
+    _, bs, hkv, d = k_pages.shape
+    m = block_tables.shape[1]
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(b, m * bs, hkv, d)
+    v = v_pages[tables].reshape(b, m * bs, hkv, d)
+    dev = q.device
+    valid = (
+        torch.arange(m * bs, device=dev)[None, None, :]
+        <= (positions[:, None] + torch.arange(t, device=dev)[None, :])[:, :, None]
+    )
+    return _attend_cached(q, k, v, valid[:, :, None, None, :])
 
 
 _IMPLS = "auto|plain|flash|ring|ring_zigzag"
