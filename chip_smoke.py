@@ -140,11 +140,30 @@ Phases, each printing a line:
    two consecutive ``serve.step`` io faults (the supervisor zeroes the
    pool in place and replays) and a nan-skipped chunk, streams equal to
    the unfaulted run;
+   ``[serve planes]``: the engine's request planes at full Llama-7B in
+   bf16, SERVE_KW's geometry, each stream held under the margin rule to
+   an uninterrupted run: (a) QoS under pressure (``planes_traffic``: 16
+   class-0 batch requests, then 8 class-1 chat ones on a pool of the
+   first 6 batch reservations), once swapping and once replaying, each
+   swapped page's bits held at swap-out and swap-in, swap GB/s beside a
+   plain pinned copy, TTFT by class; (b) ``submit(n=4)`` forks, pages
+   against 4x solo; (c) a ``ModelPool`` of two Llama-7B skeletons (0
+   bytes; a GPT-2 XL skeleton refused), alternating demand under a
+   budget, each eviction freeing its model's bytes, the materialize stall,
+   each model's streams against an engine on the same seeded weights; (d)
+   the journal's fsync ms a tick and tokens/s with and without it, then a
+   child process serving through a journal killed by SIGKILL and resumed
+   here, nothing twice, nothing lost; (e) four live streams migrated
+   between two engines over one model, pages bit-equal; (f)
+   ``llama_test`` / ``gpt2_test`` in f32: QoS (swap, replay), forks, a
+   pool model, a journal resume and a migration, greedy and sampled,
+   against solo ``generate(key=)`` (``fold_key``) on the card and greedy
+   against the CPU port;
 19. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
    with no byte allocated, seeded onto it (bytes those of its parameters
    and buffers), an eval forward, two recordings bit-equal.
 
-Eleven main paths are driven, each with every launch count set to 0 just
+Twelve main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
@@ -156,9 +175,10 @@ runs (in each card rank; their references are not counted), the pipeline
 path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
 (phase 12: its forward part, then its train part), the MoE path (phase
-13) and the serve path (phase 18 (a)'s requests, submitted and drained),
-which launches no kernel: the engine's attention is the paged plain
-attention, as the JAX engine's is ``jnp``.  Any failed check
+13), the serve path (phase 18 (a)'s requests, submitted and drained) and
+the serve planes path (``[serve planes]`` (a)-(e)), which launch no
+kernel: the engine's attention is the paged plain attention, as the JAX
+engine's is ``jnp``.  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
 matmuls run in full float32 (TF32 is switched off).  The last three lines
 are the kernels' summary, the card's name and power limit, then the result
@@ -4109,6 +4129,730 @@ def phase_serve(fa):
     return stats
 
 
+# [serve planes]: the engine's request planes at full llama_7b in
+# bf16, seeded as [serve], SERVE_KW's geometry.  (a) QoS under pressure:
+# PLANES_BATCH class-0 "batch" requests (prompts PLANES_BATCH_LENS, budget
+# PLANES_BATCH_BUDGET) fill the slots, and after PLANES_CHAT_AFTER ticks
+# PLANES_CHAT class-1 "chat" requests (prompts PLANES_CHAT_LENS, budget
+# PLANES_CHAT_BUDGET) arrive; the pool holds exactly the first
+# PLANES_FILL batch reservations (num_blocks), so a chat reservation
+# exceeds the free list with slots free (page pressure: swap or replay) and
+# later arrivals find every slot held (slot pressure: replay).
+# max_prefills_per_tick lets the batch class prefill its 2-chunk prompts
+# within the PLANES_CHAT_AFTER ticks.  Run once with each mechanism.
+PLANES_BATCH = 16
+PLANES_BATCH_LENS = (512, 900)
+PLANES_BATCH_BUDGET = 64
+PLANES_CHAT = 8
+PLANES_CHAT_LENS = (64, 128)
+PLANES_CHAT_BUDGET = 16
+PLANES_CHAT_AFTER = 2
+PLANES_FILL = 6
+PLANES_WEIGHTS = {"chat": 4, "batch": 1}
+PLANES_PREFILLS_PER_TICK = 8
+# (b) forks: submit(n=PLANES_FORK_N) on PLANES_FORK_PROMPTS prompts of
+# PLANES_FORK_LEN tokens, greedy, PLANES_FORK_BUDGET tokens.
+PLANES_FORK_N = 4
+PLANES_FORK_PROMPTS = 3
+PLANES_FORK_LEN = 512
+PLANES_FORK_BUDGET = 32
+# (c) the model pool: two llama_7b skeletons (SERVE_SEED + 1, + 2) beside
+# the engine's own model, PLANES_POOL_TRAFFIC demands alternating between
+# them (each evicts the other under the budget), PLANES_POOL_BUDGET tokens.
+PLANES_POOL_TRAFFIC = ("tuna", "bass", "tuna", "bass")
+PLANES_POOL_BUDGET = 16
+# (d) the journal: the first PLANES_JOURNAL requests of serve_traffic, with
+# fsync="tick" and without; then a child process serving them through a
+# journal is killed by SIGKILL once every stream has committed tokens.
+PLANES_JOURNAL = 8
+PLANES_CHILD_TIMEOUT_S = 300
+# (e) migration: PLANES_MIGRATE live streams (budgets of at least
+# PLANES_MIGRATE_BUDGET) move from engine A to B.
+PLANES_MIGRATE = 4
+PLANES_MIGRATE_BUDGET = 32
+# The phase's peak allocated bytes must stay below this.
+PLANES_PEAK_LIMIT = 70e9
+# (f) the *_test configs in f32 (SERVE_SMALL_KW, no EOS): QoS page
+# pressure (PLANES_SMALL_PRESSURE), forks of PLANES_SMALL_FORK_PROMPT, a
+# pool model, an in-process journal resume and a migration on the card.
+PLANES_SMALL_PRESSURE = dict(scheduler="qos", num_slots=2, block_size=8, num_blocks=9,
+                             max_model_len=64, decode_chunk=4, prefix_cache=False)
+PLANES_SMALL_FORK_PROMPT = tuple(range(10, 42))
+
+
+def planes_traffic(vocab, seed=SERVE_SEED):
+    """[serve planes] (a)'s requests: ``[(prompt int32, budget, tenant,
+    priority)]``, the batch class first, made from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 100)
+    out = []
+    for cls, n, (lo, hi), budget, prio in (
+            ("batch", PLANES_BATCH, PLANES_BATCH_LENS, PLANES_BATCH_BUDGET, 0),
+            ("chat", PLANES_CHAT, PLANES_CHAT_LENS, PLANES_CHAT_BUDGET, 1)):
+        for _ in range(n):
+            prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
+            out.append((prompt.astype(np.int32), budget, cls, prio))
+    return out
+
+
+def planes_num_blocks(traffic, block_size):
+    """The (a) pool: the trash page plus the first PLANES_FILL batch
+    reservations, so every further reservation meets a full free list."""
+    return 1 + sum(-(-(len(p) + b) // block_size) for p, b, _, _ in traffic[:PLANES_FILL])
+
+
+def planes_page_bytes(cfg, block_size, itemsize=2):
+    """Bytes of one page, K and V over every layer: 2 x L x bs x Hkv x Dh x
+    itemsize (8 MiB at llama_7b in bf16)."""
+    return 2 * cfg.n_layers * block_size * cfg.n_kv_heads * cfg.head_dim * itemsize
+
+
+def planes_memory_plan(cfg, block_size=SERVE_KW["block_size"]):
+    """(c)'s planned bytes: the engine's own model and one resident pool
+    model, each its bf16 parameters plus its ``prep_decode`` copy (wqkv
+    and wgu a layer), and SERVE_KW's default pool (1 + num_slots x table
+    width pages)."""
+    from torchdistx_tpu_torch.models.llama import num_params
+
+    params = num_params(cfg) * 2
+    kv_width = cfg.n_kv_heads * cfg.head_dim
+    prep = cfg.n_layers * (cfg.dim * (cfg.dim + 2 * kv_width) + 2 * cfg.ffn_dim * cfg.dim) * 2
+    table = -(-SERVE_KW["max_model_len"] // block_size)
+    pool = (1 + SERVE_KW["num_slots"] * table) * planes_page_bytes(cfg, block_size)
+    return {"params": params, "prep_decode": prep, "kv_pool": pool,
+            "total": 2 * (params + prep) + pool}
+
+
+def _peak_gb():
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _margin_check(model, label, prompts, got, want):
+    """The [serve] margin rule over streams ``got`` against ``want``;
+    returns the diverged ``[index, step, gap, rank]``."""
+    diverged = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        at = _serve_margin(model, p, g, w)
+        if at is not None:
+            diverged.append([i, *at])
+    _check(all(gap <= SERVE_MARGIN and rank <= SERVE_MAX_RANK for _, _, gap, rank in diverged),
+           f"[serve planes] {label}: streams beyond the margin rule {diverged}")
+    return diverged
+
+
+class _SwapWatch:
+    """Wraps the engine module's swap pair: times every call (synchronized
+    before and after), counts its bytes, and holds each swap's bits: the
+    host copy equals the pages at swap-out, and the pages after swap-in
+    equal the host copy."""
+
+    def __init__(self, engine_mod):
+        self.mod = engine_mod
+        self.out_fn, self.in_fn = engine_mod.swap_out_pages, engine_mod.swap_in_pages
+        self.rows = {"out": [], "in": []}
+
+    def __enter__(self):
+        def swap_out(paged, pages, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = self.out_fn(paged, pages, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            idx = torch.as_tensor(list(pages), device="cuda")
+            for n, pool in paged.items():
+                _check(torch.equal(host[n].cuda(), pool[:, idx]),
+                       "[serve planes] a swapped-out page's host bits differ")
+            self.rows["out"].append((sum(h.nbytes for h in host.values()), dt))
+            return host
+
+        def swap_in(paged, host, pages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.in_fn(paged, host, pages)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            idx = torch.as_tensor(list(pages), device="cuda")
+            for n, pool in paged.items():
+                _check(torch.equal(pool[:, idx], host[n].cuda()),
+                       "[serve planes] a swapped-in page's bits differ from swap-out")
+            self.rows["in"].append((sum(h.nbytes for h in host.values()), dt))
+            return out
+
+        self.mod.swap_out_pages, self.mod.swap_in_pages = swap_out, swap_in
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.swap_out_pages, self.mod.swap_in_pages = self.out_fn, self.in_fn
+
+    def rate(self, which):
+        rows = self.rows[which]
+        nbytes = sum(b for b, _ in rows)
+        secs = sum(s for _, s in rows)
+        return {"calls": len(rows), "bytes": nbytes,
+                "gb_per_s": nbytes / secs / 1e9 if secs else None}
+
+
+def _pinned_yardstick(nbytes):
+    """GB/s of one plain pinned copy of ``nbytes``, device to host and host
+    to device, by CUDA events (median of 5)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, fn in (("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                     ("h2d", lambda: dev.copy_(host, non_blocking=True))):
+        ms = _time_ms(fn, warmup=1, reps=5, calls=1)
+        out[name] = nbytes / (ms / 1e3) / 1e9
+    del dev, host
+    return out
+
+
+def _drive(eng, submits, *, after=None, late=()):
+    """Submit ``submits`` (kwargs), step ``after`` ticks, submit ``late``,
+    drain; returns the handles in submission order."""
+    hs = [eng.submit(**kw) for kw in submits]
+    for _ in range(after or 0):
+        eng.step()
+    hs += [eng.submit(**kw) for kw in late]
+    eng.drain()
+    return hs
+
+
+def _planes_qos(model, cfg, traffic, ref):
+    """(a): the QoS engine with each mechanism; returns its stats."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.serving import engine as engine_mod
+    from torchdistx_tpu_torch.serving import Engine
+
+    nb = planes_num_blocks(traffic, SERVE_KW["block_size"])
+    subs = [dict(prompt=p, max_new_tokens=b, key=i, tenant=t, priority=pr)
+            for i, (p, b, t, pr) in enumerate(traffic)]
+    batch, chat = subs[:PLANES_BATCH], subs[PLANES_BATCH:]
+    out = {}
+    for mech in ("swap", "replay"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(model, **dict(SERVE_KW, num_blocks=nb,
+                                   max_prefills_per_tick=PLANES_PREFILLS_PER_TICK),
+                     scheduler="qos", tenant_weights=PLANES_WEIGHTS, preempt_mechanism=mech)
+        with _SwapWatch(engine_mod) as watch:
+            t0 = time.perf_counter()
+            hs = _drive(eng, batch, after=PLANES_CHAT_AFTER, late=chat)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        st = eng.stats()
+        streams = [h.result() for h in hs]
+        _check([len(s) for s in streams] == [b for _, b, _, _ in traffic],
+               f"[serve planes] (a) {mech}: stream lengths")
+        _check(eng.allocator.num_in_use == len(eng.prefix) and eng.allocator.num_swapped == 0
+               and eng.prefix.check(eng.allocator) is None,
+               f"[serve planes] (a) {mech}: pages after the drain {eng.allocator.num_in_use} "
+               f"vs the prefix index's {len(eng.prefix)}")
+        _check(st["preemptions_swap" if mech == "swap" else "preemptions_replay"] > 0,
+               f"[serve planes] (a) {mech}: no preemption {st}")
+        _check(st["decode_graphs"] == 1, f"[serve planes] (a) {mech}: {st['decode_graphs']} "
+               "decode graphs (a parked slot must not recapture)")
+        diverged = _margin_check(model, f"(a) {mech}", [t[0] for t in traffic], streams, ref)
+        ttft = {}
+        for cls in ("batch", "chat"):
+            vals = [h.ttft_s for h, t in zip(hs, traffic) if t[2] == cls]
+            ttft[cls] = [float(np.percentile(vals, 50)), float(np.percentile(vals, 99))]
+        out[mech] = {
+            "num_blocks": nb, "run_s": run_s,
+            "tokens_per_s": sum(map(len, streams)) / run_s, "ttft_s": ttft,
+            "preemptions_swap": st["preemptions_swap"],
+            "preemptions_replay": st["preemptions_replay"],
+            "swap_out": watch.rate("out"), "swap_in": watch.rate("in"),
+            "identical": len(traffic) - len(diverged), "diverged": diverged,
+            "peak_gb": _peak_gb(),
+        }
+        eng.close()
+        del eng, hs, watch
+        _free()
+    return out
+
+
+def _planes_forks(model, cfg):
+    """(b): forks over 512-token prompts against solo, pages against 4x."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.models.generate import generate
+    from torchdistx_tpu_torch.serving import Engine
+
+    rng = np.random.default_rng(SERVE_SEED + 200)
+    prompts = [rng.integers(0, cfg.vocab_size, size=PLANES_FORK_LEN).astype(np.int32)
+               for _ in range(PLANES_FORK_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    for n in (1, PLANES_FORK_N):
+        eng = Engine(model, **dict(SERVE_KW, prefix_cache=False))
+        hs = [eng.submit(p, max_new_tokens=PLANES_FORK_BUDGET, key=i, n=n)
+              for i, p in enumerate(prompts)]
+        peak = 0
+        while len(eng.scheduler) or eng._n_running():
+            eng.step()
+            peak = max(peak, eng.allocator.num_in_use)
+        _check(eng.allocator.num_in_use == 0, "[serve planes] (b) pages left after the drain")
+        peaks[n] = peak
+        if n > 1:
+            streams = [[s.result() for s in h.siblings] for h in hs]
+        eng.close()
+        del eng
+    solo = [generate(model, torch.from_numpy(p).long().cuda()[None],
+                     max_new_tokens=PLANES_FORK_BUDGET)[0].tolist() for p in prompts]
+    flat_p = [p for p in prompts for _ in range(PLANES_FORK_N)]
+    flat_w = [w for w in solo for _ in range(PLANES_FORK_N)]
+    diverged = _margin_check(model, "(b)", flat_p, [t for g in streams for t in g], flat_w)
+    _check(peaks[PLANES_FORK_N] < 2 * peaks[1],
+           f"[serve planes] (b) fork pages {peaks[PLANES_FORK_N]} vs solo {peaks[1]}")
+    _free()
+    return {"pages_fork_peak": peaks[PLANES_FORK_N], "pages_solo_peak": peaks[1],
+            "pages_4x_solo": PLANES_FORK_N * peaks[1],
+            "identical": len(flat_p) - len(diverged), "diverged": diverged,
+            "peak_gb": _peak_gb()}
+
+
+def _planes_pool(model, cfg):
+    """(c): two llama_7b skeletons in a pool, alternating demand."""
+    import numpy as np
+
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models import gpt2
+    from torchdistx_tpu_torch.models.llama import Llama
+    from torchdistx_tpu_torch.serving import Engine, ModelPool
+    from torchdistx_tpu_torch.telemetry import perf
+
+    seeds = {"tuna": SERVE_SEED + 1, "bass": SERVE_SEED + 2}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool = ModelPool()
+    eng = Engine(model, **SERVE_KW, model_pool=pool)
+    _free()  # an earlier engine collected mid-record would read as negative bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for tag, seed in seeds.items():
+        pool.register(tag, module=deferred_init(Llama, cfg, device_="cuda"), seed=seed)
+    skeleton_bytes = torch.cuda.memory_allocated() - before
+    _check(skeleton_bytes == 0, f"[serve planes] (c) skeletons allocated {skeleton_bytes} bytes")
+    try:
+        pool.register("xl", module=deferred_init(gpt2.GPT2, gpt2.gpt2_xl(), device_="cuda"))
+        refused = False
+    except ValueError:
+        refused = True
+    _check(refused and "xl" not in pool, "[serve planes] (c) a gpt2_xl skeleton registered")
+    est = pool._entries["tuna"].nbytes_estimate
+    pool.hbm_budget_bytes = sum(perf.ledger.owners().values()) + 2 * est
+    evictions = []
+    evict = pool.evict
+
+    def watched_evict(tag):
+        torch.cuda.synchronize()
+        held = pool._entries[tag].params_nbytes
+        m0 = torch.cuda.memory_allocated()
+        ok = evict(tag)
+        gc.collect()
+        torch.cuda.synchronize()
+        if ok:
+            evictions.append((tag, held, m0 - torch.cuda.memory_allocated()))
+        return ok
+
+    pool.evict = watched_evict
+    captures = telemetry.counter("serve.graph_captures").value
+    rng = np.random.default_rng(SERVE_SEED + 300)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(64, 256))).astype(np.int32)
+               for _ in PLANES_POOL_TRAFFIC]
+    got, stalls, ledger_rows = {}, [], []
+    for i, (tag, p) in enumerate(zip(PLANES_POOL_TRAFFIC, prompts)):
+        toks = eng.submit(p, max_new_tokens=PLANES_POOL_BUDGET, key=i, model=tag).result()
+        got.setdefault(tag, []).append((p, toks, i))
+        stalls.append(pool._entries[tag].last_stall_s)
+        torch.cuda.synchronize()
+        ledger_rows.append((sum(perf.ledger.owners().values()), torch.cuda.memory_allocated()))
+    captures = telemetry.counter("serve.graph_captures").value - captures
+    st = pool.stats()
+    _check(len(evictions) == len(PLANES_POOL_TRAFFIC) - 1,
+           f"[serve planes] (c) evictions {evictions}")
+    _check(all(freed >= held for _, held, freed in evictions),
+           f"[serve planes] (c) an eviction freed less than the model's bytes {evictions}")
+    peak = _peak_gb()
+    eng.close()
+    del eng, pool
+    _free()
+    # Each pool model's streams against an engine built directly on the same
+    # seeded weights, the same requests in the same order.
+    identical, diverged = 0, []
+    for tag, seed in seeds.items():
+        direct = deferred_init(Llama, cfg, device_="cuda")
+        direct.load_state_dict(materialize_module_torch(direct, seed=seed), assign=True)
+        ref_eng = Engine(direct, **SERVE_KW)
+        want = [ref_eng.submit(p, max_new_tokens=PLANES_POOL_BUDGET, key=k).result()
+                for p, _, k in got[tag]]
+        ref_eng.close()
+        d = _margin_check(direct, f"(c) {tag}", [p for p, _, _ in got[tag]],
+                          [t for _, t, _ in got[tag]], want)
+        identical += len(want) - len(d)
+        diverged += [[tag] + row for row in d]
+        del ref_eng, direct
+        _free()
+    return {"skeleton_bytes": skeleton_bytes, "gpt2_xl_refused": refused,
+            "materialize_stall_s": stalls, "evictions": evictions, "graph_captures": captures,
+            "ledger_vs_allocated": ledger_rows, "materializations": {
+                t: m["materializations"] for t, m in st["models"].items()},
+            "identical": identical, "diverged": diverged, "peak_gb": peak}
+
+
+def _timed_journal(path):
+    """A ``RequestJournal(path, fsync="tick")`` whose fsyncs are timed
+    (``.fsync_s``, one entry a tick that had records)."""
+    from torchdistx_tpu_torch.serving import RequestJournal
+
+    class Timed(RequestJournal):
+        def _do_fsync(self):
+            t0 = time.perf_counter()
+            super()._do_fsync()
+            self.fsync_s.append(time.perf_counter() - t0)
+
+    j = Timed(path, fsync="tick")
+    j.fsync_s = []
+    return j
+
+
+def serve_journal_child(jdir) -> None:
+    """``chip_smoke.py --serve-journal-child <dir>``: full llama_7b (bf16,
+    seeded as [serve]) serving the first PLANES_JOURNAL requests of
+    serve_traffic through a journal; prints PROGRESS once every stream has
+    committed tokens, then steps slowly until the parent's SIGKILL."""
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b
+    from torchdistx_tpu_torch.serving import Engine, RequestJournal
+
+    cfg = llama_7b()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    model.load_state_dict(materialize_module_torch(model, seed=MAT_SEED), assign=True)
+    eng = Engine(model, **SERVE_KW, journal=RequestJournal(jdir, fsync="tick"))
+    hs = [eng.submit(p, max_new_tokens=b, key=i)
+          for i, (p, b) in enumerate(serve_traffic(cfg.vocab_size)[:PLANES_JOURNAL])]
+    while not all(h._tokens for h in hs):
+        eng.step()
+    print("PROGRESS", flush=True)
+    while not all(h.done for h in hs):
+        time.sleep(0.5)
+        eng.step()
+    print("FINISHED", flush=True)
+
+
+def _planes_journal(model, cfg):
+    """(d): the journal's cost, then a SIGKILLed child resumed.  Returns
+    the stats and the run without a journal (the uninterrupted streams
+    that (d) and (e) are held to)."""
+    import os
+    import signal
+    import tempfile
+
+    from torchdistx_tpu_torch.serving import Engine, RequestJournal
+    from torchdistx_tpu_torch.serving.journal import fold_records, read_records
+
+    traffic = serve_traffic(cfg.vocab_size)[:PLANES_JOURNAL]
+    prompts = [p for p, _ in traffic]
+    torch.cuda.reset_peak_memory_stats()
+    out, ref = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("without", "with"):
+            journal = _timed_journal(os.path.join(tmp, "cost")) if label == "with" else None
+            eng = Engine(model, **SERVE_KW, journal=journal)
+            t0 = time.perf_counter()
+            hs = _drive(eng, [dict(prompt=p, max_new_tokens=b, key=i)
+                              for i, (p, b) in enumerate(traffic)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            streams = [h.result() for h in hs]
+            out[label] = {"tokens_per_s": sum(map(len, streams)) / run_s, "run_s": run_s,
+                          "ticks": eng.stats()["ticks"]}
+            if journal is not None:
+                fs = journal.fsync_s
+                out[label].update(fsyncs=len(fs), fsync_ms_mean=statistics.mean(fs) * 1e3,
+                                  fsync_ms_max=max(fs) * 1e3)
+            if ref is None:
+                ref = streams
+            _margin_check(model, f"(d) {label} journal", prompts, streams, ref)
+            eng.close()
+            del eng, hs, journal
+            _free()
+        jdir = os.path.join(tmp, "kill9")
+        proc = subprocess.Popen([sys.executable, __file__, "--serve-journal-child", jdir],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            t0 = time.perf_counter()
+            line = ""
+            while time.perf_counter() - t0 < PLANES_CHILD_TIMEOUT_S:
+                line = proc.stdout.readline()
+                if not line or line.strip() in ("PROGRESS", "FINISHED"):
+                    break
+            _check(line.strip() == "PROGRESS", f"[serve planes] (d) child: {line!r} "
+                   f"{proc.stdout.read()[-2000:] if proc.poll() is not None else ''}")
+            os.kill(proc.pid, signal.SIGKILL)
+            _check(proc.wait(timeout=60) == -signal.SIGKILL, "[serve planes] (d) child not killed")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        eng = Engine(model, **SERVE_KW)
+        t0 = time.perf_counter()
+        handles = eng.resume_from_journal(RequestJournal(jdir))
+        n0 = {u: len(h._tokens) for u, h in handles.items()}
+        while not any(len(h._tokens) > n0[u] for u, h in handles.items()) and not all(
+                h.done for h in handles.values()):
+            eng.step()
+        first_token_s = time.perf_counter() - t0
+        eng.drain()
+        resumed = {u: h.result() for u, h in handles.items()}
+        eng.close()
+        del eng, handles
+        entries, _ = fold_records(read_records(jdir))
+    _check(resumed, "[serve planes] (d) nothing left to resume: the kill landed too late")
+    _check(set(entries) == set(range(1, PLANES_JOURNAL + 1)),
+           f"[serve planes] (d) journal uids {sorted(entries)}")
+    finals = []
+    for u in range(1, PLANES_JOURNAL + 1):
+        if u in resumed:
+            finals.append(resumed[u])
+        else:
+            e = entries[u]
+            _check(e.retired and e.outcome == "finished", f"[serve planes] (d) uid {u} lost")
+            finals.append(e.tokens)
+    _check([len(s) for s in finals] == [b for _, b in traffic],
+           "[serve planes] (d) a resumed stream's length (a token twice or lost)")
+    diverged = _margin_check(model, "(d) resume", prompts, finals, ref)
+    out["kill9"] = {"resumed": len(resumed), "finished_before": PLANES_JOURNAL - len(resumed),
+                    "resume_first_token_s": first_token_s,
+                    "identical": PLANES_JOURNAL - len(diverged), "diverged": diverged}
+    out["peak_gb"] = _peak_gb()
+    _free()
+    return out, ref
+
+
+def _planes_migrate(model, cfg, ref):
+    """(e): PLANES_MIGRATE live streams from engine A to engine B: the
+    first requests of (d)'s with a budget of at least PLANES_MIGRATE_BUDGET,
+    admitted together (max_prefills_per_tick) and moved once all decode."""
+    from torchdistx_tpu_torch.serving import Engine
+
+    picks = [i for i, (_, n) in enumerate(serve_traffic(cfg.vocab_size)[:PLANES_JOURNAL])
+             if n >= PLANES_MIGRATE_BUDGET][:PLANES_MIGRATE]
+    _check(len(picks) == PLANES_MIGRATE, f"[serve planes] (e) requests {picks}")
+    traffic = [serve_traffic(cfg.vocab_size)[i] for i in picks]
+    ref = [ref[i] for i in picks]
+    torch.cuda.reset_peak_memory_stats()
+    a = Engine(model, **dict(SERVE_KW, max_prefills_per_tick=PLANES_PREFILLS_PER_TICK))
+    b = Engine(model, **SERVE_KW)
+    hs = [a.submit(p, max_new_tokens=n, key=i) for i, (p, n) in zip(picks, traffic)]
+    while len(a.migratable_slots()) < PLANES_MIGRATE:
+        _check(not any(h.done for h in hs), "[serve planes] (e) a stream ended before the move")
+        a.step()
+    rows = []
+    for slot in a.migratable_slots():
+        pages = list(a._slot_req[slot].blocks)
+        before = {n: p[:, pages].clone() for n, p in a._cache.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = a.migrate_out(slot)
+        t1 = time.perf_counter()
+        h = b.migrate_in(snap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        new = h._req.blocks
+        for n, p in b._cache.items():
+            _check(torch.equal(p[:, new], before[n]),
+                   "[serve planes] (e) a migrated page's bits on B differ from A's")
+        rows.append({"bytes": sum(t.nbytes for t in snap["host"].values()),
+                     "pages": snap["n_pages"], "out_ms": (t1 - t0) * 1e3,
+                     "in_ms": (t2 - t1) * 1e3})
+        del before, snap
+    b.drain()
+    streams = [h.result() for h in hs]
+    st_a, st_b = a.stats(), b.stats()
+    _check(st_b["recoveries"] == 0 and st_b["migrations_in"] == PLANES_MIGRATE
+           and st_a["migrations_out"] == PLANES_MIGRATE, f"[serve planes] (e) {st_a} {st_b}")
+    _check(a.allocator.num_in_use == len(a.prefix) and b.allocator.num_in_use == len(b.prefix),
+           "[serve planes] (e) pages after the drain")
+    diverged = _margin_check(model, "(e)", [p for p, _ in traffic], streams, ref)
+    a.close()
+    b.close()
+    out = {"streams": rows, "identical": PLANES_MIGRATE - len(diverged), "diverged": diverged,
+           "peak_gb": _peak_gb()}
+    del a, b, hs
+    _free()
+    return out
+
+
+def _planes_small_runs(model, device, sample):
+    """(f)'s five scenarios on ``device``: ``{name: [streams]}``."""
+    import tempfile
+
+    import numpy as np
+
+    from torchdistx_tpu_torch.serving import Engine, ModelPool, RequestJournal
+    from torchdistx_tpu_torch.serving.journal import fold_records, read_records
+
+    p8, p8b = np.arange(1, 9, dtype=np.int32), np.arange(2, 10, dtype=np.int32)
+    out = {}
+    for mech in ("swap", "replay"):
+        eng = Engine(model, device=device, preempt_mechanism=mech, **PLANES_SMALL_PRESSURE,
+                     **sample)
+        hs = _drive(eng, [dict(prompt=p8, max_new_tokens=26, key=1, priority=0)], after=1,
+                    late=[dict(prompt=p8b, max_new_tokens=26, key=2, priority=5)])
+        st = eng.stats()
+        _check(st["preemptions_swap" if mech == "swap" else "preemptions_replay"] > 0
+               and eng.allocator.num_in_use == 0 and eng.allocator.num_swapped == 0,
+               f"[serve planes] (f) {mech}: {st}")
+        out[f"qos_{mech}"] = [h.result() for h in hs]
+    eng = Engine(model, device=device, **dict(SERVE_SMALL_KW, num_slots=4), **sample)
+    out["fork"] = [s.result() for s in eng.submit(PLANES_SMALL_FORK_PROMPT, max_new_tokens=9,
+                                                  key=7, n=4).siblings]
+    pool = ModelPool()
+    pool.register("other", module=model, materialize=lambda: copy.deepcopy(model))
+    eng = Engine(model, device=device, model_pool=pool, **SERVE_SMALL_KW, **sample)
+    out["pool"] = [eng.submit(p8, max_new_tokens=12, key=3, model="other").result()]
+    eng.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = Engine(model, device=device, journal=RequestJournal(tmp), **SERVE_SMALL_KW,
+                     **sample)
+        hs = [eng.submit(p8, max_new_tokens=20, key=4), eng.submit(p8b, max_new_tokens=20, key=5)]
+        while not all(h._tokens for h in hs):
+            eng.step()
+        j, eng._journal = eng._journal, None  # a crash: the journal is left unclosed
+        j.release()
+        eng.close()
+        eng = Engine(model, device=device, **SERVE_SMALL_KW, **sample)
+        handles = eng.resume_from_journal(RequestJournal(tmp))
+        _check(handles, "[serve planes] (f) nothing to resume")
+        got = {u: h.result() for u, h in handles.items()}
+        eng.close()
+        entries, _ = fold_records(read_records(tmp))
+        out["journal"] = [got.get(u, entries[u].tokens) for u in (1, 2)]
+    a = Engine(model, device=device, **SERVE_SMALL_KW, **sample)
+    b = Engine(model, device=device, **SERVE_SMALL_KW, **sample)
+    h = a.submit(p8, max_new_tokens=20, key=6)
+    while len(h._tokens) < 5:
+        a.step()
+    b.migrate_in(a.migrate_out(a.migratable_slots()[0]))
+    _check(b.stats()["migrations_in"] == 1, "[serve planes] (f) no migration")
+    out["migrate"] = [h.result()]
+    return out
+
+
+def _planes_small(family_cls, cfg, seed):
+    """(f): ``cfg`` in f32 on the card against solo ``generate(key=)`` on
+    the card (``fold_key`` for siblings), greedy against the CPU port."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.models.generate import fold_key, generate
+
+    torch.manual_seed(seed)
+    cpu_model = family_cls(cfg, device="cpu")
+    model = copy.deepcopy(cpu_model).cuda()
+    name = family_cls.__name__
+    p8, p8b = np.arange(1, 9, dtype=np.int32), np.arange(2, 10, dtype=np.int32)
+    results = {}
+    for label, sample in (("greedy", {}), ("sampled", SERVE_SAMPLED)):
+        def solo(p, key, n, sample=sample):
+            return generate(model, torch.from_numpy(p).long().cuda()[None], max_new_tokens=n,
+                            key=key, **sample)[0].tolist()
+
+        got = _planes_small_runs(model, "cuda", sample)
+        want = {"qos_swap": [solo(p8, 1, 26), solo(p8b, 2, 26)],
+                "fork": [solo(np.asarray(PLANES_SMALL_FORK_PROMPT), fold_key(7, i), 9)
+                         for i in range(4)],
+                "pool": [solo(p8, 3, 12)], "journal": [solo(p8, 4, 20), solo(p8b, 5, 20)],
+                "migrate": [solo(p8, 6, 20)]}
+        want["qos_replay"] = want["qos_swap"]
+        for k, w in want.items():
+            _check(got[k] == w, f"[serve planes] (f) {name} {label} {k}: {got[k]} vs solo {w}")
+        results[label] = got
+    cpu = _planes_small_runs(cpu_model, "cpu", {})
+    _check(cpu == results["greedy"], f"[serve planes] (f) {name}: the card's greedy streams "
+           "differ from the CPU port engine's")
+    print(f"[serve planes] (f) {name} f32 on the card: QoS swap and replay, forks, a pool "
+          "model, a journal resume and a migration, greedy and sampled, equal to solo "
+          "generate(key=) (fold_key for siblings) on the card; greedy equal to the CPU engine's")
+    del model
+    _free()
+
+
+def phase_serve_planes(fa):
+    """[serve planes]: (a)-(e) at full llama_7b, (f) the *_test configs;
+    see the constants above.  The path launches no kernel (read as 0)."""
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models import gpt2
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b, llama_test
+    from torchdistx_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    cfg = llama_7b()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    model.load_state_dict(materialize_module_torch(model, seed=MAT_SEED), assign=True)
+    _reset_counts(fa)  # the serve planes path starts here
+    stats = {"page_bytes": planes_page_bytes(cfg, SERVE_KW["block_size"]),
+             "memory_plan": planes_memory_plan(cfg)}
+    # The uninterrupted run every stream of (a) is held to: FIFO, no pressure.
+    traffic = planes_traffic(cfg.vocab_size)
+    eng = Engine(model, **SERVE_KW)
+    ref = [h.result() for h in _drive(eng, [dict(prompt=p, max_new_tokens=b, key=i)
+                                            for i, (p, b, _, _) in enumerate(traffic)])]
+    eng.close()
+    del eng
+    _free()
+    stats["qos"] = _planes_qos(model, cfg, traffic, ref)
+    out = stats["qos"]["swap"]["swap_out"]
+    swap_bytes = max(out["bytes"] // max(1, out["calls"]), stats["page_bytes"])
+    stats["pinned_copy_gb_per_s"] = _pinned_yardstick(swap_bytes)
+    q = stats["qos"]
+    for mech in ("swap", "replay"):
+        r = q[mech]
+        print(f"[serve planes] (a) llama_7b bf16 QoS {mech}: num_blocks {r['num_blocks']}, "
+              f"{r['tokens_per_s']:.1f} committed tokens/s in {r['run_s']:.3f} s; TTFT p50/p99 "
+              f"chat {r['ttft_s']['chat'][0]:.4f}/{r['ttft_s']['chat'][1]:.4f} s, batch "
+              f"{r['ttft_s']['batch'][0]:.4f}/{r['ttft_s']['batch'][1]:.4f} s; preemptions "
+              f"swap {r['preemptions_swap']} replay {r['preemptions_replay']}; swap-out "
+              f"{json.dumps(r['swap_out'])}, swap-in {json.dumps(r['swap_in'])}; streams equal "
+              f"to the uninterrupted run {r['identical']} of {len(traffic)}, the rest "
+              f"[request, step, gap, rank] {r['diverged']}; peak {r['peak_gb']:.2f} GB")
+    print(f"[serve planes] pinned copy of {swap_bytes} bytes: "
+          f"{json.dumps(stats['pinned_copy_gb_per_s'])} GB/s; a page {stats['page_bytes']} bytes")
+    # Each sub-phase starts from a settled heap (engines and their handles
+    # hold reference cycles) and reports its own peak.
+    _free()
+    stats["forks"] = _planes_forks(model, cfg)
+    print("[serve planes] (b) forks: " + json.dumps(stats["forks"]))
+    _free()
+    stats["pool"] = _planes_pool(model, cfg)
+    print("[serve planes] (c) model pool: " + json.dumps(stats["pool"]))
+    _free()
+    stats["journal"], sref = _planes_journal(model, cfg)
+    print("[serve planes] (d) journal: " + json.dumps(stats["journal"]))
+    _free()
+    stats["migrate"] = _planes_migrate(model, cfg, sref)
+    print("[serve planes] (e) migration: " + json.dumps(stats["migrate"]))
+    launches = _counts(fa)  # the serve planes path ends here
+    print(f"[serve planes path] launches: {json.dumps(launches)}")
+    _check(not any(launches.values()), "a flash kernel was launched on the serve planes path")
+    peaks = [v["peak_gb"] for k, v in stats.items() if isinstance(v, dict) and "peak_gb" in v]
+    peaks += [v["peak_gb"] for v in stats["qos"].values()]
+    stats["peak_gb"] = max(peaks)
+    _check(stats["peak_gb"] * 1e9 < PLANES_PEAK_LIMIT, f"[serve planes] peak {stats['peak_gb']} GB")
+    del model
+    _free()
+    _planes_small(Llama, llama_test(), seed=31)
+    _planes_small(gpt2.GPT2, gpt2.gpt2_test(), seed=32)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"[serve planes] peak {stats['peak_gb']:.2f} GB; {stats['phase_s']:.1f} s; {_smi()}")
+    return stats
+
+
 # Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
 # it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
 PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
@@ -4341,6 +5085,7 @@ def main() -> int:
     _free()
 
     serve_stats = phase_serve(fa)  # the serve path is read inside
+    serve_stats["planes"] = phase_serve_planes(fa)  # the serve planes path is read inside
     resnet_stats = phase_resnet()
 
     print("[summary] " + json.dumps({
@@ -4395,6 +5140,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--slowmo-rank"]:
         device, rank, store, out = sys.argv[2:6]
         slowmo_rank(device, int(rank), store, out)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-journal-child"]:
+        serve_journal_child(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--pipeline-rank"]:
         rank, store, out = sys.argv[2:5]

@@ -633,3 +633,104 @@ def test_serve_traffic_hits_and_copies_on_a_small_model():
     assert w == 4 * (layer + 32 + 32000 * 32 + 8 * 32)
     assert kv == 2 * 1 * 8 * 64 * 16 * 2 * 16 * 4
     assert bound_ms == pytest.approx((w + kv) / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+
+
+def test_serve_planes_traffic_pool_and_page_bytes():
+    """[serve planes] (a)'s requests: 16 class-0 "batch" requests (prompts
+    512-900, budget 64), then 8 class-1 "chat" ones (64-128, budget 16);
+    the pool holds exactly the first 6 batch reservations, so each later
+    reservation meets an empty free list; a page of K and V at llama_7b in
+    bf16 is 8 MiB."""
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    traffic = chip_smoke.planes_traffic(32000)
+    assert len(traffic) == 24
+    for i, (prompt, budget, tenant, prio) in enumerate(traffic):
+        batch = i < chip_smoke.PLANES_BATCH
+        lo, hi = chip_smoke.PLANES_BATCH_LENS if batch else chip_smoke.PLANES_CHAT_LENS
+        assert lo <= len(prompt) <= hi
+        assert (budget, tenant, prio) == ((64, "batch", 0) if batch else (16, "chat", 1))
+        assert len(prompt) + budget <= chip_smoke.SERVE_KW["max_model_len"]
+    bs = chip_smoke.SERVE_KW["block_size"]
+    pages = [-(-(len(p) + b) // bs) for p, b, _, _ in traffic]
+    nb = chip_smoke.planes_num_blocks(traffic, bs)
+    assert nb == 1 + sum(pages[:chip_smoke.PLANES_FILL]) == 272
+    assert chip_smoke.planes_page_bytes(llama_7b(), bs) == 2 * 32 * 16 * 32 * 128 * 2 == 8 << 20
+
+
+def test_serve_planes_memory_plan_fits():
+    """(c) holds the engine's llama_7b and one resident pool model, each
+    parameters plus prep_decode copy, and the default pool: 49.2 GB, below
+    the phase's 70 GB."""
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    plan = chip_smoke.planes_memory_plan(llama_7b())
+    assert plan["params"] == 2 * 6_738_415_616
+    assert plan["prep_decode"] == 32 * (3 * 4096 * 4096 + 2 * 11008 * 4096) * 2 == 8_992_587_776
+    assert plan["kv_pool"] == 513 * (8 << 20)
+    assert plan["total"] < chip_smoke.PLANES_PEAK_LIMIT
+
+
+def _tiny_serving_llama():
+    import dataclasses
+
+    from torchdistx_tpu_torch.models import llama as tllama
+
+    cfg = dataclasses.replace(tllama.llama_test(), vocab_size=32000, dim=32, n_heads=2,
+                              n_kv_heads=2, n_layers=1, ffn_dim=32, max_seq_len=1024)
+    torch.manual_seed(0)
+    return tllama.Llama(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("mech", ["swap", "replay"])
+def test_serve_planes_qos_schedule_preempts_on_a_small_model(mech):
+    """(a)'s schedule on the CPU (preemptions depend on the schedule, not
+    the weights): the batch class fills the pool in PLANES_CHAT_AFTER
+    ticks, the chat arrivals preempt by the mechanism under page pressure
+    and by replay under slot pressure, and every page settles to the
+    prefix index's own."""
+    from torchdistx_tpu_torch.serving import Engine
+
+    model = _tiny_serving_llama()
+    traffic = chip_smoke.planes_traffic(32000)
+    nb = chip_smoke.planes_num_blocks(traffic, chip_smoke.SERVE_KW["block_size"])
+    eng = Engine(model, device="cpu", **dict(
+        chip_smoke.SERVE_KW, num_blocks=nb,
+        max_prefills_per_tick=chip_smoke.PLANES_PREFILLS_PER_TICK),
+        scheduler="qos", tenant_weights=chip_smoke.PLANES_WEIGHTS, preempt_mechanism=mech)
+    subs = [dict(prompt=p, max_new_tokens=b, key=i, tenant=t, priority=pr)
+            for i, (p, b, t, pr) in enumerate(traffic)]
+    hs = [eng.submit(**kw) for kw in subs[:chip_smoke.PLANES_BATCH]]
+    for _ in range(chip_smoke.PLANES_CHAT_AFTER):
+        eng.step()
+    assert eng.allocator.num_free == 0 and eng._n_decoding() == chip_smoke.PLANES_FILL
+    hs += [eng.submit(**kw) for kw in subs[chip_smoke.PLANES_BATCH:]]
+    eng.drain()
+    st = eng.stats()
+    assert st["preemptions_swap" if mech == "swap" else "preemptions_replay"] > 0
+    assert [len(h.result()) for h in hs] == [b for _, b, _, _ in traffic]
+    assert eng.allocator.num_in_use == len(eng.prefix) and eng.allocator.num_swapped == 0
+
+
+def test_serve_planes_migration_picks_and_moves_on_a_small_model():
+    """(e) on the CPU: the picked requests all decode before any ends, and
+    move A to B with nothing recomputed."""
+    from torchdistx_tpu_torch.serving import Engine
+
+    model = _tiny_serving_llama()
+    first = chip_smoke.serve_traffic(32000)[:chip_smoke.PLANES_JOURNAL]
+    picks = [i for i, (_, n) in enumerate(first)
+             if n >= chip_smoke.PLANES_MIGRATE_BUDGET][:chip_smoke.PLANES_MIGRATE]
+    assert len(picks) == chip_smoke.PLANES_MIGRATE
+    a = Engine(model, device="cpu", **dict(
+        chip_smoke.SERVE_KW, max_prefills_per_tick=chip_smoke.PLANES_PREFILLS_PER_TICK))
+    b = Engine(model, device="cpu", **chip_smoke.SERVE_KW)
+    hs = [a.submit(first[i][0], max_new_tokens=first[i][1], key=i) for i in picks]
+    while len(a.migratable_slots()) < chip_smoke.PLANES_MIGRATE:
+        assert not any(h.done for h in hs)
+        a.step()
+    for slot in a.migratable_slots():
+        b.migrate_in(a.migrate_out(slot))
+    b.drain()
+    assert [len(h.result()) for h in hs] == [first[i][1] for i in picks]
+    assert b.stats()["recoveries"] == 0 and a.allocator.num_in_use == len(a.prefix)

@@ -555,3 +555,68 @@ def test_decode_chunk_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(GraphCaptureError, match="capture refused"):
         eng.step()
     assert eng.decoder().graph is None
+
+
+def test_swap_pages_pinned_round_trip(cuda):
+    """``swap_out_pages`` on the card gives pinned host tensors holding the
+    pages' bits; ``sync=False`` leaves the compute stream ordered after the
+    copies, and ``swap_in_pages`` lands them in place before the compute
+    stream's next read."""
+    from torchdistx_tpu_torch.serving import cache
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pool = {n: torch.randn((2, 12, 8, 2, 16), generator=g, device=cuda).bfloat16()
+            for n in ("k", "v")}
+    addr = {n: p.data_ptr() for n, p in pool.items()}
+    pages, dst = [3, 7, 1], [2, 5, 11]
+    want = {n: p[:, pages].clone() for n, p in pool.items()}
+    host = cache.swap_out_pages(pool, pages, sync=False)
+    for p in pool.values():
+        p[:, pages] = 0  # the compute stream rewrites the freed pages
+    cache.swap_in_pages(pool, host, dst)
+    torch.cuda.synchronize()
+    for n, p in pool.items():
+        assert host[n].is_pinned() and host[n].device.type == "cpu"
+        assert torch.equal(host[n], want[n].cpu())
+        assert torch.equal(p[:, dst], want[n]) and p.data_ptr() == addr[n]
+
+
+def test_model_pool_eviction_drops_its_graph_and_bytes(cuda):
+    """A pool model's decode graph is captured on its first decode and
+    dropped, with the weights, at eviction: allocated bytes fall by at
+    least the model's parameters and its prep_decode copy, and a second
+    demand recaptures."""
+    import gc
+
+    import numpy as np
+
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.models import llama as tllama
+    from torchdistx_tpu_torch.serving import Engine, ModelPool
+
+    torch.manual_seed(0)
+    model = tllama.Llama(tllama.llama_test(), device=cuda)
+    pool = ModelPool()
+    pool.register("tuna", module=deferred_init(tllama.Llama, tllama.llama_test(),
+                                               device_="cuda"), seed=1)
+    eng = Engine(model, num_slots=2, block_size=8, max_model_len=64, decode_chunk=4,
+                 model_pool=pool)
+    captures = telemetry.counter("serve.graph_captures").value
+    first = eng.submit(np.arange(1, 9, dtype=np.int32), max_new_tokens=8, key=0,
+                       model="tuna").result()
+    assert any(g[-1] == "tuna" for g in eng._decoders)
+    held = pool._entries["tuna"].params_nbytes
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert pool.evict("tuna")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() >= held
+    assert not any(g[-1] == "tuna" for g in eng._decoders)
+    again = eng.submit(np.arange(1, 9, dtype=np.int32), max_new_tokens=8, key=0,
+                       model="tuna").result()
+    assert again == first
+    assert telemetry.counter("serve.graph_captures").value - captures == 2
+    eng.close()

@@ -7,6 +7,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -27,7 +28,7 @@ from torchdistx_tpu_torch.parallel.distributed import initialize, make_hybrid_me
 from torchdistx_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from torchdistx_tpu_torch.parallel.slowmo import SlowMomentumOptimizer
 from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step, make_train_step
-from torchdistx_tpu_torch.serving import Engine
+from torchdistx_tpu_torch.serving import Engine, ModelPool, RequestJournal
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -71,7 +72,8 @@ def test_walk_finds_every_module():
                  "models.gpt2", "models.moe", "parallel.ring_attention", "parallel.spmd",
                  "parallel.pipeline", "telemetry.audit", "serving", "serving.blocks",
                  "serving.cache", "serving.engine", "serving.lifecycle", "serving.prefix",
-                 "serving.scheduler"):
+                 "serving.scheduler", "serving.qos", "serving.modelpool", "serving.journal",
+                 "telemetry.perf"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -102,11 +104,15 @@ def _no_cuda():
         lambda: make_hybrid_mesh(MeshSpec(tp=2), MeshSpec(dp=2)),
         lambda: make_slowmo_train_step(tllama.llama_test(), None, _slowmo)[0](0),
         lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu")),
+        lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu"), model_pool=ModelPool()),
+        lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu"),
+                       journal=RequestJournal(tempfile.mkdtemp())),
     ],
     ids=["resolve_device", "Llama", "llama_from_jax_params", "GPT2", "MoE",
          "gpt2_from_jax_params", "make_train_step", "make_train_step_moe",
          "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
-         "make_hybrid_mesh", "make_slowmo_train_step_init_fn", "Engine"],
+         "make_hybrid_mesh", "make_slowmo_train_step_init_fn", "Engine",
+         "Engine_model_pool", "Engine_journal"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

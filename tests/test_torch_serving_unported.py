@@ -1,12 +1,12 @@
-"""What the port's serving engine leaves for ROADMAP A7 raises, naming it,
-and ``Engine`` follows the port's device rule.  No JAX here."""
+"""What the port's serving engine leaves for ROADMAP A7 (the shadow auditor
+and the ops plane) raises, naming it, and ``Engine`` follows the port's
+device rule.  No JAX here."""
 
-import numpy as np
 import pytest
 import torch
 
 from torchdistx_tpu_torch.models import llama as tllama
-from torchdistx_tpu_torch.serving import Engine, cache
+from torchdistx_tpu_torch.serving import Engine
 
 KW = dict(num_slots=2, block_size=8, max_model_len=64, decode_chunk=4, device="cpu")
 
@@ -18,16 +18,10 @@ def model():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(scheduler="qos"),
-    dict(tenant_weights={"a": 2.0}),
-    dict(shed_policy="by-priority"),
-    dict(model_pool=object()),
-    dict(journal=object()),
     dict(audit_sample=0.5),
     dict(ops_port=0),
     dict(ops_config=object()),
-], ids=["qos", "tenant_weights", "by_priority", "model_pool", "journal", "audit_sample",
-        "ops_port", "ops_config"])
+], ids=["audit_sample", "ops_port", "ops_config"])
 def test_constructor_arguments_raise_naming_a7(model, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Engine(model, **KW, **kwargs)
@@ -44,23 +38,6 @@ def test_zero_audit_sample_is_off(model, monkeypatch):
     monkeypatch.setenv("TDX_AUDIT_SAMPLE", "0")
     Engine(model, **KW, audit_sample=0.0).close()
     Engine(model, **KW).close()
-
-
-@pytest.mark.parametrize("call", [
-    lambda e: e.submit(np.arange(4), max_new_tokens=2, n=2),
-    lambda e: e.submit(np.arange(4), max_new_tokens=2, model="other"),
-    lambda e: e.migrate_out(0),
-    lambda e: e.migrate_in({}),
-    lambda e: e.resume_from_journal("/nonexistent"),
-    lambda e: cache.swap_out_pages(e._cache, [1]),
-    lambda e: cache.swap_in_pages(e._cache, {}, [1]),
-], ids=["fork", "submit_model", "migrate_out", "migrate_in", "resume_from_journal",
-        "swap_out_pages", "swap_in_pages"])
-def test_entry_points_raise_naming_a7(model, call):
-    eng = Engine(model, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        call(eng)
-    eng.close()
 
 
 def test_engine_without_cuda_raises_unless_cpu(model):

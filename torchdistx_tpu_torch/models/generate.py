@@ -14,6 +14,8 @@ generator state.  The serving engine samples the same way, so its streams
 equal ``generate(key=k)`` on the same device.  JAX's values are not
 matched: threefry's ``fold_in(key, n)`` is not reproduced.  Without a key,
 ``generator`` is drawn from (PyTorch's default one when ``None``).
+:func:`fold_key` derives a key from a key and an index on the same hash
+(the engine keys fork sibling ``i`` with it, where JAX uses ``fold_in``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["generate", "keyed_uniform", "sample_keyed"]
+__all__ = ["fold_key", "generate", "keyed_uniform", "sample_keyed"]
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -37,6 +39,24 @@ def _mix32(x):
     x = x ^ (x >> 15)
     x = (x * 0x735A2D97) & _M32
     return x ^ (x >> 15)
+
+
+def fold_key(key: Any, i: int):
+    """A new key, two 32-bit words (``(2,) uint32``), from ``key`` (an int
+    seed or two words, normalized by
+    :func:`~torchdistx_tpu_torch.telemetry.audit.canonical_key`) and the
+    index ``i``, by the counter-based hash of :func:`keyed_uniform` on
+    Python ints: the port's counterpart of ``jax.random.fold_in`` (not its
+    values).  Distinct indices give unrelated keys."""
+    import numpy as np
+
+    from ..telemetry.audit import canonical_key
+
+    k0, k1 = (int(w) for w in canonical_key(key))
+    i = int(i) & _M32
+    w0 = _mix32(_mix32(k0 ^ _GOLDEN) ^ i)
+    w1 = _mix32(_mix32(k1 ^ w0) ^ ((i + _GOLDEN) & _M32))
+    return np.asarray([w0, w1], dtype=np.uint32)
 
 
 def keyed_uniform(keys, steps, n_cols: int, rows=None):

@@ -12,9 +12,16 @@ Counterpart of ``torchdistx_tpu.serving``'s core:
   :class:`~.scheduler.RequestHandle`;
 * :mod:`.lifecycle` — typed errors, :class:`~.lifecycle.Health` and the
   :class:`~.lifecycle.OverloadDetector`;
+* :mod:`.qos` — the :class:`~.qos.QoSScheduler` (priority classes,
+  weighted fair queueing, EDF);
+* :mod:`.modelpool` — the :class:`~.modelpool.ModelPool` of deferred-init
+  skeletons materialized on demand;
+* :mod:`.journal` — the crash-consistent :class:`~.journal.RequestJournal`
+  (JAX's on-disk format) behind ``Engine.resume_from_journal``;
 * :mod:`.engine` — the continuous-batching :class:`~.engine.Engine`
   (eager prefill chunks per bucket, the decode chunk as one CUDA graph a
-  geometry on the card).
+  geometry and model on the card; QoS preemption by swap or replay,
+  ``submit(n>1)`` forks, the model plane, the journal, migration).
 
 Quick start::
 
@@ -25,8 +32,8 @@ Quick start::
     for tok in h.tokens():      # streams; drives the engine
         print(tok)
 
-QoS, forks, the model pool, the journal, migration, the shadow auditor
-and the ops plane are ROADMAP A7 and raise ``NotImplementedError``.
+The shadow auditor and the ops plane are ROADMAP A7 and raise
+``NotImplementedError``.
 """
 
 from .blocks import TRASH_BLOCK, BlockAllocator, blocks_needed  # noqa: F401
@@ -35,25 +42,33 @@ from .cache import (  # noqa: F401
     fresh_pool,
     init_paged_cache,
     pool_geometry,
+    swap_in_pages,
+    swap_out_pages,
     write_prompt,
 )
 from .engine import DecodeChunk, Engine, GraphCaptureError  # noqa: F401
+from .journal import JournalEntry, RequestJournal, read_records, read_segment  # noqa: F401
 from .lifecycle import (  # noqa: F401
     DeadlineExceeded,
     DeterminismDiverged,
     EngineDraining,
     EngineOverloaded,
     Health,
+    JournalOwned,
+    MigrationIncompatible,
     OverloadDetector,
     RecoveryFailed,
     RequestCancelled,
     RequestError,
     RequestPreempted,
 )
+from .modelpool import DEFAULT_MODEL, ModelPool  # noqa: F401
 from .prefix import PrefixIndex, page_hashes  # noqa: F401
+from .qos import QoSScheduler  # noqa: F401
 from .scheduler import FIFOScheduler, Request, RequestHandle  # noqa: F401
 
 __all__ = [
+    "DEFAULT_MODEL",
     "BlockAllocator",
     "DeadlineExceeded",
     "DecodeChunk",
@@ -64,13 +79,19 @@ __all__ = [
     "FIFOScheduler",
     "GraphCaptureError",
     "Health",
+    "JournalEntry",
+    "JournalOwned",
+    "MigrationIncompatible",
+    "ModelPool",
     "OverloadDetector",
     "PrefixIndex",
+    "QoSScheduler",
     "RecoveryFailed",
     "Request",
     "RequestCancelled",
     "RequestError",
     "RequestHandle",
+    "RequestJournal",
     "RequestPreempted",
     "TRASH_BLOCK",
     "blocks_needed",
@@ -79,5 +100,9 @@ __all__ = [
     "init_paged_cache",
     "page_hashes",
     "pool_geometry",
+    "read_records",
+    "read_segment",
+    "swap_in_pages",
+    "swap_out_pages",
     "write_prompt",
 ]

@@ -1,8 +1,7 @@
 """Block allocator for the paged KV cache (vLLM-style, host-side).
 
 Counterpart of ``torchdistx_tpu/serving/blocks.py``, copied onto the
-port's telemetry; the swap-to-host accounting comes with QoS preemption
-(ROADMAP A7).
+port's telemetry.
 
 The device-side cache is a pool of ``num_blocks`` fixed-size pages per
 layer (see :mod:`.cache`); this module owns the *map*: which pages are
@@ -47,6 +46,7 @@ __all__ = ["BlockAllocator", "TRASH_BLOCK", "blocks_needed"]
 TRASH_BLOCK = 0
 
 _G_UTIL = _telemetry.gauge("serve.block_util")
+_G_SWAPPED = _telemetry.gauge("serve.swapped_pages")
 
 
 def blocks_needed(n_tokens: int, block_size: int) -> int:
@@ -68,6 +68,13 @@ class BlockAllocator:
         # first.  Deterministic: same admit/finish order → same tables.
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self._ref: Dict[int, int] = {}  # page -> live reference count
+        # Logical pages whose KV currently lives in a HOST buffer (the
+        # QoS swap-to-host preemption path).  The physical pages were
+        # freed — utilization()/num_in_use stay honest about HBM — and
+        # this count is what keeps the *logical* picture honest: the
+        # serve.swapped_pages gauge reports host-resident pages that
+        # will want physical pages back at swap-in.
+        self._n_swapped = 0
 
     @property
     def capacity(self) -> int:
@@ -83,6 +90,11 @@ class BlockAllocator:
         """PHYSICAL pages with at least one reference (shared pages count
         once — this is HBM occupancy, not the sum of refcounts)."""
         return len(self._ref)
+
+    @property
+    def num_swapped(self) -> int:
+        """Logical pages currently swapped out to host buffers."""
+        return self._n_swapped
 
     def refcount(self, blk: int) -> int:
         """Live references on ``blk`` (0 = free).  A result > 1 means the
@@ -156,7 +168,11 @@ class BlockAllocator:
         produces deterministic tables."""
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._ref = {}
+        # Host swap buffers die with the pool they were cut from: the
+        # engine's recovery path converts swapped slots to replays.
+        self._n_swapped = 0
         _G_UTIL.set(0.0)
+        _G_SWAPPED.set(0)
 
     def free(self, blocks: List[int]) -> None:
         """Drop one reference per page; a page whose LAST reference drops
@@ -177,3 +193,38 @@ class BlockAllocator:
                 del self._ref[blk]
                 self._free.append(blk)
         _G_UTIL.set(round(self.utilization(), 4))
+
+    # ------------------------------------------------------------------
+    # Swap-to-host accounting (the QoS preemption path; see engine.py)
+
+    def swap_out(self, blocks: List[int]) -> None:
+        """Release ``blocks`` whose KV was copied to a host buffer: one
+        reference drops per page (shared pages survive on their other
+        references, exactly like :meth:`free`) and the count of
+        host-resident logical pages rises.  The caller owns the host
+        buffer; :meth:`swap_in` or :meth:`drop_swapped` settles the
+        account."""
+        self.free(blocks)
+        self._n_swapped += len(blocks)
+        _G_SWAPPED.set(self._n_swapped)
+
+    def swap_in(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` physical pages for a host buffer coming back;
+        ``None`` (nothing changes) when fewer than ``n`` are free."""
+        got = self.alloc(n)
+        if got is not None:
+            self._n_swapped -= n
+            _G_SWAPPED.set(self._n_swapped)
+        return got
+
+    def drop_swapped(self, n: int) -> None:
+        """Forget ``n`` host-resident pages without re-allocating them:
+        the swapped request was preempted to drop-and-replay, failed,
+        or cancelled, and its host buffer was discarded."""
+        if n > self._n_swapped:
+            raise RuntimeError(
+                f"dropping {n} swapped pages but only {self._n_swapped} "
+                "are accounted (double drop?)"
+            )
+        self._n_swapped -= n
+        _G_SWAPPED.set(self._n_swapped)

@@ -18,9 +18,16 @@ in place for the same reason).
   prefix cache's copy-on-write.
 * :func:`pool_geometry` — a pool's page geometry, everything but its page
   count.
-
-The swap-to-host pair (``swap_out_pages`` / ``swap_in_pages``) belongs to
-QoS preemption and migration (ROADMAP A7).
+* :func:`swap_out_pages` / :func:`swap_in_pages` — pages to host and back
+  (QoS swap preemption, stream migration).  On CUDA the gather and the
+  device-to-host copies run on a dedicated swap stream into **pinned**
+  host tensors (``non_blocking``); the compute stream waits on the swap
+  stream's event, so pages freed after a swap-out are not rewritten
+  before the copy has read them, and a swap-in lands before anything the
+  compute stream runs after it.  Swap-in scatters in place (the decode
+  graph holds the pool by address).  JAX's page-count padding
+  (``_page_bucket``) exists for XLA's compile cache and has no
+  counterpart.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, Optional
 import torch
 
 from .blocks import TRASH_BLOCK
+from .lifecycle import MigrationIncompatible
 
 __all__ = [
     "copy_pages",
@@ -110,13 +118,85 @@ def copy_pages(paged, src: int, dst: int):
     return paged
 
 
-def swap_out_pages(paged, pages):
-    """Not ported: swap-to-host belongs to QoS preemption and migration."""
-    raise NotImplementedError("swap_out_pages: QoS preemption and migration are "
-                              "ROADMAP A7, not ported yet")
+# One swap stream a device, made on first use (never at import).
+_SWAP_STREAMS: dict = {}
 
 
+def _swap_stream(device: torch.device):
+    stream = _SWAP_STREAMS.get(device)
+    if stream is None:
+        stream = _SWAP_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+@torch.no_grad()
+def swap_out_pages(paged, pages, *, sync: bool = True):
+    """Copy physical ``pages`` (every layer, both pools) to host.
+
+    Read-only: the pool is untouched, so a failure mid-copy leaves the
+    device state undamaged (the engine falls back to drop-and-replay).
+    Returns ``{"k","v"}: (L, len(pages), bs, Hkv, Dh)`` host tensors, rows
+    in ``pages`` order; pinned on CUDA.  ``sync=False`` skips the host
+    wait: the compute stream is still ordered after the copies, and a
+    :func:`swap_in_pages` of the buffer runs after them on the same swap
+    stream, but the host must not read the buffer before a sync."""
+    pool0 = next(iter(paged.values()))
+    device = pool0.device
+    idx = torch.as_tensor(list(pages), dtype=torch.int64, device=device)
+    if device.type != "cuda":
+        return {name: pool.index_select(1, idx) for name, pool in paged.items()}
+    cur = torch.cuda.current_stream(device)
+    stream = _swap_stream(device)
+    stream.wait_stream(cur)  # the gather reads every write issued before it
+    out = {}
+    with torch.cuda.stream(stream):
+        for name, pool in paged.items():
+            rows = pool.index_select(1, idx)
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            out[name] = host
+        done = stream.record_event()
+    cur.wait_event(done)
+    if sync:
+        done.synchronize()
+    return out
+
+
+@torch.no_grad()
 def swap_in_pages(paged, host, pages):
-    """Not ported: swap-to-host belongs to QoS preemption and migration."""
-    raise NotImplementedError("swap_in_pages: QoS preemption and migration are "
-                              "ROADMAP A7, not ported yet")
+    """Scatter a :func:`swap_out_pages` buffer into freshly allocated
+    ``pages``, in place, and return the pool.  ``len(pages)`` must equal
+    the buffer's page count.
+
+    The buffer's page geometry is validated against the pool BEFORE the
+    scatter: a cross-pool import (stream migration) with a different
+    layer count, page size, head shape or dtype raises a typed, retryable
+    :class:`.lifecycle.MigrationIncompatible`, never a silent cast."""
+    if pool_geometry(paged) != pool_geometry(host):
+        raise MigrationIncompatible(
+            "page snapshot does not fit this pool: snapshot geometry "
+            f"{pool_geometry(host)!r} != pool geometry "
+            f"{pool_geometry(paged)!r}; fall back to a key-pinned replay")
+    n = len(pages)
+    n_rows = next(iter(host.values())).shape[1]
+    if n != n_rows:
+        raise MigrationIncompatible(
+            f"page snapshot holds {n_rows} page(s) but {n} destination page(s) "
+            "were allocated")
+    pool0 = next(iter(paged.values()))
+    device = pool0.device
+    idx = torch.as_tensor(list(pages), dtype=torch.int64, device=device)
+    if device.type != "cuda":
+        for name, pool in paged.items():
+            pool.index_copy_(1, idx, host[name].to(device))
+        return paged
+    cur = torch.cuda.current_stream(device)
+    stream = _swap_stream(device)
+    stream.wait_stream(cur)  # the pages' earlier users are done with them
+    with torch.cuda.stream(stream):
+        for name, pool in paged.items():
+            rows = host[name].to(device, non_blocking=True)
+            pool.index_copy_(1, idx, rows)
+        done = stream.record_event()
+    cur.wait_event(done)  # the slot's next decode reads the pages after this
+    return paged

@@ -67,20 +67,61 @@ supervisor), ``corrupt`` flips one committed token on the host;
 ``serve.recover`` — fails one replay attempt, charging the budget.
 ``fatal`` propagates everywhere.
 
-Left out until ROADMAP A7, each raising ``NotImplementedError``: the QoS
-scheduler (``scheduler="qos"``, ``tenant_weights``,
-``shed_policy="by-priority"``) with its swap and replay preemption,
-``submit(n>1)`` forks, ``model_pool=`` / ``submit(model=)``,
-``journal=`` and its resume, migration, the shadow auditor
-(``audit_sample`` / ``TDX_AUDIT_SAMPLE``) and the ops plane (``ops_port``
-/ ``ops_config`` / ``TDX_OPS_PORT``).  The time plane, the compile
-observatory and the HBM ledger belong to A8.
+**QoS** (``scheduler="qos"``): admission moves to the
+:class:`.qos.QoSScheduler` (strict priority classes, per-tenant weighted
+fair queueing over prefill-chunk cost, EDF within a (class, tenant)
+queue), and a waiting higher class preempts running lower ones: under
+slot pressure by **drop-and-replay** (pages free, the request requeues
+with its committed tokens and re-prefills ``prompt + tokens[:-1]``),
+under page pressure by ``preempt_mechanism``: ``"swap"`` gathers the
+victim's private pages into pinned host tensors on a swap stream
+(:func:`.cache.swap_out_pages`) and parks the slot through its inputs
+alone (table 0 → trash, ``done=True``: no recapture), or ``"replay"``.
+Swap-in scatters the pages back in place before the slot re-enters the
+decode batch.  Keyed sampling at ``n`` makes every resume
+token-identical.
+
+**Forks** (``submit(n>1)``): siblings ride the parent's prompt pages
+copy-on-write (the prompt prefills once; each sibling re-runs the last
+prompt token into a private copy of the last page); sibling ``i`` samples
+under :func:`~torchdistx_tpu_torch.models.generate.fold_key` ``(key, i)``.
+
+**Model plane** (``model_pool=``, ``submit(model=)``): deferred-init
+skeletons materialized on demand between ticks, decoding into this one
+page pool, one decode graph per ``(geometry, model tag)``; the prefix
+index is namespaced by tag (:mod:`.modelpool`).
+
+**Durability** (``journal=``): every admission, chunk commit and
+retirement is journaled (:mod:`.journal`, JAX's on-disk format);
+:meth:`Engine.resume_from_journal` re-admits a dead process's unfinished
+streams through the replay path.  **Migration**: :meth:`Engine.
+migrate_out` exports a live stream's pages as pinned host tensors,
+:meth:`Engine.migrate_in` maps them into another engine's pool.
+
+The HBM ledger (:mod:`torchdistx_tpu_torch.telemetry.perf`) carries the
+engine's ``weights`` (the parameters and their ``prep_decode`` copy) and
+``kv_pool`` rows.
+
+Fault sites (``TDX_FAULT``) besides those above: ``serve.swap`` — fails
+one swap-out before its gather (read-only), and the preemption falls back
+to drop-and-replay; ``serve.migrate_out`` — fails one export before the
+gather (the source keeps running); ``serve.migrate_in`` — fails one import
+after the destination allocated pages, before the scatter (the pages
+free); ``serve.materialize`` — fails one model-pool materialize attempt
+(the skeleton is untouched, the next tick retries).  A real CUDA error or
+OOM in a swap goes to the supervisor.
+
+Left out until ROADMAP A7, each raising ``NotImplementedError``: the
+shadow auditor (``audit_sample`` / ``TDX_AUDIT_SAMPLE``) and the ops plane
+(``ops_port`` / ``ops_config`` / ``TDX_OPS_PORT``).  The time plane and the
+compile observatory belong to A8.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import threading
 import time
 from contextlib import nullcontext
 from typing import Any, Optional
@@ -90,24 +131,37 @@ import torch
 
 from .. import telemetry as _telemetry
 from .._device import resolve_device
-from ..models.generate import sample_keyed
+from ..models.generate import fold_key, sample_keyed
 from ..resilience import faults
 from ..resilience import preemption as _preemption
 from ..telemetry import audit as _audit
+from ..telemetry import perf as _perf
+from . import journal as _journal_mod
 from .blocks import BlockAllocator, blocks_needed
-from .cache import copy_pages, fresh_pool, init_paged_cache
+from .cache import (
+    copy_pages,
+    fresh_pool,
+    init_paged_cache,
+    pool_geometry,
+    swap_in_pages,
+    swap_out_pages,
+)
+from .journal import RequestJournal
 from .lifecycle import (
     DeadlineExceeded,
     DeterminismDiverged,
     EngineDraining,
     EngineOverloaded,
     Health,
+    MigrationIncompatible,
     OverloadDetector,
     RecoveryFailed,
     RequestCancelled,
     RequestPreempted,
 )
+from .modelpool import DEFAULT_MODEL, ModelPool, module_nbytes
 from .prefix import PrefixIndex, page_hashes
+from .qos import QoSScheduler
 from .scheduler import FIFOScheduler, Request, RequestHandle
 
 __all__ = ["DecodeChunk", "Engine", "GraphCaptureError"]
@@ -125,6 +179,8 @@ _T_CANCELLED = _telemetry.counter("serve.cancelled")
 _T_RECOVERIES = _telemetry.counter("serve.recoveries")
 _T_RECOVERY_FAILURES = _telemetry.counter("serve.recovery_failures")
 _T_PREEMPTED = _telemetry.counter("serve.preempted")
+_T_PREEMPT_SWAP = _telemetry.counter("serve.preemptions_swap")
+_T_PREEMPT_REPLAY = _telemetry.counter("serve.preemptions_replay")
 _T_PREFIX_HITS = _telemetry.counter("serve.prefix_hits")
 _T_PREFIX_HIT_TOKENS = _telemetry.counter("serve.prefix_hit_tokens")
 _T_COW = _telemetry.counter("serve.cow_copies")
@@ -132,6 +188,10 @@ _T_PREFIX_EVICTIONS = _telemetry.counter("serve.prefix_evictions")
 _T_IDLE_TICKS = _telemetry.counter("serve.idle_ticks")
 _T_CORRUPTIONS = _telemetry.counter("serve.corruptions")
 _T_GRAPH_CAPTURES = _telemetry.counter("serve.graph_captures")
+_T_MIGRATIONS_OUT = _telemetry.counter("serve.migrations_out")
+_T_MIGRATIONS_IN = _telemetry.counter("serve.migrations_in")
+_T_MIGRATED_PAGES = _telemetry.counter("serve.migrated_pages")
+_T_FORKS = _telemetry.counter("serve.forks")
 _G_RUNNING = _telemetry.gauge("serve.running_slots")
 _G_DECODE_TPS = _telemetry.gauge("serve.decode_tok_s")
 _G_TTFT = _telemetry.gauge("serve.ttft_s")
@@ -141,6 +201,18 @@ _G_HEALTH = _telemetry.gauge("serve.health")
 # Process-wide engine-id mint ("eng0", "eng1", ...) unless the caller
 # names the engine.
 _ENGINE_SEQ = itertools.count()
+
+# Live engines per weights-ledger key: N engines over one model register
+# its parameters' bytes once, and they leave the ledger when the LAST
+# engine using that model stops (each engine's prep_decode copy is its own
+# row).  key -> refcount.
+_WEIGHTS_REFS: dict = {}
+_WEIGHTS_LOCK = threading.Lock()
+
+# One warm-up stream a device, shared by every decode-graph capture: each
+# new stream would take cuBLAS a workspace of its own, which is never
+# returned (a model pool recaptures at every re-materialize).
+_WARMUP_STREAMS: dict = {}
 
 _A7 = "is ROADMAP A7, not ported yet"
 
@@ -229,7 +301,9 @@ class DecodeChunk:
         """Warm up on a side stream, then capture :meth:`run_eager` as one
         CUDA graph over the current buffers and pool."""
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _WARMUP_STREAMS.get(self.device)
+        if side is None:
+            side = _WARMUP_STREAMS[self.device] = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         try:
             with torch.cuda.stream(side):
@@ -285,8 +359,15 @@ class Engine:
     prefill_chunk : prefill tokens a chunk.
     prefix_cache : content-address full prompt pages (see module doc).
     min_prefill_bucket : the smallest prefill bucket.
+    scheduler : ``"fifo"`` (default) or ``"qos"`` (:class:`.qos.QoSScheduler`
+        plus preemption of running lower-class streams).
+    tenant_weights : ``{tenant: weight}`` fair-queueing shares (QoS only).
+    preempt_mechanism : how page pressure preempts under QoS: ``"swap"``
+        (pages to pinned host tensors, slot parked, swapped back in when
+        pressure drops) or ``"replay"``.  Slot pressure always replays.
     max_queue / max_ttft_s / shed_policy : the overload detector's bounds
-        and what happens when it trips (``"reject-new"``, ``"drop-oldest"``).
+        and what happens when it trips (``"reject-new"``, ``"drop-oldest"``,
+        or, under QoS, ``"by-priority"``: the lowest class, youngest first).
     max_recoveries : per-request replay budget of the supervisor.
     drain_deadline_s : wall-clock budget for in-flight work once a drain
         begins; the remainder fails with :class:`.lifecycle.RequestPreempted`.
@@ -295,8 +376,11 @@ class Engine:
     role : ``"mixed"``, ``"prefill"`` or ``"decode"``, a routing hint
         exported as ``serve.role{engine=}``.
     model_version : the version tag folded into every request's digest.
-    scheduler, tenant_weights, preempt_mechanism, ops_port, ops_config,
-    audit_sample, model_pool, journal : ROADMAP A7; anything but the
+    model_pool : a :class:`.modelpool.ModelPool` of deferred-init skeletons
+        served beside the engine's own model, into this page pool.
+    journal : a :class:`.journal.RequestJournal` this engine claims and
+        writes (see :meth:`resume_from_journal`).
+    ops_port, ops_config, audit_sample : ROADMAP A7; anything but the
         default raises ``NotImplementedError``.
     """
 
@@ -335,8 +419,7 @@ class Engine:
         model_pool: Any = None,
         journal: Any = None,
     ):
-        self._check_unported(scheduler, tenant_weights, shed_policy, ops_port, ops_config,
-                             audit_sample, model_pool, journal)
+        self._check_unported(ops_port, ops_config, audit_sample)
         self.device = resolve_device(device)
         param_device = next(model.parameters()).device
         if param_device != self.device and not (
@@ -374,13 +457,23 @@ class Engine:
             # _chunk_bucket doubles up from this value; <= 0 would never
             # terminate.
             raise ValueError("min_prefill_bucket must be >= 1")
+        if scheduler not in ("fifo", "qos"):
+            raise ValueError(f"scheduler {scheduler!r}: expected 'fifo' or 'qos'")
+        self._qos = scheduler == "qos"
+        if tenant_weights is not None and not self._qos:
+            raise ValueError("tenant_weights needs scheduler='qos' (the FIFO scheduler "
+                             "ignores tenancy — a silently-dropped weight map would "
+                             "masquerade as fairness)")
         if preempt_mechanism not in ("swap", "replay"):
             raise ValueError(f"preempt_mechanism {preempt_mechanism!r}: expected "
                              "'swap' or 'replay'")
         self.preempt_mechanism = preempt_mechanism  # inert under FIFO, as in JAX
-        if shed_policy not in ("reject-new", "drop-oldest"):
+        if shed_policy not in ("reject-new", "drop-oldest", "by-priority"):
             raise ValueError(f"shed_policy {shed_policy!r}: expected 'reject-new', "
                              "'drop-oldest', or 'by-priority'")
+        if shed_policy == "by-priority" and not self._qos:
+            raise ValueError("shed_policy='by-priority' needs scheduler='qos' (the FIFO "
+                             "scheduler has no priority classes to shed by)")
         self.shed_policy = shed_policy
         if role not in ("prefill", "decode", "mixed"):
             raise ValueError(f"role {role!r}: expected 'prefill', 'decode', or 'mixed'")
@@ -395,14 +488,22 @@ class Engine:
         if num_blocks is None:
             num_blocks = 1 + num_slots * self._table_width
         self.allocator = BlockAllocator(num_blocks, block_size)
-        self.scheduler = FIFOScheduler(max_prefills_per_tick)
+        self.scheduler = (QoSScheduler(max_prefills_per_tick, tenant_weights) if self._qos
+                          else FIFOScheduler(max_prefills_per_tick))
         self.scheduler.bind_engine(self.engine_id)
         self.detector = OverloadDetector(max_queue, max_ttft_s)
         self.prefix: Optional[PrefixIndex] = PrefixIndex(block_size) if prefix_cache else None
 
         self._weights = model.prep_decode()
+        # Engines over one model count its parameters once on the ledger
+        # (refcounted, released by the last engine at STOPPED).
+        self._weights_key = f"params:{id(model)}"
         self._cache = init_paged_cache(model, num_blocks, block_size, device=self.device)
-        self._decoders: dict = {}  # geometry -> DecodeChunk (one graph each on CUDA)
+        self._pool_nbytes = _perf.pytree_nbytes(self._cache)
+        self._page_nbytes = self._pool_nbytes // max(1, num_blocks)
+        self._swap_host_bytes = 0
+        # (geometry, model tag) -> DecodeChunk (one graph each on CUDA).
+        self._decoders: dict = {}
 
         s = num_slots
         self._slot_req: list = [None] * s
@@ -419,12 +520,35 @@ class Engine:
         # first token.  Strict FIFO: the head gets every chunk of the
         # tick's budget until it completes.
         self._prefill_q: list = []
+        # Slots swapped to host (QoS preemption): they park in their slot,
+        # out of the decode batch like PREFILLING slots (table 0 → trash,
+        # done=True: the decode graph is untouched).  Only PRIVATE pages
+        # (refcount 1) go to host and free; shared pages stay mapped on
+        # the refs the request keeps.  slot -> (host pages or None,
+        # layout), layout[i] the kept page id or None for the i-th table
+        # position (None rows in host-buffer order).
+        self._swapped: dict = {}
+        # Parallel sampling: per fork group, the ENGINE-held share
+        # references on the parent's prompt-covering pages, created when
+        # the parent's prefill completes, swept once every sibling is
+        # terminal.  parent rid -> [page ids].
+        self._fork_donors: dict = {}
+        # parent rid -> the sibling Requests of the group (parent excluded).
+        self._fork_groups: dict = {}
+        # Cold pool models with demand, in demand order (an ordered set):
+        # the materialize phase serves ONE per tick, after the decode
+        # dispatch.
+        self._materialize_wanted: dict = {}
 
         self._next_rid = 0
         self._admit_no = 0  # admission attempts (serve.admit fault site)
         self._prefill_no = 0  # prefill dispatches (serve.prefill site)
         self._decode_no = 0  # decode chunks attempted (serve.step site)
         self._recover_no = 0  # supervisor replay attempts (serve.recover)
+        self._swap_no = 0  # swap-out attempts (serve.swap fault site)
+        self._migrate_out_no = 0  # stream exports (serve.migrate_out site)
+        self._migrate_in_no = 0  # stream imports (serve.migrate_in site)
+        self._preempted_this_tick = False  # swap-in back-off after a preempt
         self._decode_s = 0.0
         self._decode_tokens = 0
         self._consec_decode_failures = 0
@@ -433,7 +557,12 @@ class Engine:
         self._n_cancelled = 0
         self._n_recoveries = 0
         self._n_preempted = 0
+        self._n_preempt_swap = 0
+        self._n_preempt_replay = 0
+        self._n_migrated_out = 0
+        self._n_migrated_in = 0
         self._n_cow = 0
+        self._n_forks = 0
         self._tick_no = 0
         self._diverging = False
 
@@ -458,6 +587,23 @@ class Engine:
         self._health = Health.STARTING
         _G_HEALTH.set(self._health.value)
         self._lg_health.set(self._health.value)
+
+        # Model plane: bind the pool — every registered skeleton's page
+        # geometry is validated against the live pool here, so an
+        # incompatible model rejects the constructor.
+        self.model_pool: Optional[ModelPool] = model_pool
+        # Durability plane: claim the journal (geometry check, ownership
+        # lock, config record) — a refused claim rejects the constructor.
+        self._journal: Optional[RequestJournal] = None
+        try:
+            if model_pool is not None:
+                model_pool._bind(self)
+            if journal is not None:
+                self._bind_journal(journal)
+        except BaseException:
+            if handle_preemption and not self._handlers_preexisting:
+                _preemption.uninstall()
+            raise
         if _telemetry.events_enabled():
             _telemetry.event(
                 "serve.engine_config", engine=self.engine_id, num_slots=num_slots,
@@ -468,19 +614,20 @@ class Engine:
                 max_prefills_per_tick=max_prefills_per_tick, scheduler=scheduler,
                 role=self.role, model_version=self.model_version,
             )
+        # The HBM ledger, last (nothing after this raises, so every row is
+        # balanced by _finish_drain): the model's parameters (once however
+        # many engines share them), this engine's prep_decode copy, and
+        # its pool.
+        with _WEIGHTS_LOCK:
+            _WEIGHTS_REFS[self._weights_key] = _WEIGHTS_REFS.get(self._weights_key, 0) + 1
+        _perf.ledger.register("weights", module_nbytes(model), owner=self._weights_key)
+        _perf.ledger.register("weights", _perf.pytree_nbytes(self._weights),
+                              owner=f"decode:{self.engine_id}")
+        _perf.ledger.register("kv_pool", self._pool_nbytes, owner=self.engine_id)
 
     @staticmethod
-    def _check_unported(scheduler, tenant_weights, shed_policy, ops_port, ops_config,
-                        audit_sample, model_pool, journal) -> None:
+    def _check_unported(ops_port, ops_config, audit_sample) -> None:
         """The ROADMAP A7 arguments: each raises, none is ignored."""
-        if scheduler not in ("fifo", "qos"):
-            raise ValueError(f"scheduler {scheduler!r}: expected 'fifo' or 'qos'")
-        if scheduler == "qos":
-            raise _unported("scheduler='qos' (the QoS scheduler and its preemption)")
-        if tenant_weights is not None:
-            raise _unported("tenant_weights (the QoS scheduler)")
-        if shed_policy == "by-priority":
-            raise _unported("shed_policy='by-priority' (the QoS scheduler)")
         env_port = os.environ.get("TDX_OPS_PORT", "")
         if ops_port is not None or ops_config is not None or env_port:
             raise _unported("the ops plane (ops_port / ops_config / TDX_OPS_PORT)")
@@ -489,10 +636,6 @@ class Engine:
             audit_sample = float(text) if text else None
         if audit_sample:
             raise _unported("the shadow auditor (audit_sample / TDX_AUDIT_SAMPLE)")
-        if model_pool is not None:
-            raise _unported("model_pool= (the model plane)")
-        if journal is not None:
-            raise _unported("journal= (the request journal)")
 
     # ------------------------------------------------------------------
     # Request tracing
@@ -531,21 +674,29 @@ class Engine:
         ``key``: an int seed or two 32-bit words — the key a solo
         ``generate(model, prompt[None], key=...)`` takes, for token
         parity.  Default: the request id.  ``deadline_s``: wall-clock
-        budget from submission, observed at chunk boundaries.
-        ``tenant`` / ``priority`` are carried, inert under FIFO.
-        ``n > 1`` and ``model=`` are ROADMAP A7 and raise.
+        budget from submission, observed at chunk boundaries (and, under
+        QoS, earliest-deadline-first within a (class, tenant) queue).
+        ``tenant`` / ``priority``: the QoS context, carried (inert) under
+        FIFO.
+
+        ``model``: a tag registered on this engine's
+        :class:`.modelpool.ModelPool`; the request decodes under that
+        model's weights (materialized on demand), its ``model_version``
+        seeding the digest and its tag namespacing the prefix hashes.
+        None: the engine's own model.
+
+        ``n``: parallel samples of one prompt.  Siblings share the
+        parent's prompt pages (the prompt prefills once) and sibling
+        ``i`` samples under :func:`~torchdistx_tpu_torch.models.generate.
+        fold_key` ``(key, i)``, so it equals a solo submit with that key;
+        ``n == 1`` leaves the key untouched.  The returned handle is
+        sibling 0; ``handle.siblings`` lists all ``n`` in index order.
 
         A request that could never run (oversized for ``max_model_len``,
         or needing more pages than the engine owns) raises ``ValueError``
         here.  Raises :class:`.lifecycle.EngineDraining` when draining or
         stopped, and sheds per ``shed_policy`` when overloaded.
         """
-        if int(n) != 1:
-            if int(n) < 1:
-                raise ValueError("n must be >= 1")
-            raise _unported("submit(n>1) (parallel-sampling forks)")
-        if model is not None:
-            raise _unported("submit(model=) (the model plane)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -565,17 +716,40 @@ class Engine:
         if not tenant:
             raise ValueError("tenant must be a non-empty string")
         priority = int(priority)
-        # Normalize the key BEFORE any shedding side effect: a malformed
-        # key must raise without having killed a drop-oldest victim.
+        n = int(n)
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        # Model and key resolution BEFORE any shedding side effect: a bad
+        # tag or a malformed key must raise without having killed a
+        # drop-oldest victim.
+        model = DEFAULT_MODEL if model is None else str(model)
+        pool_entry = None
+        if model != DEFAULT_MODEL:
+            if self.model_pool is None:
+                raise ValueError(f"submit(model={model!r}) needs an Engine constructed "
+                                 "with model_pool=ModelPool(...)")
+            if model not in self.model_pool:
+                raise ValueError(f"model {model!r} is not registered on this engine's "
+                                 f"pool; known tags: {self.model_pool.tags()}")
+            pool_entry = self.model_pool._entries[model]
+        model_version = (pool_entry.model_version if pool_entry is not None
+                         else self.model_version)
         key = _audit.canonical_key(self._next_rid if key is None else key)
         if self._health in (Health.DRAINING, Health.STOPPED):
             raise EngineDraining(f"engine is {self._health.value}; submit to another replica")
+        if pool_entry is not None:
+            # Demand noted now: the weights can load while the request
+            # waits its turn.
+            self.model_pool._touch(model)
+            if not pool_entry.ready:
+                self._materialize_wanted[model] = None
         # Prefill cost in chunks (a prefix-cache hit shrinks the suffix;
         # probe only, the authoritative match happens at admission).
         suffix = len(prompt)
         hashes = None
         if self.prefix is not None:
-            hashes = page_hashes(prompt, self.block_size)
+            hashes = page_hashes(prompt, self.block_size,
+                                 pool_entry.namespace if pool_entry is not None else b"")
             suffix = max(1, len(prompt) - self.prefix.probe(hashes) * self.block_size)
         n_chunks = -(-suffix // self.prefill_chunk)
         if self.detector.overloaded(
@@ -589,38 +763,87 @@ class Engine:
                 raise EngineOverloaded(
                     f"engine overloaded (queue={len(self.scheduler)}, est_ttft="
                     f"{self.est_ttft_s():.3f}s); retry with backoff")
-            victim = self.scheduler.shed_oldest()
-            if victim is not None:
-                _T_SHED.add()
-                self._n_shed += 1
-                victim.handle._fail(EngineOverloaded(
-                    f"request {victim.rid} shed under load (drop-oldest)"))
+            if self.shed_policy == "by-priority":
+                # Victim = lowest class, youngest first, strictly below the
+                # arrival's; an arrival that is itself the lowest waiting
+                # class is the one shed.  An empty queue admits it.
+                victim = self.scheduler.shed_lowest(below_priority=priority)
+                if victim is not None:
+                    _T_SHED.add()
+                    self._n_shed += 1
+                    victim.handle._fail(EngineOverloaded(
+                        f"request {victim.rid} (priority={victim.priority}) shed under "
+                        "load (by-priority)"))
+                elif len(self.scheduler):
+                    raise EngineOverloaded(
+                        "engine overloaded and the arriving request is the lowest "
+                        f"waiting class (priority={priority}); retry with backoff")
+            else:
+                victim = self.scheduler.shed_oldest()
+                if victim is not None:
+                    _T_SHED.add()
+                    self._n_shed += 1
+                    victim.handle._fail(EngineOverloaded(
+                        f"request {victim.rid} shed under load (drop-oldest)"))
 
         deadline = time.perf_counter() + deadline_s if deadline_s is not None else None
-        rid = self._next_rid
-        self._next_rid += 1
-        handle = RequestHandle(self, rid)
-        tid = trace_id
-        if tid is None and _telemetry.events_enabled():
-            tid = f"{self.engine_id}-r{rid}"
-        req = Request(
-            rid, prompt, int(max_new_tokens), key, handle, deadline=deadline,
-            n_chunks=n_chunks, hashes=hashes, tenant=tenant, priority=priority,
-            trace_id=tid, hop=int(hop), model_version=self.model_version,
-            digest=_audit.DeterminismDigest(prompt, key),
-        )
-        handle._req = req
-        extra = {}
-        if tid is not None:
-            extra["prompt"] = [int(t) for t in prompt]
-            extra["key"] = [int(kk) for kk in key]
-        self._event("req.submitted", req, n_prompt=len(prompt), max_new=int(max_new_tokens),
-                    tenant=tenant, priority=priority, deadline_s=deadline_s,
-                    n_chunks=req.n_chunks, **extra)
-        self.scheduler.push(req)
-        self._event("req.queued", req, queue_depth=len(self.scheduler))
-        _T_REQUESTS.add()
-        return handle
+        handles: list = []
+        reqs: list = []
+        parent_rid = self._next_rid
+        for i in range(n):
+            rid = self._next_rid
+            self._next_rid += 1
+            # Sibling key schedule: fold_key(base, i) for every group
+            # member, and the digest is built from the folded key; n == 1
+            # keeps the caller's key.
+            k = key if n == 1 else fold_key(key, i)
+            handle = RequestHandle(self, rid)
+            tid = trace_id
+            if tid is None:
+                if _telemetry.events_enabled():
+                    tid = f"{self.engine_id}-r{rid}"
+            elif i > 0:
+                tid = f"{trace_id}.f{i}"
+            req = Request(
+                rid, prompt, int(max_new_tokens), k, handle, deadline=deadline,
+                # Siblings ride the parent's prompt pages: their marginal
+                # prefill is one last-token chunk.
+                n_chunks=n_chunks if i == 0 else 1, hashes=hashes, tenant=tenant,
+                priority=priority, trace_id=tid, hop=int(hop),
+                digest=_audit.DeterminismDigest(prompt, k),
+                model_tag=model, model_version=model_version,
+                fork_of=None if i == 0 else parent_rid, fork_index=i,
+            )
+            handle._req = req
+            extra = {}
+            if tid is not None:
+                extra["prompt"] = [int(t) for t in prompt]
+                extra["key"] = [int(kk) for kk in k]
+            if model != DEFAULT_MODEL:
+                extra["model"] = model
+            if n > 1:
+                extra["n"] = n
+                extra["fork_index"] = i
+            self._event("req.submitted", req, n_prompt=len(prompt),
+                        max_new=int(max_new_tokens), tenant=tenant, priority=priority,
+                        deadline_s=deadline_s, n_chunks=req.n_chunks, **extra)
+            handles.append(handle)
+            reqs.append(req)
+        if n > 1:
+            self._n_forks += n - 1
+            _T_FORKS.add(n - 1)
+            self._fork_groups[parent_rid] = reqs[1:]
+            for h in handles:
+                h.siblings = list(handles)
+        for req in reqs:
+            if self._journal is not None:
+                self._journal_admit(req)
+            self.scheduler.push(req)
+            self._event("req.queued", req, queue_depth=len(self.scheduler))
+            _T_REQUESTS.add()
+            if pool_entry is not None:
+                self.model_pool._note_request(model)
+        return handles[0]
 
     def drain(self) -> None:
         """Step until every submitted request has finished."""
@@ -648,6 +871,78 @@ class Engine:
                 pending += -(-left // self.prefill_chunk)
         return pending
 
+    # ------------------------------------------------------------------
+    # Model plane
+
+    def _model_ready(self, req: Request) -> bool:
+        """Admission gate: can ``req``'s model serve right now?  A cold
+        pool model holds the queue head WITHOUT popping it, and notes the
+        demand, so the materialize phase loads the weights out-of-band."""
+        if req.model_tag == DEFAULT_MODEL:
+            return True
+        entry = self.model_pool._entries.get(req.model_tag)
+        if entry is None or entry.ready:
+            return True
+        self._materialize_wanted.setdefault(req.model_tag, None)
+        self.model_pool._note_stall(req.model_tag)
+        return False
+
+    def _page_need(self, req: Request) -> int:
+        """Admission page reservation for ``req``: a fork sibling with a
+        live donor charges only its marginal pages; everything else the
+        full quota."""
+        n_total = blocks_needed(req.cache_tokens, self.block_size)
+        if req.fork_of is not None and not req.handle._tokens:
+            donor = self._fork_donors.get(req.fork_of)
+            if donor is not None:
+                return max(0, n_total - len(donor))
+        return n_total
+
+    def _model_ctx(self, tag: str) -> tuple:
+        """``(module, decode weights)`` a dispatch for ``tag`` runs under.
+        Pool models must be resident: admission gates on residency and
+        eviction refuses models with live slots, so a miss here means
+        external interference — fail loudly."""
+        if tag == DEFAULT_MODEL:
+            return self.model, self._weights
+        entry = self.model_pool._entries[tag]
+        if entry.model is None:
+            raise RuntimeError(f"model {tag!r} lost its weights with live work on the "
+                               "engine (evicted externally mid-flight?)")
+        return entry.model, entry.weights
+
+    def _model_in_use(self, tag: str) -> bool:
+        """True while any slot — running, prefilling, or swapped out —
+        serves ``tag``: the model-pool eviction pin."""
+        return any(req is not None and req.model_tag == tag for req in self._slot_req)
+
+    def _materialize_phase(self) -> None:
+        """Materialize the oldest demanded cold model, ONE per tick.  A
+        transient failure (``serve.materialize`` ``io``/``nan``) leaves
+        the skeleton untouched and the demand queued: the next tick
+        retries.  Anything else propagates out of ``step()``."""
+        tag = next(iter(self._materialize_wanted))
+        try:
+            self.model_pool.ensure(tag)
+        except (KeyboardInterrupt, SystemExit, faults.FatalInjectedFault):
+            raise
+        except OSError:
+            self.model_pool.materialize_retries += 1
+            return
+        self._materialize_wanted.pop(tag, None)
+
+    def _sweep_fork_donors(self) -> None:
+        """Release a fork group's donor pages once every sibling is
+        terminal — nothing will map them again."""
+        if not self._fork_groups:
+            return
+        for gid in list(self._fork_groups):
+            if all(req.handle._done for req in self._fork_groups[gid]):
+                donor = self._fork_donors.pop(gid, None)
+                if donor:
+                    self.allocator.free(donor)
+                del self._fork_groups[gid]
+
     def begin_drain(self) -> None:
         """Start a graceful drain now, without a preemption signal: the
         path a SIGTERM takes.  No-op when already DRAINING or STOPPED."""
@@ -664,9 +959,10 @@ class Engine:
         return sum(r is not None for r in self._slot_req)
 
     def _n_decoding(self) -> int:
-        """Slots in the decode batch (occupied and past their prefill)."""
+        """Slots in the decode batch (occupied, past their prefill, and
+        not swapped out to host)."""
         return sum(r is not None for i, r in enumerate(self._slot_req)
-                   if i not in self._prefill_q)
+                   if i not in self._prefill_q and i not in self._swapped)
 
     # ------------------------------------------------------------------
     # The engine tick
@@ -683,13 +979,27 @@ class Engine:
         t0 = time.perf_counter()
         if self._health is not Health.DRAINING and _preemption.requested():
             self._begin_drain()
+        self._preempted_this_tick = False
         self._reap_phase()
         if self._health is not Health.DRAINING:
             self._admit_phase()
+        # Swapped slots resume even while DRAINING (in-flight work), but
+        # never on a tick that just preempted.
+        if self._swapped:
+            self._swap_in_phase()
         # Chunks advance even while DRAINING: a slot mid-prefill is
         # in-flight work the drain contract promises to finish.
         chunks = self._advance_prefills()
         committed = self._decode_phase()
+        if self._fork_groups:
+            # A group whose last sibling retired in this tick's decode
+            # frees its donor now: drain() settles to zero pages the tick
+            # the work completes.
+            self._sweep_fork_donors()
+        if self._materialize_wanted and self._health is not Health.DRAINING:
+            # One cold model's weight demand, strictly AFTER this tick's
+            # decode dispatch: the stall lands between ticks.
+            self._materialize_phase()
         if self._health is Health.DRAINING:
             self._drain_tick()
         elif self._health is Health.STARTING:
@@ -703,10 +1013,14 @@ class Engine:
             )
         ):
             self._set_health(Health.READY)
+        if self._journal is not None:
+            # Group commit (fsync='tick'): one durability point covers
+            # every record this tick appended; never raises.
+            self._journal.sync()
         tick_s = time.perf_counter() - t0
         self.detector.observe_tick(tick_s)
         self._tick_no += 1
-        if (committed == 0 and chunks == 0 and not len(self.scheduler)
+        if (committed == 0 and chunks == 0 and not self._swapped and not len(self.scheduler)
                 and self._n_running() == 0 and self._health is not Health.STOPPED):
             _T_IDLE_TICKS.add()
         # A tick that completed the drain must not re-write the routing
@@ -734,6 +1048,38 @@ class Engine:
         """Operator acknowledgement: drop the divergence latch."""
         self._diverging = False
         _telemetry.gauge("serve.diverging", engine=self.engine_id).set(0)
+
+    # ------------------------------------------------------------------
+    # The HBM ledger: sync + OOM forensics
+
+    def _ledger_sync(self) -> None:
+        """Refresh this engine's live ledger accounts: host-resident swap
+        staging and the pages the prefix index holds (a view inside
+        ``kv_pool`` — attribution, not additional device bytes)."""
+        _perf.ledger.register("kv_swap_host", self._swap_host_bytes, owner=self.engine_id)
+        if self.prefix is not None:
+            _perf.ledger.register("prefix_cache_held", len(self.prefix) * self._page_nbytes,
+                                  owner=self.engine_id)
+
+    def _oom_check(self, err: BaseException, site: str) -> None:
+        """When a failed device call is a device OOM, snapshot the ledger
+        into the flight record: the post-mortem reads what held the
+        memory (weights vs pool vs swap vs cached prefixes)."""
+        if _perf.is_oom(err):
+            self._ledger_sync()
+            _perf.oom_dump("device_oom", engine=self.engine_id, site=site,
+                           error=f"{type(err).__name__}: {err}",
+                           pool_fragmentation=round(self.allocator.fragmentation(), 4))
+
+    def _pool_exhausted(self, site: str, need: int) -> None:
+        """Page-pool exhaustion forensics: a reservation the admission
+        quota promised could not be met.  The same ledger-carrying flight
+        dump as a device OOM, under ``reason="pool_exhausted"``."""
+        self._ledger_sync()
+        _perf.oom_dump("pool_exhausted", engine=self.engine_id, site=site,
+                       pages_needed=need, pages_free=self.allocator.num_free,
+                       pages_in_use=self.allocator.num_in_use,
+                       pool_fragmentation=round(self.allocator.fragmentation(), 4))
 
     # ------------------------------------------------------------------
     # Lifecycle: reap, drain
@@ -765,12 +1111,17 @@ class Engine:
                 self._fail_running_slot(slot, DeadlineExceeded(
                     f"request {req.rid} exceeded its deadline after "
                     f"{self._emitted[slot]} tokens"))
+        self._sweep_fork_donors()
 
     def _fail_running_slot(self, slot: int, error) -> None:
         """Abort a running slot: pages back, handle failed typed, slot
-        cleared (reap, drain deadline and close all route here)."""
+        cleared (reap, drain deadline and close all route here).  A
+        swapped slot owns no pages: its host buffer is discarded and the
+        allocator's swap account settled instead."""
         req = self._slot_req[slot]
-        if req.blocks:
+        if slot in self._swapped:
+            self._discard_swapped(slot)
+        elif req.blocks:
             self.allocator.free(req.blocks)
         req.blocks = None
         req.handle._fail(error)
@@ -785,6 +1136,8 @@ class Engine:
             "serve.drain", detached=True, n_running=self._n_running(),
             n_waiting=len(self.scheduler))
         _preemption.clear()
+        # Pending weight demand dies with the queue it served.
+        self._materialize_wanted.clear()
         for req in self.scheduler.flush():
             self._n_preempted += 1
             _T_PREEMPTED.add()
@@ -813,6 +1166,11 @@ class Engine:
         if self._drain_sp is not None:
             self._drain_sp.end(timed_out=timed_out)
             self._drain_sp = None
+        # Fork donors die with the engine, as cached prefixes do.
+        for donor in self._fork_donors.values():
+            self.allocator.free(donor)
+        self._fork_donors.clear()
+        self._fork_groups.clear()
         if self.prefix is not None:
             # Cached prefixes die with the engine: a stopped engine owns
             # no pages.
@@ -826,6 +1184,29 @@ class Engine:
             _preemption.uninstall()
         for name in ("serve.diverging", "serve.queue_depth", "serve.role"):
             _telemetry.remove(name, engine=self.engine_id)
+        # Ledger teardown: the pool, swap, prefix and decode-weights rows
+        # leave with the engine; the parameters' row when the LAST engine
+        # over the model stops.
+        for component in ("kv_pool", "kv_swap_host", "prefix_cache_held"):
+            _perf.ledger.unregister(component, owner=self.engine_id)
+        _perf.ledger.unregister("weights", owner=f"decode:{self.engine_id}")
+        with _WEIGHTS_LOCK:
+            left = _WEIGHTS_REFS.get(self._weights_key, 1) - 1
+            if left <= 0:
+                _WEIGHTS_REFS.pop(self._weights_key, None)
+            else:
+                _WEIGHTS_REFS[self._weights_key] = left
+        if left <= 0:
+            _perf.ledger.unregister("weights", owner=self._weights_key)
+        # Durability teardown: the close above journaled every in-flight
+        # stream's typed retirement, so the sealed journal records a
+        # fully retired run; close flushes, fsyncs and releases the lock.
+        if self._journal is not None:
+            self._journal.close()
+        # Model-plane teardown: pool models' graphs, weights, ledger rows
+        # and labeled families leave with the engine.
+        if self.model_pool is not None:
+            self.model_pool._close()
 
     def close(self) -> None:
         """Stop the engine now: fail queued and in-flight work with
@@ -857,9 +1238,21 @@ class Engine:
         if not len(self.scheduler):
             return
         if self._prefill_q:
-            # Prefill-busy: popping more requests would only park them on
-            # pages with zero progress (chunks drain strictly FIFO).
-            return
+            if self._qos:
+                # A strictly-higher-class head must not wait out a lower
+                # class's chunked prefill: abort-and-requeue those
+                # prefills (no committed tokens: the cheap end of replay).
+                self._preempt_prefills()
+            if self._prefill_q:
+                # Prefill-busy: popping more requests would only park
+                # them on pages with zero progress (chunks drain strictly
+                # FIFO).
+                return
+        if self._qos:
+            # Before admission reads the free lists: a waiting request of
+            # a strictly higher class may preempt running lower ones, the
+            # same tick.
+            self._qos_preempt()
         free_slots = [i for i, r in enumerate(self._slot_req) if r is None]
         if not free_slots:
             # Slot-bound stall with work waiting: counted by the
@@ -878,7 +1271,8 @@ class Engine:
             _T_ADMIT_RETRIES.add()
             return
         batch = self.scheduler.pop_admissible(
-            len(free_slots), self.allocator, self.block_size, reclaim=self._reclaim_pages)
+            len(free_slots), self.allocator, self.block_size, reclaim=self._reclaim_pages,
+            need=self._page_need, ready=self._model_ready)
         for i, req in enumerate(batch):
             try:
                 self._start_prefill(free_slots[i], req)
@@ -891,6 +1285,414 @@ class Engine:
                 _T_PREFILL_RETRIES.add()
                 self.scheduler.requeue([req] + batch[i + 1:])
                 return
+
+    # ------------------------------------------------------------------
+    # QoS preemption: swap-to-host / drop-and-replay (scheduler="qos")
+
+    def _preempt_prefills(self) -> None:
+        """Abort mid-prefill slots when the waiting head outranks every
+        one of them: their pages return, they re-enter the QoS queues
+        (losing only the chunks already dispatched), and this tick's
+        prefill budget goes to the higher class.  Nothing happens while
+        any prefilling slot is the head's class or above."""
+        head = self.scheduler.peek()
+        if head is None or not self._model_ready(head):
+            return
+        if not all(self._slot_req[slot].priority < head.priority for slot in self._prefill_q):
+            return
+        for slot in list(self._prefill_q):
+            req = self._abort_prefill(slot)
+            req.n_chunks = self._replay_chunks(req)
+            req.preempt_t = time.perf_counter()
+            self._event("req.preempted", req, mechanism="replay", reason="prefill_requeue",
+                        n_tokens=0)
+            self.scheduler.push(req)
+            self._n_preempt_replay += 1
+            _T_PREEMPT_REPLAY.add()
+        self._preempted_this_tick = True
+
+    def _replay_chunks(self, req: Request) -> int:
+        """A preemption victim's resume cost in chunks: what the
+        re-prefill of prompt + generated-so-far will dispatch, minus the
+        prefix the index still holds."""
+        seq_len = req.replay_len()
+        cached = 0
+        if self.prefix is not None and req.hashes:
+            cached = self.prefix.probe(req.hashes) * self.block_size
+        return -(-max(1, seq_len - cached) // self.prefill_chunk)
+
+    def _qos_preempt(self) -> None:
+        """Make room for a waiting higher-class request by preempting
+        running strictly-lower-class streams, lowest class first, youngest
+        first.  Slot pressure (every slot occupied): drop-and-replay on
+        one victim.  Page pressure (the head's reservation exceeds the
+        free list): ``preempt_mechanism`` per victim until it fits."""
+        head = self.scheduler.peek()
+        if head is None or not self._model_ready(head):
+            return
+        victims = sorted(
+            (slot for slot, req in enumerate(self._slot_req)
+             if req is not None and req.priority < head.priority),
+            key=lambda s: (self._slot_req[s].priority, -self._slot_req[s].rid))
+        if not victims:
+            return
+        if all(r is not None for r in self._slot_req):
+            # Only replay frees a slot (a swapped slot stays parked).
+            if not self._preempt_slot(victims.pop(0), mechanism="replay"):
+                return
+        need = blocks_needed(head.cache_tokens, self.block_size)
+        if need > self.allocator.num_free:
+            self._reclaim_pages(need - self.allocator.num_free)
+        while need > self.allocator.num_free and victims:
+            slot = victims.pop(0)
+            if slot in self._swapped:
+                continue  # its private pages are already on host
+            if not self._preempt_slot(slot, mechanism=self.preempt_mechanism):
+                return
+
+    def _preempt_slot(self, slot: int, mechanism: str) -> bool:
+        """Preempt one running slot.  ``"swap"``: its private pages go to
+        pinned host tensors and free; the slot parks through its decode
+        inputs alone (table 0 → the trash page, ``done=True``), so the
+        decode graph is neither touched nor recaptured.  ``"replay"``:
+        pages release and the request re-enters the QoS queues carrying
+        its committed tokens.  A failed swap-out falls back to replay
+        (the gather is read-only), except a device fault, which goes to
+        the supervisor; False then (the slot map was rebuilt)."""
+        req = self._slot_req[slot]
+        self._preempted_this_tick = True
+        if mechanism == "swap" and slot not in self._swapped:
+            # Only PRIVATE pages (refcount 1) go to host: a shared page
+            # stays resident on its other references, and the request
+            # keeps its own, so sharing survives the preemption.
+            layout = [blk if self.allocator.refcount(blk) > 1 else None for blk in req.blocks]
+            priv = [blk for blk, kept in zip(req.blocks, layout) if kept is None]
+            self._swap_no += 1
+            try:
+                kind = faults.fire("serve.swap", self._swap_no)
+                if kind is not None:
+                    raise faults.InjectedFault(f"poisoned swap attempt ({kind})")
+                host = swap_out_pages(self._cache, priv, sync=False) if priv else None
+            except (KeyboardInterrupt, SystemExit, faults.FatalInjectedFault):
+                raise
+            except Exception as err:
+                self._oom_check(err, "serve.swap_out")
+                if _device_fault(err):
+                    self._supervise_recovery(err)
+                    return False
+                # Read-only gather: drop-and-replay below is safe.
+            else:
+                self.allocator.swap_out(priv)
+                self._swapped[slot] = (host, layout)
+                if host is not None:
+                    self._swap_host_bytes += _perf.pytree_nbytes(host)
+                req.blocks = None
+                self._tables[slot] = 0
+                self._done[slot] = True
+                self._n_preempt_swap += 1
+                _T_PREEMPT_SWAP.add()
+                req.preempt_t = time.perf_counter()
+                self._event("req.swapped", req, n_private=len(priv),
+                            n_shared=len(layout) - len(priv),
+                            n_tokens=len(req.handle._tokens))
+                return True
+        # Drop-and-replay (the swap fallback lands here too).
+        if slot in self._swapped:
+            self._discard_swapped(slot)
+        elif req.blocks:
+            self.allocator.free(req.blocks)
+        self._reset_prefill_state(req)
+        req.n_chunks = self._replay_chunks(req)
+        self._clear_slot(slot)
+        req.preempt_t = time.perf_counter()
+        self._event("req.preempted", req, mechanism="replay", reason="pressure",
+                    n_tokens=len(req.handle._tokens))
+        self.scheduler.push(req)
+        self._n_preempt_replay += 1
+        _T_PREEMPT_REPLAY.add()
+        return True
+
+    def _discard_swapped(self, slot: int) -> None:
+        """Settle a swapped slot's accounts without resuming it (cancelled,
+        failed, or re-preempted to replay): the kept shared pages'
+        references release, the host buffer is dropped, and the allocator
+        forgets the host-resident rows."""
+        host, layout = self._swapped.pop(slot)
+        if host is not None:
+            self._swap_host_bytes -= _perf.pytree_nbytes(host)
+        kept = [blk for blk in layout if blk is not None]
+        if kept:
+            self.allocator.free(kept)
+        self.allocator.drop_swapped(sum(1 for blk in layout if blk is None))
+
+    def _swap_in_phase(self) -> None:
+        """Bring swapped slots back when pressure subsides: highest class
+        first, oldest first.  A swapped slot never jumps a waiting
+        higher-class head and never resumes on the tick that just
+        preempted.  The pages land (in place, ordered before the next
+        decode on the compute stream) before the slot's inputs put it back
+        in the decode batch."""
+        if self._preempted_this_tick:
+            return
+        head = self.scheduler.peek() if self._qos else None
+        for slot in sorted(self._swapped,
+                           key=lambda s: (-self._slot_req[s].priority, self._slot_req[s].rid)):
+            req = self._slot_req[slot]
+            toks = req.handle._tokens
+            if toks and not req.digest.matches_stream(req.prompt, req.key, toks,
+                                                      req.model_version):
+                # A corrupted committed buffer fails typed before the
+                # pages come back.
+                self._resume_diverged(slot, req, "swap-resume")
+                continue
+            host, layout = self._swapped[slot]
+            n_priv = sum(1 for kept in layout if kept is None)
+            reserve = 0
+            if head is not None and head.priority > req.priority:
+                reserve = blocks_needed(head.cache_tokens, self.block_size)
+            short = n_priv + reserve - self.allocator.num_free
+            if short > 0:
+                self._reclaim_pages(short)
+            if self.allocator.num_free - reserve < n_priv:
+                continue
+            pages = self.allocator.swap_in(n_priv)
+            if pages is None:
+                continue
+            if n_priv:
+                try:
+                    swap_in_pages(self._cache, host, pages)
+                except (KeyboardInterrupt, SystemExit, faults.FatalInjectedFault):
+                    raise
+                except Exception as err:
+                    # The scatter writes the pool: the supervisor rebuilds
+                    # it and replays everything, swapped slots included.
+                    self._oom_check(err, "serve.swap_in")
+                    self._swapped.pop(slot, None)
+                    if host is not None:
+                        self._swap_host_bytes -= _perf.pytree_nbytes(host)
+                    self._supervise_recovery(err)
+                    return
+            del self._swapped[slot]
+            if host is not None:
+                self._swap_host_bytes -= _perf.pytree_nbytes(host)
+            fresh = iter(pages)
+            blocks = [kept if kept is not None else next(fresh) for kept in layout]
+            req.blocks = blocks
+            table = np.zeros((self._table_width,), np.int64)
+            table[: len(blocks)] = blocks
+            req.table = table
+            self._tables[slot] = table
+            self._done[slot] = False
+            if req.preempt_t is not None:
+                self._h_outage.observe(time.perf_counter() - req.preempt_t)
+                req.preempt_t = None
+            self._event("req.resumed", req, mechanism="swap", n_tokens=len(req.handle._tokens))
+
+    # ------------------------------------------------------------------
+    # Cross-engine stream migration
+
+    def migratable_slots(self) -> list:
+        """Slots whose stream can :meth:`migrate_out` right now: occupied,
+        past prefill (committed tokens exist), resident on the device (not
+        swapped to host), and not already terminal."""
+        return [slot for slot, req in enumerate(self._slot_req)
+                if req is not None and slot not in self._prefill_q
+                and slot not in self._swapped and req.handle._tokens
+                and not req.handle._done]
+
+    def migrate_out(self, slot: int) -> dict:
+        """Export one live decoding stream as a self-contained host
+        snapshot a peer's :meth:`migrate_in` maps into its own pool
+        mid-stream.
+
+        EVERY page of the stream's table transfers, private and shared:
+        the destination has no prefix entry for this prompt, so shared
+        pages resolve into the snapshot.  The snapshot holds the pages as
+        pinned host tensors (``"host"``), the page geometry, the model tag
+        and version, the digest and ``n_tokens``.  Only after the copy
+        lands does the source release its references, clear the slot and
+        retire the stream from its journal as ``migrated``; the handle
+        stays live.  Raises (``serve.migrate_out`` fault, copy failure)
+        strictly BEFORE any source mutation: a failed export leaves the
+        stream running here."""
+        req = self._slot_req[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is idle; nothing to migrate")
+        if slot in self._prefill_q or slot in self._swapped:
+            raise ValueError(f"slot {slot} is not decoding on-device (mid-prefill or "
+                             "swapped out); migrate only resident decode streams")
+        toks = req.handle._tokens
+        if not toks or req.handle._done:
+            raise ValueError(f"request {req.rid} has no live committed stream to migrate")
+        self._migrate_out_no += 1
+        kind = faults.fire("serve.migrate_out", self._migrate_out_no)
+        if kind is not None:
+            raise faults.InjectedFault(f"poisoned migration export ({kind})")
+        sp = _telemetry.start_span("serve.migrate_out", slot=slot, n_pages=len(req.blocks),
+                                   n_tokens=len(toks))
+        try:
+            host = swap_out_pages(self._cache, req.blocks)
+        except BaseException:
+            sp.cancel()
+            raise
+        n_pages = len(req.blocks)
+        snapshot = {
+            "req": req,
+            "host": host,
+            "n_pages": n_pages,
+            "geometry": pool_geometry(self._cache),
+            "block_size": self.block_size,
+            "model_tag": req.model_tag,
+            "model_version": req.model_version,
+            "src_engine": self.engine_id,
+            "digest": req.digest.hexdigest(),
+            "n_tokens": len(toks),
+        }
+        # Handoff point: nothing below fails — from here the snapshot owns
+        # the stream's KV and the source owns nothing.
+        self.allocator.free(req.blocks)
+        req.blocks = None
+        req.table = None
+        req.preempt_t = time.perf_counter()  # outage clock: out → in
+        self._event("req.migrated_out", req, n_pages=n_pages, n_tokens=len(toks))
+        # Journal ownership transfer: the stream leaves THIS journal
+        # retired (outcome=migrated) and enters the destination's as a
+        # handoff admit — it lives in exactly one journal.
+        self._journal_retire(req, outcome="migrated")
+        self._clear_slot(slot)
+        self._n_migrated_out += 1
+        _T_MIGRATIONS_OUT.add()
+        _T_MIGRATED_PAGES.add(n_pages)
+        sp.end(n_pages=n_pages, n_tokens=len(toks))
+        return snapshot
+
+    def migrate_in(self, snapshot: dict) -> RequestHandle:
+        """Map a :meth:`migrate_out` snapshot into this engine's pool and
+        resume the stream mid-flight — zero recompute: the pages scatter
+        in, the slot restores where the source left it, and the next
+        decode step samples at the uninterrupted run's ``n``.
+
+        Ordered so nothing can corrupt this pool or leak a page:
+        (1) compatibility — weights version, page geometry and table fit
+        are checked before anything allocates; a mismatch raises typed,
+        retryable :class:`.lifecycle.MigrationIncompatible`; (2) the
+        committed tokens re-hash against the digest (a mismatch is
+        :class:`.lifecycle.DeterminismDiverged`); (3) capacity — a free
+        slot and ``n_pages`` pages, else retryable
+        :class:`.lifecycle.EngineOverloaded`; (4) the import — the
+        ``serve.migrate_in`` fault site fires between allocation and
+        scatter, and any failure frees the pages (a device fault goes to
+        the supervisor) and re-raises.  Returns the handle, re-bound to
+        this engine."""
+        req = snapshot["req"]
+        toks = list(req.handle._tokens)
+        if req.handle._done:
+            raise ValueError(f"request {req.rid} is already terminal; nothing to import")
+        if self._health in (Health.DRAINING, Health.STOPPED):
+            raise EngineDraining(f"engine is {self._health.value}; migrate to another replica")
+        tag = snapshot.get("model_tag", DEFAULT_MODEL)
+        if tag == DEFAULT_MODEL:
+            local_version = self.model_version
+        else:
+            if self.model_pool is None or tag not in self.model_pool:
+                raise MigrationIncompatible(
+                    f"stream is on model {tag!r} but this engine's pool does not register "
+                    "it; migrate to a replica that does")
+            dst_entry = self.model_pool._entries[tag]
+            if not dst_entry.ready:
+                raise MigrationIncompatible(
+                    f"model {tag!r} is registered here but not materialized; warm it "
+                    "(ModelPool.ensure) before importing its streams")
+            local_version = dst_entry.model_version
+        if snapshot.get("model_version") != local_version:
+            raise MigrationIncompatible(
+                f"weights version mismatch: snapshot {snapshot.get('model_version')!r} != "
+                f"engine {local_version!r} — a cross-version migration would interleave "
+                "two models in one stream")
+        if snapshot.get("block_size") != self.block_size:
+            raise MigrationIncompatible(
+                f"page size mismatch: snapshot block_size={snapshot.get('block_size')} != "
+                f"engine block_size={self.block_size}")
+        if snapshot.get("geometry") != pool_geometry(self._cache):
+            raise MigrationIncompatible(
+                "pool geometry mismatch (layers / page size / heads / head_dim / dtype); "
+                "fall back to a key-pinned replay")
+        n_pages = int(snapshot["n_pages"])
+        if n_pages > self._table_width or req.cache_tokens > self.max_model_len:
+            raise MigrationIncompatible(
+                f"stream needs {n_pages} pages / {req.cache_tokens} positions but this "
+                f"engine's table holds {self._table_width} pages ({self.max_model_len} "
+                "positions)")
+        if n_pages > self.allocator.capacity:
+            raise MigrationIncompatible(f"stream needs {n_pages} pages but this engine owns "
+                                        f"{self.allocator.capacity}")
+        if toks and not req.digest.matches_stream(req.prompt, req.key, toks,
+                                                  req.model_version):
+            _audit.record_divergence(
+                self, rid=req.trace_id, where="migrate-in",
+                expected_digest=req.digest.hexdigest(),
+                replayed_digest=_audit.DeterminismDigest.of_stream(
+                    req.prompt, req.key, toks, req.model_version).hexdigest(),
+                n_tokens=len(toks))
+            err = DeterminismDiverged(
+                f"request {req.rid} arrived with a committed stream that no longer matches "
+                f"its determinism digest after {len(toks)} tokens")
+            req.handle._fail(err)
+            raise err
+        slot = next((i for i, r in enumerate(self._slot_req) if r is None), None)
+        if slot is None:
+            raise EngineOverloaded("no free slot for the migrated stream; retry elsewhere")
+        pages = self._alloc_pages(n_pages)
+        if pages is None:
+            self._pool_exhausted("serve.migrate_in", n_pages)
+            raise EngineOverloaded(f"could not reserve {n_pages} pages for the migrated "
+                                   "stream; retry elsewhere")
+        self._migrate_in_no += 1
+        sp = _telemetry.start_span("serve.migrate_in", slot=slot, n_pages=n_pages,
+                                   n_tokens=len(toks), src=snapshot.get("src_engine"))
+        try:
+            kind = faults.fire("serve.migrate_in", self._migrate_in_no)
+            if kind is not None:
+                raise faults.InjectedFault(f"poisoned migration import ({kind})")
+            swap_in_pages(self._cache, snapshot["host"], pages)
+        except (KeyboardInterrupt, SystemExit, faults.FatalInjectedFault):
+            sp.cancel()
+            self.allocator.free(pages)
+            raise
+        except Exception as err:
+            sp.cancel()
+            if _device_fault(err):
+                # The scatter may have written anywhere: the supervisor
+                # rebuilds the pool and replays this engine's streams; the
+                # arriving stream was never installed (its pages die with
+                # the allocator reset) and the caller's fallback owns it.
+                self._oom_check(err, "serve.migrate_in")
+                self._supervise_recovery(err)
+            else:
+                self.allocator.free(pages)
+            raise
+        n_gen = len(toks)
+        table = np.zeros((self._table_width,), np.int64)
+        table[:n_pages] = pages
+        req.blocks = list(pages)
+        req.table = table
+        req.handle._engine = self
+        req.hop += 1  # a migration is a placement hop in the timeline
+        self._install_slot(slot, req, toks[-1], len(req.prompt) + n_gen - 1, table,
+                           n_gen=n_gen, emitted=n_gen)
+        if req.preempt_t is not None:
+            self._h_outage.observe(time.perf_counter() - req.preempt_t)
+            req.preempt_t = None
+        self._n_migrated_in += 1
+        _T_MIGRATIONS_IN.add()
+        self._event("req.migrated_in", req, n_pages=n_pages, n_tokens=n_gen,
+                    src=snapshot.get("src_engine"))
+        if self._journal is not None:
+            # The receiving half of the ownership transfer: a handoff admit
+            # carrying the committed prefix and digest.
+            self._journal_admit(req, tokens=toks)
+        sp.end(n_pages=n_pages, n_tokens=n_gen)
+        return req.handle
 
     # ------------------------------------------------------------------
     # Chunked prefill + the prefix cache
@@ -919,12 +1721,26 @@ class Engine:
         """Host-side admission of one request into the PREFILLING state:
         map the longest cached prefix, reserve private pages for the rest
         of the table, queue the slot for chunk dispatch.  On any failure
-        the reservation rolls back completely."""
+        the reservation rolls back completely.
+
+        A drop-and-replay victim (or a journal resume) re-admits through
+        this same path: its prefill runs over ``prompt + tokens[:-1]`` and
+        :meth:`_complete_prefill` restores the slot mid-stream."""
         seq_len = req.replay_len()
         n_total = blocks_needed(req.cache_tokens, self.block_size)
         shared: list = []
         cached_len = 0
-        if self.prefix is not None:
+        donor = (self._fork_donors.get(req.fork_of)
+                 if req.fork_of is not None and not req.handle._tokens else None)
+        if donor is not None:
+            # Fork sibling: map ALL the parent's prompt-covering pages, the
+            # partial last page included; the sibling re-runs just the
+            # last prompt token, whose write copies the last shared page
+            # first.
+            self.allocator.share(donor)
+            shared = list(donor)
+            cached_len = len(req.prompt)
+        elif self.prefix is not None:
             if req.hashes is None:
                 req.hashes = page_hashes(req.prompt, self.block_size)
             shared = self.prefix.match(req.hashes)
@@ -935,8 +1751,9 @@ class Engine:
         if priv is None:
             if shared:
                 self.allocator.free(shared)
+            self._pool_exhausted("serve.start_prefill", n_total - len(shared))
             raise RuntimeError("prefill could not reserve its promised pages")
-        if cached_len and not req.hit_counted:
+        if donor is None and cached_len and not req.hit_counted:
             # Counted once a request, not per admission attempt.
             req.hit_counted = True
             self.prefix.hits += 1
@@ -1015,6 +1832,7 @@ class Engine:
                 continue
             fresh = self._alloc_pages(1)
             if fresh is None:
+                self._pool_exhausted("serve.cow", 1)
                 raise RuntimeError("copy-on-write could not reserve a page")
             copy_pages(self._cache, page, fresh[0])
             req.table[idx] = fresh[0]
@@ -1023,9 +1841,10 @@ class Engine:
             self._n_cow += 1
             _T_COW.add()
 
-    def _run_chunk(self, seq, table, start: int, end: int, key):
-        """One prefill chunk of ``seq[start:end]`` against ``table``,
-        padded to its bucket.  Returns the sampled first token on the
+    def _run_chunk(self, seq, table, start: int, end: int, key,
+                   model_tag: str = DEFAULT_MODEL):
+        """One prefill chunk of ``seq[start:end]`` against ``table`` under
+        ``model_tag``'s weights, padded to its bucket.  Returns the sampled first token on the
         final chunk (``end == len(seq)``), else None.  Padding positions
         land in the request's own not-yet-decoded tail or the trash page;
         their logits are ignored."""
@@ -1034,10 +1853,11 @@ class Engine:
         tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :n] = seq[start:end]
         dev = self.device
-        logits, _ = self.model.forward_paged(
+        model, weights = self._model_ctx(model_tag)
+        logits, _ = model.forward_paged(
             torch.from_numpy(tokens).to(dev), self._cache,
             torch.from_numpy(np.asarray(table, np.int64)[None]).to(dev),
-            torch.full((1,), start, dtype=torch.int64, device=dev), self._weights)
+            torch.full((1,), start, dtype=torch.int64, device=dev), weights)
         if end < len(seq):
             return None
         last = logits[:, n - 1]
@@ -1057,15 +1877,40 @@ class Engine:
             "serve.prefill", slot=slot, start=start, n=end - start, bucket=bucket,
             cached=req.n_cached,
         ):
-            return self._run_chunk(seq, req.table, start, end, req.key)
+            return self._run_chunk(seq, req.table, start, end, req.key, req.model_tag)
 
     def _complete_prefill(self, slot: int, req: Request, first: int) -> None:
         """Last chunk done: register the prompt's full pages in the prefix
         index and install the slot into the decode batch."""
+        if req.rid in self._fork_groups and req.rid not in self._fork_donors:
+            # Fork parent: pin the prompt-covering pages for the siblings
+            # with ENGINE-held references (the donor survives the parent
+            # retiring, even on its first token).
+            n_prompt_pages = min(blocks_needed(len(req.prompt), self.block_size),
+                                 len(req.blocks))
+            donor = [int(req.table[i]) for i in range(n_prompt_pages)]
+            self.allocator.share(donor)
+            self._fork_donors[req.rid] = donor
         if self.prefix is not None and req.hashes:
             self.prefix.register(req.hashes, [int(req.table[i]) for i in range(len(req.hashes))],
                                  self.allocator)
+        toks = req.handle._tokens
         now = time.perf_counter()
+        if toks:
+            # A drop-and-replay victim (or a journal resume): the sampled
+            # token recomputes an already-committed one and is discarded;
+            # the pending input is the last committed token.  The
+            # committed buffer is checked against the digest first.
+            if not req.digest.matches_stream(req.prompt, req.key, toks, req.model_version):
+                self._resume_diverged(slot, req, "preempt-replay-resume")
+                return
+            self._install_slot(slot, req, toks[-1], req.replay_len(), req.table,
+                               n_gen=len(toks), emitted=len(toks))
+            if req.preempt_t is not None:
+                self._h_outage.observe(now - req.preempt_t)
+                req.preempt_t = None
+            self._event("req.resumed", req, mechanism="replay", n_tokens=len(toks))
+            return
         req.handle.ttft_s = now - req.submit_t
         self._h_ttft.observe(req.handle.ttft_s)
         if req.preempt_t is not None:
@@ -1082,6 +1927,10 @@ class Engine:
         # _push_token retires at once on a first-token EOS or a budget of
         # one: the slot never enters the decode batch.
         self._push_token(slot, first)
+        if self._journal is not None:
+            # The first token is a commit point like any chunk boundary (a
+            # first-token retirement journals through the funnel instead).
+            self._journal_commit(req, len(req.handle._tokens) - 1)
 
     def _install_slot(self, slot, req, token, position, table, *, n_gen, emitted) -> None:
         self._slot_req[slot] = req
@@ -1155,6 +2004,7 @@ class Engine:
         need = blocks_needed(req.cache_tokens, self.block_size)
         blocks = self._alloc_pages(need)
         if blocks is None:
+            self._pool_exhausted("serve.replay_prefill", need)
             raise RuntimeError("prefill could not reserve its promised pages")
         req.blocks = blocks
         table = np.zeros((self._table_width,), np.int64)
@@ -1163,7 +2013,7 @@ class Engine:
             first = None
             for start in range(0, len(seq), self.prefill_chunk):
                 end = min(start + self.prefill_chunk, len(seq))
-                first = self._run_chunk(seq, table, start, end, req.key)
+                first = self._run_chunk(seq, table, start, end, req.key, req.model_tag)
         except BaseException:
             self.allocator.free(blocks)
             req.blocks = None
@@ -1173,23 +2023,37 @@ class Engine:
     # ------------------------------------------------------------------
     # Decode + the recovery supervisor
 
-    def decoder(self) -> DecodeChunk:
-        """The decode chunk of this engine's geometry (built on first use;
-        on CUDA its graph is captured at its first call)."""
+    def decoder(self, tag: str = DEFAULT_MODEL) -> DecodeChunk:
+        """The decode chunk of this engine's geometry under ``tag``'s
+        weights (built on first use; on CUDA its graph is captured at its
+        first call).  One a ``(geometry, model tag)``: a graph holds its
+        model's weights by address."""
         geometry = (self.num_slots, self._table_width, self.decode_chunk, self.temperature,
-                    self.top_k, self.eos_id)
+                    self.top_k, self.eos_id, tag)
         dec = self._decoders.get(geometry)
         if dec is None:
+            model, weights = self._model_ctx(tag)
             dec = self._decoders[geometry] = DecodeChunk(
-                self.model, self._weights, self._cache, num_slots=self.num_slots,
+                model, weights, self._cache, num_slots=self.num_slots,
                 table_width=self._table_width, n_steps=self.decode_chunk,
                 temperature=self.temperature, top_k=self.top_k, eos_id=self.eos_id,
                 device=self.device)
         return dec
 
+    def _drop_decoders(self, tag: str) -> None:
+        """Drop ``tag``'s decode chunks and release their graphs (and the
+        graphs' private memory): the model pool calls this BEFORE freeing
+        the model's weights, which the graphs read by address."""
+        for geometry in [g for g in self._decoders if g[-1] == tag]:
+            dec = self._decoders.pop(geometry)
+            if dec.graph is not None:
+                dec.graph.reset()
+                dec.graph = None
+            dec.model = dec.weights = None
+
     def _decode_phase(self) -> int:
-        """One decode chunk over the running slots; returns the number of
-        tokens committed."""
+        """One decode chunk over the running slots, a chunk a model;
+        returns the number of tokens committed."""
         if not self._n_decoding():
             return 0
         self._decode_no += 1
@@ -1205,21 +2069,58 @@ class Engine:
             # prior state bit for bit), count it, keep going.
             _T_SKIPPED.add()
             return 0
-        slots = [slot for slot, req in enumerate(self._slot_req)
-                 if req is not None and slot not in self._prefill_q]
-        sp = _telemetry.start_span("serve.step", n_active=len(slots), chunk=self.decode_chunk)
+        corrupt = kind == "corrupt"
+        # Group the decode batch by model.  The common case is ONE group
+        # on the engine's own model and passes the slot arrays unmasked.
+        # With pool models decoding, each group replays its own chunk over
+        # masked inputs: other slots read done=True and table 0 (writes on
+        # the trash page, outputs discarded), so the passes commute.
+        groups: dict = {}
+        for slot, req in enumerate(self._slot_req):
+            if req is None or slot in self._prefill_q or slot in self._swapped:
+                continue
+            groups.setdefault(req.model_tag, []).append(slot)
+        committed = 0
+        for tag, slots in groups.items():
+            got = self._decode_group(tag, slots, solo=len(groups) == 1, corrupt=corrupt)
+            corrupt = False  # one flipped token per poisoned chunk
+            if got is None:  # dispatch failed; handled (retry/recovery)
+                break
+            committed += got
+        self._decode_tokens += committed
+        if self._decode_s > 0:
+            _G_DECODE_TPS.set(round(self._decode_tokens / self._decode_s, 1))
+        return committed
+
+    def _decode_group(self, tag: str, slots: list, *, solo: bool,
+                      corrupt: bool) -> Optional[int]:
+        """One decode chunk over the slots of ONE model.  Returns tokens
+        committed, or None when the dispatch failed and the failure was
+        handled (free retry next tick, or the supervisor ran)."""
+        if solo:
+            done, tables = self._done, self._tables
+        else:
+            done = np.ones_like(self._done)
+            done[slots] = self._done[slots]
+            tables = np.zeros_like(self._tables)
+            tables[slots] = self._tables[slots]
+        attrs = {"n_active": len(slots), "chunk": self.decode_chunk}
+        if tag != DEFAULT_MODEL:
+            attrs["model"] = tag
+        sp = _telemetry.start_span("serve.step", **attrs)
         t0 = time.perf_counter()
         try:
-            out = self.decoder()(self._tokens, self._positions, self._n_gen, self._done,
-                                 self._keys, self._tables)
+            out = self.decoder(tag)(self._tokens, self._positions, self._n_gen, done,
+                                    self._keys, tables)
         except (KeyboardInterrupt, SystemExit, GraphCaptureError, faults.FatalInjectedFault):
             sp.cancel()
             raise
         except Exception as err:
             sp.cancel()
+            self._oom_check(err, "serve.step")
             self._dispatch_failed(err)
-            return 0
-        if kind == "corrupt" and slots:
+            return None
+        if corrupt and slots:
             # The audit plane's fault: one committed token flipped on the
             # host, a silent determinism break only a digest can catch.
             out = out.copy()
@@ -1229,6 +2130,13 @@ class Engine:
         dt = time.perf_counter() - t0
         self._decode_s += dt
         committed = 0
+        jstate = None
+        if self._journal is not None:
+            # Chunk-boundary journal commits: (request, tokens committed
+            # before) captured BEFORE the commit loop — a slot retiring
+            # mid-chunk journals through the retirement funnel instead.
+            jstate = [(self._slot_req[slot], len(self._slot_req[slot].handle._tokens))
+                      for slot in slots]
         for slot in slots:
             for tok in out[:, slot]:
                 self._push_token(slot, int(tok))
@@ -1241,12 +2149,14 @@ class Engine:
                 self._tokens[slot] = out[-1, slot]
                 self._positions[slot] += self.decode_chunk
                 self._n_gen[slot] += self.decode_chunk
+        if jstate is not None:
+            for jreq, jn0 in jstate:
+                self._journal_commit(jreq, jn0)
         if committed:
             self._h_tpot.observe(dt / self.decode_chunk, n=committed)
+        if tag != DEFAULT_MODEL:
+            self.model_pool._note_tokens(tag, committed)
         sp.end(tokens=committed)
-        self._decode_tokens += committed
-        if self._decode_s > 0:
-            _G_DECODE_TPS.set(round(self._decode_tokens / self._decode_s, 1))
         return committed
 
     def _dispatch_failed(self, err: BaseException) -> None:
@@ -1303,6 +2213,15 @@ class Engine:
                 requeue.append(req)
             self._clear_slot(slot)
         self.scheduler.requeue(requeue)
+        # Swapped slots: the committed tokens on the handle are all a
+        # replay needs — discard the host buffers and replay them like any
+        # decoding slot (the allocator reset below re-zeroes the swap
+        # account).
+        self._swapped.clear()
+        self._swap_host_bytes = 0
+        # Fork donors die with the pool (the reset reclaims every page);
+        # the groups stay: a replaying parent re-creates its donor.
+        self._fork_donors.clear()
         if self.prefix is not None:
             self.prefix.clear()
         # Replay inputs are checked against the determinism digest BEFORE
@@ -1405,23 +2324,244 @@ class Engine:
             self._prefill_q.remove(slot)
 
     # ------------------------------------------------------------------
-    # The parts left for ROADMAP A7
+    # Durability plane: the request journal + cold-restart resume
 
-    def migrate_out(self, slot: int) -> dict:
-        raise _unported("migrate_out (stream migration)")
+    def _bind_journal(self, journal: RequestJournal) -> None:
+        """Adopt a journal: geometry check (read-only, BEFORE the claim —
+        a mismatched engine must not steal the lock from the replica that
+        could resume the streams), ownership claim (typed
+        :class:`.lifecycle.JournalOwned` when a live engine holds it),
+        then this engine's config record."""
+        prior = journal.peek_config()
+        if prior is not None:
+            mine = self._journal_config()
+            bad = [k for k in mine if k in prior and prior[k] != mine[k]]
+            if bad:
+                raise ValueError(
+                    f"journal geometry mismatch on {bad}: journal has "
+                    f"{ {k: prior[k] for k in bad} }, engine has "
+                    f"{ {k: mine[k] for k in bad} } — resuming here would continue the "
+                    "streams with different tokens")
+        journal.claim(self.engine_id)
+        journal.write_config(engine=self.engine_id, **self._journal_config())
+        self._journal = journal
 
-    def migrate_in(self, snapshot: dict):
-        raise _unported("migrate_in (stream migration)")
+    def _journal_config(self) -> dict:
+        """What a resume must agree on: everything that changes WHICH
+        tokens a stream commits."""
+        return {
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "eos_id": self.eos_id,
+            "decode_chunk": self.decode_chunk,
+            "model_version": self.model_version,
+        }
 
-    def resume_from_journal(self, *args, **kwargs):
-        raise _unported("resume_from_journal (the request journal)")
+    def _journal_admit(self, req: Request, *, tokens=None) -> None:
+        """Journal one request's replay identity.  ``tokens`` marks a
+        handoff admit (migration import): the committed prefix and the
+        digest snapshot ride along."""
+        j = self._journal
+        uid = j.next_uid()
+        rec = {
+            "t": "admit", "u": uid,
+            "prompt": [int(t) for t in req.prompt],
+            "key": [int(k) for k in req.key],
+            "max_new": int(req.max_new_tokens),
+            "model": req.model_tag, "version": req.model_version,
+            "tenant": req.tenant, "priority": int(req.priority),
+            # perf_counter deadlines die with the process: the journal
+            # carries the wall-clock expiry, and resume converts back (or
+            # fails the stream typed if the outage outlived it).
+            "deadline": (None if req.deadline is None
+                         else time.time() + (req.deadline - time.perf_counter())),
+            "trace": req.trace_id,
+        }
+        if tokens:
+            rec["tokens"] = [int(t) for t in tokens]
+            rec["d"] = req.digest.hexdigest()
+        try:
+            j.append(rec)
+        except OSError:
+            _journal_mod._T_APPEND_ERRORS.add()
+            return  # no uid: this stream rides unjournaled
+        req._journal_uid = uid
+
+    def _journal_commit(self, req: Request, n0: int) -> None:
+        """Journal a chunk boundary's newly committed tokens (from index
+        ``n0``) plus the rolling-digest snapshot after them."""
+        uid = getattr(req, "_journal_uid", None)
+        if uid is None:
+            return
+        delta = req.handle._tokens[n0:]
+        if not delta:
+            return
+        try:
+            self._journal.append({"t": "commit", "u": uid, "toks": [int(t) for t in delta],
+                                  "n": len(req.handle._tokens), "d": req.digest.hexdigest()})
+        except OSError:
+            _journal_mod._T_APPEND_ERRORS.add()
+
+    def _journal_retire(self, req, error=None, outcome: Optional[str] = None) -> None:
+        """The retirement funnel: every terminal path (finish, fail,
+        cancel, expiry, migration handoff) lands here, so a journaled
+        stream is never resurrected after its client saw a terminal."""
+        j = self._journal
+        if j is None or req is None:
+            return
+        uid = getattr(req, "_journal_uid", None)
+        if uid is None:
+            return
+        req._journal_uid = None
+        if outcome is None:
+            if error is None:
+                outcome = "finished"
+            elif isinstance(error, RequestCancelled):
+                outcome = "cancelled"
+            elif isinstance(error, DeadlineExceeded):
+                outcome = "expired"
+            else:
+                outcome = "failed"
+        rec = {"t": "retire", "u": uid, "outcome": outcome, "n": len(req.handle._tokens)}
+        # Retirement usually lands mid-chunk, before the chunk's trailing
+        # commit: the uncommitted tail rides here.
+        tail = req.handle._tokens[j.committed_n(uid):]
+        if tail:
+            rec["toks"] = [int(t) for t in tail]
+        if error is not None:
+            rec["error"] = type(error).__name__
+        if req.digest is not None:
+            rec["d"] = req.digest.hexdigest()
+        try:
+            j.append(rec)
+        except OSError:
+            _journal_mod._T_APPEND_ERRORS.add()
+
+    def resume_from_journal(self, journal: Optional[RequestJournal] = None) -> dict:
+        """Cold-restart resume: re-admit every unfinished journaled stream
+        through the replay path.
+
+        Each stream re-prefills ``prompt + committed tokens[:-1]`` and
+        continues at the uninterrupted run's sampling step — token-identical,
+        greedy and sampled.  Before anything is admitted, per stream:
+        (1) the journaled tokens re-hash against the journaled digest (a
+        mismatch is a typed :class:`.lifecycle.DeterminismDiverged`);
+        (2) an expired wall-clock deadline fails typed
+        :class:`.lifecycle.DeadlineExceeded`; (3) a pool-model stream
+        demand-materializes its model (an evicted one is re-loaded, an
+        unregistered one fails typed).
+
+        Pass ``journal`` to adopt one after construction; the claim is the
+        double-resume guard.  Returns ``{journal uid: RequestHandle}``."""
+        if journal is not None:
+            if self._journal is None:
+                self._bind_journal(journal)
+            elif journal is not self._journal:
+                raise ValueError("engine already owns a different journal; resume this one "
+                                 "on a fresh engine")
+        j = self._journal
+        if j is None:
+            raise ValueError("resume_from_journal needs a journal: construct with "
+                             "Engine(journal=RequestJournal(dir)) or pass one here")
+        if self._health in (Health.DRAINING, Health.STOPPED):
+            raise EngineDraining(f"engine is {self._health.value}; resume on a live replica")
+        entries, _config = j.recover()
+        sp = _telemetry.start_span("serve.resume_cold", n_streams=len(entries))
+        now_wall = time.time()
+        now_perf = time.perf_counter()
+        handles: dict = {}
+        for uid in sorted(entries):
+            handles[uid] = self._resume_entry(entries[uid], now_wall, now_perf)
+        n_live = sum(1 for h in handles.values() if not h._done)
+        sp.end(n_resumed=n_live, n_failed=len(handles) - n_live)
+        return handles
+
+    def _resume_entry(self, e, now_wall: float, now_perf: float):
+        """Re-admit ONE journaled stream (see :meth:`resume_from_journal`)."""
+        rid = self._next_rid
+        self._next_rid += 1
+        handle = RequestHandle(self, rid)
+        prompt = np.asarray(e.prompt, np.int32)
+        key = np.asarray(e.key, np.uint32).reshape(-1)
+        digest = _audit.DeterminismDigest(prompt, key)
+        if e.tokens:
+            digest.update(e.tokens, e.model_version)
+        tid = e.trace_id
+        if tid is None and _telemetry.events_enabled():
+            tid = f"{self.engine_id}-r{rid}"
+        deadline = (None if e.deadline_wall is None
+                    else now_perf + (e.deadline_wall - now_wall))
+        replay_len = len(e.prompt) + max(0, len(e.tokens) - 1)
+        n_chunks = -(-max(1, replay_len) // self.prefill_chunk)
+        pool_entry = None
+        if (e.model_tag != DEFAULT_MODEL and self.model_pool is not None
+                and e.model_tag in self.model_pool):
+            pool_entry = self.model_pool._entries[e.model_tag]
+        hashes = None
+        if self.prefix is not None and len(prompt):
+            hashes = page_hashes(prompt, self.block_size,
+                                 pool_entry.namespace if pool_entry is not None else b"")
+        req = Request(rid, prompt, int(e.max_new_tokens), key, handle, deadline=deadline,
+                      n_chunks=n_chunks, hashes=hashes, tenant=e.tenant, priority=e.priority,
+                      trace_id=tid, digest=digest, model_tag=e.model_tag,
+                      model_version=e.model_version)
+        handle._req = req
+        handle._tokens = list(e.tokens)
+        req._journal_uid = e.uid
+        if not len(prompt) or key.shape != (2,):
+            handle._fail(RecoveryFailed(f"journaled stream {e.uid} has no replayable "
+                                        "identity (empty prompt or malformed key)"))
+            return handle
+        # 1. Journal integrity: the committed tokens must still hash to the
+        # journaled digest snapshot.
+        if e.tokens and e.digest is not None:
+            got = digest.hexdigest()
+            if got != e.digest:
+                _audit.record_divergence(self, rid=tid, where="journal-resume",
+                                         expected_digest=e.digest, replayed_digest=got,
+                                         n_tokens=len(e.tokens))
+                handle._fail(DeterminismDiverged(
+                    f"journaled stream {e.uid}: committed tokens no longer match the "
+                    f"journaled digest after {len(e.tokens)} tokens"))
+                return handle
+        # 2. The outage may have outlived the deadline: typed, counted.
+        if e.deadline_wall is not None and now_wall > e.deadline_wall:
+            _journal_mod._T_RESUME_EXPIRED.add()
+            handle._fail(DeadlineExceeded(
+                f"journaled stream {e.uid} expired {now_wall - e.deadline_wall:.1f}s "
+                "before the restart"))
+            return handle
+        # 3. Model plane: re-materialize an evicted pool model on demand
+        # before replay; an unregistered or re-versioned one fails typed.
+        if e.model_tag != DEFAULT_MODEL:
+            if pool_entry is None:
+                handle._fail(RecoveryFailed(
+                    f"journaled stream {e.uid} is on model {e.model_tag!r}, which this "
+                    "engine's pool does not register"))
+                return handle
+            if pool_entry.model_version != e.model_version:
+                handle._fail(MigrationIncompatible(
+                    f"journaled stream {e.uid} ran model {e.model_tag!r} version "
+                    f"{e.model_version!r}; this pool registers "
+                    f"{pool_entry.model_version!r}"))
+                return handle
+            self.model_pool._touch(e.model_tag)
+            if not pool_entry.ready:
+                self._materialize_wanted[e.model_tag] = None
+        self.scheduler.push(req)
+        _T_REQUESTS.add()
+        _journal_mod._T_RESUMED.add()
+        self._event("serve.resumed_cold", req, uid=e.uid, n_tokens=len(e.tokens),
+                    n_prompt=len(e.prompt), model=e.model_tag)
+        return handle
 
     # ------------------------------------------------------------------
     # Introspection
 
     def stats(self) -> dict:
         """Host-side serving stats: TTFT percentiles, sustained decode,
-        lifecycle counts, prefix-cache effectiveness, graph captures."""
+        lifecycle counts, preemptions, migrations, prefix-cache
+        effectiveness, graph captures, the model pool and the journal."""
         out = {
             "health": self._health.value,
             "requests": self._next_rid,
@@ -1436,7 +2576,12 @@ class Engine:
             "cancelled": self._n_cancelled,
             "recoveries": self._n_recoveries,
             "preempted": self._n_preempted,
+            "preemptions_swap": self._n_preempt_swap,
+            "preemptions_replay": self._n_preempt_replay,
+            "swapped_pages": self.allocator.num_swapped,
             "role": self.role,
+            "migrations_out": self._n_migrated_out,
+            "migrations_in": self._n_migrated_in,
             "decode_graphs": sum(d.graph is not None for d in self._decoders.values()),
             "decode_replays": sum(d.replays for d in self._decoders.values()),
         }
@@ -1448,6 +2593,13 @@ class Engine:
             out["cow_copies"] = self._n_cow
         if self._diverging:
             out["diverging"] = True
+        if self.model_pool is not None:
+            out["models"] = self.model_pool.stats()
+            out["forks"] = self._n_forks
+        elif self._n_forks:
+            out["forks"] = self._n_forks
+        if self._journal is not None:
+            out["journal"] = self._journal.stats()
         if self._decode_s > 0:
             out["decode_tokens_per_s"] = round(self._decode_tokens / self._decode_s, 1)
         if self._h_ttft.count:

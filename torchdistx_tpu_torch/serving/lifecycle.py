@@ -1,7 +1,6 @@
 """Request-lifecycle robustness: typed errors, engine health, overload.
 
-Counterpart of ``torchdistx_tpu/serving/lifecycle.py``, copied; the
-migration and journal errors come with their planes (ROADMAP A7).
+Counterpart of ``torchdistx_tpu/serving/lifecycle.py``, copied.
 
 The serving engine's failure surface, made first-class (the serving
 analog of what :mod:`torchdistx_tpu_torch.resilience` did for training).
@@ -40,6 +39,8 @@ __all__ = [
     "EngineDraining",
     "EngineOverloaded",
     "Health",
+    "JournalOwned",
+    "MigrationIncompatible",
     "OverloadDetector",
     "RecoveryFailed",
     "RequestCancelled",
@@ -125,6 +126,32 @@ class RequestPreempted(RequestError):
 class RecoveryFailed(RequestError):
     """The crash-recovery supervisor exhausted the request's replay
     budget (``max_recoveries``) without completing it."""
+
+    retryable = True
+
+
+class MigrationIncompatible(RequestError):
+    """A live-stream KV page migration could not land on the destination
+    engine: pool geometry mismatch (layer count, page size, head shape,
+    dtype), a different weights version, or a snapshot wider than the
+    destination's block table.  The import is rejected BEFORE any page
+    scatter — an incompatible snapshot must never silently corrupt the
+    destination pool.  Retryable: the stream itself is fine, and a cold
+    key-pinned replay (the pre-migration failover path) reproduces it
+    token-identically on any replica."""
+
+    retryable = True
+
+
+class JournalOwned(RequestError):
+    """A request journal's ownership claim was refused: another LIVE
+    engine holds it (``owner.lock`` with an alive pid).  The
+    double-resume guard — a journal offered to two engines is resumed
+    by exactly one; the loser gets this typed refusal instead of a
+    second copy of every stream.  Retryable in the fleet sense: offer
+    the journal elsewhere, or wait for the holder to release it.  A
+    *stale* lock (dead pid — the crash the journal exists for) never
+    raises this; it is stolen atomically."""
 
     retryable = True
 

@@ -56,7 +56,7 @@ def page_hashes(
 
     ``namespace`` seeds the chain.  A page's KV is a function of the
     tokens AND the model that computed it: on a multi-model engine
-    (the model pool, ROADMAP A7) the same prompt under two models must never
+    (:mod:`.modelpool`) the same prompt under two models must never
     share pages, so the engine seeds the chain with the model tag and
     the first hash already diverges.  The default (empty) namespace is
     the engine's own model — single-model hashes are unchanged.

@@ -1,8 +1,7 @@
 """Request scheduler: FIFO admission, backpressure, streaming handles.
 
 Counterpart of ``torchdistx_tpu/serving/scheduler.py``, copied; the
-fields of forks, the model pool and the shadow auditor come with those
-planes (ROADMAP A7).
+shadow auditor's field comes with that plane (ROADMAP A7).
 
 The scheduler owns the *waiting* side of the engine: a FIFO of submitted
 requests, the prefill/decode interleave knob (``max_prefills_per_tick`` —
@@ -73,11 +72,22 @@ class Request:
     n_cached: int = 0  # prompt tokens served from the prefix cache
     hashes: Optional[list] = None  # chained full-page hashes of the prompt
     hit_counted: bool = False  # prefix hit recorded (once per request)
-    # QoS context (inert under the FIFO scheduler; QoS is ROADMAP A7):
+    # QoS context (inert under the FIFO scheduler; see qos.py):
     tenant: str = "default"  # fair-queueing share owner
     priority: int = 0  # priority class — higher admits (and preempts) first
-    # The version tag folded into the request's determinism digest.
+    # Model plane (see modelpool.py): which registered model serves this
+    # request, and the version tag folded into its determinism digest —
+    # per-model, so two models' digests of the same prompt can never
+    # collide.
+    model_tag: str = "default"
     model_version: str = "v0"
+    # Parallel sampling (``submit(n=4)``): siblings share the parent's
+    # prompt pages and diverge copy-on-write.  ``fork_of`` is the parent
+    # rid (None for the parent itself / solo requests); ``fork_index``
+    # is this request's position in the group — its sampling key is
+    # ``fold_key(base_key, fork_index)``.
+    fork_of: Optional[int] = None
+    fork_index: int = 0
     # Trace context (see docs/observability.md, "Request tracing"): the
     # request-scoped id every req.* lifecycle event and serve.* span
     # carries.  A fleet submission pins one id across every failover hop
@@ -134,6 +144,10 @@ class RequestHandle:
         self._cancel_requested = False
         self.ttft_s: Optional[float] = None
         self.error: Optional[BaseException] = None
+        # Parallel sampling (``submit(n=4)``): every handle of the group
+        # carries the SAME list of all n sibling handles (index order);
+        # None for solo requests.
+        self.siblings: Optional[List["RequestHandle"]] = None
 
     @property
     def done(self) -> bool:
@@ -183,6 +197,12 @@ class RequestHandle:
     def _finish(self) -> None:
         self._done = True
         req = self._req
+        # Durability funnel: a journaled stream's retirement is recorded
+        # the moment its handle goes terminal — same one-funnel rule as
+        # the lifecycle events below (no-op without a journal).
+        jr = getattr(self._engine, "_journal_retire", None)
+        if jr is not None and req is not None:
+            jr(req)
         if req is not None and req.trace_id is not None and (
             req.digest is not None
         ):
@@ -207,6 +227,9 @@ class RequestHandle:
             return
         self.error = error
         self._done = True
+        jr = getattr(self._engine, "_journal_retire", None)
+        if jr is not None and self._req is not None:
+            jr(self._req, error=error)
         self._event(
             "req.failed",
             error=type(error).__name__,
@@ -338,6 +361,8 @@ class FIFOScheduler:
         allocator: BlockAllocator,
         block_size: int,
         reclaim: Optional[Callable[[int], int]] = None,
+        need: Optional[Callable[[Request], int]] = None,
+        ready: Optional[Callable[[Request], bool]] = None,
     ) -> List[Request]:
         """Pop up to ``max_prefills_per_tick`` requests that fit the free
         slots AND whose cumulative page reservations fit the free list.
@@ -354,7 +379,16 @@ class FIFOScheduler:
         page quota, ignoring any prefix it may share): a cache hit can
         only admit *no later* than a cache-off engine would.
 
-        """
+        ``need(req)``, when given, overrides the reservation estimate —
+        the engine wires the model plane's fork accounting through it
+        (a sibling whose parent's prompt pages are live reserves only
+        its marginal pages).  ``ready(req)``, when given, gates the
+        head: a False head stalls admission WITHOUT being popped (a
+        cold model whose weights are still materializing — the engine
+        materializes out-of-band and the head admits next tick).  The
+        head-of-line rule is deliberate: skipping past a cold head
+        would reorder the FIFO, and the stall is one materialize long,
+        not a starvation risk."""
         out: List[Request] = []
         limit = min(self.max_prefills_per_tick, n_free_slots)
         if self._waiting and limit == 0:
@@ -363,7 +397,12 @@ class FIFOScheduler:
         reserved = 0
         while self._waiting and len(out) < limit:
             head = self._waiting[0]
-            n_pages = blocks_needed(head.cache_tokens, block_size)
+            if ready is not None and not ready(head):
+                break  # cold model: the engine counts + materializes
+            n_pages = (
+                need(head) if need is not None
+                else blocks_needed(head.cache_tokens, block_size)
+            )
             avail = allocator.num_free - reserved
             if n_pages > avail and reclaim is not None:
                 reclaim(n_pages - avail)
