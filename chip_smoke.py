@@ -159,11 +159,32 @@ Phases, each printing a line:
    pool model, a journal resume and a migration, greedy and sampled,
    against solo ``generate(key=)`` (``fold_key``) on the card and greedy
    against the CPU port;
+   ``[fleet]``: the engine's watch and fleet planes at full Llama-7B in
+   bf16, SERVE_KW's geometry: (a) ``Engine(ops_port=0, audit_sample=1.0)``
+   on [serve]'s first 12 requests, ``/metrics``, ``/healthz``,
+   ``/requests?limit=2`` and ``/profile`` scraped while it serves (a second
+   ``/profile`` answers 429; the trace holds kernels of a graph launch);
+   every audit checked, each bf16 divergence under the margin rule, a
+   ``serve.step`` corrupt fault caught at its chunk and latched until
+   ``clear_divergence``; tokens/s plain, with the ops plane and with
+   auditing; the tick's phase split; the divergences without the prefix
+   cache; (b) a ``FleetRouter`` over two engines on one model, replica 0
+   closed with live streams (each stream equal to its uninterrupted run or
+   a margin-explained ``FailoverDiverged``, the failover gap), then a
+   migration to a third engine and the journal of a killed engine
+   recovered; (c) an ``Autoscaler`` over ``engine_factory``: a burst
+   scales out, the idle fleet scales in, the retired pool's bytes freed;
+   (d) ``hot_swap`` to ``materialize_standby`` (seed ``SERVE_SEED + 1``)
+   built on a thread while v1 decodes: 0 skeleton bytes, no drop, one
+   version a stream, v2 equal to a direct seeded engine, v1's bytes freed
+   at retire, TPOT before, during and after the build; (e) ``llama_test``
+   and ``gpt2_test`` in f32: audit, failover and hot swap against solo
+   ``generate(key=)`` and the CPU port;
 19. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
    with no byte allocated, seeded onto it (bytes those of its parameters
    and buffers), an eval forward, two recordings bit-equal.
 
-Twelve main paths are driven, each with every launch count set to 0 just
+Thirteen main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
@@ -176,7 +197,8 @@ path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
 (phase 12: its forward part, then its train part), the MoE path (phase
 13), the serve path (phase 18 (a)'s requests, submitted and drained) and
-the serve planes path (``[serve planes]`` (a)-(e)), which launch no
+the serve planes path (``[serve planes]`` (a)-(e)) and the fleet path
+(``[fleet]`` (a)-(d)), which launch no
 kernel: the engine's attention is the paged plain attention, as the JAX
 engine's is ``jnp``.  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
@@ -192,6 +214,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4853,6 +4876,742 @@ def phase_serve_planes(fa):
     return stats
 
 
+# [fleet]: the engine's watch and fleet planes (torchdistx_tpu_torch/
+# telemetry/{audit,timeplane,ops}.py, torchdistx_tpu_torch/fleet) at full
+# llama_7b in bf16, SERVE_KW's geometry, seeded as [serve].
+# (a) audit and ops on one engine: serve_traffic's first FLEET_AUDIT
+# requests behind Engine(ops_port=0, audit_sample=1.0), scraped while it
+# runs; then a serve.step corrupt fault FLEET_CORRUPT_CHUNK decode chunks
+# into one stream of budget >= FLEET_CORRUPT_BUDGET.  The same requests run
+# plain, with the ops plane, with auditing, and auditing without the prefix
+# cache (tokens/s and the divergence counts).
+FLEET_AUDIT = 12
+FLEET_CORRUPT_CHUNK = 2
+FLEET_CORRUPT_BUDGET = 32
+FLEET_PROFILE_S = 1.0
+# (b) the router: the first FLEET_ROUTED requests over two engines sharing
+# the model; replica 0 closes with at least FLEET_MIN_LIVE live streams;
+# then FLEET_MIGRATE streams move to a third engine and FLEET_JOURNAL
+# journaled streams of a killed engine are recovered.
+FLEET_ROUTED = 16
+FLEET_MIN_LIVE = 4
+FLEET_MIGRATE = 2
+FLEET_JOURNAL = 4
+# (c) the autoscaler: AutoscaleConfig(**FLEET_SCALE) over engine_factory on
+# the same module, its engines admitting PLANES_PREFILLS_PER_TICK prefill
+# chunks a tick (one a tick never fills 8 slots before the short requests
+# end); a burst of FLEET_ROUTED requests on one replica, then FLEET_WAVE
+# more once it scaled out, then idle.
+FLEET_SCALE = dict(min_replicas=1, max_replicas=3)
+FLEET_WAVE = 4
+FLEET_SCALE_MAX_TICKS = 400
+# (d) hot swap: FLEET_SWAP_STREAMS v1 streams of FLEET_SWAP_BUDGET tokens
+# (prompts FLEET_SWAP_LENS) on two replicas while v2 (seed SERVE_SEED + 1)
+# is recorded and materialized beside them (TPOT FLEET_SWAP_AFTER ticks
+# before, during, FLEET_SWAP_AFTER after); then as many streams of
+# FLEET_SWAP_INFLIGHT tokens in flight and FLEET_SWAP_QUEUED requests
+# queued on v1 as the swap starts.
+FLEET_SWAP_STREAMS = 8
+FLEET_SWAP_BUDGET = 512
+FLEET_SWAP_INFLIGHT = 64
+FLEET_SWAP_LENS = (64, 256)
+FLEET_SWAP_QUEUED = 4
+FLEET_SWAP_AFTER = 3
+# The phase's peak allocated bytes must stay below this.
+FLEET_PEAK_LIMIT = 70e9
+# (e) the *_test configs in f32 on the card.
+FLEET_SMALL_KW = dict(num_slots=2, block_size=8, max_model_len=64, decode_chunk=4,
+                      prefix_cache=False)
+
+
+def fleet_swap_traffic(vocab, seed=SERVE_SEED):
+    """(d)'s requests: ``[(prompt int32, budget)]``, the FLEET_SWAP_STREAMS
+    streams then the FLEET_SWAP_QUEUED queued ones, made from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 200)
+    lo, hi = FLEET_SWAP_LENS
+    out = []
+    for i in range(FLEET_SWAP_STREAMS + FLEET_SWAP_QUEUED):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
+        budget = FLEET_SWAP_BUDGET if i < FLEET_SWAP_STREAMS else 32
+        out.append((prompt.astype(np.int32), budget))
+    return out
+
+
+def fleet_memory_plan(cfg, block_size=SERVE_KW["block_size"]):
+    """(d)'s planned bytes at its height: two versions, each its bf16
+    parameters plus one shared ``prep_decode`` copy, and three of SERVE_KW's
+    default pools (two v1 replicas and the standby)."""
+    plan = planes_memory_plan(cfg, block_size)
+    version = plan["params"] + plan["prep_decode"]
+    return {"version": version, "kv_pool": plan["kv_pool"],
+            "total": 2 * version + 3 * plan["kv_pool"]}
+
+
+def _fleet_margins(model, label, rows):
+    """The [serve] margin rule over ``rows`` of ``(index, prompt, got,
+    want)``; returns the diverged ``[index, step, gap, rank]``."""
+    diverged = []
+    for i, p, g, w in rows:
+        at = _serve_margin(model, p, g, w)
+        if at is not None:
+            diverged.append([i, *at])
+    _check(all(gap <= SERVE_MARGIN and rank <= SERVE_MAX_RANK for _, _, gap, rank in diverged),
+           f"[fleet] {label}: streams beyond the margin rule {diverged}")
+    return diverged
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q / 100 * len(xs)))] if xs else None
+
+
+def _http(url):
+    """``(status, body bytes, ms)`` of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            code, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _graph_kernels(trace_path):
+    """From a Chrome trace written by torch.profiler: ``(device kernels,
+    kernels launched by a cudaGraphLaunch, cudaGraphLaunch calls)``; a
+    graph's kernels carry the correlation id of the launch that ran them."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    in_graph = sum(1 for e in kernels if e.get("args", {}).get("correlation") in launches)
+    return len(kernels), in_graph, len(launches)
+
+
+class _TickLog:
+    """A telemetry listener keeping each ``serve.tick`` event's phase
+    totals and tick seconds, by engine."""
+
+    def __init__(self):
+        self.ticks = {}
+
+    def __call__(self, rec):
+        if rec.get("type") == "event" and rec.get("name") == "serve.tick":
+            totals = {}
+            for phase, _, dur in rec["attrs"]["segments"]:
+                totals[phase] = totals.get(phase, 0.0) + dur
+            self.ticks.setdefault(rec.get("engine"), []).append(
+                (rec["attrs"]["tick_s"], totals, rec["attrs"]["host_overhead_frac"]))
+
+    def summary(self, eid):
+        """Tick ms and each phase's ms a tick, ``[p50, p99]``, exact over
+        the ticks; the phase sums held to the tick."""
+        rows = self.ticks.get(eid, [])
+        phases = sorted({ph for _, t, _ in rows for ph in t})
+        out = {"ticks": len(rows),
+               "tick_ms": [_pct([r[0] * 1e3 for r in rows], q) for q in (50, 99)],
+               "host_overhead_frac": [_pct([r[2] for r in rows], q) for q in (50, 99)]}
+        for ph in phases:
+            xs = [t.get(ph, 0.0) * 1e3 for _, t, _ in rows]
+            out[ph + "_ms"] = [_pct(xs, q) for q in (50, 99)]
+        # The tail segment closes after tick_s was read (it covers the
+        # attribution itself): the sum may pass the tick by that much.
+        _check(all(sum(t.values()) <= s * 1.05 + 1e-3 for s, t, _ in rows),
+               "[fleet] a tick's phases sum past the tick")
+        _check(all(0.0 <= f <= 1.0 for _, _, f in rows), "[fleet] host_overhead_frac out of [0, 1]")
+        return out
+
+
+def _fleet_run(model, traffic, **kw):
+    """The requests of ``traffic`` on one engine, driven to idle (audits
+    included); returns ``(engine, handles, user seconds, wall seconds)``."""
+    from torchdistx_tpu_torch.serving import Engine
+
+    eng = Engine(model, **{**SERVE_KW, **kw})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+    user_s = None
+    while len(eng.scheduler) or eng._n_running() or eng.audit_backlog():
+        eng.step()
+        if user_s is None and all(h.done for h in hs):
+            user_s = time.perf_counter() - t0
+    wall_s = time.perf_counter() - t0
+    return eng, hs, wall_s if user_s is None else user_s, wall_s
+
+
+def _fleet_audit(model, cfg, ref):
+    """(a): the watched engine, its gates and its numbers."""
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.resilience import faults
+    from torchdistx_tpu_torch.serving import Engine, Health
+    from torchdistx_tpu_torch.telemetry import timeplane
+
+    traffic = serve_traffic(cfg.vocab_size)[:FLEET_AUDIT]
+    torch.cuda.reset_peak_memory_stats()
+    out = {"tokens_per_s": {}}
+    log = _TickLog()
+    prev = telemetry.configure()
+    try:
+        # Committed tokens/s of the same requests: plain (nothing records),
+        # with the ops plane (its flight ring on, for /requests), with the
+        # ops plane and auditing (wall time includes the audits; user time
+        # ends with the last user stream).
+        for name, kw in (("plain", {}), ("ops", dict(ops_port=0)),
+                         ("ops_audit", dict(ops_port=0, audit_sample=1.0))):
+            if name == "ops":
+                telemetry.configure(flight=True, flight_capacity=16384)
+                telemetry.add_listener(log)
+            eng, hs, user_s, wall_s = _fleet_run(model, traffic, **kw)
+            n_tok = sum(len(h.result()) for h in hs)
+            out["tokens_per_s"][name] = {"user": n_tok / user_s, "wall": n_tok / wall_s,
+                                         "user_s": user_s, "wall_s": wall_s}
+            if name == "ops":
+                out["tick_phases"] = log.summary(eng.engine_id)
+            if name == "ops_audit":
+                st = eng.stats()
+                out["audit_run"] = {k: st[k] for k in ("audit_checked", "audit_divergences")}
+            eng.close()
+            del eng, hs
+        # The watched run: scrapes and a profile while it serves.
+        eng = Engine(model, **SERVE_KW, ops_port=0, audit_sample=1.0)
+        url = eng._ops_plane.server.url
+        eid = eng.engine_id
+        hs = [eng.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+        prompts = {h._req.trace_id: p for h, (p, _) in zip(hs, traffic)}
+        scrapes, trig, prof_path = {}, None, None
+        tick = 0
+        while len(eng.scheduler) or eng._n_running() or eng.audit_backlog():
+            eng.step()
+            tick += 1
+            if tick == 3:
+                for path in ("/metrics", "/healthz", "/requests?limit=2"):
+                    code, body, ms = _http(url + path)
+                    _check(code == 200, f"[fleet] (a) {path}: HTTP {code}")
+                    scrapes[path] = {"ms": ms, "bytes": len(body)}
+                    if path == "/requests?limit=2":
+                        _check(len(json.loads(body)["requests"]) == 2,
+                               "[fleet] (a) /requests?limit=2 did not return 2")
+                    if path == "/healthz":
+                        _check(json.loads(body)["status"] == "ok", "[fleet] (a) /healthz")
+                code, body, ms = _http(url + f"/profile?seconds={FLEET_PROFILE_S}")
+                _check(code == 200 and json.loads(body)["fired"], f"[fleet] (a) /profile {code}")
+                scrapes["/profile"] = {"ms": ms}
+                prof_path = json.loads(body)["path"]
+                code, _, _ = _http(url + "/profile")
+                _check(code == 429, f"[fleet] (a) a second /profile answered {code}, not 429")
+                trig = timeplane.get_trigger()
+        st = eng.stats()
+        n_fin = sum(h.error is None and h.done for h in hs)
+        _check(st["audit_checked"] == n_fin == len(traffic),
+               f"[fleet] (a) audit_checked {st['audit_checked']} of {n_fin} finished")
+        details = list(eng._auditor.divergence_detail)
+        rows = [(d["first_diverging_token"], prompts[d["rid"]], d["replayed_tokens"],
+                 d["expected_tokens"]) for d in details]
+        explained = _fleet_margins(model, "(a) audit divergences", rows)
+        out["divergences"] = [{"token": d["first_diverging_token"],
+                               "chunk": d["first_diverging_chunk"],
+                               "gap": m[2], "rank": m[3]} for d, m in zip(details, explained)]
+        out["streams_diverged_from_ref"] = _fleet_margins(
+            model, "(a) streams", [(i, p, h.result(), w) for i, ((p, _), h, w) in
+                                   enumerate(zip(traffic, hs, ref))])
+        _check(trig is not None, "[fleet] (a) the watched run ended before its scrapes")
+        trig.wait(120)
+        n_k, n_graph, n_launch = _graph_kernels(os.path.join(prof_path, "trace.json"))
+        out["profile"] = {"kernels": n_k, "graph_kernels": n_graph, "graph_launches": n_launch}
+        _check(n_graph > 0, f"[fleet] (a) the profile holds no kernel of a graph launch "
+               f"({out['profile']})")
+        # The corrupt fault: one stream, FLEET_CORRUPT_CHUNK chunks in.
+        pick = next(i for i, (_, b) in enumerate(traffic) if b >= FLEET_CORRUPT_BUDGET)
+        p, b = traffic[pick]
+        faults.reset(f"serve.step:{eng._decode_no + FLEET_CORRUPT_CHUNK}:corrupt")
+        h = eng.submit(p, max_new_tokens=b, key=pick)
+        eng.drain()
+        faults.reset("")
+        d = eng._auditor.divergence_detail[-1]
+        want_tok = 1 + (FLEET_CORRUPT_CHUNK - 1) * eng.decode_chunk
+        _check(len(eng._auditor.divergence_detail) == len(details) + 1
+               and d["first_diverging_token"] == want_tok
+               and d["first_diverging_chunk"] == FLEET_CORRUPT_CHUNK,
+               f"[fleet] (a) the corrupt fault was not caught at token {want_tok}: "
+               f"{[(x['first_diverging_token'], x['first_diverging_chunk']) for x in eng._auditor.divergence_detail]}")
+        code, body, _ = _http(url + "/metrics")
+        _check(f'serve_diverging{{engine="{eid}"}} 1' in body.decode(),
+               "[fleet] (a) /metrics does not show serve_diverging 1")
+        _check(eng.health() is Health.OVERLOADED, "[fleet] (a) not OVERLOADED after a divergence")
+        eng.step()
+        _check(eng.health() is Health.OVERLOADED, "[fleet] (a) the divergence latch cleared itself")
+        eng.clear_divergence()
+        eng.step()
+        _check(eng.health() is Health.READY, "[fleet] (a) not READY after clear_divergence")
+        out["corrupt"] = {"request": pick, "token": d["first_diverging_token"],
+                          "chunk": d["first_diverging_chunk"]}
+        out["scrapes"] = scrapes
+        eng.close()
+        del eng, hs, h
+        _free()
+        # The same audit traffic without the prefix cache.
+        eng, hs, _, _ = _fleet_run(model, traffic, audit_sample=1.0, prefix_cache=False)
+        st = eng.stats()
+        prompts = {h._req.trace_id or f"{eng.engine_id}-r{h.rid}": p
+                   for h, (p, _) in zip(hs, traffic)}
+        nc = [(d["first_diverging_token"], prompts[d["rid"]], d["replayed_tokens"],
+               d["expected_tokens"]) for d in eng._auditor.divergence_detail]
+        _fleet_margins(model, "(a) audit divergences without the prefix cache", nc)
+        out["no_prefix_cache"] = {"audit_checked": st["audit_checked"],
+                                  "audit_divergences": st["audit_divergences"]}
+        eng.close()
+        del eng, hs
+    finally:
+        telemetry.remove_listener(log)
+        telemetry.configure(**prev)
+        faults.reset("")
+    out["divergence_counts"] = {"prefix_cache": len(out["divergences"]),
+                                "no_prefix_cache": out["no_prefix_cache"]["audit_divergences"]}
+    out["peak_gb"] = _peak_gb()
+    _free()
+    return out
+
+
+def _fleet_router(model, cfg, ref):
+    """(b): failover after close(), then migration and journal recovery."""
+    import tempfile
+
+    from torchdistx_tpu_torch.fleet import FailoverDiverged, FleetRouter
+    from torchdistx_tpu_torch.serving import Engine, RequestJournal
+
+    traffic = serve_traffic(cfg.vocab_size)[:FLEET_ROUTED]
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = Engine(model, **SERVE_KW), Engine(model, **SERVE_KW)
+    router = FleetRouter([e0, e1], version="v1")
+    hs = [router.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+    while len(e0.migratable_slots()) < FLEET_MIN_LIVE:
+        router.step()
+    # The streams on replica 0 with tokens still to come (every stream runs
+    # to its budget: the traffic has no EOS).
+    gens, pulled = {}, {}
+    for i, h in enumerate(hs):
+        if h.replica_id == 0 and len(h._inner._tokens) < traffic[i][1]:
+            gens[i] = h.tokens()
+            pulled[i] = [next(gens[i]) for _ in range(len(h._inner._tokens))]
+    mid = {i for i in gens if pulled[i]}  # mid-stream at the close
+    live = len(mid)
+    # One consumer pulls each affected stream's next token in turn: the
+    # gap is from close() to that token.
+    t_close = time.perf_counter()
+    e0.close()
+    gap_ms, diverged = {}, []
+    for i, g in gens.items():
+        try:
+            pulled[i].append(next(g))
+            gap_ms[i] = (time.perf_counter() - t_close) * 1e3
+        except FailoverDiverged:
+            diverged.append(i)
+        except StopIteration:  # finished before the close: no failover
+            pass
+    # The gate counts what happened after close(): a mid-stream stream that
+    # moved to the survivor, or one that failed typed there.
+    failed_over = len(mid & (set(gap_ms) | set(diverged)))
+    _check(failed_over >= FLEET_MIN_LIVE,
+           f"[fleet] (b) {failed_over} streams failed over after close ({live} live)")
+    streams = {}
+    for i, h in enumerate(hs):
+        if i in diverged:
+            continue
+        streams[i] = (pulled[i] + list(gens[i])) if i in gens else h.result()
+        _check(len(streams[i]) == traffic[i][1], f"[fleet] (b) stream {i} lost or doubled tokens")
+    rows = [(i, traffic[i][0], list(hs[i]._inner._tokens), list(hs[i]._committed))
+            for i in diverged]  # each FailoverDiverged, at its first flip
+    out = {"failover_gap_ms": gap_ms, "failed_over": sorted(set(gap_ms) | set(diverged)),
+           "live_at_close": live,
+           "failover_diverged": _fleet_margins(model, "(b) FailoverDiverged", rows),
+           "hops": [h.hops for h in hs]}
+    out["diverged_from_ref"] = _fleet_margins(
+        model, "(b) failover streams", [(i, traffic[i][0], s, ref[i]) for i, s in streams.items()])
+    while e1._n_running() or len(e1.scheduler):
+        router.step()
+    router.poll()
+    _check(e1.allocator.num_in_use == len(e1.prefix) and e0.allocator.num_in_use == 0,
+           "[fleet] (b) pages did not settle on the survivor")
+    # Migration: FLEET_MIGRATE streams of budget >= 32 from the survivor to
+    # a third engine over the same model.
+    picks = [i for i, (_, b) in enumerate(traffic) if b >= 32][:FLEET_MIGRATE]
+    src = router.replicas()[0].rid
+    mh = [router.submit(traffic[i][0], max_new_tokens=traffic[i][1], key=i) for i in picks]
+    e2 = Engine(model, **SERVE_KW)
+    router.add_replica(e2, version="v1")
+    while len(e1.migratable_slots()) < FLEET_MIGRATE:
+        router.step()
+    moved = sum(router.migrate_stream(src, s) for s in list(e1.migratable_slots()))
+    _check(moved == FLEET_MIGRATE and e2.stats()["migrations_in"] == FLEET_MIGRATE,
+           f"[fleet] (b) migrated {moved}")
+    out["migrate_diverged"] = _fleet_margins(
+        model, "(b) migrated streams", [(i, traffic[i][0], h.result(), ref[i])
+                                         for i, h in zip(picks, mh)])
+    # Journal recovery: FLEET_JOURNAL streams of a killed engine.
+    jdir = tempfile.mkdtemp(prefix="tdx-fleet-journal-")
+    dead = Engine(model, **SERVE_KW, journal=RequestJournal(jdir),
+                  max_prefills_per_tick=FLEET_JOURNAL)
+    jh = [dead.submit(traffic[i][0], max_new_tokens=traffic[i][1], key=i)
+          for i in range(FLEET_JOURNAL)]
+    while not all(h._tokens for h in jh):
+        dead.step()
+    unfinished = [i for i, h in enumerate(jh) if not h.done]
+    j = dead._journal
+    dead._journal = None  # a hard kill: never sealed
+    j.release()
+    dead.close()
+    rid, handles = router.recover(RequestJournal(jdir), version="v1")
+    # Each recovered stream's key words are [0, its traffic index].
+    got = {int(h._req.key[1]): h.result() for h in handles.values()}
+    _check(sorted(got) == unfinished, f"[fleet] (b) recovered {sorted(got)}, unfinished "
+           f"{unfinished}")
+    out["recover_diverged"] = _fleet_margins(
+        model, "(b) recovered streams", [(i, traffic[i][0], g, ref[i]) for i, g in got.items()])
+    out["recovered"] = {"streams": len(got), "on_replica": rid}
+    router.close()
+    out["peak_gb"] = _peak_gb()
+    del e0, e1, e2, dead, router, hs, mh, jh, handles, gens
+    _free()
+    return out
+
+
+def _fleet_autoscale(model, cfg, ref):
+    """(c): one scale-out and scale-in cycle over engine_factory."""
+    from torchdistx_tpu_torch.fleet import Autoscaler, AutoscaleConfig, FleetRouter, engine_factory
+    from torchdistx_tpu_torch.serving import Health
+
+    traffic = serve_traffic(cfg.vocab_size)[:FLEET_ROUTED]
+    torch.cuda.reset_peak_memory_stats()
+    make = engine_factory(model, **dict(SERVE_KW, max_prefills_per_tick=PLANES_PREFILLS_PER_TICK))
+    router = FleetRouter([make()], version="v1")
+    scaler = Autoscaler(router, make, config=AutoscaleConfig(**FLEET_SCALE), version="v1")
+    made = [router.replicas()[0].engine]
+    burst = [router.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+    wave, mem, ticks = [], {}, 0
+
+    def busy():  # the engine-side handles: nothing pulls the fleet handles yet
+        return not all(h._inner.done for h in burst + wave)
+
+    while ticks < FLEET_SCALE_MAX_TICKS:
+        for rep in router.replicas():
+            if rep.engine.health() is not Health.STOPPED:
+                rep.engine.step()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reason = scaler.tick()
+        ticks += 1
+        made.extend(r.engine for r in router.replicas() if r.engine not in made)
+        if reason == "quiet" and "idle" not in mem:
+            # The allocated bytes as the scale-in starts: its victim still
+            # holds its pool and graph.
+            mem["idle"] = before
+            mem["pools"] = {e.engine_id: e._pool_nbytes for e in made}
+        if reason not in ("hold", "quiet") and not wave:
+            wave = [router.submit(traffic[i][0], max_new_tokens=traffic[i][1], key=i)
+                    for i in range(FLEET_WAVE)]
+        if not busy() and len(router.replicas()) == 1 and scaler.scale_ins:
+            break
+    _check(scaler.scale_outs >= 1 and max(n for _, _, n in scaler.decisions) >= 2,
+           f"[fleet] (c) no scale-out: {list(scaler.decisions)}")
+    _check(scaler.scale_ins >= 1 and len(router.replicas()) == 1,
+           f"[fleet] (c) no scale-in back to one: {list(scaler.decisions)}")
+    retired = [e for e in made if e.health() is Health.STOPPED]
+    _check(retired and all(e._cache is None and not e._decoders for e in retired),
+           "[fleet] (c) a retired engine kept its pool or graphs")
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = mem["idle"] - torch.cuda.memory_allocated()
+    want = sum(mem["pools"][e.engine_id] for e in retired)
+    _check(freed >= want, f"[fleet] (c) retiring freed {freed} bytes, its pools hold {want}")
+    new_rep = [h for h in wave if h.replica_id != 0]
+    _check(new_rep, "[fleet] (c) the wave never reached a new replica")
+    out = {"decisions": [list(d) for d in scaler.decisions], "ticks": ticks,
+           "freed_bytes": freed, "retired_pool_bytes": want,
+           "wave_replicas": [h.replica_id for h in wave],
+           "ttft_new_replica_s": [h._inner.ttft_s for h in new_rep]}
+    out["diverged"] = _fleet_margins(
+        model, "(c) streams", [(i, traffic[i][0], h.result(), ref[i]) for i, h in
+                               list(enumerate(burst)) + list(enumerate(wave))])
+    scaler.close()
+    router.close()
+    out["peak_gb"] = _peak_gb()
+    del router, scaler, made, burst, wave, retired, new_rep
+    _free()
+    return out
+
+
+def _solo_stream(model, prompt, budget, key, **sample):
+    """Solo ``generate(key=)`` of ``prompt`` on the model's device."""
+    from torchdistx_tpu_torch.models.generate import generate
+
+    device = next(model.parameters()).device
+    return generate(model, torch.from_numpy(prompt).long().to(device)[None],
+                    max_new_tokens=budget, key=key, **sample)[0].tolist()
+
+
+def _fleet_swap(model, cfg):
+    """(d): hot swap to a deferred-init standby built while v1 serves.
+    Holds the caller's only other reference to ``model`` (v1): returns after
+    v1's bytes are released."""
+    import threading
+
+    from torchdistx_tpu_torch import materialize as mat_mod
+    from torchdistx_tpu_torch.deferred_init import deferred_init, is_deferred
+    from torchdistx_tpu_torch.fleet import FleetRouter, hot_swap, materialize_standby
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b
+    from torchdistx_tpu_torch.serving import Engine, modelpool
+    from torchdistx_tpu_torch.telemetry import audit
+
+    out = {}
+    traffic = fleet_swap_traffic(cfg.vocab_size)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    sk = deferred_init(Llama, llama_7b(), device_="cuda")
+    torch.cuda.synchronize()
+    out["skeleton_bytes"] = torch.cuda.memory_allocated() - m0
+    _check(out["skeleton_bytes"] == 0, f"[fleet] (d) the recording allocated {out['skeleton_bytes']}")
+    del sk
+    torch.cuda.reset_peak_memory_stats()
+    e_a = Engine(model, **SERVE_KW, model_version="v1")
+    e_b = Engine(model, **SERVE_KW, model_version="v1")
+    v1_bytes = modelpool.module_nbytes(model) + sum(
+        t.nbytes for ts in e_a._weights.values() for t in ts)
+    router = FleetRouter([e_a, e_b], version="v1")
+    streams = traffic[:FLEET_SWAP_STREAMS]
+
+    def in_flight(budget, key0):
+        hs = [router.submit(p, max_new_tokens=budget, key=key0 + i)
+              for i, (p, _) in enumerate(streams)]
+        while not all(h._inner._tokens for h in hs):  # each past its prefill
+            router.step()
+        return hs
+
+    live = in_flight(FLEET_SWAP_BUDGET, 0)
+
+    def window(n=None, alive=None):
+        """TPOT of the in-flight streams, ms: each tick's time over its
+        decode chunk, on ticks that decode one of ``live``."""
+        xs = []
+        while (n is not None and len(xs) < n) or (alive is not None and alive.is_alive()):
+            decoding = not all(h._inner.done for h in live)
+            t0 = time.perf_counter()
+            router.step()
+            if decoding:
+                xs.append((time.perf_counter() - t0) / SERVE_KW["decode_chunk"] * 1e3)
+            elif n is not None:
+                break
+        return xs
+
+    tpot = {"before": window(n=FLEET_SWAP_AFTER)}
+    seen, box = {}, {}
+    real = mat_mod.materialize_module_torch
+
+    def watched(module, **kw):
+        seen["fake"] = all(is_deferred(p) for p in module.parameters())
+        return real(module, **kw)
+
+    def build():
+        box["v2"] = materialize_standby(Llama, llama_7b(), seed=SERVE_SEED + 1, device="cuda")
+        torch.cuda.synchronize()
+
+    mat_mod.materialize_module_torch = watched
+    try:
+        th = threading.Thread(target=build, name="fleet-standby")
+        t0 = time.perf_counter()
+        th.start()
+        tpot["during"] = window(alive=th)
+        th.join()
+        out["standby_build_s"] = time.perf_counter() - t0
+    finally:
+        mat_mod.materialize_module_torch = real
+    _check(seen.get("fake") is True and "v2" in box, "[fleet] (d) the standby was not recorded")
+    tpot["after"] = window(n=FLEET_SWAP_AFTER)
+    _check(tpot["during"], "[fleet] (d) no v1 stream decoded while the standby was built")
+    # The swap under load: streams in flight on v1, requests queued on it.
+    inflight = in_flight(FLEET_SWAP_INFLIGHT, 100)
+    queued = [router.submit(p, max_new_tokens=b, key=FLEET_SWAP_STREAMS + j)
+              for j, (p, b) in enumerate(traffic[FLEET_SWAP_STREAMS:])]
+    v2 = box.pop("v2")
+    torch.cuda.synchronize()
+    m_before = torch.cuda.memory_allocated()  # v1 and v2 resident, v1's engines live
+    t0 = time.perf_counter()
+    hot_swap(router, lambda: Engine(v2, **SERVE_KW, model_version="v2"), version="v2")
+    out["swap_s"] = time.perf_counter() - t0
+    fresh = router.submit(traffic[0][0], max_new_tokens=32, key=99)
+    handles = live + inflight + queued + [fresh]
+    results = [h.result() for h in handles]
+    _check(all(h.error is None for h in handles), "[fleet] (d) a request dropped")
+    versions = [h.version for h in handles]
+    _check(versions == ["v1"] * 2 * FLEET_SWAP_STREAMS + ["v2"] * (FLEET_SWAP_QUEUED + 1),
+           f"[fleet] (d) versions {versions}")
+    _check(all(h.digest == audit.DeterminismDigest.of_stream(
+        h._prompt, h._inner._req.key, toks, v).hexdigest()
+        for h, toks, v in zip(handles, results, versions)),
+        "[fleet] (d) a stream's digest does not fold exactly one model_version")
+    out["tpot_ms"] = {k: {"p50": _pct(v, 50), "p99": _pct(v, 99), "ticks": len(v)}
+                      for k, v in tpot.items()}
+    first = FLEET_SWAP_STREAMS  # the first stream in flight at the swap
+    out["v1_diverged_from_solo"] = _fleet_margins(
+        model, "(d) a v1 stream", [(first, traffic[0][0], results[first],
+                                    _solo_stream(model, traffic[0][0], FLEET_SWAP_INFLIGHT, 100))])
+    v2_rows = [(FLEET_SWAP_STREAMS + j, traffic[FLEET_SWAP_STREAMS + j][0])
+               for j in range(FLEET_SWAP_QUEUED)] + [(99, traffic[0][0])]
+    v2_got = results[2 * FLEET_SWAP_STREAMS:]
+    out["peak_gb"] = _peak_gb()
+    router.close()
+    # v1 retired at the swap (its engines' pools, graphs and prep_decode
+    # copy); its module goes once nothing holds it.  The standby's engine
+    # closed with the router: what stays is v2's module, there before.
+    del e_a, e_b, live, inflight, queued, fresh, handles, router, model
+    _free()
+    out["v1_freed_bytes"] = m_before - torch.cuda.memory_allocated()
+    out["v1_bytes"] = v1_bytes
+    _check(out["v1_freed_bytes"] >= v1_bytes,
+           f"[fleet] (d) retiring v1 freed {out['v1_freed_bytes']} of {v1_bytes} bytes")
+    # v2's streams against an engine on the same seeded weights built
+    # directly, with the card otherwise idle: the standby's build alone.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = deferred_init(Llama, llama_7b(), device_="cuda")
+    direct.load_state_dict(real(direct, seed=SERVE_SEED + 1), assign=True)
+    torch.cuda.synchronize()
+    out["standby_build_alone_s"] = time.perf_counter() - t0
+    _check(all(torch.equal(a, b) for a, b in zip(direct.state_dict().values(),
+                                                 v2.state_dict().values())),
+           "[fleet] (d) the standby's weights differ from a direct seeded materialize")
+    del v2
+    _free()
+    eng = Engine(direct, **SERVE_KW, model_version="v2")
+    want = [eng.submit(p, max_new_tokens=len(g), key=k).result()
+            for (k, p), g in zip(v2_rows, v2_got)]
+    eng.close()
+    out["v2_diverged_from_direct"] = _fleet_margins(
+        direct, "(d) v2 streams", [(k, p, g, w) for (k, p), g, w in zip(v2_rows, v2_got, want)])
+    del eng, direct
+    _free()
+    return out
+
+
+def _fleet_small(family_cls, cfg, seed):
+    """(e): ``cfg`` in f32 on the card: audit at 1.0 with no divergence,
+    failover equal to solo ``generate(key=)`` greedy and sampled, a hot
+    swap with no drop, greedy streams equal to the CPU port's."""
+    import numpy as np
+
+    from torchdistx_tpu_torch.fleet import FleetRouter, hot_swap, materialize_standby
+    from torchdistx_tpu_torch.serving import Engine
+
+    torch.manual_seed(seed)
+    cpu_model = family_cls(cfg, device="cpu")
+    model = copy.deepcopy(cpu_model).cuda()
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=int(rng.integers(3, 16))).astype(np.int32),
+             int(rng.choice([5, 9, 16])), i) for i in range(6)]
+    name = family_cls.__name__
+
+    def audited(m, device):
+        eng = Engine(m, device=device, audit_sample=1.0, **FLEET_SMALL_KW)
+        hs = [eng.submit(p, max_new_tokens=b, key=k) for p, b, k in reqs]
+        eng.drain()
+        st = eng.stats()
+        eng.close()
+        return [h.result() for h in hs], st
+
+    streams, st = audited(model, "cuda")
+    _check(st["audit_checked"] == len(reqs) and st["audit_divergences"] == 0,
+           f"[fleet] (e) {name} f32 audit: {st}")
+    cpu_streams, _ = audited(cpu_model, "cpu")
+    _check(cpu_streams == streams, f"[fleet] (e) {name}: the card's greedy streams differ "
+           "from the CPU port's")
+    for label, sample in (("greedy", {}), ("sampled", SERVE_SAMPLED)):
+        engines = [Engine(model, **FLEET_SMALL_KW, **sample) for _ in range(2)]
+        router = FleetRouter(engines, version="v1")
+        p, _, k = reqs[2]
+        h = router.submit(p, max_new_tokens=16, key=k)
+        g = h.tokens()
+        first = [next(g)]
+        engines[0].close()
+        got = first + list(g)
+        _check(h.hops == 1 and got == _solo_stream(model, p, 16, k, **sample),
+               f"[fleet] (e) {name} {label} failover differs from solo generate(key=)")
+        router.close()
+    v2 = materialize_standby(family_cls, cfg, seed=seed + 1, device="cuda")
+    router = FleetRouter([Engine(model, **FLEET_SMALL_KW)], version="v1")
+    live = router.submit(reqs[0][0], max_new_tokens=16, key=0)
+    g = live.tokens()
+    first = [next(g)]
+    queued = [router.submit(p, max_new_tokens=b, key=k) for p, b, k in reqs[1:4]]
+    hot_swap(router, lambda: Engine(v2, **FLEET_SMALL_KW), version="v2")
+    _check(first + list(g) == _solo_stream(model, reqs[0][0], 16, 0)
+           and all(h.result() == _solo_stream(v2, p, b, k) for h, (p, b, k) in zip(queued, reqs[1:4]))
+           and [h.version for h in [live] + queued] == ["v1", "v2", "v2", "v2"],
+           f"[fleet] (e) {name} hot swap")
+    router.close()
+    print(f"[fleet] (e) {name} f32 on the card: audit 1.0 checked {st['audit_checked']}, 0 "
+          "divergences; failover greedy and sampled equal to solo generate(key=); hot swap "
+          "with no drop, one version a stream; greedy streams equal to the CPU port's")
+
+
+def phase_fleet(fa):
+    """[fleet]: (a)-(d) at full llama_7b in bf16, (e) the *_test configs;
+    see the constants above.  The path launches no kernel (read as 0)."""
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import materialize_module_torch
+    from torchdistx_tpu_torch.models import gpt2
+    from torchdistx_tpu_torch.models.llama import Llama, llama_7b, llama_test
+    from torchdistx_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    cfg = llama_7b()
+    model = deferred_init(Llama, cfg, device_="cuda")
+    model.load_state_dict(materialize_module_torch(model, seed=MAT_SEED), assign=True)
+    _reset_counts(fa)  # the fleet path starts here
+    stats = {"memory_plan": fleet_memory_plan(cfg)}
+    # The uninterrupted streams (a)-(c) are held to.
+    eng = Engine(model, **SERVE_KW)
+    hs = [eng.submit(p, max_new_tokens=b, key=i)
+          for i, (p, b) in enumerate(serve_traffic(cfg.vocab_size)[:FLEET_ROUTED])]
+    ref = [h.result() for h in hs]
+    eng.close()
+    del eng, hs
+    _free()
+    stats["audit"] = _fleet_audit(model, cfg, ref)
+    a = stats["audit"]
+    print(f"[fleet] (a) llama_7b bf16 audit + ops: tokens/s {json.dumps(a['tokens_per_s'])}; "
+          f"tick phases [p50, p99] {json.dumps(a['tick_phases'])}; audit divergences with the "
+          f"prefix cache {a['divergence_counts']['prefix_cache']} {json.dumps(a['divergences'])}, "
+          f"without {a['divergence_counts']['no_prefix_cache']}; corrupt caught "
+          f"{json.dumps(a['corrupt'])}; scrapes {json.dumps(a['scrapes'])}; profile "
+          f"{json.dumps(a['profile'])}; peak {a['peak_gb']:.2f} GB")
+    stats["router"] = _fleet_router(model, cfg, ref)
+    print("[fleet] (b) router: " + json.dumps(stats["router"]))
+    stats["autoscale"] = _fleet_autoscale(model, cfg, ref)
+    print("[fleet] (c) autoscaler: " + json.dumps(stats["autoscale"]))
+    args = [model]
+    del model  # (d) retires v1: its module must be held by nothing else
+    stats["swap"] = _fleet_swap(args.pop(), cfg)
+    print("[fleet] (d) hot swap: " + json.dumps(stats["swap"]))
+    launches = _counts(fa)  # the fleet path ends here
+    print(f"[fleet path] launches: {json.dumps(launches)}")
+    _check(not any(launches.values()), "a flash kernel was launched on the fleet path")
+    stats["peak_gb"] = max(v["peak_gb"] for v in stats.values()
+                           if isinstance(v, dict) and "peak_gb" in v)
+    _check(stats["peak_gb"] * 1e9 < FLEET_PEAK_LIMIT, f"[fleet] peak {stats['peak_gb']} GB")
+    _free()
+    _fleet_small(Llama, llama_test(), seed=41)
+    _fleet_small(gpt2.GPT2, gpt2.gpt2_test(), seed=42)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fleet] peak {stats['peak_gb']:.2f} GB; {stats['phase_s']:.1f} s; {_smi()}")
+    return stats
+
+
 # Each kernel's source is csrc/<kernel>.cu; the line of the Pallas kernel
 # it replaces in torchdistx_tpu/ops/pallas/flash_attention.py.
 PALLAS_LINES = {"flash_fwd": 161, "flash_bwd_fused": 492, "flash_bwd_dq": 393,
@@ -5086,6 +5845,7 @@ def main() -> int:
 
     serve_stats = phase_serve(fa)  # the serve path is read inside
     serve_stats["planes"] = phase_serve_planes(fa)  # the serve planes path is read inside
+    serve_stats["fleet"] = phase_fleet(fa)  # the fleet path is read inside
     resnet_stats = phase_resnet()
 
     print("[summary] " + json.dumps({

@@ -734,3 +734,50 @@ def test_serve_planes_migration_picks_and_moves_on_a_small_model():
     b.drain()
     assert [len(h.result()) for h in hs] == [first[i][1] for i in picks]
     assert b.stats()["recoveries"] == 0 and a.allocator.num_in_use == len(a.prefix)
+
+
+def test_fleet_traffic_and_constants():
+    """[fleet]'s requests: (a) serves serve_traffic's first FLEET_AUDIT with
+    one of budget >= FLEET_CORRUPT_BUDGET for the corrupt fault, whose flip
+    lands inside it; (b) and (c) the first FLEET_ROUTED, with FLEET_MIGRATE
+    of budget >= 32 to move; (d) FLEET_SWAP_STREAMS streams of
+    FLEET_SWAP_BUDGET tokens and FLEET_SWAP_QUEUED queued ones, each within
+    max_model_len."""
+    routed = chip_smoke.serve_traffic(32000)[:chip_smoke.FLEET_ROUTED]
+    audit = routed[:chip_smoke.FLEET_AUDIT]
+    pick = next(i for i, (_, b) in enumerate(audit) if b >= chip_smoke.FLEET_CORRUPT_BUDGET)
+    flip = 1 + (chip_smoke.FLEET_CORRUPT_CHUNK - 1) * chip_smoke.SERVE_KW["decode_chunk"]
+    assert flip < audit[pick][1]
+    assert sum(b >= 32 for _, b in routed) >= chip_smoke.FLEET_MIGRATE
+    assert chip_smoke.FLEET_JOURNAL <= chip_smoke.FLEET_ROUTED
+    assert chip_smoke.FLEET_WAVE <= chip_smoke.FLEET_ROUTED
+    assert chip_smoke.FLEET_MIN_LIVE <= chip_smoke.SERVE_KW["num_slots"]
+    swap = chip_smoke.fleet_swap_traffic(32000)
+    assert len(swap) == chip_smoke.FLEET_SWAP_STREAMS + chip_smoke.FLEET_SWAP_QUEUED
+    lo, hi = chip_smoke.FLEET_SWAP_LENS
+    for i, (prompt, budget) in enumerate(swap):
+        assert lo <= len(prompt) <= hi
+        assert budget == (chip_smoke.FLEET_SWAP_BUDGET if i < chip_smoke.FLEET_SWAP_STREAMS
+                          else 32)
+        assert len(prompt) + budget <= chip_smoke.SERVE_KW["max_model_len"]
+        assert len(prompt) + chip_smoke.FLEET_SWAP_INFLIGHT <= chip_smoke.SERVE_KW["max_model_len"]
+    # The streams outlast the build: FLEET_SWAP_AFTER ticks before and
+    # after it leave most of the budget (58 ticks) to decode while it runs.
+    chunk = chip_smoke.SERVE_KW["decode_chunk"]
+    assert chip_smoke.FLEET_SWAP_BUDGET // chunk - 2 * chip_smoke.FLEET_SWAP_AFTER >= 58
+
+
+def test_fleet_memory_plan_and_autoscaler_bounds():
+    """(d) at its height holds two llama_7b versions (parameters plus one
+    shared prep_decode copy, 22.47 GB each) and three default pools: 57.9
+    GB, below the phase's 70 GB; (c) scales between 1 and 3 replicas."""
+    from torchdistx_tpu_torch.fleet import AutoscaleConfig
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    plan = chip_smoke.fleet_memory_plan(llama_7b())
+    assert plan["version"] == 2 * 6_738_415_616 + 8_992_587_776
+    assert plan["kv_pool"] == 513 * (8 << 20)
+    assert plan["total"] == 2 * plan["version"] + 3 * plan["kv_pool"]
+    assert plan["total"] < chip_smoke.FLEET_PEAK_LIMIT
+    cfg = AutoscaleConfig(**chip_smoke.FLEET_SCALE).validate()
+    assert (cfg.min_replicas, cfg.max_replicas) == (1, 3)

@@ -16,6 +16,7 @@ import torch
 import torchdistx_tpu_torch
 from torchdistx_tpu_torch import resolve_device
 from torchdistx_tpu_torch.deferred_init import deferred_init
+from torchdistx_tpu_torch.fleet import engine_factory, materialize_standby
 from torchdistx_tpu_torch.materialize import (
     materialize_module_torch,
     materialize_tensor_torch,
@@ -40,6 +41,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from torchdistx_tpu_torch.telemetry import ops
+assert ops._load_reconstruct() is not None  # scripts/trace_report, for /requests
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "torchdistx_tpu" or m.startswith("torchdistx_tpu."))
@@ -73,7 +76,8 @@ def test_walk_finds_every_module():
                  "parallel.pipeline", "telemetry.audit", "serving", "serving.blocks",
                  "serving.cache", "serving.engine", "serving.lifecycle", "serving.prefix",
                  "serving.scheduler", "serving.qos", "serving.modelpool", "serving.journal",
-                 "telemetry.perf"):
+                 "telemetry.perf", "telemetry.timeplane", "telemetry.ops", "fleet",
+                 "fleet.router", "fleet.hot_swap", "fleet.autoscale"):
         assert "torchdistx_tpu_torch." + want in names
 
 
@@ -107,12 +111,17 @@ def _no_cuda():
         lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu"), model_pool=ModelPool()),
         lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu"),
                        journal=RequestJournal(tempfile.mkdtemp())),
+        lambda: Engine(tllama.Llama(tllama.llama_test(), device="cpu"), audit_sample=1.0,
+                       ops_port=0),
+        lambda: materialize_standby(tllama.Llama, tllama.llama_test()),
+        lambda: engine_factory(tllama.Llama(tllama.llama_test(), device="cpu")),
     ],
     ids=["resolve_device", "Llama", "llama_from_jax_params", "GPT2", "MoE",
          "gpt2_from_jax_params", "make_train_step", "make_train_step_moe",
          "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
          "make_hybrid_mesh", "make_slowmo_train_step_init_fn", "Engine",
-         "Engine_model_pool", "Engine_journal"],
+         "Engine_model_pool", "Engine_journal", "Engine_audit_ops", "materialize_standby",
+         "engine_factory"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -10,18 +10,37 @@ source's bits.  A geometry mismatch raises ``MigrationIncompatible`` with
 nothing scattered; faults at ``serve.migrate_out`` leave the source
 running and at ``serve.migrate_in`` free the destination's pages; the
 deadline travels with the stream; the journal hands ownership over.
+
+Through the ``FleetRouter`` (after ``tests/test_migration.py:131-395``):
+``migrate_stream`` moves a live stream token-identically (greedy: equal to
+JAX's router moving it the same way), prefix-shared pages settle on both
+sides, ``migrate_out_streams`` drains a replica by migration, a refused
+import falls back to the cold replay, a version-pinned stream with no
+peer and a faulted export stay on the source, a faulted import frees the
+destination's pages and falls back, the absolute deadline travels and an
+expired one is never exported, and roles steer prompts with ``rebalance``
+handing decode to the decode replica.
 Tolerance: none (exact).
 """
 
+import time
+
 import pytest
 import torch
+
+from torchdistx_tpu import fleet as jfleet
+from torchdistx_tpu.serving import Engine as JaxEngine
+from torchdistx_tpu_torch import telemetry
+from torchdistx_tpu_torch.fleet import FleetRouter
 
 from torchdistx_tpu_torch.resilience import faults, preemption
 from torchdistx_tpu_torch.serving import (
     DeadlineExceeded,
     Engine,
+    Health,
     MigrationIncompatible,
     RequestJournal,
+    RequestPreempted,
 )
 from torchdistx_tpu_torch.serving.journal import fold_records, read_records
 
@@ -226,3 +245,165 @@ def test_only_resident_decode_streams_migrate(fam):
     gb.migrate_in(ga.migrate_out(ga.migratable_slots()[0]))
     assert h.result() == solo(g, prompt_of(7), 11, 10)
     a.close()
+
+
+# ---------------------------------------------------------------------------
+# Through the router
+
+
+def rport(fam, **over):
+    return port_engine(fam, **{"prefix_cache": False, **over})
+
+
+def _router_move(router_cls, a, b):
+    router = router_cls([a, b], version="v1")
+    b.detector.observe_tick(0.5)
+    h = router.submit(prompt_of(6), max_new_tokens=10, key=3)
+    assert h.replica_id == 0
+    g = h.tokens()
+    first = [next(g), next(g)]
+    (slot,) = a.migratable_slots()
+    assert router.migrate_stream(0, slot)
+    return first + list(g), router
+
+
+def test_router_migrate_stream_equals_jax(fam):
+    jmod, cfg, params, _ = fam
+    jkw = dict(ENGINE_KW, eos_id=EOS, handle_preemption=False, prefix_cache=False)
+    want, jr = _router_move(jfleet.FleetRouter,
+                            *(JaxEngine(params, model=jmod, cfg=cfg, **jkw) for _ in range(2)))
+    before = telemetry.counter("fleet.migrations").value
+    a, b = rport(fam, eos_id=EOS), rport(fam, eos_id=EOS)
+    got, router = _router_move(FleetRouter, a, b)
+    assert got == want == solo(fam[3], prompt_of(6), 3, 10, eos=EOS)
+    assert telemetry.counter("fleet.migrations").value == before + 1
+    assert a.stats()["migrations_out"] == b.stats()["migrations_in"] == 1
+    assert b.stats()["recoveries"] == 0
+    assert settled(a) and settled(b)
+    router.close()
+    jr.close()
+
+
+def test_router_shared_prefix_pages_settle(fam):
+    a, b = port_engine(fam), port_engine(fam)
+    router = FleetRouter([a, b], version="v1")
+    b.detector.observe_tick(50.0)
+    warm = router.submit(prompt_of(16), max_new_tokens=2, key=0)
+    assert warm.replica_id == 0 and len(warm.result()) == 2 and len(a.prefix) == 2
+    b.detector.observe_tick(50.0)
+    h = router.submit(prompt_of(16), max_new_tokens=8, key=1)
+    g = h.tokens()
+    first = [next(g)]
+    (slot,) = a.migratable_slots()
+    req = a._slot_req[slot]
+    assert [p for p in req.blocks if a.allocator.refcount(p) > 1]
+    assert router.migrate_stream(0, slot)
+    assert a.allocator.num_in_use == len(a.prefix) == 2
+    assert all(a.allocator.refcount(p) == 1 for p in a.prefix._pages.values())
+    assert len(b.prefix) == 0 and all(b.allocator.refcount(p) == 1 for p in req.blocks)
+    assert first + list(g) == solo(fam[3], prompt_of(16), 1, 8)
+    assert settled(a) and settled(b)
+
+
+def test_router_drain_by_migration(fam):
+    a, b = rport(fam), rport(fam)
+    router = FleetRouter([a, b], version="v1")
+    b.detector.observe_tick(0.5)
+    h = router.submit(prompt_of(6), max_new_tokens=10, key=7)
+    g = h.tokens()
+    first = [next(g)]
+    router.close_admission(0)
+    assert router.migrate_out_streams(0) == {"migrated": 1, "fallbacks": 0, "left": 0}
+    a.begin_drain()
+    while a.health() is not Health.STOPPED:
+        a.step()
+    assert first + list(g) == solo(fam[3], prompt_of(6), 7, 10)
+    assert b.stats()["migrations_in"] == 1 and b.stats()["recoveries"] == 0
+    assert settled(b)
+
+
+@pytest.mark.parametrize("refusal", ["geometry", "migrate_in_fault"])
+def test_router_refused_import_falls_back_to_cold_replay(fam, refusal):
+    a = rport(fam)
+    b = rport(fam, block_size=16) if refusal == "geometry" else rport(fam)
+    if refusal == "migrate_in_fault":
+        faults.reset("serve.migrate_in:1:io")
+    router = FleetRouter([a, b], version="v1")
+    b.detector.observe_tick(0.5)
+    before = telemetry.counter("fleet.migration_fallbacks").value
+    h = router.submit(prompt_of(6), max_new_tokens=10, key=9)
+    g = h.tokens()
+    first = [next(g)]
+    (slot,) = a.migratable_slots()
+    assert not router.migrate_stream(0, slot)
+    assert b.allocator.num_in_use == 0
+    assert telemetry.counter("fleet.migration_fallbacks").value == before + 1
+    assert isinstance(h._inner.error, RequestPreempted) and h._inner.error.retryable
+    assert first + list(g) == solo(fam[3], prompt_of(6), 9, 10)
+    assert h.hops == 1 and settled(a) and settled(b)
+
+
+@pytest.mark.parametrize("why", ["no_same_version_peer", "migrate_out_fault"])
+def test_router_refused_export_leaves_the_stream_running(fam, why):
+    a, b = rport(fam), rport(fam)
+    if why == "no_same_version_peer":
+        router = FleetRouter([a], version="v1")
+        router.add_replica(b, version="v2")
+    else:
+        faults.reset("serve.migrate_out:1:io")
+        router = FleetRouter([a, b], version="v1")
+        b.detector.observe_tick(0.5)
+    h = router.submit(prompt_of(6), max_new_tokens=8, key=4)
+    g = h.tokens()
+    first = [next(g)]
+    (slot,) = a.migratable_slots()
+    assert not router.migrate_stream(0, slot)
+    assert first + list(g) == solo(fam[3], prompt_of(6), 4, 8)
+    assert h.hops == 0 and a.stats()["migrations_out"] == 0
+    assert b.stats()["migrations_in"] == 0 and settled(a) and settled(b)
+
+
+def test_router_deadline_travels_and_expired_is_not_exported(fam):
+    a, b = rport(fam), rport(fam)
+    router = FleetRouter([a, b], version="v1")
+    b.detector.observe_tick(0.5)
+    h = router.submit(prompt_of(6), max_new_tokens=8, key=1, deadline_s=60.0)
+    g = h.tokens()
+    next(g)
+    (slot,) = a.migratable_slots()
+    req = a._slot_req[slot]
+    deadline = req.deadline
+    assert router.migrate_stream(0, slot) and req.deadline == deadline
+    list(g)
+    b.detector.observe_tick(50.0)
+    h = router.submit(prompt_of(6), max_new_tokens=32, key=8, deadline_s=60.0)
+    assert h.replica_id == 0
+    g = h.tokens()
+    next(g)
+    (slot,) = a.migratable_slots()
+    a._slot_req[slot].deadline = time.perf_counter() - 0.001
+    assert not router.migrate_stream(0, slot)
+    assert a.stats()["migrations_out"] == 1  # the first stream only
+    with pytest.raises(DeadlineExceeded):
+        list(g)
+    first_err = h.error
+    h._inner._fail(RequestPreempted("late loser"))
+    assert h.error is first_err and settled(a) and settled(b)
+
+
+def test_router_role_steering_and_rebalance(fam):
+    p, d = rport(fam, role="prefill"), rport(fam, role="decode")
+    router = FleetRouter(version="v1", long_prompt_tokens=16)
+    router.add_replica(p, version="v1")
+    router.add_replica(d, version="v1")
+    short = router.submit(prompt_of(4), max_new_tokens=2, key=0)
+    assert short.replica_id == 1 and len(short.result()) == 2
+    h = router.submit(prompt_of(24), max_new_tokens=8, key=5)
+    assert h.replica_id == 0
+    g = h.tokens()
+    first = [next(g)]
+    assert router.rebalance() == 1
+    assert first + list(g) == solo(fam[3], prompt_of(24), 5, 8)
+    assert p.stats()["migrations_out"] == d.stats()["migrations_in"] == 1
+    assert d.stats()["recoveries"] == 0 and settled(p) and settled(d)
+    assert [r["role"] for r in router.stats()["replicas"]] == ["prefill", "decode"]

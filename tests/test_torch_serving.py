@@ -8,8 +8,13 @@ token-identical to the port's ``generate(key=)`` (JAX's threefry draws are
 not reproduced, by design).  The allocator's page ids match JAX's for the
 same operations.  Faults, the recovery supervisor (pages overwritten with
 garbage), its budget and the replay digest check are driven through the
-public surface.
+public surface.  Engines over one model share its fused decode weights
+only while its parameters are unchanged, and the shared copy leaves with
+the last engine holding it.
 """
+
+import copy
+import gc
 
 import jax
 import numpy as np
@@ -21,6 +26,7 @@ from torchdistx_tpu.models import llama as jllama
 from torchdistx_tpu.serving import BlockAllocator as JaxBlockAllocator
 from torchdistx_tpu.serving import Engine as JaxEngine
 from torchdistx_tpu_torch import telemetry
+from torchdistx_tpu_torch.telemetry import perf
 from torchdistx_tpu_torch.models import gpt2 as tgpt2
 from torchdistx_tpu_torch.models import llama as tllama
 from torchdistx_tpu_torch.models.convert import gpt2_from_jax_params, llama_from_jax_params
@@ -585,3 +591,55 @@ def test_corrupt_fault_changes_digest_only(llama_model):
     h = Engine(llama_model, **ENGINE_KW).submit(prompt, max_new_tokens=8, key=0)
     toks = h.result()
     assert toks[1] == clean.result()[1] ^ 1 and h.digest != clean.digest
+
+
+# ---------------------------------------------------------------------------
+# The shared decode copy
+
+
+def test_decode_copy_shared_while_weights_unchanged(llama_model):
+    """Two live engines over one model hold one decode copy and one ledger
+    row for it; both leave with the last engine, and a drained engine that
+    is dropped without ``close()`` releases its copy when collected."""
+    model = copy.deepcopy(llama_model)
+    a, b = Engine(model, **ENGINE_KW), Engine(model, **ENGINE_KW)
+    assert a._weights is b._weights
+    owner = a._decode_copy.owner
+    assert ("weights", owner) in perf.ledger.owners("weights")
+    a.close()
+    assert ("weights", owner) in perf.ledger.owners("weights")
+    b.close()
+    assert ("weights", owner) not in perf.ledger.owners("weights")
+    assert eng_mod._DECODE_COPIES[model]() is None
+
+    c = Engine(model, **ENGINE_KW)
+    c.submit(np.arange(1, 9, dtype=np.int32), max_new_tokens=5, key=0)
+    c.drain()
+    del c
+    gc.collect()
+    assert eng_mod._DECODE_COPIES[model]() is None
+
+
+def test_decode_copy_refused_after_weights_change(llama_model):
+    """An engine drained but not closed, then ``load_state_dict`` of other
+    weights into its model: a new engine over the model fuses the new
+    weights, and its greedy stream equals solo ``generate`` on them."""
+    jmod, jcfg_fn, tcfg_fn, convert = FAMILIES["llama"]
+    params = jmod.init_params(jax.random.PRNGKey(1), jcfg_fn())
+    other = convert(jax.tree.map(np.asarray, params), tcfg_fn(), device="cpu")
+    model = copy.deepcopy(llama_model)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    old = Engine(model, **ENGINE_KW)
+    h_old = old.submit(prompt, max_new_tokens=12, key=0)
+    old.drain()
+    assert h_old.result() == solo(llama_model, prompt, 0, 12)
+
+    model.load_state_dict(other.state_dict())
+    new = Engine(model, **ENGINE_KW)
+    assert new._weights is not old._weights
+    h_new = new.submit(prompt, max_new_tokens=12, key=0)
+    new.drain()
+    assert h_new.result() == solo(other, prompt, 0, 12) == solo(model, prompt, 0, 12)
+    assert h_new.result() != h_old.result()
+    new.close()
+    old.close()

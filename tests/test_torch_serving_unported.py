@@ -1,6 +1,7 @@
-"""What the port's serving engine leaves for ROADMAP A7 (the shadow auditor
-and the ops plane) raises, naming it, and ``Engine`` follows the port's
-device rule.  No JAX here."""
+"""``Engine`` follows the port's device rule, and a zero audit sample
+leaves the auditor off.  No JAX here.  (The shadow auditor and the ops
+plane are tested in ``tests/test_torch_audit.py`` and
+``tests/test_torch_ops.py``.)"""
 
 import pytest
 import torch
@@ -17,27 +18,11 @@ def model():
     return tllama.Llama(tllama.llama_test(), device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(audit_sample=0.5),
-    dict(ops_port=0),
-    dict(ops_config=object()),
-], ids=["audit_sample", "ops_port", "ops_config"])
-def test_constructor_arguments_raise_naming_a7(model, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Engine(model, **KW, **kwargs)
-
-
-@pytest.mark.parametrize("var, value", [("TDX_AUDIT_SAMPLE", "0.25"), ("TDX_OPS_PORT", "0")])
-def test_environment_switches_raise_naming_a7(model, monkeypatch, var, value):
-    monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Engine(model, **KW)
-
-
 def test_zero_audit_sample_is_off(model, monkeypatch):
     monkeypatch.setenv("TDX_AUDIT_SAMPLE", "0")
-    Engine(model, **KW, audit_sample=0.0).close()
-    Engine(model, **KW).close()
+    for eng in (Engine(model, **KW, audit_sample=0.0), Engine(model, **KW)):
+        assert eng._auditor is None
+        eng.close()
 
 
 def test_engine_without_cuda_raises_unless_cpu(model):

@@ -32,8 +32,10 @@ Quick start::
     for tok in h.tokens():      # streams; drives the engine
         print(tok)
 
-The shadow auditor and the ops plane are ROADMAP A7 and raise
-``NotImplementedError``.
+``Engine(audit_sample=...)`` turns on the shadow auditor and
+``Engine(ops_port=0)`` the live ops plane (``/metrics``, ``/healthz``,
+``/requests``, ``/profile``); :mod:`torchdistx_tpu_torch.fleet` fronts
+several engines with a router.
 """
 
 from .blocks import TRASH_BLOCK, BlockAllocator, blocks_needed  # noqa: F401

@@ -111,18 +111,34 @@ free); ``serve.materialize`` — fails one model-pool materialize attempt
 (the skeleton is untouched, the next tick retries).  A real CUDA error or
 OOM in a swap goes to the supervisor.
 
-Left out until ROADMAP A7, each raising ``NotImplementedError``: the
-shadow auditor (``audit_sample`` / ``TDX_AUDIT_SAMPLE``) and the ops plane
-(``ops_port`` / ``ops_config`` / ``TDX_OPS_PORT``).  The time plane and the
-compile observatory belong to A8.
+**Audit plane** (``audit_sample=`` / ``TDX_AUDIT_SAMPLE``): a
+:class:`~torchdistx_tpu_torch.telemetry.audit.ShadowAuditor` replays a
+sampled fraction of finished requests through :meth:`Engine.submit` on
+quiet ticks and compares digests exactly; a mismatch latches the engine
+OVERLOADED until :meth:`Engine.clear_divergence`.  **Ops plane**
+(``ops_port=`` / ``ops_config=`` / ``TDX_OPS_PORT``): the engine joins an
+:class:`~torchdistx_tpu_torch.telemetry.ops.OpsPlane` (``/metrics``,
+``/healthz``, ``/requests``, ``/profile``, a stall watchdog) and its tick
+publishes the utilization gauges and the time plane's phase split
+(:mod:`~torchdistx_tpu_torch.telemetry.timeplane`; ``device_wait`` is the
+decode chunk's read-back and the last prefill chunk's sampled token).
+With neither, the tick takes no extra host time.  Health changes take the
+engine's health lock: the watchdog thread marks a wedged engine through
+it.
+
+Every device tensor the engine owns (the page pool, its decode graphs and
+their inputs) is released when it stops (:meth:`Engine.close` or the end
+of a drain); live engines over one model share its ``prep_decode`` copy
+while its parameters are unchanged, and the copy leaves with the last
+engine holding it.
 """
 
 from __future__ import annotations
 
 import itertools
-import os
 import threading
 import time
+import weakref
 from contextlib import nullcontext
 from typing import Any, Optional
 
@@ -135,7 +151,9 @@ from ..models.generate import fold_key, sample_keyed
 from ..resilience import faults
 from ..resilience import preemption as _preemption
 from ..telemetry import audit as _audit
+from ..telemetry import ops as _ops
 from ..telemetry import perf as _perf
+from ..telemetry import timeplane as _timeplane
 from . import journal as _journal_mod
 from .blocks import BlockAllocator, blocks_needed
 from .cache import (
@@ -202,24 +220,77 @@ _G_HEALTH = _telemetry.gauge("serve.health")
 # names the engine.
 _ENGINE_SEQ = itertools.count()
 
-# Live engines per weights-ledger key: N engines over one model register
-# its parameters' bytes once, and they leave the ledger when the LAST
-# engine using that model stops (each engine's prep_decode copy is its own
-# row).  key -> refcount.
+# Live engines per shared ``weights`` ledger row (a model's parameters,
+# a shared decode copy): N engines register the row's bytes once, and it
+# leaves the ledger when the LAST of them stops.  owner -> refcount.
 _WEIGHTS_REFS: dict = {}
 _WEIGHTS_LOCK = threading.Lock()
+
+# model -> weakref to its shared _DecodeCopy.  Only engines hold a copy, so
+# its memory leaves with the last engine holding it (closed or collected),
+# and an entry leaves with its model.
+_DECODE_COPIES = weakref.WeakKeyDictionary()
+_DECODE_SEQ = itertools.count()
+
+
+class _DecodeCopy:
+    """A model's ``prep_decode()`` weights, the parameter stamp they were
+    fused from, and their ledger owner."""
+
+    __slots__ = ("weights", "stamp", "owner", "__weakref__")
+
+    def __init__(self, weights, stamp):
+        self.weights = weights
+        self.stamp = stamp
+        self.owner = f"decode:{next(_DECODE_SEQ)}"
+
+
+def _param_stamp(model) -> Optional[tuple]:
+    """Each parameter's identity, storage and version counter: an in-place
+    write (``load_state_dict``, an optimizer step) or a rebound ``.data``
+    changes it.  ``None`` where a parameter keeps no version counter (an
+    inference tensor): such a model's copy is never shared."""
+    try:
+        return tuple((id(p), p.data_ptr(), p._version) for p in model.parameters())
+    except RuntimeError:
+        return None
+
+
+def _shared_decode_copy(model) -> _DecodeCopy:
+    """The model's fused decode weights, shared by every live engine over
+    the model while its parameters are unchanged, and fused afresh once
+    they have changed."""
+    stamp = _param_stamp(model)
+    with _WEIGHTS_LOCK:
+        ref = _DECODE_COPIES.get(model)
+        copy = ref() if ref is not None else None
+        if copy is None or stamp is None or copy.stamp != stamp:
+            copy = _DecodeCopy(model.prep_decode(), stamp)
+            if stamp is not None:
+                _DECODE_COPIES[model] = weakref.ref(copy)
+        return copy
+
+
+def _hold_weights_row(owner: str, nbytes: int) -> None:
+    with _WEIGHTS_LOCK:
+        _WEIGHTS_REFS[owner] = _WEIGHTS_REFS.get(owner, 0) + 1
+    _perf.ledger.register("weights", nbytes, owner=owner)
+
+
+def _release_weights_row(owner: str) -> None:
+    with _WEIGHTS_LOCK:
+        left = _WEIGHTS_REFS.get(owner, 1) - 1
+        if left <= 0:
+            _WEIGHTS_REFS.pop(owner, None)
+        else:
+            _WEIGHTS_REFS[owner] = left
+    if left <= 0:
+        _perf.ledger.unregister("weights", owner=owner)
 
 # One warm-up stream a device, shared by every decode-graph capture: each
 # new stream would take cuBLAS a workspace of its own, which is never
 # returned (a model pool recaptures at every re-materialize).
 _WARMUP_STREAMS: dict = {}
-
-_A7 = "is ROADMAP A7, not ported yet"
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_A7}")
-
 
 class GraphCaptureError(RuntimeError):
     """Capturing the decode chunk as a CUDA graph failed.  Raised out of
@@ -324,12 +395,18 @@ class DecodeChunk:
         self.graph.replay()
         self.replays += 1
 
-    def __call__(self, tokens, positions, n_gen, done, keys, tables) -> np.ndarray:
+    def __call__(self, tokens, positions, n_gen, done, keys, tables,
+                 timer=None) -> np.ndarray:
+        """Load, launch, read back.  ``timer`` (the engine's tick timer)
+        marks the read-back, the chunk's one host sync, as
+        ``device_wait``."""
         self.load(tokens, positions, n_gen, done, keys, tables)
         if self.device.type == "cuda":
             self.replay()
         else:
             self.run_eager()
+        if timer is not None:
+            timer.begin("device_wait")
         return self.out.cpu().numpy()
 
 
@@ -380,8 +457,13 @@ class Engine:
         served beside the engine's own model, into this page pool.
     journal : a :class:`.journal.RequestJournal` this engine claims and
         writes (see :meth:`resume_from_journal`).
-    ops_port, ops_config, audit_sample : ROADMAP A7; anything but the
-        default raises ``NotImplementedError``.
+    ops_port : join the live ops plane on this port (``0``: a fresh plane
+        on an ephemeral port); default ``TDX_OPS_PORT`` when set, else off.
+    ops_config : :class:`~torchdistx_tpu_torch.telemetry.ops.OpsConfig`,
+        applied when this engine creates the plane.
+    audit_sample : the fraction of finished requests the shadow auditor
+        replays (``[0, 1]``); default ``TDX_AUDIT_SAMPLE`` when set, else
+        off.
     """
 
     def __init__(
@@ -419,7 +501,6 @@ class Engine:
         model_pool: Any = None,
         journal: Any = None,
     ):
-        self._check_unported(ops_port, ops_config, audit_sample)
         self.device = resolve_device(device)
         param_device = next(model.parameters()).device
         if param_device != self.device and not (
@@ -494,10 +575,12 @@ class Engine:
         self.detector = OverloadDetector(max_queue, max_ttft_s)
         self.prefix: Optional[PrefixIndex] = PrefixIndex(block_size) if prefix_cache else None
 
-        self._weights = model.prep_decode()
         # Engines over one model count its parameters once on the ledger
-        # (refcounted, released by the last engine at STOPPED).
+        # and share its prep_decode copy while the parameters are unchanged
+        # (each row refcounted, released by the last engine at STOPPED).
         self._weights_key = f"params:{id(model)}"
+        self._decode_copy: Optional[_DecodeCopy] = _shared_decode_copy(model)
+        self._weights = self._decode_copy.weights
         self._cache = init_paged_cache(model, num_blocks, block_size, device=self.device)
         self._pool_nbytes = _perf.pytree_nbytes(self._cache)
         self._page_nbytes = self._pool_nbytes // max(1, num_blocks)
@@ -565,6 +648,9 @@ class Engine:
         self._n_forks = 0
         self._tick_no = 0
         self._diverging = False
+        # Health is written from the tick and from the stall watchdog's
+        # thread: every change takes this lock.
+        self._health_lock = threading.RLock()
 
         eid = self.engine_id
         self._lg_health = _telemetry.gauge("serve.health", engine=eid)
@@ -588,6 +674,13 @@ class Engine:
         _G_HEALTH.set(self._health.value)
         self._lg_health.set(self._health.value)
 
+        # Audit plane, validated before anything below registers the engine
+        # with a plane that only _finish_drain would release.
+        if audit_sample is None:
+            audit_sample = _audit.env_audit_sample()
+        self._auditor: Optional[_audit.ShadowAuditor] = (
+            _audit.ShadowAuditor(self, audit_sample) if audit_sample else None)
+
         # Model plane: bind the pool — every registered skeleton's page
         # geometry is validated against the live pool here, so an
         # incompatible model rejects the constructor.
@@ -604,6 +697,18 @@ class Engine:
             if handle_preemption and not self._handlers_preexisting:
                 _preemption.uninstall()
             raise
+        # Ops plane: the per-tick attribution below (gauges, the time
+        # plane's phase timer) runs only with a plane attached or
+        # attribution forced on, so the default tick pays nothing.
+        self._was_idle = False  # last tick's idleness (gauge-zeroing edge)
+        self._g_occupancy = None  # per-tick gauges, minted on first use
+        self._tick_timer: Optional[_timeplane.TickTimer] = None
+        self._tp_state = None
+        self._ops_plane: Optional[_ops.OpsPlane] = None
+        if ops_port is None:
+            ops_port = _ops.env_ops_port()
+        if ops_port is not None:
+            self._ops_plane = _ops.attach_engine(self, port=int(ops_port), config=ops_config)
         if _telemetry.events_enabled():
             _telemetry.event(
                 "serve.engine_config", engine=self.engine_id, num_slots=num_slots,
@@ -616,26 +721,11 @@ class Engine:
             )
         # The HBM ledger, last (nothing after this raises, so every row is
         # balanced by _finish_drain): the model's parameters (once however
-        # many engines share them), this engine's prep_decode copy, and
-        # its pool.
-        with _WEIGHTS_LOCK:
-            _WEIGHTS_REFS[self._weights_key] = _WEIGHTS_REFS.get(self._weights_key, 0) + 1
-        _perf.ledger.register("weights", module_nbytes(model), owner=self._weights_key)
-        _perf.ledger.register("weights", _perf.pytree_nbytes(self._weights),
-                              owner=f"decode:{self.engine_id}")
+        # many engines share them), the decode copy (likewise), and this
+        # engine's pool.
+        _hold_weights_row(self._weights_key, module_nbytes(model))
+        _hold_weights_row(self._decode_copy.owner, _perf.pytree_nbytes(self._weights))
         _perf.ledger.register("kv_pool", self._pool_nbytes, owner=self.engine_id)
-
-    @staticmethod
-    def _check_unported(ops_port, ops_config, audit_sample) -> None:
-        """The ROADMAP A7 arguments: each raises, none is ignored."""
-        env_port = os.environ.get("TDX_OPS_PORT", "")
-        if ops_port is not None or ops_config is not None or env_port:
-            raise _unported("the ops plane (ops_port / ops_config / TDX_OPS_PORT)")
-        if audit_sample is None:
-            text = os.environ.get("TDX_AUDIT_SAMPLE", "")
-            audit_sample = float(text) if text else None
-        if audit_sample:
-            raise _unported("the shadow auditor (audit_sample / TDX_AUDIT_SAMPLE)")
 
     # ------------------------------------------------------------------
     # Request tracing
@@ -668,6 +758,7 @@ class Engine:
         n: int = 1,
         trace_id: Optional[str] = None,
         hop: int = 0,
+        _audit_of: Optional[str] = None,
     ) -> RequestHandle:
         """Queue a request; returns its streaming handle.
 
@@ -810,7 +901,7 @@ class Engine:
                 # prefill is one last-token chunk.
                 n_chunks=n_chunks if i == 0 else 1, hashes=hashes, tenant=tenant,
                 priority=priority, trace_id=tid, hop=int(hop),
-                digest=_audit.DeterminismDigest(prompt, k),
+                digest=_audit.DeterminismDigest(prompt, k), audit_of=_audit_of,
                 model_tag=model, model_version=model_version,
                 fork_of=None if i == 0 else parent_rid, fork_index=i,
             )
@@ -819,6 +910,8 @@ class Engine:
             if tid is not None:
                 extra["prompt"] = [int(t) for t in prompt]
                 extra["key"] = [int(kk) for kk in k]
+                if _audit_of is not None:
+                    extra["audit_of"] = _audit_of
             if model != DEFAULT_MODEL:
                 extra["model"] = model
             if n > 1:
@@ -836,7 +929,9 @@ class Engine:
             for h in handles:
                 h.siblings = list(handles)
         for req in reqs:
-            if self._journal is not None:
+            if self._journal is not None and req.audit_of is None:
+                # Audit replays are shadow traffic: resuming one cold would
+                # re-audit a stream that no longer exists.
                 self._journal_admit(req)
             self.scheduler.push(req)
             self._event("req.queued", req, queue_depth=len(self.scheduler))
@@ -846,9 +941,15 @@ class Engine:
         return handles[0]
 
     def drain(self) -> None:
-        """Step until every submitted request has finished."""
-        while len(self.scheduler) or self._n_running():
+        """Step until every submitted request has finished, shadow audits
+        included."""
+        while len(self.scheduler) or self._n_running() or self.audit_backlog():
             self.step()
+
+    def audit_backlog(self) -> int:
+        """Shadow audits sampled but not yet submitted (0 with auditing
+        off); in-flight ones sit in the queue and slots."""
+        return 0 if self._auditor is None else self._auditor.backlog()
 
     def health(self) -> Health:
         """Current :class:`.lifecycle.Health` state."""
@@ -950,10 +1051,11 @@ class Engine:
             self._begin_drain()
 
     def _set_health(self, health: Health) -> None:
-        if health is not self._health:
-            self._health = health
-            _G_HEALTH.set(health.value)
-            self._lg_health.set(health.value)
+        with self._health_lock:
+            if health is not self._health:
+                self._health = health
+                _G_HEALTH.set(health.value)
+                self._lg_health.set(health.value)
 
     def _n_running(self) -> int:
         return sum(r is not None for r in self._slot_req)
@@ -977,10 +1079,26 @@ class Engine:
             # dead engine forever.
             raise EngineDraining("engine is stopped")
         t0 = time.perf_counter()
+        # The ops-plane gate, read once a tick: one attribute read and one
+        # module-global read are the whole cost of the disabled path.
+        ops_on = self._ops_plane is not None or _ops._TICK_ATTRIBUTION
+        timer = self._tick_timer = _timeplane.TickTimer(t0) if ops_on else None
+        churn0 = (self._n_preempt_swap + self._n_preempt_replay + self._n_recoveries
+                  if ops_on else 0)
+        if timer is not None:
+            timer.begin("schedule")
         if self._health is not Health.DRAINING and _preemption.requested():
             self._begin_drain()
         self._preempted_this_tick = False
         self._reap_phase()
+        if self._auditor is not None:
+            # Before admission, so an audit submitted on an idle engine
+            # admits this same tick; the pump yields to waiting user work.
+            if timer is not None:
+                timer.begin("audit_pump")
+            self._auditor.pump()
+            if timer is not None:
+                timer.begin("schedule")
         if self._health is not Health.DRAINING:
             self._admit_phase()
         # Swapped slots resume even while DRAINING (in-flight work), but
@@ -989,8 +1107,12 @@ class Engine:
             self._swap_in_phase()
         # Chunks advance even while DRAINING: a slot mid-prefill is
         # in-flight work the drain contract promises to finish.
+        if timer is not None:
+            timer.begin("prefill_dispatch")
         chunks = self._advance_prefills()
         committed = self._decode_phase()
+        if timer is not None:
+            timer.begin("schedule")
         if self._fork_groups:
             # A group whose last sibling retired in this tick's decode
             # frees its donor now: drain() settles to zero pages the tick
@@ -1020,9 +1142,29 @@ class Engine:
         tick_s = time.perf_counter() - t0
         self.detector.observe_tick(tick_s)
         self._tick_no += 1
-        if (committed == 0 and chunks == 0 and not self._swapped and not len(self.scheduler)
-                and self._n_running() == 0 and self._health is not Health.STOPPED):
+        # A fully idle tick publishes no attribution (idle readings would
+        # dilute occupancy and goodput); the first idle tick zeroes the
+        # per-tick rate gauges once.
+        idle = (committed == 0 and chunks == 0 and not self._swapped
+                and not len(self.scheduler) and self._n_running() == 0
+                and self._health is not Health.STOPPED)
+        if idle:
             _T_IDLE_TICKS.add()
+            if ops_on and not self._was_idle and self._g_occupancy is not None:
+                self._g_occupancy.set(0)
+                self._g_prefill_budget.set(0)
+                self._g_churn.set(0)
+                self._g_goodput.set(0)
+        elif ops_on:
+            self._tick_telemetry(tick_s, chunks, committed, churn0)
+        if timer is not None:
+            timer.end()
+            self._tick_timer = None
+            # A drain-completing tick must not re-mint the rows
+            # _finish_drain just pruned.
+            if self._health is not Health.STOPPED:
+                _timeplane.publish_tick(self, timer, tick_s, idle=idle)
+        self._was_idle = idle
         # A tick that completed the drain must not re-write the routing
         # gauges _finish_drain just cleared.
         if self._health is not Health.STOPPED:
@@ -1035,14 +1177,58 @@ class Engine:
         _G_RUNNING.set(n_run)
         self._lg_running.set(n_run)
 
+    # ------------------------------------------------------------------
+    # Ops plane: per-tick attribution and the watchdog hook
+
+    def _tick_telemetry(self, tick_s: float, chunks: int, committed: int,
+                        churn0: int) -> None:
+        """Per-tick utilization attribution, only with the ops plane
+        attached or attribution forced on; one ``{engine=}``-labelled
+        reading a signal a tick: ``serve.occupancy`` (decode slots in use /
+        total), ``serve.prefill_budget`` (chunks dispatched / the tick's
+        budget), ``serve.page_util``, ``serve.churn`` (preemptions, swaps and
+        recoveries this tick), ``serve.goodput`` (committed tokens a
+        tick-second), the ``serve.tick_s`` histogram, and
+        ``mem.pool_fragmentation`` (every 16th tick) with a ledger sync."""
+        if self._g_occupancy is None:
+            eid = self.engine_id
+            self._g_occupancy = _telemetry.gauge("serve.occupancy", engine=eid)
+            self._g_prefill_budget = _telemetry.gauge("serve.prefill_budget", engine=eid)
+            self._g_page_util = _telemetry.gauge("serve.page_util", engine=eid)
+            self._g_churn = _telemetry.gauge("serve.churn", engine=eid)
+            self._g_goodput = _telemetry.gauge("serve.goodput", engine=eid)
+            self._h_tick = _telemetry.histogram("serve.tick_s", engine=eid)
+            self._g_frag = _telemetry.gauge("mem.pool_fragmentation", engine=eid)
+        if self._tick_no % 16 == 1:  # tick_no pre-incremented: the first tick writes
+            self._g_frag.set(round(self.allocator.fragmentation(), 4))
+        self._ledger_sync()
+        self._g_occupancy.set(round(self._n_decoding() / self.num_slots, 4))
+        self._g_prefill_budget.set(round(chunks / self.max_prefills_per_tick, 4))
+        self._g_page_util.set(round(self.allocator.utilization(), 4))
+        self._g_churn.set(self._n_preempt_swap + self._n_preempt_replay + self._n_recoveries
+                          - churn0)
+        self._g_goodput.set(round(committed / tick_s, 1) if tick_s > 0 and committed else 0)
+        self._h_tick.observe(tick_s)
+
+    def _mark_stalled(self) -> None:
+        """Stall-watchdog hook (:class:`~torchdistx_tpu_torch.telemetry.ops.
+        StallWatchdog`, on its own thread): a wedged engine reads
+        OVERLOADED so a router routes around it; its own next tick restores
+        READY through the overload re-check.  Host state only, under the
+        health lock."""
+        with self._health_lock:
+            if self._health in (Health.STARTING, Health.READY):
+                self._set_health(Health.OVERLOADED)
+
     def _mark_diverging(self) -> None:
         """Divergence hook (:func:`~torchdistx_tpu_torch.telemetry.audit.
         record_divergence`): latch ``serve.diverging{engine=}`` and read
         OVERLOADED until :meth:`clear_divergence`."""
         self._diverging = True
         _telemetry.gauge("serve.diverging", engine=self.engine_id).set(1)
-        if self._health in (Health.STARTING, Health.READY):
-            self._set_health(Health.OVERLOADED)
+        with self._health_lock:
+            if self._health in (Health.STARTING, Health.READY):
+                self._set_health(Health.OVERLOADED)
 
     def clear_divergence(self) -> None:
         """Operator acknowledgement: drop the divergence latch."""
@@ -1182,22 +1368,23 @@ class Engine:
         _G_EST_TTFT.set(None)
         if self._handle_preemption and not self._handlers_preexisting:
             _preemption.uninstall()
+        # Ops-plane teardown: the watchdog stops and the /healthz entry
+        # goes; the plane's last engine (unretained) shuts the listener.
+        if self._ops_plane is not None:
+            self._ops_plane.unwatch(self)
+            self._ops_plane = None
         for name in ("serve.diverging", "serve.queue_depth", "serve.role"):
             _telemetry.remove(name, engine=self.engine_id)
+        # Time-plane teardown: no serve.tick_phase_s row survives the engine.
+        self._tp_state = None
+        _timeplane.prune_engine(self.engine_id)
         # Ledger teardown: the pool, swap, prefix and decode-weights rows
         # leave with the engine; the parameters' row when the LAST engine
         # over the model stops.
         for component in ("kv_pool", "kv_swap_host", "prefix_cache_held"):
             _perf.ledger.unregister(component, owner=self.engine_id)
-        _perf.ledger.unregister("weights", owner=f"decode:{self.engine_id}")
-        with _WEIGHTS_LOCK:
-            left = _WEIGHTS_REFS.get(self._weights_key, 1) - 1
-            if left <= 0:
-                _WEIGHTS_REFS.pop(self._weights_key, None)
-            else:
-                _WEIGHTS_REFS[self._weights_key] = left
-        if left <= 0:
-            _perf.ledger.unregister("weights", owner=self._weights_key)
+        _release_weights_row(self._weights_key)
+        _release_weights_row(self._decode_copy.owner)
         # Durability teardown: the close above journaled every in-flight
         # stream's typed retirement, so the sealed journal records a
         # fully retired run; close flushes, fsyncs and releases the lock.
@@ -1207,6 +1394,20 @@ class Engine:
         # and labeled families leave with the engine.
         if self.model_pool is not None:
             self.model_pool._close()
+        # Device teardown: the decode graphs (with their private memory),
+        # their input buffers and the page pool go now, so a retired
+        # replica's bytes return to the allocator even while a handle still
+        # references the engine.  The shared prep_decode copy goes with the
+        # last engine holding it.
+        for tag in {g[-1] for g in self._decoders}:
+            self._drop_decoders(tag)
+        self._cache = None
+        self._weights = None
+        self._decode_copy = None
+        if self._auditor is not None:
+            # Replays failed by the close settle now (no later pump will):
+            # counted aborted, as JAX's docstring has it.
+            self._auditor._reap_failed()
 
     def close(self) -> None:
         """Stop the engine now: fail queued and in-flight work with
@@ -1687,7 +1888,7 @@ class Engine:
         _T_MIGRATIONS_IN.add()
         self._event("req.migrated_in", req, n_pages=n_pages, n_tokens=n_gen,
                     src=snapshot.get("src_engine"))
-        if self._journal is not None:
+        if self._journal is not None and req.audit_of is None:
             # The receiving half of the ownership transfer: a handoff admit
             # carrying the committed prefix and digest.
             self._journal_admit(req, tokens=toks)
@@ -1864,7 +2065,15 @@ class Engine:
         words = torch.from_numpy(np.asarray(key, np.int64)[None]).to(dev)
         first = sample_keyed(last, words, torch.zeros((1,), dtype=torch.int64, device=dev),
                              self.temperature, self.top_k)
-        return int(first[0])
+        tt = self._tick_timer
+        if tt is None:
+            return int(first[0])
+        # The int() is the prefill's host sync (the sampled token lands
+        # here): device_wait, or a prefill-bound tick reads host-bound.
+        tt.begin("device_wait")
+        first = int(first[0])
+        tt.begin("prefill_dispatch")
+        return first
 
     def _dispatch_chunk(self, slot: int, req: Request, seq, start: int, end: int):
         """One admission-path chunk: copy-on-write anything the chunk
@@ -2104,14 +2313,19 @@ class Engine:
             done[slots] = self._done[slots]
             tables = np.zeros_like(self._tables)
             tables[slots] = self._tables[slots]
+        tt = self._tick_timer
+        if tt is not None:
+            tt.begin("decode_dispatch")
         attrs = {"n_active": len(slots), "chunk": self.decode_chunk}
         if tag != DEFAULT_MODEL:
             attrs["model"] = tag
         sp = _telemetry.start_span("serve.step", **attrs)
         t0 = time.perf_counter()
         try:
-            out = self.decoder(tag)(self._tokens, self._positions, self._n_gen, done,
-                                    self._keys, tables)
+            args = (self._tokens, self._positions, self._n_gen, done, self._keys, tables)
+            # The timer marks the chunk's read-back as device_wait.
+            out = (self.decoder(tag)(*args) if tt is None
+                   else self.decoder(tag)(*args, timer=tt))
         except (KeyboardInterrupt, SystemExit, GraphCaptureError, faults.FatalInjectedFault):
             sp.cancel()
             raise
@@ -2120,6 +2334,8 @@ class Engine:
             self._oom_check(err, "serve.step")
             self._dispatch_failed(err)
             return None
+        if tt is not None:
+            tt.begin("commit")
         if corrupt and slots:
             # The audit plane's fault: one committed token flipped on the
             # host, a silent determinism break only a digest can catch.
@@ -2312,6 +2528,10 @@ class Engine:
         req.handle._finish()
         _T_FINISHED.add()
         self._clear_slot(slot)
+        if self._auditor is not None:
+            # Finished requests feed the auditor; audit replays settle
+            # their digest comparison through the same hook.
+            self._auditor.on_finished(req)
 
     def _clear_slot(self, slot: int) -> None:
         self._slot_req[slot] = None
@@ -2591,6 +2811,12 @@ class Engine:
             out["prefix_hit_tokens"] = self.prefix.hit_tokens
             out["prefix_evictions"] = self.prefix.evictions
             out["cow_copies"] = self._n_cow
+        if self._auditor is not None:
+            out["audit_checked"] = self._auditor.checked
+            out["audit_divergences"] = self._auditor.divergences
+            out["audit_pending"] = self._auditor.backlog()
+            out["audit_dropped"] = self._auditor.dropped
+            out["audit_aborted"] = self._auditor.aborted
         if self._diverging:
             out["diverging"] = True
         if self.model_pool is not None:

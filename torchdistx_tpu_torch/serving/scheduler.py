@@ -1,7 +1,6 @@
 """Request scheduler: FIFO admission, backpressure, streaming handles.
 
-Counterpart of ``torchdistx_tpu/serving/scheduler.py``, copied; the
-shadow auditor's field comes with that plane (ROADMAP A7).
+Counterpart of ``torchdistx_tpu/serving/scheduler.py``, copied.
 
 The scheduler owns the *waiting* side of the engine: a FIFO of submitted
 requests, the prefill/decode interleave knob (``max_prefills_per_tick`` —
@@ -100,8 +99,11 @@ class Request:
     preempt_t: Optional[float] = None  # outage start (preempt/recovery)
     # The rolling determinism digest over (prompt, key schedule, model
     # version, committed tokens): created at submit, updated at every
-    # token commit, verified before every replay.
+    # token commit, verified before every replay.  ``audit_of`` marks a
+    # shadow-auditor replay (the trace id of the request it re-executes):
+    # replays are never themselves audited, nor journaled.
     digest: Optional[Any] = None
+    audit_of: Optional[str] = None
 
     @property
     def cache_tokens(self) -> int:
