@@ -5,7 +5,9 @@
 
 Phases, each printing a line:
 
-1. build every kernel in ``torchdistx_tpu_torch/ops/cuda/csrc`` with nvcc;
+1. build every kernel in ``torchdistx_tpu_torch/ops/cuda/csrc`` with nvcc
+   (the compile observatory's ``kernel:<name>`` row of each library: one
+   compile, its nvcc seconds, or one load where it was built already);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and the other shapes below, and time the kernel, the
    plain version and the PyTorch library call that computes the same
@@ -164,11 +166,14 @@ Phases, each printing a line:
    on [serve]'s first 12 requests, ``/metrics``, ``/healthz``,
    ``/requests?limit=2`` and ``/profile`` scraped while it serves (a second
    ``/profile`` answers 429; the trace holds kernels of a graph launch);
-   every audit checked, each bf16 divergence under the margin rule, a
-   ``serve.step`` corrupt fault caught at its chunk and latched until
-   ``clear_divergence``; tokens/s plain, with the ops plane and with
-   auditing; the tick's phase split; the divergences without the prefix
-   cache; (b) a ``FleetRouter`` over two engines on one model, replica 0
+   every audit checked and none diverged in bf16 through the prefix cache
+   (each replay runs its original's prefill schedule; any divergence is
+   printed under the margin rule), a ``serve.step`` corrupt fault caught at
+   its chunk and latched until ``clear_divergence``; tokens/s plain, with
+   the ops plane and with auditing; the tick's phase split; the divergences
+   without the prefix cache; one decode-chunk compile an engine and no
+   recompile (``compile.count`` / ``compile.recompiles`` / ``compile.time_s``
+   of ``program=decode_chunk``); (b) a ``FleetRouter`` over two engines on one model, replica 0
    closed with live streams (each stream equal to its uninterrupted run or
    a margin-explained ``FailoverDiverged``, the failover gap), then a
    migration to a third engine and the journal of a killed engine
@@ -179,12 +184,20 @@ Phases, each printing a line:
    version a stream, v2 equal to a direct seeded engine, v1's bytes freed
    at retire, TPOT before, during and after the build; (e) ``llama_test``
    and ``gpt2_test`` in f32: audit, failover and hot swap against solo
-   ``generate(key=)`` and the CPU port;
+   ``generate(key=)`` and the CPU port; ``[serve planes]`` (c) also holds
+   the decode-chunk compiles and recompiles to its eviction schedule and
+   prints each capture's seconds;
+   ``[observatory]``: the recompile-storm latch on a ``llama_test``
+   model-pool engine (``storm_config(threshold=2)``: the gauge, one flight
+   dump with the ledger, OVERLOADED, READY, cleared after a quiet window),
+   then ``scripts/torch_incident_replay.py --drill`` and
+   ``--journal-drill`` in child processes on the card and
+   ``scripts/trace_report.py --strict`` on the drill's trace;
 19. ``[resnet]``: ResNet-50 (BASELINE config 2) recorded claiming the card
    with no byte allocated, seeded onto it (bytes those of its parameters
    and buffers), an eval forward, two recordings bit-equal.
 
-Thirteen main paths are driven, each with every launch count set to 0 just
+Fourteen main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
 forward path (phases 3 to 5: seeded materialize, forward, generate), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
@@ -197,8 +210,8 @@ path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
 (phase 12: its forward part, then its train part), the MoE path (phase
 13), the serve path (phase 18 (a)'s requests, submitted and drained) and
-the serve planes path (``[serve planes]`` (a)-(e)) and the fleet path
-(``[fleet]`` (a)-(d)), which launch no
+the serve planes path (``[serve planes]`` (a)-(e)), the fleet path
+(``[fleet]`` (a)-(d)) and the observatory path, which launch no
 kernel: the engine's attention is the paged plain attention, as the JAX
 engine's is ``jnp``.  Any failed check
 raises, so the script exits non-zero and prints no result.  float32
@@ -747,7 +760,35 @@ def phase_build():
     _check(bool(report) or not built, "no ptxas report from the build")
     wide = {k: v for k, v in report.items() if "(int)512" in k}
     print("[build] the D = 512 instances: " + json.dumps(wide))
+    # The compile observatory's row of each library: an nvcc build (its
+    # process's seconds), or a load where the library was fresh on disk.
+    for name in _build.sources():
+        _build.load(name)
+    rows = _compile_rows("kernel:")
+    _check(sorted(rows) == [f"kernel:{n}" for n in _build.sources()]
+           and all(r["count"] == 1 and r["recompiles"] == 0 for r in rows.values()),
+           f"[build] the observatory's kernel rows {rows}")
+    print("[build] compile rows (count, seconds of its nvcc build, or of its load where "
+          f"cached; built {built}): " + json.dumps(rows))
     return report
+
+
+def _compile_rows(prefix):
+    """The compile observatory's rows of the programs named ``prefix*``:
+    ``{program: {count, recompiles, time_s (the sum), max_s}}``."""
+    from torchdistx_tpu_torch import telemetry
+
+    counts, hists = telemetry.counters(), telemetry.histograms()
+    rows = {}
+    for name, n in counts.items():
+        head = "compile.count{program="
+        if name.startswith(head + prefix):
+            prog = name[len(head):-1]
+            h = hists.get(f"compile.time_s{{program={prog}}}", {})
+            rows[prog] = {"count": n,
+                          "recompiles": counts.get(f"compile.recompiles{{program={prog}}}", 0),
+                          "time_s": h.get("sum"), "max_s": h.get("max")}
+    return rows
 
 
 def phase_kernels():
@@ -4483,12 +4524,18 @@ def _planes_pool(model, cfg):
 
     pool.evict = watched_evict
     captures = telemetry.counter("serve.graph_captures").value
+    compiles0 = _compile_rows("decode_chunk").get("decode_chunk", {})
     rng = np.random.default_rng(SERVE_SEED + 300)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(rng.integers(64, 256))).astype(np.int32)
                for _ in PLANES_POOL_TRAFFIC]
-    got, stalls, ledger_rows = {}, [], []
+    got, stalls, ledger_rows, capture_s = {}, [], [], []
     for i, (tag, p) in enumerate(zip(PLANES_POOL_TRAFFIC, prompts)):
+        n0 = _compile_rows("decode_chunk").get("decode_chunk", {}).get("count", 0)
         toks = eng.submit(p, max_new_tokens=PLANES_POOL_BUDGET, key=i, model=tag).result()
+        if _compile_rows("decode_chunk")["decode_chunk"]["count"] > n0:
+            # This request's tag captured its graph: first, or again after
+            # an eviction (a recompile); the capture's own seconds.
+            capture_s.append([tag, eng.decoder(tag).capture_s])
         got.setdefault(tag, []).append((p, toks, i))
         stalls.append(pool._entries[tag].last_stall_s)
         torch.cuda.synchronize()
@@ -4497,6 +4544,16 @@ def _planes_pool(model, cfg):
     st = pool.stats()
     _check(len(evictions) == len(PLANES_POOL_TRAFFIC) - 1,
            f"[serve planes] (c) evictions {evictions}")
+    # The compile observatory against the eviction schedule: one capture a
+    # materialization of a tag, each past a tag's first a recompile.
+    row = _compile_rows("decode_chunk")["decode_chunk"]
+    mats = [m["materializations"] for t, m in st["models"].items() if t in seeds]
+    compiles = {"count": row["count"] - compiles0.get("count", 0),
+                "recompiles": row["recompiles"] - compiles0.get("recompiles", 0),
+                "want": [sum(mats), sum(m - 1 for m in mats)], "capture_s": capture_s}
+    _check([compiles["count"], compiles["recompiles"]] == compiles["want"]
+           == [captures, captures - len(seeds)],
+           f"[serve planes] (c) decode-chunk compiles {compiles}, graph captures {captures}")
     _check(all(freed >= held for _, held, freed in evictions),
            f"[serve planes] (c) an eviction freed less than the model's bytes {evictions}")
     peak = _peak_gb()
@@ -4521,6 +4578,7 @@ def _planes_pool(model, cfg):
         _free()
     return {"skeleton_bytes": skeleton_bytes, "gpt2_xl_refused": refused,
             "materialize_stall_s": stalls, "evictions": evictions, "graph_captures": captures,
+            "compiles": compiles,
             "ledger_vs_allocated": ledger_rows, "materializations": {
                 t: m["materializations"] for t, m in st["models"].items()},
             "identical": identical, "diverged": diverged, "peak_gb": peak}
@@ -5056,6 +5114,8 @@ def _fleet_audit(model, cfg, ref):
     traffic = serve_traffic(cfg.vocab_size)[:FLEET_AUDIT]
     torch.cuda.reset_peak_memory_stats()
     out = {"tokens_per_s": {}}
+    compiles0 = _compile_rows("decode_chunk").get("decode_chunk", {})
+    n_engines = 0
     log = _TickLog()
     prev = telemetry.configure()
     try:
@@ -5069,6 +5129,7 @@ def _fleet_audit(model, cfg, ref):
                 telemetry.configure(flight=True, flight_capacity=16384)
                 telemetry.add_listener(log)
             eng, hs, user_s, wall_s = _fleet_run(model, traffic, **kw)
+            n_engines += 1
             n_tok = sum(len(h.result()) for h in hs)
             out["tokens_per_s"][name] = {"user": n_tok / user_s, "wall": n_tok / wall_s,
                                          "user_s": user_s, "wall_s": wall_s}
@@ -5077,10 +5138,12 @@ def _fleet_audit(model, cfg, ref):
             if name == "ops_audit":
                 st = eng.stats()
                 out["audit_run"] = {k: st[k] for k in ("audit_checked", "audit_divergences")}
+                out["audit_run"]["schedule_unmatched"] = eng._auditor.schedule_unmatched
             eng.close()
             del eng, hs
         # The watched run: scrapes and a profile while it serves.
         eng = Engine(model, **SERVE_KW, ops_port=0, audit_sample=1.0)
+        n_engines += 1
         url = eng._ops_plane.server.url
         eid = eng.engine_id
         hs = [eng.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
@@ -5117,7 +5180,14 @@ def _fleet_audit(model, cfg, ref):
         explained = _fleet_margins(model, "(a) audit divergences", rows)
         out["divergences"] = [{"token": d["first_diverging_token"],
                                "chunk": d["first_diverging_chunk"],
+                               "schedule_matched": d["schedule_matched"],
                                "gap": m[2], "rank": m[3]} for d, m in zip(details, explained)]
+        out["schedule_unmatched"] = eng._auditor.schedule_unmatched
+        # C6: an audit replays its original's prefill schedule, so bf16
+        # audits through the prefix cache reproduce their streams exactly.
+        _check(not details and out["audit_run"]["audit_divergences"] == 0,
+               f"[fleet] (a) bf16 audits diverged through the prefix cache: watched run "
+               f"{out['divergences']}, the tokens/s run {out['audit_run']}")
         out["streams_diverged_from_ref"] = _fleet_margins(
             model, "(a) streams", [(i, p, h.result(), w) for i, ((p, _), h, w) in
                                    enumerate(zip(traffic, hs, ref))])
@@ -5158,6 +5228,7 @@ def _fleet_audit(model, cfg, ref):
         _free()
         # The same audit traffic without the prefix cache.
         eng, hs, _, _ = _fleet_run(model, traffic, audit_sample=1.0, prefix_cache=False)
+        n_engines += 1
         st = eng.stats()
         prompts = {h._req.trace_id or f"{eng.engine_id}-r{h.rid}": p
                    for h, (p, _) in zip(hs, traffic)}
@@ -5174,6 +5245,16 @@ def _fleet_audit(model, cfg, ref):
         faults.reset("")
     out["divergence_counts"] = {"prefix_cache": len(out["divergences"]),
                                 "no_prefix_cache": out["no_prefix_cache"]["audit_divergences"]}
+    # The compile observatory over (a): one decode-chunk capture an engine
+    # (each serves one model tag), no recompile.
+    row = _compile_rows("decode_chunk").get("decode_chunk", {})
+    out["compiles"] = {"engines": n_engines,
+                       "count": row.get("count", 0) - compiles0.get("count", 0),
+                       "recompiles": row.get("recompiles", 0) - compiles0.get("recompiles", 0),
+                       "time_s": (row.get("time_s") or 0) - (compiles0.get("time_s") or 0),
+                       "max_s": row.get("max_s")}
+    _check(out["compiles"]["count"] == n_engines and out["compiles"]["recompiles"] == 0,
+           f"[fleet] (a) decode-chunk compiles {out['compiles']}: want one an engine, none again")
     out["peak_gb"] = _peak_gb()
     _free()
     return out
@@ -5586,12 +5667,17 @@ def phase_fleet(fa):
     a = stats["audit"]
     print(f"[fleet] (a) llama_7b bf16 audit + ops: tokens/s {json.dumps(a['tokens_per_s'])}; "
           f"tick phases [p50, p99] {json.dumps(a['tick_phases'])}; audit divergences with the "
-          f"prefix cache {a['divergence_counts']['prefix_cache']} {json.dumps(a['divergences'])}, "
-          f"without {a['divergence_counts']['no_prefix_cache']}; corrupt caught "
-          f"{json.dumps(a['corrupt'])}; scrapes {json.dumps(a['scrapes'])}; profile "
-          f"{json.dumps(a['profile'])}; peak {a['peak_gb']:.2f} GB")
+          f"prefix cache {a['divergence_counts']['prefix_cache']} {json.dumps(a['divergences'])}"
+          f" (the tokens/s run {json.dumps(a['audit_run'])}; schedules not matched "
+          f"{a['schedule_unmatched']}), without {a['divergence_counts']['no_prefix_cache']}; "
+          f"corrupt caught {json.dumps(a['corrupt'])}; scrapes {json.dumps(a['scrapes'])}; "
+          f"profile {json.dumps(a['profile'])}; decode_chunk compiles "
+          f"{json.dumps(a['compiles'])}; peak {a['peak_gb']:.2f} GB")
     stats["router"] = _fleet_router(model, cfg, ref)
     print("[fleet] (b) router: " + json.dumps(stats["router"]))
+    print(f"[fleet] (b) FailoverDiverged after C6's repair: "
+          f"{len(stats['router']['failover_diverged'])} of "
+          f"{len(stats['router']['failed_over'])} failed-over streams")
     stats["autoscale"] = _fleet_autoscale(model, cfg, ref)
     print("[fleet] (c) autoscaler: " + json.dumps(stats["autoscale"]))
     args = [model]
@@ -5609,6 +5695,147 @@ def phase_fleet(fa):
     _fleet_small(gpt2.GPT2, gpt2.gpt2_test(), seed=42)
     stats["phase_s"] = time.perf_counter() - t_phase
     print(f"[fleet] peak {stats['peak_gb']:.2f} GB; {stats['phase_s']:.1f} s; {_smi()}")
+    return stats
+
+
+# [observatory]: the compile observatory's storm latch and the port's
+# incident drill.  A model-pool engine on llama_test (OBS_KW, one resident
+# model tag): OBS_STORM_TAGS alternate, so the last tag is captured a third
+# time, its second recompile inside OBS_STORM_WINDOW_S under
+# storm_config(threshold=2); then a quiet window (OBS_QUIET_S) and a warm
+# request clear the latch.  The drills run as child processes
+# (scripts/torch_incident_replay.py --drill / --journal-drill) on the same
+# device, the first writing a trace that scripts/trace_report.py --strict
+# reads.
+OBS_KW = dict(num_slots=2, block_size=8, max_model_len=64, decode_chunk=4)
+OBS_STORM_TAGS = ("tuna", "bass", "tuna", "bass", "tuna")
+OBS_STORM_WINDOW_S = 120.0
+OBS_QUIET_S = 0.05
+OBS_BUDGET = 8
+OBS_CHILD_TIMEOUT_S = 300
+
+
+def storm_check(device="cuda"):
+    """The storm latch on ``device``: the gauge, one
+    ``reason="recompile_storm"`` flight dump with the ledger, the engine
+    OVERLOADED at the latch and READY after its own healthy tick, the latch
+    cleared after a quiet window; ``storm_config`` restored.  Returns the
+    readings (each capture's seconds among them)."""
+    import tempfile
+
+    import numpy as np
+
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.models.llama import Llama, llama_test
+    from torchdistx_tpu_torch.serving import Engine, Health, ModelPool
+    from torchdistx_tpu_torch.telemetry import perf
+
+    torch.manual_seed(SERVE_SEED)
+    model = Llama(llama_test(), device=device)
+    pool = ModelPool(max_resident=1)
+    for i, tag in enumerate(sorted(set(OBS_STORM_TAGS))):
+        pool.register(tag, module=deferred_init(Llama, llama_test(), device_="cuda"),
+                      seed=SERVE_SEED + 1 + i)
+    flight = os.path.join(tempfile.mkdtemp(prefix="tdx-storm-"), "flight.jsonl")
+    prev_cfg = telemetry.configure(flight=flight)
+    prev_storm = perf.storm_config(threshold=2, window_s=OBS_STORM_WINDOW_S)
+    eng = Engine(model, device=device, model_pool=pool, handle_preemption=False, **OBS_KW)
+    gauge = f"serve.recompile_storm{{engine={eng.engine_id}}}"
+    marks = []
+    mark = eng._mark_stalled
+
+    def watched_mark():  # the health the storm leaves the engine in
+        mark()
+        marks.append(eng.health())
+
+    eng._mark_stalled = watched_mark
+    prompt = np.arange(1, 9, dtype=np.int32)
+    row0 = _compile_rows("decode_chunk").get("decode_chunk", {})
+    out = {"capture_s": []}
+    try:
+        for i, tag in enumerate(OBS_STORM_TAGS[:-1]):
+            eng.submit(prompt, max_new_tokens=OBS_BUDGET, key=i, model=tag).result()
+            out["capture_s"].append([tag, eng.decoder(tag).capture_s])
+        _check(not telemetry.gauges().get(gauge) and not marks,
+               "[observatory] the storm latched before its threshold")
+        h = eng.submit(prompt, max_new_tokens=OBS_BUDGET, key=len(OBS_STORM_TAGS),
+                       model=OBS_STORM_TAGS[-1])
+        while not telemetry.gauges().get(gauge):
+            _check(not h.done, "[observatory] the storm did not latch")
+            eng.step()
+        out["capture_s"].append([OBS_STORM_TAGS[-1], eng.decoder(OBS_STORM_TAGS[-1]).capture_s])
+        _check(marks == [Health.OVERLOADED], f"[observatory] the storm marked {marks}")
+        _check(eng.health() is Health.READY,
+               f"[observatory] not READY after its own healthy tick: {eng.health()}")
+        with open(flight) as f:
+            dumps = [r for r in map(json.loads, f) if r.get("type") == "flight_dump"
+                     and r.get("reason") == "recompile_storm"]
+        _check(len(dumps) == 1 and dumps[0]["attrs"]["engine"] == eng.engine_id
+               and dumps[0]["attrs"]["identity"] == OBS_STORM_TAGS[-1]
+               and {"kv_pool", "weights"} <= set(dumps[0]["attrs"]["ledger"]),
+               f"[observatory] the storm's flight dumps {[d['attrs'] for d in dumps]}")
+        h.result()
+        perf.storm_config(window_s=OBS_QUIET_S)
+        time.sleep(2 * OBS_QUIET_S)  # a full window without a recompile
+        eng.submit(prompt, max_new_tokens=OBS_BUDGET, key=len(OBS_STORM_TAGS) + 1,
+                   model=OBS_STORM_TAGS[-1]).result()
+        _check(telemetry.gauges()[gauge] == 0, "[observatory] the latch did not clear")
+        row = _compile_rows("decode_chunk")["decode_chunk"]
+        out.update(count=row["count"] - row0.get("count", 0),
+                   recompiles=row["recompiles"] - row0.get("recompiles", 0),
+                   ledger=dumps[0]["attrs"]["ledger"])
+        _check([out["count"], out["recompiles"]] == [len(OBS_STORM_TAGS), len(OBS_STORM_TAGS)
+                                                     - len(set(OBS_STORM_TAGS))],
+               f"[observatory] storm compiles {out}")
+    finally:
+        perf.storm_config(*prev_storm)
+        telemetry.configure(**prev_cfg)
+        eng.close()
+    _check(perf.storm_config() == prev_storm, "[observatory] storm_config not restored")
+    return out
+
+
+def drill_check(device="cuda"):
+    """``scripts/torch_incident_replay.py --drill`` and ``--journal-drill``
+    on ``device`` in child processes, each to exit 0, and
+    ``scripts/trace_report.py --strict`` on the first's trace.  Returns each
+    child's seconds and last line."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    trace = os.path.join(tempfile.mkdtemp(prefix="tdx-drill-"), "trace.jsonl")
+    out = {}
+    for cmd in (["scripts/torch_incident_replay.py", "--drill", "--device", device],
+                ["scripts/torch_incident_replay.py", "--journal-drill", "--device", device],
+                ["scripts/trace_report.py", trace, "--strict"]):
+        env = dict(os.environ, TDX_TELEMETRY=trace) if cmd[1] == "--drill" else None
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=OBS_CHILD_TIMEOUT_S)
+        name = " ".join(cmd[:2]) if cmd[1].startswith("--") else cmd[0] + " --strict"
+        _check(proc.returncode == 0, f"[observatory] {name} exited {proc.returncode}:\n"
+               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        out[name] = {"s": time.perf_counter() - t0, "last": lines[-1] if lines else ""}
+    return out
+
+
+def phase_observatory(fa):
+    """[observatory]: the storm check and the drills on the card (see the
+    constants above).  The path launches no kernel (read as 0)."""
+    t_phase = time.perf_counter()
+    _reset_counts(fa)  # the observatory path starts here
+    stats = {"storm": storm_check("cuda")}
+    print("[observatory] storm: " + json.dumps(stats["storm"]))
+    stats["drill"] = drill_check("cuda")
+    print("[observatory] drill: " + json.dumps(stats["drill"]))
+    launches = _counts(fa)  # the observatory path ends here
+    print(f"[observatory path] launches: {json.dumps(launches)}")
+    _check(not any(launches.values()), "a flash kernel was launched on the observatory path")
+    _free()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"[observatory] {stats['phase_s']:.1f} s; {_smi()}")
     return stats
 
 
@@ -5846,6 +6073,7 @@ def main() -> int:
     serve_stats = phase_serve(fa)  # the serve path is read inside
     serve_stats["planes"] = phase_serve_planes(fa)  # the serve planes path is read inside
     serve_stats["fleet"] = phase_fleet(fa)  # the fleet path is read inside
+    serve_stats["observatory"] = phase_observatory(fa)  # read inside
     resnet_stats = phase_resnet()
 
     print("[summary] " + json.dumps({

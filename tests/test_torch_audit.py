@@ -215,3 +215,86 @@ def test_drain_waits_out_audits_and_close_aborts_one(fam):
     assert st["audit_aborted"] == 1 and st["audit_checked"] == 1
     assert st["audit_divergences"] == 0
     assert telemetry.counter("audit.aborted").value == before + 1
+
+
+class _Schedules:
+    """A telemetry listener keeping each request's admission
+    (``cached_tokens``) and prefill chunks (``serve.prefill``'s start, n,
+    bucket), by trace id, and which trace id each audit replays."""
+
+    def __init__(self):
+        self.admitted, self.chunks, self.audit_of = {}, {}, {}
+
+    def __call__(self, rec):
+        rid, attrs = rec.get("rid"), rec.get("attrs") or {}
+        if rid is None:
+            return
+        if rec.get("name") == "req.submitted" and "audit_of" in attrs:
+            self.audit_of[rid] = attrs["audit_of"]
+        elif rec.get("name") == "req.admitted":
+            self.admitted.setdefault(rid, []).append(attrs["cached_tokens"])
+        elif rec.get("type") == "span" and rec.get("name") == "serve.prefill":
+            self.chunks.setdefault(rid, []).append(
+                (attrs["start"], attrs["n"], attrs["bucket"]))
+
+
+C6_KW = dict(ENGINE_KW, prefill_chunk=8, min_prefill_bucket=4)
+
+
+def test_audit_replays_the_originals_prefill_schedule(fam):
+    """C6: an audit replay's prefix match stops where its original's
+    prefill started, so its admission maps as many cached tokens and its
+    prefill runs the same chunks in the same buckets: a request that
+    prefilled from 0 (its pages now cached), one sharing two whole pages
+    with it, and one that fully hits (its last token re-run).  f32: no
+    divergence, every schedule matched."""
+    log = _Schedules()
+    telemetry.add_listener(log)
+    try:
+        eng = port_engine(fam, audit_sample=1.0, **C6_KW)
+        base = prompt_of(20)
+        eng.submit(base, max_new_tokens=6, key=1)
+        eng.drain()
+        eng.submit(np.concatenate([base[:16], prompt_of(6, base=90)]), max_new_tokens=6, key=2)
+        eng.submit(base[:16], max_new_tokens=6, key=3)
+        eng.drain()
+        st = eng.stats()
+        unmatched = eng._auditor.schedule_unmatched
+        eng.close()
+    finally:
+        telemetry.remove_listener(log)
+    assert st["audit_checked"] == 3 and st["audit_divergences"] == 0 and unmatched == 0
+    assert len(log.audit_of) == 3
+    originals = sorted(log.audit_of.values())
+    assert [log.admitted[o] for o in originals] == [[0], [16], [16]]
+    assert [log.chunks[o] for o in originals] == [
+        [(0, 8, 8), (8, 8, 8), (16, 4, 4)], [(16, 6, 8)], [(15, 1, 4)]]
+    for replay, original in log.audit_of.items():
+        assert log.admitted[replay] == log.admitted[original]
+        assert log.chunks[replay] == log.chunks[original]
+
+
+def test_fork_sibling_audit_is_checked_and_its_schedule_recorded(fam):
+    """A fork sibling re-runs only its last prompt token over the parent's
+    partial page, which one submit cannot repeat: its audit is still
+    sampled and checked (no divergence in f32), and counts as a schedule
+    that did not match; the parent's matched."""
+    log = _Schedules()
+    telemetry.add_listener(log)
+    try:
+        eng = port_engine(fam, audit_sample=1.0, **C6_KW)
+        h = eng.submit(prompt_of(12), max_new_tokens=6, key=4, n=2)
+        eng.drain()
+        st = eng.stats()
+        unmatched = eng._auditor.schedule_unmatched
+        eng.close()
+    finally:
+        telemetry.remove_listener(log)
+    assert [s.done and s.error is None for s in h.siblings] == [True, True]
+    assert st["audit_checked"] == 2 and st["audit_divergences"] == 0
+    assert unmatched == 1
+    parent, sibling = (s._req.trace_id for s in h.siblings)
+    assert log.chunks[parent] == [(0, 8, 8), (8, 4, 4)] and log.chunks[sibling] == [(11, 1, 4)]
+    replays = {o: r for r, o in log.audit_of.items()}
+    assert log.chunks[replays[parent]] == log.chunks[parent]
+    assert log.chunks[replays[sibling]] == [(8, 4, 4)]

@@ -781,3 +781,58 @@ def test_fleet_memory_plan_and_autoscaler_bounds():
     assert plan["total"] < chip_smoke.FLEET_PEAK_LIMIT
     cfg = AutoscaleConfig(**chip_smoke.FLEET_SCALE).validate()
     assert (cfg.min_replicas, cfg.max_replicas) == (1, 3)
+
+
+def test_fleet_audit_schedules_and_compiles_on_a_small_model():
+    """[fleet] (a)'s audited run on the CPU (the schedules depend on the
+    traffic, not the weights): with the prefix cache on, every one of the
+    FLEET_AUDIT audits is checked, replays its original's prefill schedule
+    (C6) and reproduces its stream; the engine captures its decode chunk
+    once, with no recompile, as (a) gates on the card."""
+    from torchdistx_tpu_torch.serving import Engine
+
+    before = chip_smoke._compile_rows("decode_chunk").get("decode_chunk", {})
+    eng = Engine(_tiny_serving_llama(), device="cpu", audit_sample=1.0, **chip_smoke.SERVE_KW)
+    traffic = chip_smoke.serve_traffic(32000)[:chip_smoke.FLEET_AUDIT]
+    hs = [eng.submit(p, max_new_tokens=b, key=i) for i, (p, b) in enumerate(traffic)]
+    eng.drain()
+    st = eng.stats()
+    assert st["prefix_hits"] >= 1 and all(h.error is None for h in hs)
+    assert st["audit_checked"] == chip_smoke.FLEET_AUDIT and st["audit_divergences"] == 0
+    assert eng._auditor.schedule_unmatched == 0
+    row = chip_smoke._compile_rows("decode_chunk")["decode_chunk"]
+    assert row["count"] - before.get("count", 0) == 1
+    assert row["recompiles"] == before.get("recompiles", 0)
+    eng.close()
+
+
+def test_compile_rows_read_the_observatory():
+    """[build]'s and [fleet]'s readings: each program's count, recompiles
+    and seconds from the observatory's families."""
+    from torchdistx_tpu_torch.telemetry import perf
+
+    perf.record_compile("kernel:tdx_rows_a", 1.5)
+    perf.record_compile("kernel:tdx_rows_a", 0.25)
+    perf.record_compile("kernel:tdx_rows_b", 2.0)
+    rows = chip_smoke._compile_rows("kernel:tdx_rows_")
+    assert rows == {"kernel:tdx_rows_a": {"count": 2, "recompiles": 0, "time_s": 1.75,
+                                          "max_s": 1.5},
+                    "kernel:tdx_rows_b": {"count": 1, "recompiles": 0, "time_s": 2.0,
+                                          "max_s": 2.0}}
+
+
+def test_storm_check_on_the_cpu():
+    """The card's storm check, run here: the latch, one dump with the
+    ledger, OVERLOADED then READY, cleared after a quiet window, five
+    captures of which three are recompiles, storm_config restored."""
+    out = chip_smoke.storm_check("cpu")
+    assert out["count"] == 5 and out["recompiles"] == 3
+    assert [tag for tag, _ in out["capture_s"]] == list(chip_smoke.OBS_STORM_TAGS)
+    assert all(s > 0 for _, s in out["capture_s"])
+
+
+def test_drill_check_runs_the_drills_in_children_on_the_cpu():
+    out = chip_smoke.drill_check("cpu")
+    assert "chunk 6" in out["scripts/torch_incident_replay.py --drill"]["last"]
+    assert "chunk 6" in out["scripts/torch_incident_replay.py --journal-drill"]["last"]
+    assert "scripts/trace_report.py --strict" in out

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``torchdistx_tpu_torch``
-and ``chip_smoke`` brings in neither ``jax`` nor ``torchdistx_tpu``; and an
-entry point given no device on a host without CUDA raises instead of
-running on the CPU."""
+and ``chip_smoke``, and running ``scripts/torch_incident_replay.py``'s drill,
+brings in neither ``jax`` nor ``torchdistx_tpu``; and an entry point given
+no device (the drill: its default ``cuda``) on a host without CUDA raises
+instead of running on the CPU."""
 
 import os
 import pkgutil
@@ -32,6 +33,8 @@ from torchdistx_tpu_torch.parallel.train_step import make_slowmo_train_step, mak
 from torchdistx_tpu_torch.serving import Engine, ModelPool, RequestJournal
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+import torch_incident_replay  # noqa: E402
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -43,6 +46,11 @@ for name in names:
 import chip_smoke
 from torchdistx_tpu_torch.telemetry import ops
 assert ops._load_reconstruct() is not None  # scripts/trace_report, for /requests
+import contextlib, io
+sys.path.insert(0, "scripts")
+import torch_incident_replay
+with contextlib.redirect_stdout(io.StringIO()):
+    assert torch_incident_replay.main(["--drill", "--device", "cpu"]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "torchdistx_tpu" or m.startswith("torchdistx_tpu."))
@@ -115,13 +123,14 @@ def _no_cuda():
                        ops_port=0),
         lambda: materialize_standby(tllama.Llama, tllama.llama_test()),
         lambda: engine_factory(tllama.Llama(tllama.llama_test(), device="cpu")),
+        lambda: torch_incident_replay.main(["--drill"]),
     ],
     ids=["resolve_device", "Llama", "llama_from_jax_params", "GPT2", "MoE",
          "gpt2_from_jax_params", "make_train_step", "make_train_step_moe",
          "materialize_module_torch", "materialize_tensor_torch", "make_mesh", "initialize",
          "make_hybrid_mesh", "make_slowmo_train_step_init_fn", "Engine",
          "Engine_model_pool", "Engine_journal", "Engine_audit_ops", "materialize_standby",
-         "engine_factory"],
+         "engine_factory", "torch_incident_replay_drill"],
 )
 def test_device_none_raises_without_cuda(entry):
     _no_cuda()

@@ -25,6 +25,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from . import _tape
 from ._tape import OpNode, Tape, TensorRecord  # noqa: F401 (public graph types)
 from .fake import FakeTensor, _fake_handler, _suppress_cuda_lazy_init
+from .telemetry import perf as _perf
 
 __all__ = [
     "deferred_init",
@@ -207,7 +208,7 @@ def materialize_tensor(
     record = _get_record(tensor)
     if record is None:
         return tensor
-    with _replay_device_override(device):
+    with _replay_device_override(device), _perf.program("materialize"):
         _replay(_tape.build_call_stack(record.node))
     return _wrap_materialized(tensor, record.node, record.index)
 
@@ -255,7 +256,7 @@ def materialize_module(
     for _, _, fake in targets:
         for node in _tape.build_call_stack(_get_record(fake).node):
             nodes[node.op_nr] = node
-    with _replay_device_override(device):
+    with _replay_device_override(device), _perf.program("materialize"):
         _replay(nodes[nr] for nr in sorted(nodes))
     for container, key, fake in targets:
         record = _get_record(fake)

@@ -54,6 +54,7 @@ import torch.utils._pytree as pytree
 
 from . import _tape
 from . import telemetry as _telemetry
+from .telemetry import perf as _perf
 from ._device import resolve_device
 from ._tape import OpNode, OutputRef
 from .deferred_init import _get_record, is_deferred
@@ -361,7 +362,7 @@ def materialize_tensor_torch(
     def finish(_, value):
         out["value"] = _finish(value, dtype, mesh, spec or PartitionSpec())
 
-    with _telemetry.span("materialize.tensor"):
+    with _telemetry.span("materialize.tensor"), _perf.program("materialize"):
         _replay_targets([(record.node, record.index)], [stack], seed, replay_device, finish)
     return out["value"]
 
@@ -415,7 +416,8 @@ def materialize_module_torch(
         def finish(i, value):
             results[named[i][0]] = _finish(value, dtype, place, specs[i])
 
-        _replay_targets(targets, stacks, seed, replay_device, finish, ordinals)
+        with _perf.program("materialize"):
+            _replay_targets(targets, stacks, seed, replay_device, finish, ordinals)
         results = {name: results[name] for name, _ in named}
     except BaseException as e:
         span.end(error=type(e).__name__)

@@ -7,6 +7,12 @@ another directory) with a plain C interface, at first use, and is rebuilt
 when a source in ``csrc/`` is newer than the library.  Stale sources are
 compiled in parallel, one nvcc process each.  A failed build raises with
 nvcc's output.  Nothing here runs at import.
+
+Each build is a compile in the compile observatory
+(:mod:`torchdistx_tpu_torch.telemetry.perf`): ``compile.count`` and
+``compile.time_s`` under ``program="kernel:<name>"``, timed by its nvcc
+process's wall clock; a library that :func:`load` finds fresh on disk
+counts once as a program load, timed by its ``dlopen``.
 """
 
 from __future__ import annotations
@@ -16,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+from ...telemetry import perf as _perf
 
 __all__ = ["build", "load", "sources", "build_logs", "BUILD_DIR", "SRC_DIR"]
 
@@ -38,6 +47,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory / spill report) per kernel
 # source, from the builds this process ran.
 build_logs: Dict[str, str] = {}
+# Sources this process compiled: their libraries' loads are not counted
+# again as program loads.
+_built: set = set()
 
 
 def _nvcc() -> str:
@@ -82,25 +94,34 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    outs: Dict[str, str] = {}
+    ended: Dict[str, float] = {}
+
+    def wait(name, proc):  # each build's own end, whatever order they finish in
+        outs[name] = proc.communicate()[0]
+        ended[name] = time.perf_counter()
+
     for name in stale:
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            ),
-            tmp,
-        )
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        procs[name] = (proc, tmp, time.perf_counter())
+    waiters = [threading.Thread(target=wait, args=(name, procs[name][0])) for name in stale]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
     failed = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        build_logs[name] = out
+    for name, (proc, tmp, t0) in procs.items():
+        build_logs[name] = outs[name]
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{outs[name]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, _lib_path(name))
+            _built.add(name)
+            _perf.record_compile(f"kernel:{name}", ended[name] - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return stale
@@ -112,6 +133,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(_lib_path(name)))
+            if name not in _built:  # found fresh on disk: a program load
+                _perf.record_compile(f"kernel:{name}", time.perf_counter() - t0)
             _libs[name] = lib
         return lib

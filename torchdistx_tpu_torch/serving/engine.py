@@ -100,7 +100,10 @@ migrate_out` exports a live stream's pages as pinned host tensors,
 
 The HBM ledger (:mod:`torchdistx_tpu_torch.telemetry.perf`) carries the
 engine's ``weights`` (the parameters and their ``prep_decode`` copy) and
-``kv_pool`` rows.
+``kv_pool`` rows.  Its compile observatory counts each decode chunk's
+capture under ``compile.count{program=decode_chunk}``, one a (engine,
+model tag); a re-capture is a recompile, and a storm of them marks the
+engine OVERLOADED.
 
 Fault sites (``TDX_FAULT``) besides those above: ``serve.swap`` — fails
 one swap-out before its gather (read-only), and the preemption falls back
@@ -210,6 +213,9 @@ _T_MIGRATIONS_OUT = _telemetry.counter("serve.migrations_out")
 _T_MIGRATIONS_IN = _telemetry.counter("serve.migrations_in")
 _T_MIGRATED_PAGES = _telemetry.counter("serve.migrated_pages")
 _T_FORKS = _telemetry.counter("serve.forks")
+# The decode chunk in the compile observatory: one program a (engine,
+# model tag); a capture past an identity's first is a recompile.
+_GP_DECODE = _perf.GraphProgram("decode_chunk")
 _G_RUNNING = _telemetry.gauge("serve.running_slots")
 _G_DECODE_TPS = _telemetry.gauge("serve.decode_tok_s")
 _G_TTFT = _telemetry.gauge("serve.ttft_s")
@@ -322,7 +328,13 @@ class DecodeChunk:
     the first call warms the function up on a side stream, captures it as
     one graph and replays it; every later call replays.  Off CUDA it runs
     eagerly.  :meth:`run_eager` runs the same function eagerly on the
-    current buffers (for comparison on the card)."""
+    current buffers (for comparison on the card).
+
+    :attr:`n_captures` counts its captures and :attr:`capture_s` is the
+    last one's seconds (warm-up and capture, between device syncs); off
+    CUDA the first eager run stands in for the capture, so the compile
+    observatory (:class:`~torchdistx_tpu_torch.telemetry.perf.
+    GraphProgram`) counts the same on both devices."""
 
     def __init__(self, model, weights, cache, *, num_slots: int, table_width: int,
                  n_steps: int, temperature: float, top_k: Optional[int],
@@ -344,6 +356,8 @@ class DecodeChunk:
         self.out = torch.zeros((n_steps, s), **kw)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.replays = 0
+        self.n_captures = 0
+        self.capture_s: Optional[float] = None
 
     @torch.no_grad()
     def run_eager(self) -> None:
@@ -371,6 +385,8 @@ class DecodeChunk:
     def capture(self) -> None:
         """Warm up on a side stream, then capture :meth:`run_eager` as one
         CUDA graph over the current buffers and pool."""
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         side = _WARMUP_STREAMS.get(self.device)
         if side is None:
@@ -386,6 +402,9 @@ class DecodeChunk:
         except Exception as err:
             raise GraphCaptureError(f"capturing the decode chunk failed: {err!r}") from err
         self.graph = graph
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.n_captures += 1
         _T_GRAPH_CAPTURES.add()
 
     def replay(self) -> None:
@@ -403,8 +422,13 @@ class DecodeChunk:
         self.load(tokens, positions, n_gen, done, keys, tables)
         if self.device.type == "cuda":
             self.replay()
-        else:
+        elif self.n_captures:
             self.run_eager()
+        else:  # off CUDA the first run stands in for the capture
+            t0 = time.perf_counter()
+            self.run_eager()
+            self.capture_s = time.perf_counter() - t0
+            self.n_captures = 1
         if timer is not None:
             timer.begin("device_wait")
         return self.out.cpu().numpy()
@@ -759,6 +783,7 @@ class Engine:
         trace_id: Optional[str] = None,
         hop: int = 0,
         _audit_of: Optional[str] = None,
+        _prefill_start: Optional[int] = None,
     ) -> RequestHandle:
         """Queue a request; returns its streaming handle.
 
@@ -787,6 +812,11 @@ class Engine:
         or needing more pages than the engine owns) raises ``ValueError``
         here.  Raises :class:`.lifecycle.EngineDraining` when draining or
         stopped, and sheds per ``shed_policy`` when overloaded.
+
+        ``_audit_of`` / ``_prefill_start`` (the shadow auditor's): the
+        trace id of the request this one replays, and the position that
+        request's prefill started at; the replay's prefix match stops there,
+        so it prefills the same chunks in the same buckets.
         """
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
@@ -841,7 +871,8 @@ class Engine:
         if self.prefix is not None:
             hashes = page_hashes(prompt, self.block_size,
                                  pool_entry.namespace if pool_entry is not None else b"")
-            suffix = max(1, len(prompt) - self.prefix.probe(hashes) * self.block_size)
+            hit = self.prefix.probe(hashes[:self._audit_pages(_prefill_start)])
+            suffix = max(1, len(prompt) - hit * self.block_size)
         n_chunks = -(-suffix // self.prefill_chunk)
         if self.detector.overloaded(
             len(self.scheduler), self.max_prefills_per_tick,
@@ -904,6 +935,7 @@ class Engine:
                 digest=_audit.DeterminismDigest(prompt, k), audit_of=_audit_of,
                 model_tag=model, model_version=model_version,
                 fork_of=None if i == 0 else parent_rid, fork_index=i,
+                audit_start=_prefill_start,
             )
             handle._req = req
             extra = {}
@@ -1944,7 +1976,7 @@ class Engine:
         elif self.prefix is not None:
             if req.hashes is None:
                 req.hashes = page_hashes(req.prompt, self.block_size)
-            shared = self.prefix.match(req.hashes)
+            shared = self.prefix.match(req.hashes[:self._audit_pages(req.audit_start)])
             if shared:
                 self.allocator.share(shared)
                 cached_len = len(shared) * self.block_size
@@ -1970,6 +2002,10 @@ class Engine:
         # logits, so that token is recomputed; its write lands in the
         # final shared page, which copy-on-write privatizes first.
         req.prefill_pos = min(cached_len, seq_len - 1)
+        if req.handle._tokens:
+            req.reprefilled = True
+        else:
+            req.prefill_start = req.prefill_pos
         self._slot_req[slot] = req
         self._prefill_q.append(slot)
         if req.admit_t is None:
@@ -1977,6 +2013,15 @@ class Engine:
             self._h_queue_wait.observe(req.admit_t - req.submit_t)
         self._event("req.admitted", req, slot=slot, cached_tokens=cached_len,
                     n_blocks=len(req.blocks))
+
+    def _audit_pages(self, start: Optional[int]) -> Optional[int]:
+        """How many cached pages an audit replay whose original prefilled
+        from ``start`` may map (None: no cap).  ``ceil(start / block_size)``:
+        a page-aligned start keeps exactly the pages before it, and a full
+        hit (``start == len(prompt) - 1``) keeps every page, so the replay
+        re-runs the last token into its copy of the last page, as the
+        original did."""
+        return None if start is None else -(-start // self.block_size)
 
     def _advance_prefills(self) -> int:
         """Dispatch up to ``max_prefills_per_tick`` prefill chunks,
@@ -2324,8 +2369,8 @@ class Engine:
         try:
             args = (self._tokens, self._positions, self._n_gen, done, self._keys, tables)
             # The timer marks the chunk's read-back as device_wait.
-            out = (self.decoder(tag)(*args) if tt is None
-                   else self.decoder(tag)(*args, timer=tt))
+            kw = {} if tt is None else {"timer": tt}
+            out = _GP_DECODE.call(self.decoder(tag), self, tag, *args, **kw)
         except (KeyboardInterrupt, SystemExit, GraphCaptureError, faults.FatalInjectedFault):
             sp.cancel()
             raise
@@ -2497,6 +2542,7 @@ class Engine:
         discarded (the last committed token is the pending input)."""
         toks = req.handle._tokens
         seq = req.replay_seq()
+        req.reprefilled = True
         _, table = self._prefill_dispatch(req, seq)
         self._install_slot(slot, req, toks[-1], len(seq), table, n_gen=len(toks),
                            emitted=len(toks))

@@ -69,6 +69,15 @@ class Request:
     table: Optional[np.ndarray] = None  # (M,) page table being filled
     prefill_pos: int = 0  # next prompt position to prefill
     n_cached: int = 0  # prompt tokens served from the prefix cache
+    # The prefill schedule a shadow audit must replay: where the prefill
+    # that produced the first token started (the last admission with no
+    # committed token), and whether committed tokens were ever re-prefilled
+    # (a replay preemption, a recovery, a resume), which one submit cannot
+    # reproduce.  ``audit_start`` caps an audit replay's prefix match so its
+    # prefill starts where the original's did.
+    prefill_start: Optional[int] = None
+    reprefilled: bool = False
+    audit_start: Optional[int] = None
     hashes: Optional[list] = None  # chained full-page hashes of the prompt
     hit_counted: bool = False  # prefix hit recorded (once per request)
     # QoS context (inert under the FIFO scheduler; see qos.py):

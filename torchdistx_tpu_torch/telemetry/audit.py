@@ -176,7 +176,7 @@ class _AuditRecord:
     """One completed request's identity, queued for shadow re-execution."""
 
     __slots__ = ("trace_id", "rid", "prompt", "key", "max_new", "digest", "tokens",
-                 "model_tag")
+                 "model_tag", "prefill_start", "reprefilled")
 
     def __init__(self, req, engine_id: str):
         self.trace_id = req.trace_id or f"{engine_id}-r{req.rid}"
@@ -189,6 +189,11 @@ class _AuditRecord:
         # A replay must run the same weights: the model version folds into
         # every digest token, so a wrong-model replay reads as a divergence.
         self.model_tag = getattr(req, "model_tag", "default")
+        # The prefill schedule the replay repeats: where the original's
+        # prefill started, and whether its committed tokens were ever
+        # re-prefilled (a schedule one submit cannot repeat).
+        self.prefill_start = getattr(req, "prefill_start", None)
+        self.reprefilled = bool(getattr(req, "reprefilled", False))
 
 
 class ShadowAuditor:
@@ -202,7 +207,15 @@ class ShadowAuditor:
     only while the engine's queue is empty: shadow traffic never delays,
     sheds or preempts user work.  A replay goes through the ordinary
     ``submit`` path (same chunked prefill, same decode graph, same prefix
-    cache), so auditing captures no new graph.
+    cache), so auditing captures no new graph.  It replays in the
+    original's prefill schedule: its prefix match stops where the original's
+    prefill started, so every prefill chunk and bucket is the original's,
+    and a bf16 replay runs the original's GEMM shapes.  Where that cannot
+    hold (the index lost the original's pages, a fork sibling's one-token
+    re-run off a partial page, committed tokens re-prefilled by a replay
+    preemption or a recovery), the audit still runs; it counts in
+    ``schedule_unmatched`` and a divergence's detail says
+    ``schedule_matched: False``.
 
     The pending queue is bounded (``max_pending``): under saturation the
     oldest un-started audits drop (``audit.dropped``).  Replays killed by a
@@ -224,6 +237,7 @@ class ShadowAuditor:
         self.divergences = 0
         self.dropped = 0
         self.aborted = 0
+        self.schedule_unmatched = 0
         self.divergence_detail: List[Dict[str, Any]] = []
 
     # -- engine hooks -------------------------------------------------------
@@ -268,7 +282,7 @@ class ShadowAuditor:
                 rec.prompt, max_new_tokens=rec.max_new, key=rec.key, tenant="_audit",
                 priority=self.priority,
                 model=None if rec.model_tag == "default" else rec.model_tag,
-                _audit_of=rec.trace_id)
+                _audit_of=rec.trace_id, _prefill_start=rec.prefill_start)
         except Exception:  # noqa: BLE001 — overloaded/draining: retry later
             return
         self._pending.popleft()
@@ -298,6 +312,10 @@ class ShadowAuditor:
         rec, _ = entry
         self.checked += 1
         _T_CHECKED.add()
+        matched = (not rec.reprefilled and not getattr(req, "reprefilled", False)
+                   and getattr(req, "prefill_start", None) == rec.prefill_start)
+        if not matched:
+            self.schedule_unmatched += 1
         got = req.digest.hexdigest()
         if got == rec.digest:
             return
@@ -313,6 +331,9 @@ class ShadowAuditor:
             "replayed_tokens": replayed,
             "first_diverging_token": idx,
             "first_diverging_chunk": token_chunk(idx, getattr(self.engine, "decode_chunk", 1)),
+            "schedule_matched": matched,
+            "prefill_start": rec.prefill_start,
+            "replay_prefill_start": getattr(req, "prefill_start", None),
         }
         self.divergence_detail.append(detail)
         record_divergence(self.engine, **detail)
