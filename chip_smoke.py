@@ -711,6 +711,39 @@ def _bwd_bound(kernel, b, s, hq, hkv, d, dtype, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _instance(kernel, d, dtype):
+    """The CUDA kernel instance that a launch of ``kernel`` runs at kernel
+    head dim ``d`` (64, 128, 256 or 512) in ``dtype``: the dispatch of
+    ``csrc/<kernel>.cu``, named as the ptxas report names it (namespaces
+    left out).  bf16 takes TMA + wgmma at D 64 and 128, and at 256 for the
+    forward and dk/dv; the rest runs on the CUDA cores."""
+    bf16 = dtype == torch.bfloat16
+    elem = "__nv_bfloat16" if bf16 else "float"
+    if kernel == "flash_fwd":
+        return (f"flash_fwd_bf16_wgmma<(int){d}>" if bf16 and d <= 256
+                else f"flash_fwd_f32<{elem}, (int){d}>")
+    if kernel == "flash_bwd_dkv" and bf16 and d == 256:
+        return "flash_bwd_dkv_wgmma_wide<(int)256>"
+    if bf16 and d <= 128:
+        return f"{kernel}_wgmma<(int){d}>"
+    if kernel == "flash_bwd_dq":
+        return f"bwd_dq_f32<{elem}, (int){d}>"
+    return f"bwd_kv_f32<{elem}, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
+
+
+# The instances this slice added (TMA + wgmma at D 256, bf16), whose ptxas
+# report the build prints and must show without spills.
+D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
+              for kernel in ("flash_fwd", "flash_bwd_dkv")}
+
+
+def _in_report(report, instance):
+    """The ptxas report's entry of ``instance`` (its name ends the key,
+    after the namespaces), or None."""
+    return next((v for k, v in report.items() if k == instance or k.endswith("::" + instance)),
+                None)
+
+
 def _ptxas_report(logs):
     """{demangled kernel: {registers, spill_stores, spill_loads, stack}} from
     nvcc's -Xptxas -v output."""
@@ -760,6 +793,11 @@ def phase_build():
     _check(bool(report) or not built, "no ptxas report from the build")
     wide = {k: v for k, v in report.items() if "(int)512" in k}
     print("[build] the D = 512 instances: " + json.dumps(wide))
+    d256 = {name: _in_report(report, name) for name in D256_WGMMA.values()}
+    print("[build] the bf16 D = 256 forward and dk/dv (TMA + wgmma): " + json.dumps(d256))
+    if {"flash_fwd", "flash_bwd_dkv"} <= set(built):
+        _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
+                   for r in d256.values()), f"[build] D = 256 instances spill: {d256}")
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -831,12 +869,16 @@ def phase_kernels():
         row = {
             "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-            "max_abs_err": err_out, "lse_max_abs_err": err_lse, "inputs_unchanged": True,
+            "instance": _instance("flash_fwd", d, dtype), "max_abs_err": err_out,
+            "lse_max_abs_err": err_lse, "inputs_unchanged": True,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         for prefix, fn in calls.items():
-            row[prefix + "ms"] = _time_ms(fn)
-            row[prefix + "device_ms"] = _device_ms(fn)
+            # The plain version (1-19 ms a call) at the backward rows' depth.
+            plain = prefix == "plain_"
+            row[prefix + "ms"] = (_time_ms(fn, warmup=1, reps=3, calls=2) if plain
+                                  else _time_ms(fn))
+            row[prefix + "device_ms"] = _device_ms(fn, calls=2 if plain else 10)
         print("[flash_fwd] " + json.dumps(row))
         rows.append(row)
         del q, k, v, out, lse, ref_out, ref_lse, qt, kt, vt
@@ -898,7 +940,8 @@ def phase_bwd_kernels():
             row = {
                 "kernel": kernel, "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv,
                 "D": d, "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-                "max_abs_err": err, "max_abs_ref": scale, "inputs_unchanged": True,
+                "instance": _instance(kernel, d, dtype), "max_abs_err": err,
+                "max_abs_ref": scale, "inputs_unchanged": True,
                 "same_bits_twice": same,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "ms": _time_ms(run), "device_ms": _device_ms(run),
@@ -1084,7 +1127,7 @@ _KERNEL_NAMES = {
     "flash_fwd": ("flash_fwd_bf16",),
     "flash_bwd_fused": ("flash_bwd_fused_wgmma<",),
     "flash_bwd_dq": ("flash_bwd_dq_wgmma<",),
-    "flash_bwd_dkv": ("flash_bwd_dkv_wgmma<",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_wgmma",),  # <64>, <128>, _wide<256>
 }
 
 
@@ -1390,6 +1433,7 @@ def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
                  "plain_": lambda: fa.flash_attention_reference(q, k, v, causal=True),
                  "library_": lambda: sdpa(qt, kt, vt, is_causal=True)}
         fwd = dict(zip(("bound_ms", "bound_by"), _flash_bound(b, s, hq, hkv, d, dtype, True)))
+        fwd["instance"] = _instance("flash_fwd", fa._kernel_head_dim(d), dtype)
         fwd["max_abs_err"] = err["out"]
         for prefix, fn in calls.items():
             fwd[prefix + "ms"] = _time_ms(fn, **({} if prefix != "plain_" else
@@ -1420,6 +1464,7 @@ def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
             if timed:
                 bound_ms, bound_by = _bwd_bound(kernel, b, s, hq, hkv, d, dtype, True)
                 timing[kernel] = {
+                    "instance": _instance(kernel, fa._kernel_head_dim(d), dtype),
                     "max_abs_err": err[kernel], "bound_ms": bound_ms, "bound_by": bound_by,
                     "ms": _time_ms(run), "device_ms": _device_ms(run),
                     "plain_ms": _time_ms(plain, warmup=1, reps=3, calls=2),
@@ -5849,6 +5894,7 @@ def _kernel_entry(name, kernel, row, launches):
     return {
         "name": name, "route": "cuda",
         "source": f"torchdistx_tpu_torch/ops/cuda/csrc/{kernel}.cu",
+        "instance": row.get("instance"),
         "replaces": f"torchdistx_tpu/ops/pallas/flash_attention.py:{PALLAS_LINES[kernel]}",
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -5942,18 +5988,34 @@ def main() -> int:
     print("[env] TF32 off for matmuls and cuDNN; torch", torch.__version__,
           "cuda", torch.version.cuda, "python", sys.version.split()[0])
     t_start = time.perf_counter()
+    # Wall seconds of each part of the script, each from the end of the one
+    # before (printed as "[phase seconds]" and kept in the summary), so the
+    # script's time against its limit can be read part by part.
+    phase_s, t_last = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
 
     from torchdistx_tpu_torch.models.llama import llama_7b
     from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
 
     ptxas = phase_build()
+    lap("build")
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
+    if ptxas:  # every row's instance is one that the build compiled
+        missing = sorted({r["instance"] for r in rows + bwd_rows
+                          if _in_report(ptxas, r["instance"]) is None})
+        _check(not missing, f"phase 2 instances absent from the build: {missing}")
+    lap("kernels")
     head_dim_stats = phase_head_dims(fa)
     _reset_counts(fa)  # the D = 256 path starts here
     wide_stats = phase_wide_llama(fa)
     wide_launches = _counts(fa)  # the D = 256 path ends here
     print(f"[head dims path] launches: {json.dumps(wide_launches)}")
+    lap("head_dims")
     for kernel, n in wide_launches.items():
         _check(n > 0, f"{kernel} was not launched on the D = 256 path")
     _free()  # the forward path's allocation checks start from a settled heap
@@ -5973,6 +6035,7 @@ def main() -> int:
     fwd_peak = torch.cuda.max_memory_allocated()
     del logits
     _free()
+    lap("forward_path")
 
     _reset_counts(fa)  # the train path starts here
     train_stats = phase_train(cfg, fa, model)
@@ -5982,8 +6045,10 @@ def main() -> int:
         _check(n > 0, f"{kernel} was not launched on the train path")
     del model
     _free()
+    lap("train_path")
 
     gate_stats = phase_train_gates(cfg)
+    lap("train_gates")
 
     _reset_counts(fa)  # the fit path starts here
     fit_stats = phase_fit(cfg, fa)
@@ -5992,8 +6057,10 @@ def main() -> int:
     for kernel in ("flash_fwd", "flash_bwd_fused"):
         _check(fit_launches[kernel] > 0, f"{kernel} was not launched on the fit path")
 
+    lap("fit")
     mat_gate_stats = phase_materialize_gates(cfg)
     _free()
+    lap("materialize")
 
     _reset_counts(fa)  # the SlowMo path starts here
     slowmo_stats = phase_slowmo(cfg, fa)
@@ -6003,26 +6070,33 @@ def main() -> int:
         _check(slowmo_launches[kernel] > 0, f"{kernel} was not launched on the SlowMo path")
     _check(slowmo_launches["flash_bwd_dq"] == slowmo_launches["flash_bwd_dkv"] == 0,
            "the streamed pair was launched on the SlowMo path")
+    lap("slowmo")
     replica_stats = phase_slowmo_replicas()
+    lap("slowmo_replicas")
     replica_stats["ranks"] = phase_slowmo_ranks()
     _free()
+    lap("slowmo_ranks")
 
     mesh_stats = phase_mesh(cfg, fa, train_stats)
     mesh_launches = mesh_stats["path_launches"]  # read around each mesh step
     print(f"[mesh path] launches: {json.dumps(mesh_launches)}")
     for kernel, n in mesh_launches.items():
         _check(n > 0, f"{kernel} was not launched on the mesh path")
+    lap("mesh")
     mesh_stats["ranks"] = phase_mesh_ranks(mesh_stats)
     _free()
+    lap("mesh_ranks")
 
     pipe_stats, pipe_refs = phase_pipeline(cfg, fa, train_stats)
     pipe_launches = pipe_stats["path_launches"]  # read around each pipeline step
     print(f"[pipeline path] launches: {json.dumps(pipe_launches)}")
     for kernel in ("flash_fwd", "flash_bwd_fused"):
         _check(pipe_launches[kernel] > 0, f"{kernel} was not launched on the pipeline path")
+    lap("pipeline")
     pipe_stats["ranks"] = phase_pipeline_ranks(pipe_refs)
     del pipe_refs
     _free()
+    lap("pipeline_ranks")
 
     from torchdistx_tpu_torch.models import gpt2, moe
 
@@ -6048,6 +6122,7 @@ def main() -> int:
     _free()
     gpt2_stats["gpt2_test"] = _family_on_card(fa, gpt2, gpt2.gpt2_test(), seed=13,
                                               label="gpt2")
+    lap("gpt2")
 
     _reset_counts(fa)  # the MoE path starts here
     model, tokens, moe_stats = phase_moe(fa)
@@ -6066,15 +6141,23 @@ def main() -> int:
     _check(sum(moe_stats["moe_test_dropping"]["dropped_choices_by_layer"]) > 0,
            "moe_test dropped no choice at its dropping capacity factor")
     _free()
+    lap("moe")
     moe_stats["ep_ranks"] = phase_ep_ranks(phase_ep_reference())
     ep_launches = moe_stats["ep_ranks"]["launches_all_ranks"]
     _free()
+    lap("ep_ranks")
 
     serve_stats = phase_serve(fa)  # the serve path is read inside
+    lap("serve")
     serve_stats["planes"] = phase_serve_planes(fa)  # the serve planes path is read inside
+    lap("serve_planes")
     serve_stats["fleet"] = phase_fleet(fa)  # the fleet path is read inside
+    lap("fleet")
     serve_stats["observatory"] = phase_observatory(fa)  # read inside
+    lap("observatory")
     resnet_stats = phase_resnet()
+    lap("resnet")
+    print("[phase seconds] " + json.dumps(phase_s))
 
     print("[summary] " + json.dumps({
         **init_stats, **gen_stats, **fwd_stats, "forward_first_ms": first_ms,
@@ -6084,7 +6167,8 @@ def main() -> int:
         "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "mesh": mesh_stats,
         "pipeline": pipe_stats, "resnet": resnet_stats, "gpt2": gpt2_stats,
         "moe": moe_stats, "serve": serve_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
-        "script_s": time.perf_counter() - t_start,
+        "ptxas_d256_wgmma": {n: _in_report(ptxas, n) for n in D256_WGMMA.values()},
+        "phase_s": phase_s, "script_s": time.perf_counter() - t_start,
     }))
 
     def launches(kernel):

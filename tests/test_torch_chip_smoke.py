@@ -85,6 +85,12 @@ PROFILED_NAMES = {
                      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, "
                      "int, int, float, float)",
 }
+# The bf16 D = 256 dk/dv instance, a kernel of its own (profiled under the
+# dk/dv pattern too).
+PROFILED_DKV_WIDE = ("void tdx_bwd::(anonymous namespace)::flash_bwd_dkv_wgmma_wide<256>("
+                     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+                     "CUtensorMap_st, CUtensorMap_st, float const*, float const*, int, int, "
+                     "int, int, float, float)")
 
 
 @pytest.mark.parametrize("kernel", sorted(PROFILED_NAMES))
@@ -94,6 +100,7 @@ def test_kernel_name_pattern_matches_one_kernel(kernel):
     parts = chip_smoke._KERNEL_NAMES[kernel]
     matched = [k for k, name in PROFILED_NAMES.items() if all(p in name for p in parts)]
     assert matched == [kernel]
+    assert all(p in PROFILED_DKV_WIDE for p in parts) == (kernel == "flash_bwd_dkv")
     assert not any(p in "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT" for p in parts)
 
 
@@ -144,16 +151,22 @@ def test_fit_run_is_cut_and_interrupted_as_documented():
 
 
 # The 256 instances at phase 2's wide_d256 shape (B 2, S 1024, 16/16 heads,
-# causal): bf16 bounds against the tensor rate, f32 against the CUDA cores'.
+# causal) and at the D = 256 path's bf16 shape (1 x 2112, 4/2 heads): bf16
+# bounds against the tensor rate, f32 against the CUDA cores'.  The bf16
+# forward and dk/dv (TMA + wgmma since this slice) are the rows whose times
+# PERF.md sets beside these bounds.
 @pytest.mark.parametrize(
-    "kernel, dtype, bound_ms, bound_by",
-    [("flash_fwd", torch.bfloat16, 0.020072, "bytes"),
-     ("flash_bwd_fused", torch.bfloat16, 0.043470, "operations"),
-     ("flash_bwd_dq", torch.float32, 0.38500, "operations"),
-     ("flash_bwd_dkv", torch.float32, 0.51333, "operations")],
+    "shape, kernel, dtype, bound_ms, bound_by",
+    [("wide_d256", "flash_fwd", torch.bfloat16, 0.020072, "bytes"),
+     ("wide_d256", "flash_bwd_fused", torch.bfloat16, 0.043470, "operations"),
+     ("wide_d256", "flash_bwd_dq", torch.float32, 0.38500, "operations"),
+     ("wide_d256", "flash_bwd_dkv", torch.float32, 0.51333, "operations"),
+     ("wide_d256", "flash_bwd_dkv", torch.bfloat16, 0.034776, "operations"),
+     ("d256_path_bf16", "flash_fwd", torch.bfloat16, 0.0092412, "operations"),
+     ("d256_path_bf16", "flash_bwd_dkv", torch.bfloat16, 0.018482, "operations")],
 )
-def test_wide_shape_bounds(kernel, dtype, bound_ms, bound_by):
-    row = next(r for r in chip_smoke.FLASH_SHAPES if r[0] == "wide_d256")
+def test_wide_shape_bounds(shape, kernel, dtype, bound_ms, bound_by):
+    row = next(r for r in chip_smoke.FLASH_SHAPES if r[0] == shape)
     assert row[5] == 256 and row[6] == torch.bfloat16
     args = (*row[1:6], dtype, True)
     if kernel == "flash_fwd":
@@ -193,13 +206,15 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
     # that dtype, and every entry carries the contract's keys.
     shapes = sorted({r[0] for r in chip_smoke.FLASH_SHAPES + chip_smoke.BWD_SHAPES})
 
-    def row(shape, kernel=None):
+    def row(spec, kernel=None):
+        shape, d, dtype = spec[0], spec[5], spec[6]
         r = {"shape": shape, "max_abs_err": 0.0, "ms": shapes.index(shape), "plain_ms": 2.0,
-             "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1}
+             "bound_ms": 0.5, "bound_by": "bytes", "library_ms": 0.1,
+             "instance": chip_smoke._instance(kernel or "flash_fwd", d, dtype)}
         return r if kernel is None else {**r, "kernel": kernel}
 
-    rows = [row(r[0]) for r in chip_smoke.FLASH_SHAPES]
-    bwd_rows = [row(r[0], k) for r in chip_smoke.BWD_SHAPES
+    rows = [row(r) for r in chip_smoke.FLASH_SHAPES]
+    bwd_rows = [row(r, k) for r in chip_smoke.BWD_SHAPES
                 for k in chip_smoke.BWD_KERNELS[r[8]]]
     wide = {"launches_f32": {"flash_fwd": 8, "flash_bwd_fused": 6, "flash_bwd_dq": 0,
                              "flash_bwd_dkv": 0},
@@ -213,13 +228,55 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
                      "flash_bwd_dkv (D 256, bfloat16)"]
     assert [e["launches"] for e in entries] == [3, 3, 3, 3, 8, 6, 2, 2, 2]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms"}
+            "bound_ms", "bound_by", "library_ms", "instance"}
     assert all(keys <= set(e) for e in entries)
     f32, bf16 = (shapes.index(chip_smoke.WIDE_PATH_SHAPES[d])
                  for d in (torch.float32, torch.bfloat16))
     assert [e["ms"] for e in entries[4:]] == [f32, f32, bf16, bf16, bf16]
     assert entries[6]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/flash_fwd.cu"
     assert entries[6]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:161"
+    # The D = 256 path's bf16 step runs the TMA + wgmma forward and dk/dv;
+    # its dq, and the f32 part, stay on the CUDA cores.
+    assert [e["instance"] for e in entries[4:]] == [
+        "flash_fwd_f32<float, (int)256>", "bwd_kv_f32<float, (int)256, (bool)1>",
+        "flash_fwd_bf16_wgmma<(int)256>", "bwd_dq_f32<__nv_bfloat16, (int)256>",
+        "flash_bwd_dkv_wgmma_wide<(int)256>"]
+    assert entries[0]["instance"] == "flash_fwd_bf16_wgmma<(int)128>"
+
+
+# The instance each (kernel, kernel head dim, dtype) runs, as the sources'
+# dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 takes
+# TMA + wgmma for the forward and dk/dv, and no CUDA-core body for them.
+@pytest.mark.parametrize(
+    "kernel, d, dtype, instance",
+    [("flash_fwd", 256, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)256>"),
+     ("flash_bwd_dkv", 256, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)256>"),
+     ("flash_bwd_fused", 256, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)1>"),
+     ("flash_bwd_dq", 256, torch.bfloat16, "bwd_dq_f32<__nv_bfloat16, (int)256>"),
+     ("flash_fwd", 256, torch.float32, "flash_fwd_f32<float, (int)256>"),
+     ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)0>"),
+     ("flash_fwd", 512, torch.bfloat16, "flash_fwd_f32<__nv_bfloat16, (int)512>"),
+     ("flash_bwd_dkv", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>"),
+     ("flash_bwd_dkv", 128, torch.bfloat16, "flash_bwd_dkv_wgmma<(int)128>"),
+     ("flash_bwd_fused", 64, torch.bfloat16, "flash_bwd_fused_wgmma<(int)64>")],
+)
+def test_instance_names_the_dispatch(kernel, d, dtype, instance):
+    assert chip_smoke._instance(kernel, d, dtype) == instance
+
+
+def test_d256_wgmma_instances_are_found_in_a_ptxas_report():
+    # The [build] line reads the new instances' registers and spills from
+    # the report, whose keys carry the namespaces (names as cu++filt gives
+    # them on the card); an instance absent from the report reads None.
+    report = {"<unnamed>::flash_fwd_bf16_wgmma<(int)256>": {"registers": 128},
+              "tdx_bwd::<unnamed>::flash_bwd_dkv_wgmma_wide<(int)256>": {"registers": 232},
+              "tdx_bwd::bwd_kv_f32<float, (int)256, (bool)0>": {"registers": 168}}
+    assert {k: chip_smoke._in_report(report, n)["registers"]
+            for k, n in chip_smoke.D256_WGMMA.items()} == {"flash_fwd": 128,
+                                                           "flash_bwd_dkv": 232}
+    assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)256>") is None
+    assert chip_smoke._in_report(report, "bwd_kv_f32<float, (int)256, (bool)0>") == {
+        "registers": 168}
 
 
 def test_slowmo_run_is_cut_as_documented():

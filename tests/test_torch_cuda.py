@@ -154,11 +154,16 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-# The D = 256 instances (CUDA cores, bf16 and f32): one forward q tile of 16
-# minus one, exactly one and plus one, a kv tile of 32 plus one, GQA, and a
-# sequence past the fused route's 2048.
+# The D = 256 instances: bf16's forward and dk/dv on TMA + wgmma (tiles of
+# 64 q and 64 kv rows), f32's and bf16's fused and dq on the CUDA cores (q
+# tiles of 16, kv tiles of 32).  The CUDA-core tiles' edges (15, 16, 17,
+# 33), then the wgmma tiles' (63, 64, 65, 127) and longer ragged sequences
+# (1000, 2112: the D = 256 path's bf16 step, 4095) at GQA groups of 1, 2
+# and 8, past the fused route's 2048 too.
 @pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (15, 4, 1), (16, 4, 2), (17, 4, 4),
-                                        (33, 8, 2), (300, 4, 1), (2049, 2, 2)])
+                                        (33, 8, 2), (300, 4, 1), (2049, 2, 2),
+                                        (63, 4, 4), (64, 4, 2), (65, 8, 1), (127, 8, 8),
+                                        (1000, 8, 1), (2112, 4, 2), (4095, 8, 1)])
 def test_flash_d256_matches_plain(cuda, dtype, causal, s, hq, hkv):
     g = torch.Generator(device=cuda).manual_seed(s + 256)
     q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, s, hq, hkv, 256, dtype, causal, cuda)
@@ -221,6 +226,77 @@ def test_flash_d256_gradients_through_autograd(cuda):
     for name, a, b in zip(("dq", "dk", "dv"), (qr.grad, kr.grad, vr.grad), want):
         assert a.shape == b.shape, name
         assert _bwd_err(a, b) <= BWD_TOL[torch.float32], (name, _bwd_err(a, b))
+
+
+def test_flash_d192_bf16_takes_the_wgmma_d256_kernels_through_autograd(cuda):
+    # Head dim 192 pads to the 256 instances; in bf16 past the fused
+    # route's 2048 (the D = 256 path's 1 x 2112, 4/2 heads) the autograd
+    # Function runs the TMA + wgmma forward and dk/dv (and the CUDA-core
+    # dq), and matches the plain gradients.
+    assert fa._kernel_head_dim(192) == 256
+    g = torch.Generator(device=cuda).manual_seed(192)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 1, 2112, 4, 2, 192, torch.bfloat16, True,
+                                                cuda)
+    want = fa.flash_attention_backward_reference(q, k, v, ref_out, ref_lse, do, causal=True)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    n0 = (fa.launches, fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    out = fa.flash_attention(qr, kr, vr, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    n1 = (fa.launches, fa.launches_bwd_fused, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    assert [b - a for a, b in zip(n0, n1)] == [1, 0, 1, 1]
+    assert out.shape == q.shape
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL[torch.bfloat16][0]
+    for name, a, b in zip(("dq", "dk", "dv"), (qr.grad, kr.grad, vr.grad), want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _bwd_err(a, b) <= BWD_TOL[torch.bfloat16], (name, _bwd_err(a, b))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_d256_bf16_dkv_and_forward_are_deterministic(cuda, causal):
+    # The D = 256 bf16 dk/dv kernel owns its dk and dv rows and sums them in
+    # a fixed order (no atomics), as the forward does its out and lse: a
+    # second call gives the same bits, and no launch writes its inputs (a
+    # ragged GQA shape over several tiles of 64).
+    g = torch.Generator(device=cuda).manual_seed(256 + causal)
+    q, k, v, do, out, lse = _bwd_inputs(g, 2, 1000, 8, 2, 256, torch.bfloat16, causal, cuda)
+    delta = fa.attention_delta(do, out)
+    args = (q, k, v, do, lse, delta)
+    before = [t.clone() for t in args]
+    dk1, dv1 = fa.flash_bwd_dkv(*args, causal=causal)
+    dk2, dv2 = fa.flash_bwd_dkv(*args, causal=causal)
+    out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+def test_d256_wgmma_instances_compile_without_spills(cuda, tmp_path):
+    # ptxas's report of the bf16 D = 256 forward and dk/dv (TMA + wgmma),
+    # compiled as the build compiles them: both present, no spills, and no
+    # CUDA-core bf16 instance left in either source at D = 256.
+    import subprocess
+
+    import chip_smoke
+    from torchdistx_tpu_torch.ops.cuda import _build
+
+    logs = {}
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(tmp_path / f"lib{name}.so"), str(_build.SRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        logs[name] = proc.stdout + proc.stderr
+    report = chip_smoke._ptxas_report(logs)
+    for instance in chip_smoke.D256_WGMMA.values():
+        entry = chip_smoke._in_report(report, instance)
+        assert entry is not None, (instance, sorted(report))
+        assert entry["spill_stores"] == entry["spill_loads"] == 0, (instance, entry)
+    for gone in ("flash_fwd_f32<__nv_bfloat16, (int)256>",
+                 "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)0>"):
+        assert chip_smoke._in_report(report, gone) is None, gone
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])

@@ -155,3 +155,43 @@ def test_wide_head_dims_match_jax_flash_attention(causal, d):
     out.backward(torch.tensor(do))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=ATOL, rtol=0)
     _check_grads((tq.grad, tk.grad, tv.grad), [np.asarray(g) for g in j_grads])
+
+
+# bf16 at head dim 256: the plain versions that the card holds the TMA +
+# wgmma forward and dk/dv against (flash_attention_reference,
+# flash_bwd_plain), against the Pallas kernels (interpreted) on the same
+# bf16 inputs, at the wgmma kernels' 64-row tile edges (1, 63, 64, 65, 127)
+# with GQA groups of 1 and 2: the fused Pallas backward at each, the
+# streamed pair (blocks of 128, as _jax_backward runs it) where S pads to
+# 128 or more.  Tolerances as on the card (chip_smoke.py's
+# TOL and BWD_TOL): out within 2e-2 and lse within 1e-3 (bf16 rounds p and
+# out to 2^-8 relative, p against a running max in Pallas and the row max in
+# the plain version); dq, dk and dv within 2e-2 of max(1, their largest
+# value) (p and ds rounded to bf16 before the products).
+BF16_OUT_ATOL, BF16_LSE_ATOL, BF16_GRAD_TOL = 2e-2, 1e-3, 2e-2
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (63, 2, 1), (64, 2, 2), (65, 2, 1),
+                                        (127, 2, 2)])
+def test_bf16_d256_plain_versions_match_jax_kernels(causal, s, hq, hkv):
+    q, k, v, do = (jnp.asarray(x, jnp.bfloat16)
+                   for x in _inputs(s, hq, hkv, d=256, b=1, seed=s + 256))
+    tq, tk, tv, tdo = (torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    for streamed in (False, True)[:1 + (jfa._pad_len(s) >= 128)]:
+        out, lse, *want = _jax_backward(q, k, v, do, causal, streamed=streamed)
+        if not streamed:
+            got_out, got_lse = tfa.flash_attention_reference(tq, tk, tv, causal=causal)
+            np.testing.assert_allclose(got_out.float().numpy(), np.asarray(out, np.float32),
+                                       atol=BF16_OUT_ATOL, rtol=0)
+            np.testing.assert_allclose(got_lse.numpy(), lse, atol=BF16_LSE_ATOL, rtol=0)
+        t_out = torch.tensor(np.asarray(out, np.float32)).to(torch.bfloat16)
+        t_lse = torch.tensor(np.asarray(lse, np.float32))
+        got = tfa.flash_bwd_plain(tq, tk, tv, tdo, t_lse, tfa.attention_delta(tdo, t_out),
+                                  causal=causal)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = np.asarray(w, np.float32)
+            assert g.dtype == torch.bfloat16, name
+            err = np.abs(g.float().numpy() - w).max() / max(1.0, np.abs(w).max())
+            assert err <= BF16_GRAD_TOL, (streamed, name, err)

@@ -245,8 +245,10 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
 // (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
 // buffer with atomics.  Elem is the storage type (storage.cuh): float at D
-// 64, 128, 256 and 512, bf16 at D 256 and 512, where the wgmma kernels' dk
-// and dv accumulators do not fit a consumer's registers; p and ds are
+// 64, 128, 256 and 512, bf16 at D 512 and, for the fused kernel (kDq), at
+// D 256, where the wgmma kernels' dk and dv accumulators do not fit a
+// consumer's registers (the bf16 dk/dv kernel at D 256 is
+// flash_bwd_dkv_wgmma_wide, on wgmma); p and ds are
 // rounded to Elem before the products that take them, and dk and dv to Elem
 // on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
 // lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
@@ -442,9 +444,9 @@ int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 }
 
 // Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
-// D 64, 128, 256 and 512, bf16 at D 256 and 512 (dtype 0 = float32, 1 =
-// bfloat16; the bf16 kernels at D 64 and 128 are on wgmma); kDq selects the
-// fused variant.
+// D 64, 128, 256 and 512, bf16 at D 512 and, fused, 256 (dtype 0 =
+// float32, 1 = bfloat16; the bf16 kernels at D 64 and 128, and dk/dv's at
+// 256, are on wgmma); kDq selects the fused variant.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
@@ -457,8 +459,10 @@ int launch_kv(const BwdArgs& args, int B, int D, int dtype,
   if (dtype == 0 && D == 256) {
     return launch_kv_f32<float, 256, kDq>(args, B, stream);
   }
-  if (dtype == 1 && D == 256) {
-    return launch_kv_f32<__nv_bfloat16, 256, kDq>(args, B, stream);
+  if constexpr (kDq) {
+    if (dtype == 1 && D == 256) {
+      return launch_kv_f32<__nv_bfloat16, 256, kDq>(args, B, stream);
+    }
   }
   if (dtype == 0 && D == 512) {
     return launch_kv_f32<float, 512, kDq>(args, B, stream);

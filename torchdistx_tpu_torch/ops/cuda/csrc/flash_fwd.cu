@@ -45,13 +45,30 @@
 // out through the warpgroup's half of its q buffer and a TMA store, which
 // drops rows >= S, and lse directly.
 //
+// bf16 at D = 256 (flash_fwd_bf16_wgmma<256>, Bf16Tiles::kSplit): a 64 x
+// 256 f32 accumulator is 128 registers a thread, and beside a tile's s and
+// p it does not fit the 168 that ptxas gives a thread of a 288-thread
+// block.  So the two consumer warpgroups share one work of 64 q rows and
+// split o's columns: each holds 64 x 128 (64 registers), computes the same
+// s = q.k^T (m64n64k16 over the 4 chunks of q and k) and softmax, and adds
+// p.v for its 128 columns of v (m64n128k16, v's chunks 2w and 2w + 1 as
+// the MN-major operand).  kv tiles are 64 rows, so a q buffer is 32 KB and
+// a stage of k and v 64 KB: 2 x 32 + 2 x 64 = 192 KB, as at D = 128.  The
+// epilogue waits for both warpgroups (named barrier 5) before either
+// writes its columns of out into the q buffer.  128 registers, no spills.
+// Tried and dropped (scripts/torch_d256_ab.py on an H100, PERF.md): 128 q
+// rows a block with o whole in each warpgroup (256 threads, no producer
+// warp, 209 registers), which computes q.k^T once and reads each kv tile
+// for twice the rows, was no faster at 2 x 1024 x 16 heads and 1.8x slower
+// at 1 x 2112 x 4 heads (half the blocks); a third kv stage (one q buffer,
+// out from registers) moved nothing.
+//
 // f32 (flash_fwd_f32): CUDA cores, 4 warps, 16 q rows per block, kv tiles
 // of 32, one warp lane per kv column for q.k and per output column for P.V.
-// It takes f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512, where
-// the wgmma kernel's 64 x D f32 accumulator does not fit a consumer's
-// registers:
-// bf16 is widened to f32 on the load into shared memory, p is rounded to
-// bf16 before P.V and out to bf16 on the store (storage.cuh).
+// It takes f32 at D 64, 128, 256 and 512, and bf16 at D 512, where a 64 x
+// 512 f32 accumulator is 256 registers a thread: bf16 is widened to f32 on
+// the load into shared memory, p is rounded to bf16 before P.V and out to
+// bf16 on the store (storage.cuh).
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512,
 // 32 heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in
@@ -66,6 +83,11 @@
 // and at 288 threads, and __maxnreg__(224) compiled without spills but the
 // launch was refused for want of registers.  A block's first q and k loads
 // and its last epilogue are still exposed, which weighs most at S = 512.
+// At D = 256 (B 2, S 1024, 16 heads, causal: 17.2 GFLOP, 17 us at the
+// tensor rate, against 67 MB in 20 us) bytes bound it; the split design
+// does q.k^T twice, 1.5x the tensor work, and each 64-column q.k^T reads
+// both operands from shared memory (4 KB a 64 x 64 x 16 product, about the
+// port's rate), so it runs near half the tensor rate on what it executes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,13 +111,19 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 }
 
 // The bf16 kernel's tiles and dynamic shared memory: two q buffers (each
-// two warpgroups x D / 64 chunks of 64 rows), then per stage k and v (D / 64
+// kBQ / 64 x D / 64 chunks of 64 rows), then per stage k and v (D / 64
 // chunks of kBK rows each), then the barriers; + 1024 bytes to align the
-// base to a swizzle atom.
+// base to a swizzle atom.  Below D = 256 a block takes 128 q rows, 64 for
+// each consumer warpgroup, against kv tiles of 128.  At D = 256 (kSplit)
+// the two warpgroups share one tile of 64 q rows and split o's columns,
+// 128 each, against kv tiles of 64: both compute the same s and p, and
+// each adds p.v for its half of v's columns.
 template <int D>
 struct Bf16Tiles {
-  static constexpr int kBQ = 128, kBK = 128;
-  static constexpr int kStages = D == 128 ? 2 : 4;
+  static constexpr bool kSplit = D == 256;
+  static constexpr int kBQ = kSplit ? 64 : 128, kBK = kSplit ? 64 : 128;
+  static constexpr int kOCols = kSplit ? D / 2 : D;  // o's columns a warpgroup
+  static constexpr int kStages = D == 64 ? 4 : 2;
   static constexpr int kChunks = D / 64;
   static constexpr int kChunkQ = 64 * 128;    // bytes of a 64-row chunk
   static constexpr int kChunkKV = kBK * 128;  // bytes of a kBK-row chunk
@@ -107,16 +135,17 @@ struct Bf16Tiles {
   static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
 };
 
-// A consumer warpgroup's steps on one kv tile.  s: the 64 x 128 logits;
+// A consumer warpgroup's steps on one kv tile.  s: the 64 x kBK logits;
 // p: s packed pairwise to bf16, the A fragments of p.v (accumulator columns
 // 16kk .. 16kk + 15 are the kk-th step's fragment, see hopper.cuh); o: the
-// 64 x D accumulator; m: the row max in the log2 domain; l: this thread's
-// share of the row sum (the four threads of a row are summed at the end).
+// 64 x kOCols accumulator; m: the row max in the log2 domain; l: this
+// thread's share of the row sum (the four threads of a row are summed at
+// the end).
 
 // Issues s = q.k^T (not committed).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
-                                         uint32_t k_addr) {
+__device__ __forceinline__ void issue_qk(float (&s)[Bf16Tiles<D>::kBK / 2],
+                                         uint32_t q_addr, uint32_t k_addr) {
   using T = Bf16Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -128,11 +157,12 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
   }
 }
 
-// Issues o += p.v (not committed).
+// Issues o += p.v (not committed); v_addr is the first of the warpgroup's
+// kOCols / 64 chunks of v.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&p)[8][4],
-                                         uint32_t v_addr) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Bf16Tiles<D>::kOCols / 2],
+    const uint32_t (&p)[Bf16Tiles<D>::kBK / 16][4], uint32_t v_addr) {
   using T = Bf16Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < T::kBK / 16; ++kk) {
@@ -156,14 +186,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // has to be scaled by.  On a masked tile, pairs past S or above the causal
 // diagonal take the logit kMask; elsewhere the scale is folded into the
 // exponent (the max of s scaled is the scaled max, the scale being > 0).
-template <bool kMasked>
-__device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2],
+template <bool kMasked, int N>
+__device__ __forceinline__ void softmax(float (&s)[N], float (&m)[2],
                                         float (&l)[2], float (&alpha)[2],
                                         int k0, int r0, int t, int S,
                                         float scale_log2, int causal) {
   if (kMasked) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * j + 2 * t + (e & 1);
@@ -178,7 +208,7 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2],
   for (int r = 0; r < 2; ++r) {  // the four threads of a quad share a row
     float mx = fmaxf(s[2 * r], s[2 * r + 1]);
 #pragma unroll
-    for (int j = 1; j < 16; ++j) {
+    for (int j = 1; j < N / 4; ++j) {
       mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -188,7 +218,7 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2],
     m[r] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
         s[4 * j + e] = exp2_ftz(fmaf(s[4 * j + e], scale, -m_new));
@@ -200,10 +230,11 @@ __device__ __forceinline__ void softmax(float (&s)[64], float (&m)[2],
 }
 
 // p = s cast to bf16, as A fragments.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4],
-                                       const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[N / 8][4],
+                                       const float (&s)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       p[kk][i] = pack_f32(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
@@ -285,7 +316,7 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
         uint8_t* qj = qs + (j % 2) * T::kQBytes;
         hw::mbar_wait(q_empty + j % 2, ((j / 2) & 1) ^ 1);
         hw::mbar_expect_tx(q_full + j % 2, T::kQBytes);
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < T::kBQ / 64; ++half) {
           for (int c = 0; c < T::kChunks; ++c) {
             hw::tma_load_4d(qj + (half * T::kChunks + c) * T::kChunkQ, &tm_q,
                             q_full + j % 2, 64 * c, h, q0 + 64 * half, b);
@@ -313,10 +344,10 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
-    float o[D / 2], s[64], m[2], l[2], alpha[2];
-    uint32_t p[8][4];
+    float o[T::kOCols / 2], s[T::kBK / 2], m[2], l[2], alpha[2];
+    uint32_t p[T::kBK / 16][4];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < T::kBK / 2; ++i) s[i] = 0.f;
     // The two warpgroups take turns to issue their products (ping-pong):
     // before each product warpgroup w waits on named barrier kTurn + w,
     // which the other warpgroup arrives on once it has issued its own
@@ -324,7 +355,7 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
     // Warpgroup 1 opens with one arrival so that warpgroup 0 goes first, and
     // skips its block's last one, so every barrier phase gets 128 + 128
     // threads.
-    constexpr int kTurn = 3;  // ids 3 and 4; 1 and 2 are the epilogue's
+    constexpr int kTurn = 3;  // ids 3 and 4; 1, 2 and 5 are the epilogue's
     if (wg == 1) hw::named_arrive(kTurn, 256);
     int tile = 0;
     int j = 0;
@@ -333,13 +364,15 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
       const int n_tiles = n_tiles_of(q0);
       w.next();
       const bool last_work = w.done();
-      const int row_q = q0 + 64 * wg;        // the warpgroup's first row
+      // The warpgroup's first q row, and its q in the buffer: its own 64
+      // rows, or (kSplit) the block's 64, shared.
+      const int row_q = q0 + (T::kSplit ? 0 : 64 * wg);
       const int r0 = row_q + 16 * warp + g;  // this thread's rows: r0, r0 + 8
-      uint8_t* qw =
-          qs + (j % 2) * T::kQBytes + wg * T::kChunks * T::kChunkQ;
+      uint8_t* qw = qs + (j % 2) * T::kQBytes +
+                    (T::kSplit ? 0 : wg * T::kChunks * T::kChunkQ);
       const uint32_t q_addr = hw::smem_addr(qw);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < T::kOCols / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = kMask;
       l[0] = l[1] = 0.f;
 
@@ -378,7 +411,9 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
         hw::mbar_wait(v_full + st, phase);
         hw::named_barrier(kTurn + wg, 256);
         hw::wgmma_fence();
-        issue_pv<D>(o, p, k_addr + T::kKVBytes);
+        issue_pv<D>(o, p,
+                    k_addr + T::kKVBytes +
+                        (T::kSplit ? wg * (T::kOCols / 64) * T::kChunkKV : 0));
         hw::wgmma_commit();
         if (wg == 0 || !last_work || i + 1 < n_tiles) {
           hw::named_arrive(kTurn + 1 - wg, 256);
@@ -388,10 +423,13 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
         if (lane == 0) hw::mbar_arrive(kv_empty + st);
       }
 
-      // Epilogue: out = o / l into this warpgroup's half of the q buffer (no
-      // longer read), laid out as TMA's 128-byte swizzle expects, then one
-      // TMA store per chunk, which frees the buffer once it has been read
-      // (see above); lse from the quad's summed l.
+      // Epilogue: out = o / l into this warpgroup's part of the q buffer
+      // (no longer read: its own half, or under kSplit the chunks of its
+      // columns, once both warpgroups' products have read all of q), laid
+      // out as TMA's 128-byte swizzle expects, then one TMA store per
+      // chunk, which frees the buffer once it has been read (see above);
+      // lse from the quad's summed l (under kSplit both warpgroups hold
+      // the same m and l, and warpgroup 0 writes it).
       float l_safe[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -400,12 +438,15 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         l_safe[r] = sum == 0.f ? 1.f : sum;
       }
+      const int c0 = T::kSplit ? wg * (T::kOCols / 64) : 0;  // first chunk
+      uint8_t* ow = qw + c0 * T::kChunkQ;
+      if (T::kSplit) hw::named_barrier(5, 256);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < T::kOCols / 8; ++n) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = 16 * warp + g + 8 * r;  // row % 8 == g
-          uint8_t* dst = qw + (n / 8) * T::kChunkQ + row * 128 +
+          uint8_t* dst = ow + (n / 8) * T::kChunkQ + row * 128 +
                          ((n % 8) ^ g) * 16 + t * 4;
           *reinterpret_cast<__nv_bfloat162*>(dst) =
               __floats2bfloat162_rn(o[4 * n + 2 * r] / l_safe[r],
@@ -416,14 +457,14 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
       hw::named_barrier(1 + wg, 128);
       if (tid == 0) {
         if (row_q < S) {
-          for (int c = 0; c < T::kChunks; ++c) {
-            hw::tma_store_4d(&tm_o, qw + c * T::kChunkQ, 64 * c, h, row_q,
-                             b);
+          for (int c = 0; c < T::kOCols / 64; ++c) {
+            hw::tma_store_4d(&tm_o, ow + c * T::kChunkQ, 64 * (c0 + c), h,
+                             row_q, b);
           }
         }
         hw::tma_store_commit();
       }
-      if (t == 0) {
+      if (t == 0 && (!T::kSplit || wg == 0)) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = r0 + 8 * r;
@@ -643,8 +684,8 @@ extern "C" int tdx_flash_fwd(const void* q, const void* k, const void* v,
     return launch_bf16<128>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
                             st);
   } else if (dtype == 1 && D == 256) {
-    return launch_f32<__nv_bfloat16, 256>(q, k, v, o, lse, B, S, Hq, Hkv,
-                                          scale_log2, causal, st);
+    return launch_bf16<256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
+                            st);
   } else if (dtype == 0 && D == 64) {
     return launch_f32<float, 64>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
                                  causal, st);
