@@ -253,8 +253,9 @@ FLASH_SHAPES = [
     ("train_1x4096", 1, 4096, 32, 32, 128, torch.bfloat16, True),
     ("ragged_bf16_d64", 2, 1000, 12, 12, 64, torch.bfloat16, False),
     ("gqa_ragged_bf16", 1, 4095, 32, 8, 128, torch.bfloat16, True),
-    # The D = 256 instances (CUDA cores) at a 256-wide-head model's shape,
-    # then at the D = 256 path's own shapes (WIDE_PATH_SHAPES).
+    # The D = 256 instances (bf16 on TMA + wgmma, f32 on the CUDA cores) at
+    # a 256-wide-head model's shape, then at the D = 256 path's own shapes
+    # (WIDE_PATH_SHAPES).
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True),
     ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True),
     ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True),
@@ -715,15 +716,15 @@ def _instance(kernel, d, dtype):
     """The CUDA kernel instance that a launch of ``kernel`` runs at kernel
     head dim ``d`` (64, 128, 256 or 512) in ``dtype``: the dispatch of
     ``csrc/<kernel>.cu``, named as the ptxas report names it (namespaces
-    left out).  bf16 takes TMA + wgmma at D 64 and 128, and at 256 for the
-    forward and dk/dv; the rest runs on the CUDA cores."""
+    left out).  bf16 takes TMA + wgmma at D 64, 128 and 256 (the backward
+    kernels' wide form at 256); the rest runs on the CUDA cores."""
     bf16 = dtype == torch.bfloat16
     elem = "__nv_bfloat16" if bf16 else "float"
     if kernel == "flash_fwd":
         return (f"flash_fwd_bf16_wgmma<(int){d}>" if bf16 and d <= 256
                 else f"flash_fwd_f32<{elem}, (int){d}>")
-    if kernel == "flash_bwd_dkv" and bf16 and d == 256:
-        return "flash_bwd_dkv_wgmma_wide<(int)256>"
+    if bf16 and d == 256:
+        return f"{kernel}_wgmma_wide<(int)256>"
     if bf16 and d <= 128:
         return f"{kernel}_wgmma<(int){d}>"
     if kernel == "flash_bwd_dq":
@@ -731,10 +732,10 @@ def _instance(kernel, d, dtype):
     return f"bwd_kv_f32<{elem}, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
 
 
-# The instances this slice added (TMA + wgmma at D 256, bf16), whose ptxas
-# report the build prints and must show without spills.
+# The bf16 D = 256 instances (TMA + wgmma), whose ptxas report the build
+# prints and must show without spills.
 D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
-              for kernel in ("flash_fwd", "flash_bwd_dkv")}
+              for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def _in_report(report, instance):
@@ -794,8 +795,8 @@ def phase_build():
     wide = {k: v for k, v in report.items() if "(int)512" in k}
     print("[build] the D = 512 instances: " + json.dumps(wide))
     d256 = {name: _in_report(report, name) for name in D256_WGMMA.values()}
-    print("[build] the bf16 D = 256 forward and dk/dv (TMA + wgmma): " + json.dumps(d256))
-    if {"flash_fwd", "flash_bwd_dkv"} <= set(built):
+    print("[build] the bf16 D = 256 instances (TMA + wgmma): " + json.dumps(d256))
+    if set(D256_WGMMA) <= set(built):
         _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
                    for r in d256.values()), f"[build] D = 256 instances spill: {d256}")
     # The compile observatory's row of each library: an nvcc build (its

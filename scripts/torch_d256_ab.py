@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compare the port's bf16 D = 256 flash forward and dk/dv kernels across
-checkouts, on one GPU.
+"""Compare the port's bf16 D = 256 flash kernels (forward, fused backward, dq
+and dk/dv) across checkouts, on one GPU.
 
     python3 scripts/torch_d256_ab.py ROOT [ROOT ...]
 
@@ -12,10 +12,11 @@ line:
 - ``ptxas``: registers, spill stores and loads of every D = 256 instance,
   from nvcc's ``-Xptxas -v`` report;
 - ``ms``: at each of D256_SHAPES (``chip_smoke.py``'s bf16 D = 256 rows),
-  the forward's and dk/dv's time through the port's wrappers (the median
-  over 21 repeats of 10 back-to-back calls between CUDA events, divided by
-  10), beside SDPA's forward and its whole backward on the same inputs
-  (the kv heads expanded), the library yardsticks.
+  the forward's, the fused backward's, dq's and dk/dv's time through the
+  port's wrappers (the median over 21 repeats of 10 back-to-back calls
+  between CUDA events, divided by 10; 7 repeats of 3 calls for a kernel
+  slower than 1 ms a call), beside SDPA's forward and its whole backward
+  on the same inputs (the kv heads expanded), the library yardsticks.
 
 Give the roots as parent, change, change, parent to see the drift between
 calls beside the difference.  The last lines are a table by shape and the
@@ -37,7 +38,7 @@ from pathlib import Path
 # D = 256 path's own bf16 step (1 x 2112, 4/2 heads).
 D256_SHAPES = [("wide_d256", 2, 1024, 16, 16, True),
                ("d256_path_bf16", 1, 2112, 4, 2, True)]
-SOURCES = ("flash_fwd", "flash_bwd_dkv")
+SOURCES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _cuda_tool(name: str) -> str:
@@ -82,6 +83,15 @@ def _time_ms(fn, *, warmup=3, reps=21, calls=10):
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > 1.0:  # a slow kernel: fewer calls
+        reps, calls = 7, 3
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -122,6 +132,10 @@ def child(root: Path) -> None:
         row["ms"][name] = {
             "flash_fwd": _time_ms(lambda: fa.flash_attention_fwd_with_lse(q, k, v,
                                                                          causal=causal)),
+            "flash_bwd_fused": _time_ms(lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta,
+                                                                   causal=causal)),
+            "flash_bwd_dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                             causal=causal)),
             "flash_bwd_dkv": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                                causal=causal)),
             "sdpa_fwd": _time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal)),

@@ -235,26 +235,29 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
     assert [e["ms"] for e in entries[4:]] == [f32, f32, bf16, bf16, bf16]
     assert entries[6]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/flash_fwd.cu"
     assert entries[6]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:161"
-    # The D = 256 path's bf16 step runs the TMA + wgmma forward and dk/dv;
-    # its dq, and the f32 part, stay on the CUDA cores.
+    # The D = 256 path's bf16 step runs the TMA + wgmma forward, dq and
+    # dk/dv; the f32 part stays on the CUDA cores.
     assert [e["instance"] for e in entries[4:]] == [
         "flash_fwd_f32<float, (int)256>", "bwd_kv_f32<float, (int)256, (bool)1>",
-        "flash_fwd_bf16_wgmma<(int)256>", "bwd_dq_f32<__nv_bfloat16, (int)256>",
+        "flash_fwd_bf16_wgmma<(int)256>", "flash_bwd_dq_wgmma_wide<(int)256>",
         "flash_bwd_dkv_wgmma_wide<(int)256>"]
     assert entries[0]["instance"] == "flash_fwd_bf16_wgmma<(int)128>"
 
 
 # The instance each (kernel, kernel head dim, dtype) runs, as the sources'
 # dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 takes
-# TMA + wgmma for the forward and dk/dv, and no CUDA-core body for them.
+# TMA + wgmma for every kernel, and no CUDA-core body; f32 at D 256 stays
+# on the CUDA cores.
 @pytest.mark.parametrize(
     "kernel, d, dtype, instance",
     [("flash_fwd", 256, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)256>"),
      ("flash_bwd_dkv", 256, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)256>"),
-     ("flash_bwd_fused", 256, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)1>"),
-     ("flash_bwd_dq", 256, torch.bfloat16, "bwd_dq_f32<__nv_bfloat16, (int)256>"),
+     ("flash_bwd_fused", 256, torch.bfloat16, "flash_bwd_fused_wgmma_wide<(int)256>"),
+     ("flash_bwd_dq", 256, torch.bfloat16, "flash_bwd_dq_wgmma_wide<(int)256>"),
      ("flash_fwd", 256, torch.float32, "flash_fwd_f32<float, (int)256>"),
      ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)0>"),
+     ("flash_bwd_fused", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)1>"),
+     ("flash_bwd_dq", 256, torch.float32, "bwd_dq_f32<float, (int)256>"),
      ("flash_fwd", 512, torch.bfloat16, "flash_fwd_f32<__nv_bfloat16, (int)512>"),
      ("flash_bwd_dkv", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>"),
      ("flash_bwd_dkv", 128, torch.bfloat16, "flash_bwd_dkv_wgmma<(int)128>"),
@@ -269,10 +272,14 @@ def test_d256_wgmma_instances_are_found_in_a_ptxas_report():
     # the report, whose keys carry the namespaces (names as cu++filt gives
     # them on the card); an instance absent from the report reads None.
     report = {"<unnamed>::flash_fwd_bf16_wgmma<(int)256>": {"registers": 128},
+              "tdx_bwd::<unnamed>::flash_bwd_fused_wgmma_wide<(int)256>": {"registers": 232},
+              "tdx_bwd::<unnamed>::flash_bwd_dq_wgmma_wide<(int)256>": {"registers": 229},
               "tdx_bwd::<unnamed>::flash_bwd_dkv_wgmma_wide<(int)256>": {"registers": 232},
               "tdx_bwd::bwd_kv_f32<float, (int)256, (bool)0>": {"registers": 168}}
     assert {k: chip_smoke._in_report(report, n)["registers"]
             for k, n in chip_smoke.D256_WGMMA.items()} == {"flash_fwd": 128,
+                                                           "flash_bwd_fused": 232,
+                                                           "flash_bwd_dq": 229,
                                                            "flash_bwd_dkv": 232}
     assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)256>") is None
     assert chip_smoke._in_report(report, "bwd_kv_f32<float, (int)256, (bool)0>") == {

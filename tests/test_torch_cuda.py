@@ -154,8 +154,8 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv, route):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-# The D = 256 instances: bf16's forward and dk/dv on TMA + wgmma (tiles of
-# 64 q and 64 kv rows), f32's and bf16's fused and dq on the CUDA cores (q
+# The D = 256 instances: bf16's on TMA + wgmma (tiles of 64 q and 64 kv
+# rows; the dq kernel's blocks of 128 q rows), f32's on the CUDA cores (q
 # tiles of 16, kv tiles of 32).  The CUDA-core tiles' edges (15, 16, 17,
 # 33), then the wgmma tiles' (63, 64, 65, 127) and longer ragged sequences
 # (1000, 2112: the D = 256 path's bf16 step, 4095) at GQA groups of 1, 2
@@ -231,8 +231,8 @@ def test_flash_d256_gradients_through_autograd(cuda):
 def test_flash_d192_bf16_takes_the_wgmma_d256_kernels_through_autograd(cuda):
     # Head dim 192 pads to the 256 instances; in bf16 past the fused
     # route's 2048 (the D = 256 path's 1 x 2112, 4/2 heads) the autograd
-    # Function runs the TMA + wgmma forward and dk/dv (and the CUDA-core
-    # dq), and matches the plain gradients.
+    # Function runs the TMA + wgmma forward, dq and dk/dv, and matches the
+    # plain gradients.
     assert fa._kernel_head_dim(192) == 256
     g = torch.Generator(device=cuda).manual_seed(192)
     q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 1, 2112, 4, 2, 192, torch.bfloat16, True,
@@ -254,10 +254,11 @@ def test_flash_d192_bf16_takes_the_wgmma_d256_kernels_through_autograd(cuda):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_d256_bf16_dkv_and_forward_are_deterministic(cuda, causal):
-    # The D = 256 bf16 dk/dv kernel owns its dk and dv rows and sums them in
-    # a fixed order (no atomics), as the forward does its out and lse: a
-    # second call gives the same bits, and no launch writes its inputs (a
-    # ragged GQA shape over several tiles of 64).
+    # The D = 256 bf16 dk/dv and dq kernels own their output rows and sum
+    # them in a fixed order (no atomics), as the forward does its out and
+    # lse, and the fused kernel does its dk and dv (its dq is summed across
+    # blocks): a second call gives the same bits, and no launch writes its
+    # inputs (a ragged GQA shape over several tiles of 64).
     g = torch.Generator(device=cuda).manual_seed(256 + causal)
     q, k, v, do, out, lse = _bwd_inputs(g, 2, 1000, 8, 2, 256, torch.bfloat16, causal, cuda)
     delta = fa.attention_delta(do, out)
@@ -265,25 +266,31 @@ def test_flash_d256_bf16_dkv_and_forward_are_deterministic(cuda, causal):
     before = [t.clone() for t in args]
     dk1, dv1 = fa.flash_bwd_dkv(*args, causal=causal)
     dk2, dv2 = fa.flash_bwd_dkv(*args, causal=causal)
+    dq1 = fa.flash_bwd_dq(*args, causal=causal)
+    dq2 = fa.flash_bwd_dq(*args, causal=causal)
+    _, fdk1, fdv1 = fa.flash_bwd_fused(*args, causal=causal)
+    _, fdk2, fdv2 = fa.flash_bwd_fused(*args, causal=causal)
     out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert torch.equal(dq1, dq2)
+    assert torch.equal(fdk1, fdk2) and torch.equal(fdv1, fdv2)
     assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
     assert all(torch.equal(a, b) for a, b in zip(args, before))
 
 
 def test_d256_wgmma_instances_compile_without_spills(cuda, tmp_path):
-    # ptxas's report of the bf16 D = 256 forward and dk/dv (TMA + wgmma),
-    # compiled as the build compiles them: both present, no spills, and no
-    # CUDA-core bf16 instance left in either source at D = 256.
+    # ptxas's report of the bf16 D = 256 instances (TMA + wgmma), compiled
+    # as the build compiles them: all four present, no spills, and no
+    # CUDA-core bf16 instance left in any source at D = 256.
     import subprocess
 
     import chip_smoke
     from torchdistx_tpu_torch.ops.cuda import _build
 
     logs = {}
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in chip_smoke.D256_WGMMA:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                                str(tmp_path / f"lib{name}.so"), str(_build.SRC_DIR / f"{name}.cu")],
                               capture_output=True, text=True, timeout=600)
@@ -295,7 +302,9 @@ def test_d256_wgmma_instances_compile_without_spills(cuda, tmp_path):
         assert entry is not None, (instance, sorted(report))
         assert entry["spill_stores"] == entry["spill_loads"] == 0, (instance, entry)
     for gone in ("flash_fwd_f32<__nv_bfloat16, (int)256>",
-                 "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)0>"):
+                 "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)0>",
+                 "bwd_kv_f32<__nv_bfloat16, (int)256, (bool)1>",
+                 "bwd_dq_f32<__nv_bfloat16, (int)256>"):
         assert chip_smoke._in_report(report, gone) is None, gone
 
 

@@ -158,10 +158,11 @@ def test_wide_head_dims_match_jax_flash_attention(causal, d):
 
 
 # bf16 at head dim 256: the plain versions that the card holds the TMA +
-# wgmma forward and dk/dv against (flash_attention_reference,
-# flash_bwd_plain), against the Pallas kernels (interpreted) on the same
-# bf16 inputs, at the wgmma kernels' 64-row tile edges (1, 63, 64, 65, 127)
-# with GQA groups of 1 and 2: the fused Pallas backward at each, the
+# wgmma kernels against (flash_attention_reference, flash_bwd_plain),
+# against the Pallas kernels (interpreted) on the same bf16 inputs, at the
+# wgmma kernels' 64-row tile edges (1, 63, 64, 65, 127) and past them (129,
+# 200: more than one 64-row tile, and the dq kernel's 128-row block) with
+# GQA groups of 1, 2 and 4: the fused Pallas backward at each, the
 # streamed pair (blocks of 128, as _jax_backward runs it) where S pads to
 # 128 or more.  Tolerances as on the card (chip_smoke.py's
 # TOL and BWD_TOL): out within 2e-2 and lse within 1e-3 (bf16 rounds p and
@@ -173,7 +174,7 @@ BF16_OUT_ATOL, BF16_LSE_ATOL, BF16_GRAD_TOL = 2e-2, 1e-3, 2e-2
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (63, 2, 1), (64, 2, 2), (65, 2, 1),
-                                        (127, 2, 2)])
+                                        (127, 2, 2), (129, 4, 2), (200, 4, 1)])
 def test_bf16_d256_plain_versions_match_jax_kernels(causal, s, hq, hkv):
     q, k, v, do = (jnp.asarray(x, jnp.bfloat16)
                    for x in _inputs(s, hq, hkv, d=256, b=1, seed=s + 256))

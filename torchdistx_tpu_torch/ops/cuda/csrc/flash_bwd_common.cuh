@@ -21,12 +21,13 @@
 // column overflowing f32).  needs_mask is the block-level test that lets
 // interior tiles skip the per-pair compare.
 //
-// Also here: the steps that the two bf16 kv-tile kernels on wgmma share
+// Also here: the steps that the bf16 kv-tile kernels on wgmma share
 // (flash_bwd_dkv.cu and flash_bwd_fused.cu: s^T and dp^T, p and ds into
-// shared memory, the dk/dv accumulation), the launch helper for dynamic
-// shared memory, and bwd_kv_f32, the f32 kv-tile-outer body on the CUDA
-// cores that the dk/dv kernel and (with kDq, dq by atomics) the fused
-// kernel run for f32.  The bf16 kernels are built on hopper.cuh.  What
+// shared memory, the dk/dv accumulation, dq = ds.k), the body of both at D
+// = 256 (bwd_kv_wide), the launch helper for dynamic shared memory, and
+// bwd_kv_f32, the kv-tile-outer body on the CUDA cores that the dk/dv
+// kernel and (with kDq, dq by atomics) the fused kernel run for f32 and
+// for bf16 at D 512.  The bf16 kernels are built on hopper.cuh.  What
 // bounds the shared steps: a step's critical path is one warpgroup's p and
 // ds (4,096 pairs, an exp2 each on the special-function unit) and then the
 // accumulations that wait for them; knocking out half the tensor work saved
@@ -222,6 +223,308 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2], uint32_t a,
   }
 }
 
+// Issues dq = ds.k for a step's 64 q rows (not committed): ds^T from the
+// p/ds buffer (64 kv rows x 64 q columns, K-major) read as an MN-major A,
+// k (64 kv rows x N, N = 2 x the registers of dq) as an MN-major B; k runs
+// over the 64 kv rows.  dq is a new definition by the first wgmma.
+template <int N>
+__device__ __forceinline__ void issue_dq(float (&dq)[N / 2], uint32_t ds_addr,
+                                         uint32_t k_addr) {
+  hw::wgmma_ss_init<1, 1>(dq, hw::sw128_desc(ds_addr, kChunk, 1024),
+                          hw::sw128_desc(k_addr, kChunk, 1024));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) {
+    hw::wgmma_ss_mn<1>(dq, hw::sw128_desc(ds_addr + kk * 16 * 128, kChunk, 1024),
+                       hw::sw128_desc(k_addr + kk * 16 * 128, kChunk, 1024));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide kv-tile kernels, bf16 at D = 256: flash_bwd_dkv_wgmma_wide (dk,
+// dv) and flash_bwd_fused_wgmma_wide (kDq: dq as well), one body.  dk and
+// dv of 64 kv rows are 128 registers a thread each, which with s^T and dp^T
+// (64) do not fit the 168 registers of a 288-thread block.  A block of 256
+// threads (two warpgroups, no producer warp) gets 255, so warpgroup 0 holds
+// dv and warpgroup 1 dk whole, each as two 64 x 128 halves (m64n128k16 on
+// do's or q's chunks 0-1 and 2-3), 232 registers, no spills.  Steps (GQA
+// head, q tile) alternate owners, who compute s^T and dp^T
+// (issue_st_dpt<256>) and p and ds (p_ds_store) into the stage's p/ds
+// buffer; each warpgroup then accumulates both steps of the pair in order.
+// Shared memory holds k and v (64 KB), two stages of q and do (128 KB), two
+// p/ds buffers (32 KB) and lse and delta: 231,480 of 232,448 bytes, so two
+// stages.  With no producer warp, mbarriers carry the handoffs: full (a
+// stage landed), ready (a step's p and ds written, every owner thread
+// arriving) and done (both warpgroups accumulated a step); the warpgroup
+// that does not own a step accumulates it second, so its first warp then
+// refills the stage with the step two on (lse and delta loaded into
+// registers before the accumulation, q and do by TMA).  dk and dv are the
+// same bits on every run.
+//
+// With kDq the owner of a step also forms dq = ds.k for the step's 64 q
+// rows once it has accumulated the step, in two 64 x 128 column halves
+// (issue_dq<128>: ds read from the p/ds buffer as an MN-major A, the tile's
+// transpose; k as an MN-major B), each in the 64 registers that s^T and
+// dp^T held.  Shared memory has no room for f32 dq tiles, so each half is
+// written in f32 (128-byte swizzled) into half of the step's own stage,
+// whose q and do are dead once the step is accumulated, and added to the
+// caller's zeroed f32 buffer by TMA bulk tensor reductions (cp.reduce
+// .async.bulk.tensor ... add, which drops rows >= S), issued as soon as the
+// half is written.  The first half goes where the owner's own accumulation
+// read (do for warpgroup 0, q for 1: dead at once), the second where the
+// other warpgroup's did (dead at done).  The stage's next load waits until
+// the reductions have read it, so the owner, which issued them, refills its
+// own steps' stages.  The p/ds buffer is next written by the same
+// warpgroup, two steps on, after that dq has completed.  dq's order of
+// additions across blocks, and so its last bits, vary from run to run.
+// Variants timed in turns with this design (PERF.md; at B 2, S 1024,
+// 16 heads): adding each half from registers, two or four columns an
+// atomic, 20-25 % longer; both halves written once the step is done, then
+// reduced, 13 %; the first half early but both reduced together, 5 %;
+// without the reductions (wrong dq) 19 % shorter.
+
+// Tiles and dynamic shared memory: k and v (64 rows x 4 chunks each), then
+// per stage q and do (the same), then per stage p and ds (one 64 x 64
+// chunk each), then per stage 64 lse and 64 delta values, then the
+// barriers; + 1024 bytes to align the base to a swizzle atom.
+template <int D>
+struct KvWideTiles {
+  static_assert(D == 256, "the wide design is for D = 256");
+  static constexpr int kBK = 64, kBQ = 64, kStages = 2;
+  static constexpr int kTile = D / 64 * kChunk;  // one 64 x D tile
+  static constexpr int kPOffset = (2 + 2 * kStages) * kTile;
+  static constexpr int kRowsOffset = kPOffset + kStages * 2 * kChunk;
+  static constexpr int kBarOffset = kRowsOffset + 2 * kStages * kBQ * 4;
+  static constexpr int kSmem = kBarOffset + (1 + 3 * kStages) * 8 + 1024;
+  static constexpr int kThreads = 256;  // 2 warpgroups, no producer warp
+  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+};
+
+template <int D, bool kDq>
+__device__ __forceinline__ void bwd_kv_wide(
+    const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_dk, const CUtensorMap* map_dv,
+    const CUtensorMap* map_dq, const float* __restrict__ lse,
+    const float* __restrict__ delta, int S, int Hq, int Hkv, int causal,
+    float scale, float scale_log2) {
+  using T = KvWideTiles<D>;
+  static_assert(T::kStages == 2, "a stage per warpgroup's step parity");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = sm;
+  uint8_t* vs = sm + T::kTile;
+  uint8_t* qds = sm + 2 * T::kTile;  // stage st: q at 2 st kTile, then do
+  uint8_t* pds = sm + T::kPOffset;   // stage st: p at 2 st kChunk, then ds
+  float* lse_s = reinterpret_cast<float*>(sm + T::kRowsOffset);
+  float* delta_s = lse_s + T::kStages * T::kBQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
+  uint64_t* full = kv_full + 1;         // a stage's q, do, lse, delta landed
+  uint64_t* ready = full + T::kStages;  // a stage's p and ds written
+  uint64_t* done = ready + T::kStages;  // both accumulations of a stage done
+
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * T::kBK;
+  const int G = Hq / Hkv;
+  const int n_q = (S + T::kBQ - 1) / T::kBQ;
+  const int qt0 = causal ? k0 / T::kBQ : 0;
+  const int n_per_group = n_q - qt0;
+  const int n_steps = G * n_per_group;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(kv_full, 1);
+    for (int st = 0; st < T::kStages; ++st) {
+      hw::mbar_init(full + st, 32);    // every lane of the loading warp
+      hw::mbar_init(ready + st, 128);  // every thread of the step's owner
+      hw::mbar_init(done + st, 8);     // every warp
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Warps 0-3 are warpgroup 0, 4-7 warpgroup 1; the index goes through a
+  // shuffle so that the compiler knows it is uniform across each warp.
+  const int warp =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int wg = warp / 4, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128;
+
+  // Step j is (GQA head hk G + j / n_per_group, q tile qt0 + j %
+  // n_per_group).  Its lse (times log2 e) and delta (times scale) of q rows
+  // q0 + lane and q0 + lane + 32, by plain guarded loads (a (B, Hq, S) f32
+  // row is 16-byte aligned only when S % 4 == 0, which TMA would need).
+  auto fetch_rows = [&](int j, float (&r)[4]) {
+    const int h = hk * G + j / n_per_group;
+    const int q0 = (qt0 + j % n_per_group) * T::kBQ;
+    const size_t row0 = (static_cast<size_t>(b) * Hq + h) * S;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + lane + 32 * e;
+      r[e] = row < S ? lse[row0 + row] * kLog2e : 0.f;
+      r[2 + e] = row < S ? delta[row0 + row] * scale : 0.f;
+    }
+  };
+  // One warp fills stage j % kStages with step j: those rows into shared
+  // memory, and (lane 0) q and do by TMA, which zero-fills rows >= S; every
+  // lane arrives on the stage's full barrier, lane 0 with the bytes.
+  auto fill = [&](int j, const float (&r)[4]) {
+    const int st = j % T::kStages;
+    const int h = hk * G + j / n_per_group;
+    const int q0 = (qt0 + j % n_per_group) * T::kBQ;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lse_s[st * T::kBQ + lane + 32 * e] = r[e];
+      delta_s[st * T::kBQ + lane + 32 * e] = r[2 + e];
+    }
+    if (lane == 0) {
+      uint8_t* qs = qds + 2 * st * T::kTile;
+      hw::mbar_expect_tx(full + st, 2 * T::kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        hw::tma_load_4d(qs + c * kChunk, map_q, full + st, 64 * c, h, q0, b);
+        hw::tma_load_4d(qs + T::kTile + c * kChunk, map_do, full + st, 64 * c,
+                        h, q0, b);
+      }
+    } else {
+      hw::mbar_arrive(full + st);
+    }
+  };
+
+  float rows[4];
+  if (warp == 0) {
+    if (lane == 0) {
+      hw::prefetch_map(map_q);
+      hw::prefetch_map(map_do);
+      hw::mbar_expect_tx(kv_full, 2 * T::kTile);
+      for (int c = 0; c < D / 64; ++c) {
+        hw::tma_load_4d(ks + c * kChunk, map_k, kv_full, 64 * c, hk, k0, b);
+        hw::tma_load_4d(vs + c * kChunk, map_v, kv_full, 64 * c, hk, k0, b);
+      }
+    }
+    for (int j = 0; j < min(T::kStages, n_steps); ++j) {
+      fetch_rows(j, rows);
+      fill(j, rows);
+    }
+  }
+
+  // Warpgroup 0 accumulates dv, warpgroup 1 dk, each as two 64 x 128
+  // halves (the columns of chunks 0-1 and 2-3).  Step i is owned by
+  // warpgroup i % 2.  For each pair of steps (2m, 2m + 1) a warpgroup
+  // computes its own step's s^T and dp^T, p and ds into the stage's p/ds
+  // buffer (arriving on ready), then accumulates both steps in order.  A
+  // step's stage and buffer are free once both warpgroups have accumulated
+  // it (done); the warpgroup that accumulates it second in the common case,
+  // the one that does not own it, then fills the stage with step + 2, from
+  // lse and delta it loaded before its accumulation.  With kDq the owner
+  // fills it, once its dq reductions have read the stage.
+  float acc[2][64];
+#pragma unroll
+  for (int n = 0; n < 64; ++n) acc[0][n] = acc[1][n] = 0.f;
+  const uint32_t k_addr = hw::smem_addr(ks), v_addr = hw::smem_addr(vs);
+  hw::mbar_wait(kv_full, 0);
+  for (int m = 0; 2 * m < n_steps; ++m) {
+    const int i = 2 * m + wg;
+    if (i < n_steps) {
+      const int st = i % T::kStages;
+      const int q0 = (qt0 + i % n_per_group) * T::kBQ;
+      const uint32_t q_addr = hw::smem_addr(qds + 2 * st * T::kTile);
+      hw::mbar_wait(full + st, (i / T::kStages) & 1);
+      float s[32], dp[32];
+      hw::wgmma_fence();
+      issue_st_dpt<D>(s, dp, k_addr, v_addr, q_addr, q_addr + T::kTile);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(s);
+      hw::fence_regs(dp);
+      p_ds_store(s, dp, lse_s + st * T::kBQ, delta_s + st * T::kBQ,
+                 needs_mask(causal, q0, T::kBQ, k0, T::kBK, S), causal, q0, k0,
+                 S, scale, scale_log2, pds + st * 2 * kChunk, warp, lane);
+      hw::fence_async_shared();
+      hw::mbar_arrive(ready + st);
+    }
+    const int j_end = min(2 * m + 2, n_steps);
+    for (int j = 2 * m; j < j_end; ++j) {
+      const int st = j % T::kStages;
+      const uint32_t phase = (j / T::kStages) & 1;
+      const int filler = kDq ? j % 2 : 1 - j % 2;
+      const bool loads =
+          warp % 4 == 0 && wg == filler && j + T::kStages < n_steps;
+      if (loads) fetch_rows(j + T::kStages, rows);
+      hw::mbar_wait(ready + st, phase);
+      // A is p (warpgroup 0) or ds (1), K-major; B is do (0) or q (1),
+      // MN-major; k runs over the step's 64 q rows.
+      const uint32_t a = hw::smem_addr(pds + st * 2 * kChunk + wg * kChunk);
+      const uint32_t bt =
+          hw::smem_addr(qds + 2 * st * T::kTile + (1 - wg) * T::kTile);
+      hw::wgmma_fence();
+      issue_acc<128>(acc[0], a, bt);
+      issue_acc<128>(acc[1], a, bt + 2 * kChunk);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc[0]);
+      hw::fence_regs(acc[1]);
+      if (lane == 0) hw::mbar_arrive(done + st);
+      if (!kDq && loads) {
+        hw::mbar_wait(done + st, phase);
+        fill(j + T::kStages, rows);
+      }
+      if constexpr (kDq) {
+        if (j % 2 == wg) {  // own step: dq = ds.k through the stage
+          const int h = hk * G + j / n_per_group;
+          const int q0 = (qt0 + j % n_per_group) * T::kBQ;
+          const uint32_t ds_addr =
+              hw::smem_addr(pds + st * 2 * kChunk + kChunk);
+          uint8_t* stage = qds + 2 * st * T::kTile;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float dq[64];
+            hw::wgmma_fence();
+            issue_dq<128>(dq, ds_addr, k_addr + half * 2 * kChunk);
+            hw::wgmma_commit();
+            hw::wgmma_wait<0>();
+            hw::fence_regs(dq);
+            if (half == 1) hw::mbar_wait(done + st, phase);
+            uint8_t* area = stage + (half ? wg : 1 - wg) * T::kTile;
+            hw::store_acc_sw128_f32(area, dq);
+            hw::fence_async_shared();
+            hw::named_barrier(1 + wg, 128);
+            if (tid == 0) {
+              for (int c = 0; c < 4; ++c) {
+                hw::tma_reduce_add_4d(map_dq, area + c * 8192,
+                                      128 * half + 32 * c, h, q0, b);
+              }
+              hw::tma_store_commit();
+            }
+          }
+          if (loads) {
+            if (lane == 0) hw::tma_store_wait_read();
+            fill(j + T::kStages, rows);
+          }
+        }
+      }
+    }
+  }
+
+  // Epilogue: dv (warpgroup 0) through the v buffer, dk (1) through the k
+  // buffer, in bf16: each warpgroup has waited for every step's p and ds,
+  // which follow that step's s^T and dp^T, so neither reads v any more; k
+  // is read by dq = ds.k as well, so with kDq both warpgroups first finish
+  // their last dq.  Then one TMA store per chunk, which drops rows >= S.
+  if constexpr (kDq) hw::named_barrier(3, 256);
+  uint8_t* out = wg == 0 ? vs : ks;
+  hw::store_acc_sw128(out, acc[0]);
+  hw::store_acc_sw128(out + 2 * kChunk, acc[1]);
+  hw::fence_async_shared();
+  hw::named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    const CUtensorMap* map = wg == 0 ? map_dv : map_dk;
+    for (int c = 0; c < D / 64; ++c) {
+      hw::tma_store_4d(map, out + c * kChunk, 64 * c, hk, k0, b);
+    }
+    hw::tma_store_commit();
+    hw::tma_store_wait_read();
+  }
+}
+
 // Launch with `smem` bytes of dynamic shared memory (above 48 KB only after
 // the opt-in attribute); returns cudaGetLastError().
 template <typename Kernel>
@@ -245,12 +548,8 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
 // (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
 // buffer with atomics.  Elem is the storage type (storage.cuh): float at D
-// 64, 128, 256 and 512, bf16 at D 512 and, for the fused kernel (kDq), at
-// D 256, where the wgmma kernels' dk and dv accumulators do not fit a
-// consumer's registers (the bf16 dk/dv kernel at D 256 is
-// flash_bwd_dkv_wgmma_wide, on wgmma); p and ds are
-// rounded to Elem before the products that take them, and dk and dv to Elem
-// on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
+// 64, 128, 256 and 512, bf16 at D 512; p and ds are rounded to Elem before
+// the products that take them, and dk and dv to Elem on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
 // lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
 // as at D 256, where 32-row tiles would need 256) and the tiles at 130 KB;
 // (A) then runs two q rows at once, half a warp on each.
@@ -444,9 +743,9 @@ int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 }
 
 // Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
-// D 64, 128, 256 and 512, bf16 at D 512 and, fused, 256 (dtype 0 =
-// float32, 1 = bfloat16; the bf16 kernels at D 64 and 128, and dk/dv's at
-// 256, are on wgmma); kDq selects the fused variant.
+// D 64, 128, 256 and 512, bf16 at D 512 (dtype 0 = float32, 1 = bfloat16;
+// the bf16 kernels at D 64, 128 and 256 are on wgmma); kDq selects the
+// fused variant.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
@@ -458,11 +757,6 @@ int launch_kv(const BwdArgs& args, int B, int D, int dtype,
   }
   if (dtype == 0 && D == 256) {
     return launch_kv_f32<float, 256, kDq>(args, B, stream);
-  }
-  if constexpr (kDq) {
-    if (dtype == 1 && D == 256) {
-      return launch_kv_f32<__nv_bfloat16, 256, kDq>(args, B, stream);
-    }
   }
   if (dtype == 0 && D == 512) {
     return launch_kv_f32<float, 512, kDq>(args, B, stream);

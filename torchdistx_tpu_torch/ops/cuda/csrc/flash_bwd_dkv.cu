@@ -53,21 +53,12 @@
 //
 // bf16 at D = 256 (flash_bwd_dkv_wgmma_wide): dk and dv of 64 kv rows are
 // 128 registers a thread each, which with s^T and dp^T (64) do not fit the
-// 168 registers of a 288-thread block.  A block of 256 threads (two
-// warpgroups, no producer warp) gets 255, so warpgroup 0 holds dv and
-// warpgroup 1 dk whole, each as two 64 x 128 halves (m64n128k16 on do's or
-// q's chunks 0-1 and 2-3), 232 registers, no spills.  Steps still
-// alternate owners, who compute s^T and dp^T (issue_st_dpt<256>) and p and
-// ds (p_ds_store) into the stage's p/ds buffer; each warpgroup then
-// accumulates both steps of the pair in order.  Shared memory holds k and
-// v (64 KB), two stages of q and do (128 KB), two p/ds buffers (32 KB) and
-// lse and delta: 231,480 of 232,448 bytes, so two stages.  With no producer
-// warp, mbarriers carry the handoffs: full (a stage landed), ready (a
-// step's p and ds written, every owner thread arriving) and done (both
-// warpgroups accumulated a step); the warpgroup that does not own a step
-// accumulates it second, so its first warp then refills the stage with the
-// step two on (lse and delta loaded into registers before the
-// accumulation, q and do by TMA).  The result is the same bits on every
+// 168 registers of a 288-thread block.  It runs flash_bwd_common.cuh's
+// bwd_kv_wide, which the fused kernel runs with dq added: 256 threads (two
+// warpgroups, no producer warp, so 255 registers; 232 used, no spills),
+// warpgroup 0 holding dv and 1 dk whole, two stages of q and do in 231,480
+// of 232,448 bytes of shared memory, mbarriers for the handoffs (the
+// header there has the design).  The result is the same bits on every
 // run, as below.
 //
 // f32 at D 64, 128, 256 and 512, and bf16 at D 512: CUDA cores, the
@@ -334,26 +325,9 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The D = 256 kernel's tiles and dynamic shared memory: k and v (64 rows x
-// 4 chunks each), then per stage q and do (the same), then per stage p and
-// ds (one 64 x 64 chunk each), then per stage 64 lse and 64 delta values,
-// then the barriers; + 1024 bytes to align the base to a swizzle atom.
-// Two stages are all that fits (231,480 of 232,448 bytes).
+// The D = 256 kernel: flash_bwd_common.cuh's bwd_kv_wide without dq.
 template <int D>
-struct DkvWideTiles {
-  static_assert(D == 256, "the wide design is for D = 256");
-  static constexpr int kBK = 64, kBQ = 64, kStages = 2;
-  static constexpr int kTile = D / 64 * kChunk;  // one 64 x D tile
-  static constexpr int kPOffset = (2 + 2 * kStages) * kTile;
-  static constexpr int kRowsOffset = kPOffset + kStages * 2 * kChunk;
-  static constexpr int kBarOffset = kRowsOffset + 2 * kStages * kBQ * 4;
-  static constexpr int kSmem = kBarOffset + (1 + 3 * kStages) * 8 + 1024;
-  static constexpr int kThreads = 256;  // 2 warpgroups, no producer warp
-  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
-};
-
-template <int D>
-__global__ void __launch_bounds__(DkvWideTiles<D>::kThreads, 1)
+__global__ void __launch_bounds__(KvWideTiles<D>::kThreads, 1)
 flash_bwd_dkv_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_do,
                          __grid_constant__ const CUtensorMap tm_k,
@@ -363,186 +337,8 @@ flash_bwd_dkv_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, int S, int Hq,
                          int Hkv, int causal, float scale, float scale_log2) {
-  using T = DkvWideTiles<D>;
-  static_assert(T::kStages == 2, "a stage per warpgroup's step parity");
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm =
-      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* ks = sm;
-  uint8_t* vs = sm + T::kTile;
-  uint8_t* qds = sm + 2 * T::kTile;  // stage st: q at 2 st kTile, then do
-  uint8_t* pds = sm + T::kPOffset;   // stage st: p at 2 st kChunk, then ds
-  float* lse_s = reinterpret_cast<float*>(sm + T::kRowsOffset);
-  float* delta_s = lse_s + T::kStages * T::kBQ;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
-  uint64_t* full = kv_full + 1;         // a stage's q, do, lse, delta landed
-  uint64_t* ready = full + T::kStages;  // a stage's p and ds written
-  uint64_t* done = ready + T::kStages;  // both accumulations of a stage done
-
-  const int hk = blockIdx.x, b = blockIdx.z;
-  const int k0 = blockIdx.y * T::kBK;
-  const int G = Hq / Hkv;
-  const int n_q = (S + T::kBQ - 1) / T::kBQ;
-  const int qt0 = causal ? k0 / T::kBQ : 0;
-  const int n_per_group = n_q - qt0;
-  const int n_steps = G * n_per_group;
-
-  if (threadIdx.x == 0) {
-    hw::mbar_init(kv_full, 1);
-    for (int st = 0; st < T::kStages; ++st) {
-      hw::mbar_init(full + st, 32);    // every lane of the loading warp
-      hw::mbar_init(ready + st, 128);  // every thread of the step's owner
-      hw::mbar_init(done + st, 8);     // every warp
-    }
-    hw::fence_barrier_init();
-  }
-  __syncthreads();
-
-  // Warps 0-3 are warpgroup 0, 4-7 warpgroup 1; the index goes through a
-  // shuffle so that the compiler knows it is uniform across each warp.
-  const int warp =
-      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
-  const int wg = warp / 4, lane = threadIdx.x % 32;
-  const int tid = threadIdx.x % 128;
-  const CUtensorMap* map_q = &tm_q;
-  const CUtensorMap* map_do = &tm_do;
-
-  // Step j is (GQA head hk G + j / n_per_group, q tile qt0 + j %
-  // n_per_group).  Its lse (times log2 e) and delta (times scale) of q rows
-  // q0 + lane and q0 + lane + 32, by plain guarded loads (a (B, Hq, S) f32
-  // row is 16-byte aligned only when S % 4 == 0, which TMA would need).
-  auto fetch_rows = [&](int j, float (&r)[4]) {
-    const int h = hk * G + j / n_per_group;
-    const int q0 = (qt0 + j % n_per_group) * T::kBQ;
-    const size_t row0 = (static_cast<size_t>(b) * Hq + h) * S;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int row = q0 + lane + 32 * e;
-      r[e] = row < S ? lse[row0 + row] * kLog2e : 0.f;
-      r[2 + e] = row < S ? delta[row0 + row] * scale : 0.f;
-    }
-  };
-  // One warp fills stage j % kStages with step j: those rows into shared
-  // memory, and (lane 0) q and do by TMA, which zero-fills rows >= S; every
-  // lane arrives on the stage's full barrier, lane 0 with the bytes.
-  auto fill = [&](int j, const float (&r)[4]) {
-    const int st = j % T::kStages;
-    const int h = hk * G + j / n_per_group;
-    const int q0 = (qt0 + j % n_per_group) * T::kBQ;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      lse_s[st * T::kBQ + lane + 32 * e] = r[e];
-      delta_s[st * T::kBQ + lane + 32 * e] = r[2 + e];
-    }
-    if (lane == 0) {
-      uint8_t* qs = qds + 2 * st * T::kTile;
-      hw::mbar_expect_tx(full + st, 2 * T::kTile);
-      for (int c = 0; c < D / 64; ++c) {
-        hw::tma_load_4d(qs + c * kChunk, map_q, full + st, 64 * c, h, q0, b);
-        hw::tma_load_4d(qs + T::kTile + c * kChunk, map_do, full + st, 64 * c,
-                        h, q0, b);
-      }
-    } else {
-      hw::mbar_arrive(full + st);
-    }
-  };
-
-  float rows[4];
-  if (warp == 0) {
-    if (lane == 0) {
-      hw::prefetch_map(&tm_q);
-      hw::prefetch_map(&tm_do);
-      hw::mbar_expect_tx(kv_full, 2 * T::kTile);
-      for (int c = 0; c < D / 64; ++c) {
-        hw::tma_load_4d(ks + c * kChunk, &tm_k, kv_full, 64 * c, hk, k0, b);
-        hw::tma_load_4d(vs + c * kChunk, &tm_v, kv_full, 64 * c, hk, k0, b);
-      }
-    }
-    for (int j = 0; j < min(T::kStages, n_steps); ++j) {
-      fetch_rows(j, rows);
-      fill(j, rows);
-    }
-  }
-
-  // Warpgroup 0 accumulates dv, warpgroup 1 dk, each as two 64 x 128
-  // halves (the columns of chunks 0-1 and 2-3).  Step i is owned by
-  // warpgroup i % 2.  For each pair of steps (2m, 2m + 1) a warpgroup
-  // computes its own step's s^T and dp^T, p and ds into the stage's p/ds
-  // buffer (arriving on ready), then accumulates both steps in order.  A
-  // step's stage and buffer are free once both warpgroups have accumulated
-  // it (done); the warpgroup that accumulates it second in the common case,
-  // the one that does not own it, then fills the stage with step + 2, from
-  // lse and delta it loaded before its accumulation.
-  float acc[2][64];
-#pragma unroll
-  for (int n = 0; n < 64; ++n) acc[0][n] = acc[1][n] = 0.f;
-  const uint32_t k_addr = hw::smem_addr(ks), v_addr = hw::smem_addr(vs);
-  hw::mbar_wait(kv_full, 0);
-  for (int m = 0; 2 * m < n_steps; ++m) {
-    const int i = 2 * m + wg;
-    if (i < n_steps) {
-      const int st = i % T::kStages;
-      const int q0 = (qt0 + i % n_per_group) * T::kBQ;
-      const uint32_t q_addr = hw::smem_addr(qds + 2 * st * T::kTile);
-      hw::mbar_wait(full + st, (i / T::kStages) & 1);
-      float s[32], dp[32];
-      hw::wgmma_fence();
-      issue_st_dpt<D>(s, dp, k_addr, v_addr, q_addr, q_addr + T::kTile);
-      hw::wgmma_commit();
-      hw::wgmma_wait<0>();
-      hw::fence_regs(s);
-      hw::fence_regs(dp);
-      p_ds_store(s, dp, lse_s + st * T::kBQ, delta_s + st * T::kBQ,
-                 needs_mask(causal, q0, T::kBQ, k0, T::kBK, S), causal, q0, k0,
-                 S, scale, scale_log2, pds + st * 2 * kChunk, warp, lane);
-      hw::fence_async_shared();
-      hw::mbar_arrive(ready + st);
-    }
-    const int j_end = min(2 * m + 2, n_steps);
-    for (int j = 2 * m; j < j_end; ++j) {
-      const int st = j % T::kStages;
-      const uint32_t phase = (j / T::kStages) & 1;
-      const bool loads =
-          warp % 4 == 0 && j % 2 != wg && j + T::kStages < n_steps;
-      if (loads) fetch_rows(j + T::kStages, rows);
-      hw::mbar_wait(ready + st, phase);
-      // A is p (warpgroup 0) or ds (1), K-major; B is do (0) or q (1),
-      // MN-major; k runs over the step's 64 q rows.
-      const uint32_t a = hw::smem_addr(pds + st * 2 * kChunk + wg * kChunk);
-      const uint32_t bt =
-          hw::smem_addr(qds + 2 * st * T::kTile + (1 - wg) * T::kTile);
-      hw::wgmma_fence();
-      issue_acc<128>(acc[0], a, bt);
-      issue_acc<128>(acc[1], a, bt + 2 * kChunk);
-      hw::wgmma_commit();
-      hw::wgmma_wait<0>();
-      hw::fence_regs(acc[0]);
-      hw::fence_regs(acc[1]);
-      if (lane == 0) hw::mbar_arrive(done + st);
-      if (loads) {
-        hw::mbar_wait(done + st, phase);
-        fill(j + T::kStages, rows);
-      }
-    }
-  }
-
-  // Epilogue: dv (warpgroup 0) through the v buffer, dk (1) through the k
-  // buffer, in bf16: each warpgroup has waited for every step's p and ds,
-  // which follow that step's s^T and dp^T, so neither reads k or v any
-  // more.  Then one TMA store per chunk, which drops rows >= S.
-  uint8_t* out = wg == 0 ? vs : ks;
-  hw::store_acc_sw128(out, acc[0]);
-  hw::store_acc_sw128(out + 2 * kChunk, acc[1]);
-  hw::fence_async_shared();
-  hw::named_barrier(1 + wg, 128);
-  if (tid == 0) {
-    const CUtensorMap* map = wg == 0 ? &tm_dv : &tm_dk;
-    for (int c = 0; c < D / 64; ++c) {
-      hw::tma_store_4d(map, out + c * kChunk, 64 * c, hk, k0, b);
-    }
-    hw::tma_store_commit();
-    hw::tma_store_wait_read();
-  }
+  bwd_kv_wide<D, false>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, nullptr,
+                        lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
 }
 
 template <int D>
@@ -551,7 +347,7 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
                     void* dk, void* dv, int B, int S, int Hq, int Hkv,
                     int causal, float scale, float scale_log2,
                     cudaStream_t stream) {
-  using T = DkvWideTiles<D>;
+  using T = KvWideTiles<D>;
   const int n_kv = (S + T::kBK - 1) / T::kBK;
   if (n_kv > 65535 || B > 65535) return cudaErrorInvalidValue;
   static bool opted[hw::kMaxDevices];

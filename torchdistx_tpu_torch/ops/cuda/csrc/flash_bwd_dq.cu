@@ -37,9 +37,29 @@
 // bf16 through the warpgroup's half of the q buffer and a TMA store, which
 // drops rows >= S.
 //
-// f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512 (bwd_dq_f32):
-// CUDA cores, 16 q rows a block, one warp lane per kv column for the two
-// dots and per 32nd output column for dS.K.
+// bf16 at D = 256 (flash_bwd_dq_wgmma_wide): a 64 x 256 f32 dq is 128
+// registers a thread, which beside s and dp (64) does not fit the 168 of a
+// 288-thread block.  A block of 256 threads (two warpgroups, no producer
+// warp) gets 255: each warpgroup holds its 64 rows' dq whole, as two 64 x
+// 128 halves (m64n128k16 on k's chunks 0-1 and 2-3), beside s and dp; 229
+// registers, no spills, and no product computed twice.  q and do of the
+// block's 128 rows take 128 KB, so two whole stages of k and v (128 KB)
+// do not fit; three 32 KB slots that take v and k in turns do (230,456 of
+// 232,448 bytes): v of a tile frees once both warpgroups have s and dp, k
+// once both have added ds.k, and the next tile's k and the tile after
+// next's v go there.  With no producer warp, warpgroup 1, whose products
+// run second in the ping-pong, issues those loads once every warp has
+// arrived on the slot's empty barrier.  The rest is the design above:
+// tiles from the diagonal down, ds from registers as the A fragment, k read
+// in place as the MN-major B, dq the same bits on every run.  Device ms on
+// an NVIDIA H100 80GB HBM3 at 700 W: 0.063-0.065 at B 2, S 1024, 16 heads
+// (3.8 on the CUDA cores it replaces; bound 0.026), 0.080-0.082 at B 1, S
+// 2112, 4/2 heads (2.55; bound 0.014), where 68 blocks fill half the SMs
+// and the heaviest walks 33 kv tiles (PERF.md).
+//
+// f32 at D 64, 128, 256 and 512, and bf16 at D 512 (bwd_dq_f32): CUDA
+// cores, 16 q rows a block, one warp lane per kv column for the two dots
+// and per 32nd output column for dS.K.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 3 products of 2 D flops per causal
@@ -293,6 +313,246 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The D = 256 kernel's tiles and dynamic shared memory: q and do (each two
+// warpgroups x 4 chunks of 64 rows, 8 KB a chunk: 128 KB), then kSlots
+// slots of one 64 x 256 tile (32 KB) that take v and k in turns, then the
+// barriers; + 1024 bytes to align the base to a swizzle atom.  Two whole
+// stages of k and v (128 KB) do not fit beside q and do; three slots do.
+template <int D>
+struct DqWideTiles {
+  static_assert(D == 256, "the wide design is for D = 256");
+  static constexpr int kBQ = 128, kBK = 64, kSlots = 3;
+  static constexpr int kTile = D / 64 * kChunk;  // one 64 x D tile
+  static constexpr int kSlotOffset = 4 * kTile;
+  static constexpr int kBarOffset = kSlotOffset + kSlots * kTile;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kSlots) * 8 + 1024;
+  static constexpr int kThreads = 256;  // 2 warpgroups, no producer warp
+  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqWideTiles<D>::kThreads, 1)
+flash_bwd_dq_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
+                        __grid_constant__ const CUtensorMap tm_do,
+                        __grid_constant__ const CUtensorMap tm_k,
+                        __grid_constant__ const CUtensorMap tm_v,
+                        __grid_constant__ const CUtensorMap tm_dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, int S, int Hq,
+                        int Hkv, int causal, float scale, float scale_log2) {
+  using T = DqWideTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm;                  // warpgroup w's rows at w * kTile
+  uint8_t* dos = sm + 2 * T::kTile;  // the same for do
+  uint8_t* slots = sm + T::kSlotOffset;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
+  uint64_t* full = q_full + 1;        // a slot's tile landed
+  uint64_t* empty = full + T::kSlots;  // every warp has read a slot's tile
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kBQ;
+  const int hk = h / (Hq / Hkv);
+  const int n_tiles = causal ? (min(q0 + T::kBQ, S) - 1) / T::kBK + 1
+                             : (S + T::kBK - 1) / T::kBK;
+  const int n_loads = 2 * n_tiles;
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int x = 0; x < T::kSlots; ++x) {
+      hw::mbar_init(full + x, 1);
+      hw::mbar_init(empty + x, 8);  // one arrival per warp
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The kv tiles are walked from the last to the first (the diagonal, and
+  // the tiles that need the mask, first).  Load n is tile n / 2's v (n
+  // even) or k (n odd), into slot n % kSlots, whose round's parity flips
+  // every kSlots loads (the first round's empty waits pass).  Tile i's v is
+  // read by s and dp, its k by s and dq += ds.k, so with three slots the
+  // next tile's k goes where this tile's v was once both warpgroups have
+  // their s and dp, and the tile after next's v where this tile's k was
+  // once both have added their dq.  One thread issues each load.
+  auto load = [&](int n) {
+    const int x = n % T::kSlots;
+    const int k0 = (n_tiles - 1 - n / 2) * T::kBK;
+    uint8_t* dst = slots + x * T::kTile;
+    hw::mbar_wait(empty + x, ((n / T::kSlots) & 1) ^ 1);
+    hw::mbar_expect_tx(full + x, T::kTile);
+    for (int c = 0; c < D / 64; ++c) {
+      hw::tma_load_4d(dst + c * kChunk, n % 2 ? map_k : map_v, full + x,
+                      64 * c, hk, k0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hw::prefetch_map(map_k);
+    hw::prefetch_map(map_v);
+    hw::mbar_expect_tx(q_full, 4 * T::kTile);
+    for (int half = 0; half < 2; ++half) {
+      for (int c = 0; c < D / 64; ++c) {
+        const int off = half * T::kTile + c * kChunk;
+        hw::tma_load_4d(qs + off, &tm_q, q_full, 64 * c, h, q0 + 64 * half, b);
+        hw::tma_load_4d(dos + off, &tm_do, q_full, 64 * c, h, q0 + 64 * half,
+                        b);
+      }
+    }
+    for (int n = 0; n < min(T::kSlots, n_loads); ++n) load(n);
+  }
+
+  // Warps 0-3 are warpgroup 0 (q rows q0 .. q0 + 63), 4-7 warpgroup 1 (the
+  // next 64); the index goes through a shuffle so that the compiler knows
+  // it is uniform across each warp.  Each holds its 64 x 256 dq whole, as
+  // two 64 x 128 halves (m64n128k16 on k's chunks 0-1 and 2-3), beside s
+  // and dp (m64n64k16).
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_q = q0 + 64 * wg;        // the warpgroup's first row
+  const int r0 = row_q + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+  const size_t row_base = (static_cast<size_t>(b) * Hq + h) * S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    lse2[r] = row < S ? lse[row_base + row] * kLog2e : 0.f;
+    dl[r] = row < S ? delta[row_base + row] * scale : 0.f;
+  }
+  uint8_t* qw = qs + wg * T::kTile;
+  const uint32_t q_addr = hw::smem_addr(qw);
+  const uint32_t do_addr = hw::smem_addr(dos + wg * T::kTile);
+  float dq[2][64];
+#pragma unroll
+  for (int n = 0; n < 64; ++n) dq[0][n] = dq[1][n] = 0.f;
+
+  // Ping-pong, as in flash_bwd_dq_wgmma: before each product warpgroup w
+  // waits on named barrier kTurn + w, which the other warpgroup arrives on
+  // once it has issued its own product.  Warpgroup 1 opens with one arrival
+  // so that warpgroup 0 goes first, and skips its last one, so every
+  // barrier phase gets 128 + 128 threads.  Warpgroup 1's products run
+  // second, so its first thread issues the loads of the slots both have
+  // read.
+  constexpr int kTurn = 3;  // ids 3 and 4; 1 and 2 are the epilogue's
+  if (wg == 1) hw::named_arrive(kTurn, 256);
+  hw::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (n_tiles - 1 - i) * T::kBK;
+    const int xv = (2 * i) % T::kSlots, xk = (2 * i + 1) % T::kSlots;
+    const uint32_t v_addr = hw::smem_addr(slots + xv * T::kTile);
+    const uint32_t k_addr = hw::smem_addr(slots + xk * T::kTile);
+    hw::mbar_wait(full + xv, ((2 * i) / T::kSlots) & 1);
+    hw::mbar_wait(full + xk, ((2 * i + 1) / T::kSlots) & 1);
+
+    // s = q.k^T and dp = do.v^T (64 q rows x 64 kv columns), each a new
+    // definition by its first wgmma.
+    float s[32], dp[32];
+    hw::named_barrier(kTurn + wg, 256);
+    hw::wgmma_fence();
+    issue_st_dpt<D>(s, dp, q_addr, do_addr, k_addr, v_addr);
+    hw::wgmma_commit();
+    hw::named_arrive(kTurn + 1 - wg, 256);
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+    hw::fence_regs(dp);
+    if (lane == 0) hw::mbar_arrive(empty + xv);
+    if (wg == 1 && tid == 0 && 2 * i + 3 < n_loads) load(2 * i + 3);
+
+    // ds = p (dp scale - delta scale) into dp (dl holds delta scale), p =
+    // 2^(s scale log2 e - lse log2 e), 0 on masked pairs; this thread's
+    // rows r0 and r0 + 8.
+    auto softmax = [&](const bool masked) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          p_ds_fast(s[4 * j + e], dp[4 * j + e], lse2[r], dl[r], masked,
+                    causal, r0 + 8 * r, k0 + 8 * j + 2 * t + (e & 1), S,
+                    scale, scale_log2);
+        }
+      }
+    };
+    if (needs_mask(causal, row_q, 64, k0, T::kBK, S)) {
+      softmax(true);
+    } else {
+      softmax(false);
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        da[kk][r] = pack_f32(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dq += ds.k; the k dimension is the kv rows, k read as an MN-major B
+    // operand, half by half.
+    hw::named_barrier(kTurn + wg, 256);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = kk * 16 * 128;
+      hw::wgmma_rs(dq[0], da[kk], hw::sw128_desc(k_addr + off, kChunk, 1024));
+      hw::wgmma_rs(dq[1], da[kk],
+                   hw::sw128_desc(k_addr + 2 * kChunk + off, kChunk, 1024));
+    }
+    hw::wgmma_commit();
+    if (wg == 0 || i + 1 < n_tiles) hw::named_arrive(kTurn + 1 - wg, 256);
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dq[0]);
+    hw::fence_regs(dq[1]);
+    if (lane == 0) hw::mbar_arrive(empty + xk);
+    if (wg == 1 && tid == 0 && 2 * i + 4 < n_loads) load(2 * i + 4);
+  }
+
+  // Epilogue: dq in bf16 through this warpgroup's q buffer (no longer
+  // read), then one TMA store per chunk, which drops rows >= S.
+  hw::store_acc_sw128(qw, dq[0]);
+  hw::store_acc_sw128(qw + 2 * kChunk, dq[1]);
+  hw::fence_async_shared();
+  hw::named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    if (row_q < S) {
+      for (int c = 0; c < D / 64; ++c) {
+        hw::tma_store_4d(&tm_dq, qw + c * kChunk, 64 * c, h, row_q, b);
+      }
+    }
+    hw::tma_store_commit();
+    hw::tma_store_wait_read();
+  }
+}
+
+template <int D>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int S, int Hq, int Hkv, int causal,
+                   float scale, float scale_log2, cudaStream_t stream) {
+  using T = DqWideTiles<D>;
+  const int n_q = (S + T::kBQ - 1) / T::kBQ;
+  if (n_q > 65535 || B > 65535) return cudaErrorInvalidValue;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_bwd_dq_wgmma_wide<D>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, 64);
+  if (!err) err = hw::bshd_map(&tm_do, dout, B, S, Hq, D, 64);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dq, dq, B, S, Hq, D, 64);
+  if (err) return err;
+  flash_bwd_dq_wgmma_wide<D>
+      <<<dim3(Hq, n_q, B), T::kThreads, T::kSmem, stream>>>(
+          tm_q, tm_do, tm_k, tm_v, tm_dq, lse, delta, S, Hq, Hkv, causal,
+          scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 struct DqF32 {
   static constexpr int BQ = 16, BK = 32, LDK = D + 1;
@@ -305,7 +565,7 @@ struct DqF32 {
 // over kv tiles of 32; warp w forms p and ds for q rows 4w..4w+3, one lane
 // per kv column, and dq = ds.k with one lane per 32nd output column.  Elem
 // is the storage type (storage.cuh): float at D 64, 128, 256 and 512, bf16
-// at D 256 and 512 (192 KB of tiles; a lane holds 4 rows x 16 dq floats);
+// at D 512 (192 KB of tiles; a lane holds 4 rows x 16 dq floats);
 // ds is rounded to Elem before ds.k, and dq to Elem on the store.
 template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
@@ -440,6 +700,10 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq_bf16<128>(q, k, v, dout, lse_f, delta_f, dq, B, S, Hq,
                                Hkv, causal, scale, scale_log2, st);
   }
+  if (dtype == 1 && D == 256) {
+    return launch_dq_wide<256>(q, k, v, dout, lse_f, delta_f, dq, B, S, Hq,
+                               Hkv, causal, scale, scale_log2, st);
+  }
   BwdArgs args{};
   args.q = q;
   args.k = k;
@@ -457,7 +721,6 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 64) return launch_dq<float, 64>(args, B, st);
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(args, B, st);
   if (dtype == 0 && D == 256) return launch_dq<float, 256>(args, B, st);
-  if (dtype == 1 && D == 256) return launch_dq<__nv_bfloat16, 256>(args, B, st);
   if (dtype == 0 && D == 512) return launch_dq<float, 512>(args, B, st);
   if (dtype == 1 && D == 512) return launch_dq<__nv_bfloat16, 512>(args, B, st);
   return cudaErrorInvalidValue;

@@ -72,7 +72,26 @@
 // next work's k and v keep streaming in); one dq tile that the
 // warpgroups hand over by an mbarrier, 3 stages, 0.127 (0.410).
 //
-// f32 at D 64, 128, 256 and 512, and bf16 at D 256 and 512: CUDA cores, the
+// bf16 at D = 256 (flash_bwd_fused_wgmma_wide): a 64 x 256 f32
+// accumulator is 128 registers a thread, so the design above (dk or dv
+// beside dq and s^T, dp^T under 168 registers) does not fit.  It is
+// flash_bwd_common.cuh's bwd_kv_wide, the D = 256 dk/dv kernel's body (256
+// threads, no producer warp, 255 registers; warpgroup 0 holds dv and 1 dk
+// whole) with dq: the step's owner forms dq = ds.k in two 64 x 128 halves,
+// writes each in f32 into half of the step's stage once its q or do is
+// dead, and adds it by a bulk tensor reduction (the header there has the
+// design and the variants timed).  Not persistent: a block per (kv head,
+// kv tile, batch), tile 0 (the most causal steps) first.  232 registers,
+// no spills.  Device ms on an NVIDIA H100 80GB HBM3 at 700 W at B 2, S
+// 1024, 16 heads, causal, through the wrapper (which zeroes and casts the
+// f32 dq): 0.19, 0.185 on the device (the CUDA-core body it replaces
+// 4.7); dk/dv alone 0.095, SDPA's whole backward 0.21 on the device
+// (PERF.md).  What bounds it there: 5
+// products, 43.5 us at the tensor rate; what holds it back is the 285 MB
+// of f32 dq partials added in L2 (0.154 without the additions) and the
+// two-stage ring, whose refill waits for those reductions.
+//
+// f32 at D 64, 128, 256 and 512, and bf16 at D 512: CUDA cores, the
 // kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32 with kDq), with
 // dq by scalar atomics into the f32 buffer.
 //
@@ -121,22 +140,6 @@ struct FusedTiles {
   static constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 warp
   static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
 };
-
-// Issues dq = ds.k for a step's 64 q rows (not committed): ds^T from the
-// p/ds buffer (64 kv rows x 64 q columns, K-major) read as an MN-major A,
-// k (64 kv rows x D) as an MN-major B; k runs over the 64 kv rows.  dq is a
-// new definition by the first wgmma.
-template <int D>
-__device__ __forceinline__ void issue_dq(float (&dq)[D / 2], uint32_t ds_addr,
-                                         uint32_t k_addr) {
-  hw::wgmma_ss_init<1, 1>(dq, hw::sw128_desc(ds_addr, kChunk, 1024),
-                          hw::sw128_desc(k_addr, kChunk, 1024));
-#pragma unroll
-  for (int kk = 1; kk < 4; ++kk) {
-    hw::wgmma_ss_mn<1>(dq, hw::sw128_desc(ds_addr + kk * 16 * 128, kChunk, 1024),
-                       hw::sw128_desc(k_addr + kk * 16 * 128, kChunk, 1024));
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(FusedTiles<D>::kThreads, 1)
@@ -413,6 +416,52 @@ int launch_fused_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The D = 256 kernel: flash_bwd_common.cuh's bwd_kv_wide with dq, added
+// to the f32 buffer through tm_dq by bulk tensor reductions.
+template <int D>
+__global__ void __launch_bounds__(KvWideTiles<D>::kThreads, 1)
+flash_bwd_fused_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
+                           __grid_constant__ const CUtensorMap tm_do,
+                           __grid_constant__ const CUtensorMap tm_k,
+                           __grid_constant__ const CUtensorMap tm_v,
+                           __grid_constant__ const CUtensorMap tm_dk,
+                           __grid_constant__ const CUtensorMap tm_dv,
+                           __grid_constant__ const CUtensorMap tm_dq,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, int S, int Hq,
+                           int Hkv, int causal, float scale,
+                           float scale_log2) {
+  bwd_kv_wide<D, true>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, &tm_dq,
+                       lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+}
+
+template <int D>
+int launch_fused_wide(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      float* dq_acc, void* dk, void* dv, int B, int S, int Hq,
+                      int Hkv, int causal, float scale, float scale_log2,
+                      cudaStream_t stream) {
+  using T = KvWideTiles<D>;
+  const int n_kv = (S + T::kBK - 1) / T::kBK;
+  if (n_kv > 65535 || B > 65535) return cudaErrorInvalidValue;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_bwd_fused_wgmma_wide<D>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, tm_dq;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_do, dout, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dk, dk, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dv, dv, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dq, dq_acc, B, S, Hq, D, T::kBQ, 4);
+  if (err) return err;
+  flash_bwd_fused_wgmma_wide<D>
+      <<<dim3(Hkv, n_kv, B), T::kThreads, T::kSmem, stream>>>(
+          tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, tm_dq, lse, delta, S, Hq, Hkv,
+          causal, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace tdx_bwd
 
@@ -439,6 +488,10 @@ extern "C" int tdx_flash_bwd_fused(const void* q, const void* k, const void* v,
   }
   if (dtype == 1 && D == 128) {
     return launch_fused_bf16<128>(q, k, v, dout, lse_f, delta_f, dq_f, dk, dv,
+                                  B, S, Hq, Hkv, causal, scale, scale_log2, st);
+  }
+  if (dtype == 1 && D == 256) {
+    return launch_fused_wide<256>(q, k, v, dout, lse_f, delta_f, dq_f, dk, dv,
                                   B, S, Hq, Hkv, causal, scale, scale_log2, st);
   }
   BwdArgs args{};

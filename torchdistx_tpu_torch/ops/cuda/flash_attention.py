@@ -24,8 +24,7 @@ one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
 
 The kernels have instances for head dims 64, 128, 256 and 512 (bf16 at 64,
-128 and 256 on TMA + wgmma, but for the fused and dq kernels at 256; f32,
-bf16 at 512, and bf16's fused and dq at 256, on the CUDA cores).  Every
+128 and 256 on TMA + wgmma; f32, and bf16 at 512, on the CUDA cores).  Every
 entry point takes any head dim up to 512: q, k, v (and ``do``) are
 zero-padded on the last axis to the next instance, the kernels run with the
 scale of the true head dim, and out, dq, dk and dv are cut back to it.  Zero columns add
