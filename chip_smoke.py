@@ -259,8 +259,10 @@ FLASH_SHAPES = [
     ("wide_d256", 2, 1024, 16, 16, 256, torch.bfloat16, True),
     ("d256_path_f32", 2, 64, 4, 2, 256, torch.float32, True),
     ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True),
-    # The D = 512 instances (CUDA cores) at [head dims]' shape.
+    # The bf16 D = 512 instances at [head dims]' shape, then at a
+    # 512-wide-head model's (the width of wide_d256 in 8 heads of 512).
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True),
+    ("wide_d512", 2, 1024, 8, 8, 512, torch.bfloat16, True),
     # The [gpt2] path's attention: gpt2_xl at GPT2_SHAPE, 25 heads of 64.
     ("gpt2_xl_heads", 4, 1024, 25, 25, 64, torch.bfloat16, True),
     # [mesh ranks]' kernel blocks (MESH_RANK_BLOCKS): (a) llama_7b's heads at
@@ -325,6 +327,8 @@ BWD_SHAPES = [
     ("d256_path_bf16", 1, 2112, 4, 2, 256, torch.bfloat16, True, "streamed"),
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "fused"),
     ("d512", 2, 300, 8, 2, 512, torch.bfloat16, True, "streamed"),
+    ("wide_d512", 2, 1024, 8, 8, 512, torch.bfloat16, True, "fused"),
+    ("wide_d512", 2, 1024, 8, 8, 512, torch.bfloat16, True, "streamed"),
     ("gpt2_xl_heads", 4, 1024, 25, 25, 64, torch.bfloat16, True, "fused"),
     ("mesh_rank_block", 2, 512, 16, 16, 128, torch.bfloat16, True, "fused"),
     ("mesh_rank_f32_block", 2, 32, 2, 1, 64, torch.float32, True, "fused"),
@@ -717,14 +721,16 @@ def _instance(kernel, d, dtype):
     head dim ``d`` (64, 128, 256 or 512) in ``dtype``: the dispatch of
     ``csrc/<kernel>.cu``, named as the ptxas report names it (namespaces
     left out).  bf16 takes TMA + wgmma at D 64, 128 and 256 (the backward
-    kernels' wide form at 256); the rest runs on the CUDA cores."""
+    kernels' wide form at 256), and the forward and dk/dv at 512 (dk/dv's
+    wide form, on clusters of two blocks); the rest runs on the CUDA
+    cores."""
     bf16 = dtype == torch.bfloat16
     elem = "__nv_bfloat16" if bf16 else "float"
     if kernel == "flash_fwd":
-        return (f"flash_fwd_bf16_wgmma<(int){d}>" if bf16 and d <= 256
+        return (f"flash_fwd_bf16_wgmma<(int){d}>" if bf16
                 else f"flash_fwd_f32<{elem}, (int){d}>")
-    if bf16 and d == 256:
-        return f"{kernel}_wgmma_wide<(int)256>"
+    if bf16 and (d == 256 or (d == 512 and kernel == "flash_bwd_dkv")):
+        return f"{kernel}_wgmma_wide<(int){d}>"
     if bf16 and d <= 128:
         return f"{kernel}_wgmma<(int){d}>"
     if kernel == "flash_bwd_dq":
@@ -732,10 +738,12 @@ def _instance(kernel, d, dtype):
     return f"bwd_kv_f32<{elem}, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
 
 
-# The bf16 D = 256 instances (TMA + wgmma), whose ptxas report the build
-# prints and must show without spills.
+# The bf16 D = 256 and D = 512 instances on TMA + wgmma, whose ptxas report
+# the build prints and must show without spills.
 D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+D512_WGMMA = {kernel: _instance(kernel, 512, torch.bfloat16)
+              for kernel in ("flash_fwd", "flash_bwd_dkv")}
 
 
 def _in_report(report, instance):
@@ -794,11 +802,12 @@ def phase_build():
     _check(bool(report) or not built, "no ptxas report from the build")
     wide = {k: v for k, v in report.items() if "(int)512" in k}
     print("[build] the D = 512 instances: " + json.dumps(wide))
-    d256 = {name: _in_report(report, name) for name in D256_WGMMA.values()}
-    print("[build] the bf16 D = 256 instances (TMA + wgmma): " + json.dumps(d256))
-    if set(D256_WGMMA) <= set(built):
-        _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
-                   for r in d256.values()), f"[build] D = 256 instances spill: {d256}")
+    for d, wgmma in ((256, D256_WGMMA), (512, D512_WGMMA)):
+        found = {name: _in_report(report, name) for name in wgmma.values()}
+        print(f"[build] the bf16 D = {d} instances (TMA + wgmma): " + json.dumps(found))
+        if set(wgmma) <= set(built):
+            _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
+                       for r in found.values()), f"[build] D = {d} instances spill: {found}")
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -6169,6 +6178,7 @@ def main() -> int:
         "pipeline": pipe_stats, "resnet": resnet_stats, "gpt2": gpt2_stats,
         "moe": moe_stats, "serve": serve_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "ptxas_d256_wgmma": {n: _in_report(ptxas, n) for n in D256_WGMMA.values()},
+        "ptxas_d512_wgmma": {n: _in_report(ptxas, n) for n in D512_WGMMA.values()},
         "phase_s": phase_s, "script_s": time.perf_counter() - t_start,
     }))
 

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Compare the port's bf16 D = 256 flash kernels (forward, fused backward, dq
-and dk/dv) across checkouts, on one GPU.
+"""Compare the port's bf16 D = 256 (or D = 512) flash kernels (forward,
+fused backward, dq and dk/dv) across checkouts, on one GPU.
 
-    python3 scripts/torch_d256_ab.py ROOT [ROOT ...]
+    python3 scripts/torch_d256_ab.py [--d 512] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``torchdistx_tpu_torch/``.  For each ROOT,
 in the order given, a child process imports the port from ROOT, builds its
-forward and dk/dv sources into ``ROOT/build/d256_ab`` and prints one JSON
-line:
+four flash sources into ``ROOT/build/d256_ab`` (``d512_ab`` at D = 512)
+and prints one JSON line:
 
-- ``ptxas``: registers, spill stores and loads of every D = 256 instance,
-  from nvcc's ``-Xptxas -v`` report;
-- ``ms``: at each of D256_SHAPES (``chip_smoke.py``'s bf16 D = 256 rows),
-  the forward's, the fused backward's, dq's and dk/dv's time through the
-  port's wrappers (the median over 21 repeats of 10 back-to-back calls
-  between CUDA events, divided by 10; 7 repeats of 3 calls for a kernel
-  slower than 1 ms a call), beside SDPA's forward and its whole backward
-  on the same inputs (the kv heads expanded), the library yardsticks.
+- ``ptxas``: registers, spill stores and loads of every instance at the
+  head dim, from nvcc's ``-Xptxas -v`` report;
+- ``ms``: at each of the head dim's SHAPES (``chip_smoke.py``'s bf16 rows
+  at that head dim), the forward's, the fused backward's, dq's and
+  dk/dv's time through the port's wrappers (the median over 21 repeats of
+  10 back-to-back calls between CUDA events, divided by 10; 7 repeats of 3
+  calls for a kernel slower than 1 ms a call), beside SDPA's forward and
+  its whole backward on the same inputs (the kv heads expanded), the
+  library yardsticks.
+
+``--d`` is the head dim, 256 unless given.
 
 Give the roots as parent, change, change, parent to see the drift between
 calls beside the difference.  The last lines are a table by shape and the
@@ -34,10 +37,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (name, B, S, Hq, Hkv, causal): a 256-wide-head model's attention, and the
-# D = 256 path's own bf16 step (1 x 2112, 4/2 heads).
-D256_SHAPES = [("wide_d256", 2, 1024, 16, 16, True),
-               ("d256_path_bf16", 1, 2112, 4, 2, True)]
+# Head dim -> (name, B, S, Hq, Hkv, causal).  At 256: a 256-wide-head
+# model's attention, and the D = 256 path's own bf16 step (1 x 2112, 4/2
+# heads).  At 512: the same width in 512-wide heads (no model of the repo
+# has them), and [head dims]' shape.
+SHAPES = {256: [("wide_d256", 2, 1024, 16, 16, True),
+                ("d256_path_bf16", 1, 2112, 4, 2, True)],
+          512: [("wide_d512", 2, 1024, 8, 8, True),
+                ("d512", 2, 300, 8, 2, True)]}
 SOURCES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -48,8 +55,8 @@ def _cuda_tool(name: str) -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name)
 
 
-def _ptxas(logs):
-    """{demangled D = 256 kernel: {registers, spill_stores, spill_loads}}."""
+def _ptxas(logs, d):
+    """{demangled kernel at head dim d: {registers, spill_stores, spill_loads}}."""
     entries, current = {}, None
     for log in logs.values():
         for line in log.splitlines():
@@ -73,7 +80,7 @@ def _ptxas(logs):
     for mangled, name in zip(entries, names):
         name = name.removeprefix("void ")
         name = name[:name.index("(", name.rindex(">"))] if ">" in name else name
-        if "256" in name:
+        if f"(int){d}" in name:
             out[name] = entries[mangled]
     return out
 
@@ -105,8 +112,8 @@ def _time_ms(fn, *, warmup=3, reps=21, calls=10):
     return statistics.median(times)
 
 
-def child(root: Path) -> None:
-    os.environ["TDX_TORCH_BUILD_DIR"] = str(root / "build" / "d256_ab")
+def child(root: Path, d: int) -> None:
+    os.environ["TDX_TORCH_BUILD_DIR"] = str(root / "build" / f"d{d}_ab")
     sys.path.insert(0, str(root))
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -115,11 +122,12 @@ def child(root: Path) -> None:
     from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
 
     built = _build.build(SOURCES)
-    row = {"root": str(root), "ptxas": _ptxas(_build.build_logs) if built else None, "ms": {}}
+    row = {"root": str(root), "ptxas": _ptxas(_build.build_logs, d) if built else None,
+           "ms": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, s, hq, hkv, causal in D256_SHAPES:
+    for name, b, s, hq, hkv, causal in SHAPES[d]:
         def rand(h):
-            return torch.randn((b, s, h, 256), generator=gen, device="cuda",
+            return torch.randn((b, s, h, d), generator=gen, device="cuda",
                                dtype=torch.bfloat16)
 
         q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
@@ -146,11 +154,17 @@ def child(root: Path) -> None:
     print(json.dumps(row), flush=True)
 
 
-def main(roots) -> int:
+def main(args) -> int:
+    d = 256
+    if args[:1] == ["--d"]:
+        d, args = int(args[1]), args[2:]
+    if d not in SHAPES:
+        sys.stderr.write(f"--d takes one of {sorted(SHAPES)}, not {d}\n")
+        return 2
     rows = []
-    for root in roots:
-        proc = subprocess.run([sys.executable, __file__, "--child", str(Path(root).resolve())],
-                              capture_output=True, text=True)
+    for root in args:
+        proc = subprocess.run([sys.executable, __file__, "--child", str(d),
+                               str(Path(root).resolve())], capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
             return proc.returncode
@@ -158,7 +172,7 @@ def main(roots) -> int:
         print(line, flush=True)
         rows.append(json.loads(line))
     print("shape | kernel | " + " | ".join(r["root"] for r in rows))
-    for name, *_ in D256_SHAPES:
+    for name, *_ in SHAPES[d]:
         for kernel in rows[0]["ms"][name]:
             print(f"{name} | {kernel} | "
                   + " | ".join(f"{r['ms'][name][kernel]:.4f}" for r in rows))
@@ -169,6 +183,6 @@ def main(roots) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        child(Path(sys.argv[2]))
+        child(Path(sys.argv[3]), int(sys.argv[2]))
         sys.exit(0)
     sys.exit(main(sys.argv[1:]))

@@ -177,6 +177,28 @@ def test_wide_shape_bounds(shape, kernel, dtype, bound_ms, bound_by):
     assert got_by == bound_by
 
 
+# The bf16 D = 512 rows at phase 2's wide_d512 shape (B 2, S 1024, 8/8
+# heads of 512, causal): the bytes and operations of wide_d256 in half the
+# heads, so the same bounds (the forward's lse bytes are half as many).
+@pytest.mark.parametrize(
+    "kernel, bound_ms, bound_by",
+    [("flash_fwd", 0.020052, "bytes"),
+     ("flash_bwd_dkv", 0.034776, "operations"),
+     ("flash_bwd_fused", 0.043470, "operations"),
+     ("flash_bwd_dq", 0.026082, "operations")],
+)
+def test_wide_d512_bounds(kernel, bound_ms, bound_by):
+    row = next(r for r in chip_smoke.FLASH_SHAPES if r[0] == "wide_d512")
+    assert row[1:] == (2, 1024, 8, 8, 512, torch.bfloat16, True)
+    assert sum(r[0] == "wide_d512" for r in chip_smoke.BWD_SHAPES) == 2
+    if kernel == "flash_fwd":
+        got_ms, got_by = chip_smoke._flash_bound(*row[1:])
+    else:
+        got_ms, got_by = chip_smoke._bwd_bound(kernel, *row[1:])
+    assert got_ms == pytest.approx(bound_ms, rel=1e-4)
+    assert got_by == bound_by
+
+
 def test_wide_llama_has_256_wide_heads():
     cfg = chip_smoke._wide_llama_cfg()
     assert cfg.head_dim == 256 and cfg.n_heads % cfg.n_kv_heads == 0
@@ -247,7 +269,9 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
 # The instance each (kernel, kernel head dim, dtype) runs, as the sources'
 # dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 takes
 # TMA + wgmma for every kernel, and no CUDA-core body; f32 at D 256 stays
-# on the CUDA cores.
+# on the CUDA cores.  At D 512 the bf16 forward and dk/dv take TMA + wgmma
+# (dk/dv on clusters of two blocks); the bf16 fused backward and dq, and
+# f32, stay on the CUDA cores.
 @pytest.mark.parametrize(
     "kernel, d, dtype, instance",
     [("flash_fwd", 256, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)256>"),
@@ -258,8 +282,12 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
      ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)0>"),
      ("flash_bwd_fused", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)1>"),
      ("flash_bwd_dq", 256, torch.float32, "bwd_dq_f32<float, (int)256>"),
-     ("flash_fwd", 512, torch.bfloat16, "flash_fwd_f32<__nv_bfloat16, (int)512>"),
-     ("flash_bwd_dkv", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>"),
+     ("flash_fwd", 512, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)512>"),
+     ("flash_bwd_dkv", 512, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)512>"),
+     ("flash_bwd_fused", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>"),
+     ("flash_bwd_dq", 512, torch.bfloat16, "bwd_dq_f32<__nv_bfloat16, (int)512>"),
+     ("flash_fwd", 512, torch.float32, "flash_fwd_f32<float, (int)512>"),
+     ("flash_bwd_dkv", 512, torch.float32, "bwd_kv_f32<float, (int)512, (bool)0>"),
      ("flash_bwd_dkv", 128, torch.bfloat16, "flash_bwd_dkv_wgmma<(int)128>"),
      ("flash_bwd_fused", 64, torch.bfloat16, "flash_bwd_fused_wgmma<(int)64>")],
 )
@@ -284,6 +312,19 @@ def test_d256_wgmma_instances_are_found_in_a_ptxas_report():
     assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)256>") is None
     assert chip_smoke._in_report(report, "bwd_kv_f32<float, (int)256, (bool)0>") == {
         "registers": 168}
+
+
+def test_d512_wgmma_instances_are_found_in_a_ptxas_report():
+    # The [build] line checks the bf16 D = 512 forward and dk/dv for spills;
+    # the CUDA-core bodies that they replaced are no instance of the build.
+    report = {"<unnamed>::flash_fwd_bf16_wgmma<(int)512>": {"registers": 180},
+              "tdx_bwd::<unnamed>::flash_bwd_dkv_wgmma_wide<(int)512>": {"registers": 215},
+              "tdx_bwd::bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>": {"registers": 245}}
+    assert {k: chip_smoke._in_report(report, n)["registers"]
+            for k, n in chip_smoke.D512_WGMMA.items()} == {"flash_fwd": 180,
+                                                           "flash_bwd_dkv": 215}
+    assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)512>") is None
+    assert chip_smoke._in_report(report, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>") is None
 
 
 def test_slowmo_run_is_cut_as_documented():

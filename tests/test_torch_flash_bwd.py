@@ -157,14 +157,17 @@ def test_wide_head_dims_match_jax_flash_attention(causal, d):
     _check_grads((tq.grad, tk.grad, tv.grad), [np.asarray(g) for g in j_grads])
 
 
-# bf16 at head dim 256: the plain versions that the card holds the TMA +
-# wgmma kernels against (flash_attention_reference, flash_bwd_plain),
-# against the Pallas kernels (interpreted) on the same bf16 inputs, at the
-# wgmma kernels' 64-row tile edges (1, 63, 64, 65, 127) and past them (129,
-# 200: more than one 64-row tile, and the dq kernel's 128-row block) with
-# GQA groups of 1, 2 and 4: the fused Pallas backward at each, the
-# streamed pair (blocks of 128, as _jax_backward runs it) where S pads to
-# 128 or more.  Tolerances as on the card (chip_smoke.py's
+# bf16 at head dims 256 and 512: the plain versions that the card holds
+# the TMA + wgmma kernels against (flash_attention_reference,
+# flash_bwd_plain), against the Pallas kernels (interpreted) on the same
+# bf16 inputs.  At 256, the wgmma kernels' 64-row tile edges (1, 63, 64, 65,
+# 127) and past them (129, 200: more than one 64-row tile, and the dq
+# kernel's 128-row block) with GQA groups of 1, 2 and 4; at 512 (a case
+# takes seconds in interpret mode), the edges of its 32-row tiles (33, 65,
+# 129: the forward's kv tiles and dk/dv's q steps, and more than one 64-row
+# q or kv tile) and S = 1, with the same groups: the fused Pallas backward
+# at each, the streamed pair (blocks of 128, as _jax_backward runs it)
+# where S pads to 128 or more.  Tolerances as on the card (chip_smoke.py's
 # TOL and BWD_TOL): out within 2e-2 and lse within 1e-3 (bf16 rounds p and
 # out to 2^-8 relative, p against a running max in Pallas and the row max in
 # the plain version); dq, dk and dv within 2e-2 of max(1, their largest
@@ -173,11 +176,16 @@ BF16_OUT_ATOL, BF16_LSE_ATOL, BF16_GRAD_TOL = 2e-2, 1e-3, 2e-2
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (63, 2, 1), (64, 2, 2), (65, 2, 1),
-                                        (127, 2, 2), (129, 4, 2), (200, 4, 1)])
-def test_bf16_d256_plain_versions_match_jax_kernels(causal, s, hq, hkv):
+@pytest.mark.parametrize(
+    "d, s, hq, hkv",
+    [pytest.param(256, *shape, id="-".join(map(str, shape)))
+     for shape in [(1, 2, 2), (63, 2, 1), (64, 2, 2), (65, 2, 1), (127, 2, 2), (129, 4, 2),
+                   (200, 4, 1)]]
+    + [pytest.param(512, *shape, id="d512-" + "-".join(map(str, shape)))
+       for shape in [(1, 2, 2), (33, 2, 1), (65, 4, 1), (129, 4, 2)]])
+def test_bf16_d256_plain_versions_match_jax_kernels(causal, d, s, hq, hkv):
     q, k, v, do = (jnp.asarray(x, jnp.bfloat16)
-                   for x in _inputs(s, hq, hkv, d=256, b=1, seed=s + 256))
+                   for x in _inputs(s, hq, hkv, d=d, b=1, seed=s + d))
     tq, tk, tv, tdo = (torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
                        for x in (q, k, v, do))
     for streamed in (False, True)[:1 + (jfa._pad_len(s) >= 128)]:

@@ -24,10 +24,11 @@
 // Also here: the steps that the bf16 kv-tile kernels on wgmma share
 // (flash_bwd_dkv.cu and flash_bwd_fused.cu: s^T and dp^T, p and ds into
 // shared memory, the dk/dv accumulation, dq = ds.k), the body of both at D
-// = 256 (bwd_kv_wide), the launch helper for dynamic shared memory, and
+// = 256 (bwd_kv_wide), dk/dv's at D = 512 over a cluster of two blocks
+// (bwd_kv_cluster), the launch helper for dynamic shared memory, and
 // bwd_kv_f32, the kv-tile-outer body on the CUDA cores that the dk/dv
-// kernel and (with kDq, dq by atomics) the fused kernel run for f32 and
-// for bf16 at D 512.  The bf16 kernels are built on hopper.cuh.  What
+// kernel runs for f32 and (with kDq, dq by atomics) the fused kernel for
+// f32 and for bf16 at D 512.  The bf16 kernels are built on hopper.cuh.  What
 // bounds the shared steps: a step's critical path is one warpgroup's p and
 // ds (4,096 pairs, an exp2 each on the special-function unit) and then the
 // accumulations that wait for them; knocking out half the tensor work saved
@@ -133,11 +134,13 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 
 constexpr int kChunk = 64 * 128;  // bytes of one 64 x 64 bf16 chunk
 
-// Issues s^T = k.q^T and dp^T = v.do^T for the 64 kv rows and the 64 q
-// rows (wgmma m64n64k16, both operands K-major; not committed), each a new
-// definition by its first wgmma.
-template <int D>
-__device__ __forceinline__ void issue_st_dpt(float (&s)[32], float (&dp)[32],
+// Issues s^T = k.q^T and dp^T = v.do^T for the 64 kv rows and the step's
+// NQ q rows over D columns (wgmma m64nNQk16, both operands K-major; not
+// committed), each a new definition by its first wgmma; q and do are
+// chunks of NQ rows (NQ 32 at D = 512, where D is a block's 256 columns).
+template <int D, int NQ = 64>
+__device__ __forceinline__ void issue_st_dpt(float (&s)[NQ / 2],
+                                             float (&dp)[NQ / 2],
                                              uint32_t k_addr, uint32_t v_addr,
                                              uint32_t q_addr,
                                              uint32_t do_addr) {
@@ -146,16 +149,18 @@ __device__ __forceinline__ void issue_st_dpt(float (&s)[32], float (&dp)[32],
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
+    const uint32_t off_q = (kk / 4) * NQ * 128 + (kk % 4) * 32;
     hw::wgmma_ss(s, hw::sw128_desc(k_addr + off, 16, 1024),
-                 hw::sw128_desc(q_addr + off, 16, 1024), 1);
+                 hw::sw128_desc(q_addr + off_q, 16, 1024), 1);
   }
   hw::wgmma_ss_init(dp, hw::sw128_desc(v_addr, 16, 1024),
                     hw::sw128_desc(do_addr, 16, 1024));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kChunk + (kk % 4) * 32;
+    const uint32_t off_q = (kk / 4) * NQ * 128 + (kk % 4) * 32;
     hw::wgmma_ss(dp, hw::sw128_desc(v_addr + off, 16, 1024),
-                 hw::sw128_desc(do_addr + off, 16, 1024), 1);
+                 hw::sw128_desc(do_addr + off_q, 16, 1024), 1);
   }
 }
 
@@ -166,9 +171,11 @@ __device__ __forceinline__ void issue_st_dpt(float (&s)[32], float (&dp)[32],
 // Then p and ds in bf16 into the step's buffer (p at pb, ds one chunk on),
 // four 8 x 8 blocks a stmatrix, laid out as the 128-byte swizzle of a
 // K-major operand: kv row r at byte r * 128, the 16-byte group of q columns
-// 8 c .. 8 c + 7 at (c ^ r % 8) * 16.
-__device__ __forceinline__ void p_ds_store(const float (&s)[32],
-                                           float (&dp)[32],
+// 8 c .. 8 c + 7 at (c ^ r % 8) * 16.  NQ is the step's q columns: 64, or
+// 32 at D = 512 (the buffer's rows then hold groups 0-3 of their 8).
+template <int NQ = 64>
+__device__ __forceinline__ void p_ds_store(const float (&s)[NQ / 2],
+                                           float (&dp)[NQ / 2],
                                            const float* lse_st,
                                            const float* delta_st, bool mask,
                                            int causal, int q0, int k0, int S,
@@ -176,9 +183,10 @@ __device__ __forceinline__ void p_ds_store(const float (&s)[32],
                                            uint8_t* pb, int warp, int lane) {
   const int t = lane % 4;
   const int row = 16 * (warp % 4) + lane / 4;
-  uint32_t pk[16], dsk[16];  // block (j, r): kv rows row + 8 r, cols 8 j..
+  // Block (j, r): kv rows row + 8 r, cols 8 j..
+  uint32_t pk[NQ / 4], dsk[NQ / 4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NQ / 8; ++j) {
     const int qc = 8 * j + 2 * t;
     const float2 l2 = *reinterpret_cast<const float2*>(lse_st + qc);
     const float2 dl = *reinterpret_cast<const float2*>(delta_st + qc);
@@ -200,7 +208,7 @@ __device__ __forceinline__ void p_ds_store(const float (&s)[32],
   // Lane l addresses row l % 8 of block (2 jp + l / 16, l / 8 % 2).
   const int m_row = 16 * (warp % 4) + lane % 8 + 8 * (lane / 8 % 2);
 #pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
+  for (int jp = 0; jp < NQ / 16; ++jp) {
     const int off = m_row * 128 + ((2 * jp + lane / 16) ^ (lane % 8)) * 16;
     const uint32_t pa = hw::smem_addr(pb + off);
     hw::stmatrix_x4(pa, pk[4 * jp], pk[4 * jp + 1], pk[4 * jp + 2],
@@ -210,16 +218,17 @@ __device__ __forceinline__ void p_ds_store(const float (&s)[32],
   }
 }
 
-// Issues acc += a^T.b over a step's 64 q rows (not committed): a is p or ds
-// (64 kv rows x 64 q columns, K-major, from p_ds_store), b is do or q (64 q
-// rows x D, MN-major, as TMA lays it out), so nothing is transposed.
-template <int D>
+// Issues acc += a^T.b over a step's NQ q rows (not committed): a is p or
+// ds (64 kv rows x NQ q columns, K-major, from p_ds_store), b is do or q
+// (NQ q rows x D, MN-major, as TMA lays it out, in chunks of NQ rows), so
+// nothing is transposed.
+template <int D, int NQ = 64>
 __device__ __forceinline__ void issue_acc(float (&acc)[D / 2], uint32_t a,
                                           uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NQ / 16; ++kk) {
     hw::wgmma_ss_mn(acc, hw::sw128_desc(a + kk * 32, 16, 1024),
-                    hw::sw128_desc(b + kk * 16 * 128, kChunk, 1024));
+                    hw::sw128_desc(b + kk * 16 * 128, NQ * 128, 1024));
   }
 }
 
@@ -282,6 +291,8 @@ __device__ __forceinline__ void issue_dq(float (&dq)[N / 2], uint32_t ds_addr,
 // reduced, 13 %; the first half early but both reduced together, 5 %;
 // without the reductions (wrong dq) 19 % shorter.
 
+constexpr int kWideThreads = 256;  // 2 warpgroups, no producer warp
+
 // Tiles and dynamic shared memory: k and v (64 rows x 4 chunks each), then
 // per stage q and do (the same), then per stage p and ds (one 64 x 64
 // chunk each), then per stage 64 lse and 64 delta values, then the
@@ -295,7 +306,7 @@ struct KvWideTiles {
   static constexpr int kRowsOffset = kPOffset + kStages * 2 * kChunk;
   static constexpr int kBarOffset = kRowsOffset + 2 * kStages * kBQ * 4;
   static constexpr int kSmem = kBarOffset + (1 + 3 * kStages) * 8 + 1024;
-  static constexpr int kThreads = 256;  // 2 warpgroups, no producer warp
+  static constexpr int kThreads = kWideThreads;
   static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
 };
 
@@ -525,6 +536,274 @@ __device__ __forceinline__ void bwd_kv_wide(
   }
 }
 
+// ---------------------------------------------------------------------------
+// dk/dv at D = 512 (flash_bwd_dkv_wgmma_wide<512>): a cluster of two blocks
+// on neighbouring SMs shares 64 kv rows, block r (its rank in the cluster)
+// owning D's columns 256 r .. 256 r + 255.  dk and dv of 64 kv rows at D =
+// 512 are 2 x 64 x 512 f32, the whole register file of an SM; a block
+// holds its half of each: warpgroup 0 dv's and warpgroup 1 dk's, 64 x 256
+// f32 (two 64 x 128 halves, 128 registers a thread), as bwd_kv_wide holds
+// D = 256 whole.  Its shared memory holds its columns of k and v (64 KB),
+// two stages of its columns of q and do for 32-row q tiles (64 KB), two
+// p/ds buffers (32 KB: 64 kv rows x 32 q columns each, in rows of 128
+// bytes), two buffers that receive the peer's partials and two that stage
+// its own (64 KB): 231,000 bytes with lse, delta and the barriers.  Steps
+// (GQA head, q tile of 32 rows) alternate owners as in bwd_kv_wide; the
+// owner of a step computes its partial s^T = k.q^T and dp^T = v.do^T over
+// the block's 256 columns (wgmma m64n32k16), stages them (16 KB) and sends
+// them by one bulk copy (cp.async.bulk shared::cluster) into the peer's
+// buffer of the stage, which completes the peer's xfull barrier, once the
+// peer has read the stage's previous partials (its release arrival on this
+// block's xempty); then it waits for the peer's partials in its own
+// buffer, adds them (f32 addition commutes, so both blocks form the same
+// sums, and from them the same bits of p and ds) and arrives on the peer's
+// xempty.  Then p and ds into the p/ds buffer (p_ds_store<32>) and both
+// warpgroups accumulate, as in bwd_kv_wide: dv_h += p^T.do_h, dk_h +=
+// ds^T.q_h (wgmma m64n128k16 on two 32-row chunks of do or q).  The
+// epilogue stores each block's columns of dk and dv through its k and v
+// buffers.  A cluster barrier at the start (every barrier initialised) and
+// at the end (no copy or arrival still to come from the peer) brackets the
+// exchange.  dk and dv are the same bits on every run.  Tried and dropped
+// (scripts/torch_d256_ab.py --d 512 on an H100, PERF.md): the partials
+// written into the peer by 16-byte st.shared::cluster stores (7 % slower),
+// s^T's half sent while dp^T is still on the tensor cores (no gain beyond
+// the spread), and the other warpgroup's accumulation issued while the
+// peer's partials arrive (30 % slower).
+
+struct KvClusterTiles {
+  static constexpr int kCols = 256;  // a block's columns of D = 512
+  static constexpr int kBK = 64, kBQ = 32, kStages = 2;
+  static constexpr int kChunkQ = kBQ * 128;     // a 32-row chunk: q, do
+  static constexpr int kKv = kCols / 64 * kChunk;  // a block's k or v: 32 KB
+  static constexpr int kQ = kCols / 64 * kChunkQ;  // its q or do: 16 KB
+  static constexpr int kStageOffset = 2 * kKv;
+  static constexpr int kPOffset = kStageOffset + kStages * 2 * kQ;
+  static constexpr int kXOffset = kPOffset + kStages * 2 * kChunk;
+  static constexpr int kX = 2 * 16 * 128 * 4;  // s^T and dp^T: 16 f32 x 128
+  static constexpr int kYOffset = kXOffset + kStages * kX;  // staging
+  static constexpr int kRowsOffset = kYOffset + kStages * kX;
+  static constexpr int kBarOffset = kRowsOffset + 2 * kStages * kBQ * 4;
+  static constexpr int kSmem = kBarOffset + (1 + 5 * kStages) * 8 + 1024;
+  static constexpr int kThreads = kWideThreads;
+  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+};
+
+__device__ __forceinline__ void bwd_kv_cluster(
+    const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_dk, const CUtensorMap* map_dv,
+    const float* __restrict__ lse, const float* __restrict__ delta, int S,
+    int Hq, int Hkv, int causal, float scale, float scale_log2) {
+  using T = KvClusterTiles;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = sm;
+  uint8_t* vs = sm + T::kKv;
+  uint8_t* qds = sm + T::kStageOffset;  // stage st: q at 2 st kQ, then do
+  uint8_t* pds = sm + T::kPOffset;      // stage st: p at 2 st kChunk, then ds
+  uint8_t* xs = sm + T::kXOffset;       // stage st's partials from the peer
+  uint8_t* ys = sm + T::kYOffset;       // stage st's partials to the peer
+  float* lse_s = reinterpret_cast<float*>(sm + T::kRowsOffset);
+  float* delta_s = lse_s + T::kStages * T::kBQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
+  uint64_t* full = kv_full + 1;           // a stage's q, do, lse, delta landed
+  uint64_t* ready = full + T::kStages;    // a stage's p and ds written
+  uint64_t* done = ready + T::kStages;    // both accumulations of a stage done
+  uint64_t* xfull = done + T::kStages;    // the peer's partials landed
+  uint64_t* xempty = xfull + T::kStages;  // the peer read this block's partials
+
+  const uint32_t rank = hw::cluster_rank(), peer = rank ^ 1;
+  const int col0 = static_cast<int>(rank) * T::kCols;
+  const int hk = blockIdx.x / 2, b = blockIdx.z;
+  const int k0 = blockIdx.y * T::kBK;
+  const int G = Hq / Hkv;
+  const int n_q = (S + T::kBQ - 1) / T::kBQ;
+  const int qt0 = causal ? k0 / T::kBQ : 0;
+  const int n_per_group = n_q - qt0;
+  const int n_steps = G * n_per_group;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(kv_full, 1);
+    for (int st = 0; st < T::kStages; ++st) {
+      hw::mbar_init(full + st, 32);     // every lane of the loading warp
+      hw::mbar_init(ready + st, 128);   // every thread of the step's owner
+      hw::mbar_init(done + st, 8);      // every warp
+      hw::mbar_init(xfull + st, 1);     // the owner's expect_tx, + the copy
+      hw::mbar_init(xempty + st, 128);  // every thread of the peer's owner
+    }
+    hw::fence_barrier_init();
+  }
+  hw::cluster_sync();
+
+  const int warp =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int wg = warp / 4, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128;
+
+  // Step j is (GQA head hk G + j / n_per_group, q tile qt0 + j %
+  // n_per_group); its lse (times log2 e) and delta (times scale) of q row
+  // q0 + lane, by plain guarded loads, and its q and do columns by TMA.
+  auto fetch_rows = [&](int j, float (&r)[2]) {
+    const int h = hk * G + j / n_per_group;
+    const int row = (qt0 + j % n_per_group) * T::kBQ + lane;
+    const size_t row0 = (static_cast<size_t>(b) * Hq + h) * S;
+    r[0] = row < S ? lse[row0 + row] * kLog2e : 0.f;
+    r[1] = row < S ? delta[row0 + row] * scale : 0.f;
+  };
+  auto fill = [&](int j, const float (&r)[2]) {
+    const int st = j % T::kStages;
+    const int h = hk * G + j / n_per_group;
+    const int q0 = (qt0 + j % n_per_group) * T::kBQ;
+    lse_s[st * T::kBQ + lane] = r[0];
+    delta_s[st * T::kBQ + lane] = r[1];
+    if (lane == 0) {
+      uint8_t* qs = qds + 2 * st * T::kQ;
+      hw::mbar_expect_tx(full + st, 2 * T::kQ);
+      for (int c = 0; c < T::kCols / 64; ++c) {
+        hw::tma_load_4d(qs + c * T::kChunkQ, map_q, full + st, col0 + 64 * c, h,
+                        q0, b);
+        hw::tma_load_4d(qs + T::kQ + c * T::kChunkQ, map_do, full + st,
+                        col0 + 64 * c, h, q0, b);
+      }
+    } else {
+      hw::mbar_arrive(full + st);
+    }
+  };
+
+  float rows[2];
+  if (warp == 0) {
+    if (lane == 0) {
+      hw::prefetch_map(map_q);
+      hw::prefetch_map(map_do);
+      hw::mbar_expect_tx(kv_full, 2 * T::kKv);
+      for (int c = 0; c < T::kCols / 64; ++c) {
+        hw::tma_load_4d(ks + c * kChunk, map_k, kv_full, col0 + 64 * c, hk, k0,
+                        b);
+        hw::tma_load_4d(vs + c * kChunk, map_v, kv_full, col0 + 64 * c, hk, k0,
+                        b);
+      }
+    }
+    for (int j = 0; j < min(T::kStages, n_steps); ++j) {
+      fetch_rows(j, rows);
+      fill(j, rows);
+    }
+  }
+
+  float acc[2][64];
+#pragma unroll
+  for (int n = 0; n < 64; ++n) acc[0][n] = acc[1][n] = 0.f;
+  const uint32_t k_addr = hw::smem_addr(ks), v_addr = hw::smem_addr(vs);
+  const uint32_t x_peer = hw::map_rank(hw::smem_addr(xs), peer);
+  const uint32_t xfull_peer = hw::map_rank(hw::smem_addr(xfull), peer);
+  const uint32_t xempty_peer = hw::map_rank(hw::smem_addr(xempty), peer);
+  hw::mbar_wait(kv_full, 0);
+  for (int m = 0; 2 * m < n_steps; ++m) {
+    const int i = 2 * m + wg;
+    if (i < n_steps) {
+      const int st = i % T::kStages;
+      const uint32_t round = (i / T::kStages) & 1;
+      const int q0 = (qt0 + i % n_per_group) * T::kBQ;
+      const uint32_t q_addr = hw::smem_addr(qds + 2 * st * T::kQ);
+      hw::mbar_wait(full + st, round);
+      float s[16], dp[16];
+      hw::wgmma_fence();
+      issue_st_dpt<T::kCols, T::kBQ>(s, dp, k_addr, v_addr, q_addr,
+                                     q_addr + T::kQ);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(s);
+      hw::fence_regs(dp);
+      // This thread's 32 partials staged (16-byte group e of thread tid at
+      // (e 128 + tid) 16) and sent into the peer's buffer by one bulk
+      // copy, once the peer has read the stage's previous ones (which also
+      // means that copy has read the staging buffer).
+      hw::mbar_wait<true>(xempty + st, round ^ 1);
+      float4* y = reinterpret_cast<float4*>(ys + st * T::kX) + tid;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        y[e * 128] = make_float4(s[4 * e], s[4 * e + 1], s[4 * e + 2],
+                                 s[4 * e + 3]);
+        y[(4 + e) * 128] = make_float4(dp[4 * e], dp[4 * e + 1],
+                                       dp[4 * e + 2], dp[4 * e + 3]);
+      }
+      hw::fence_async_shared();
+      hw::named_barrier(1 + wg, 128);
+      if (tid == 0) {
+        hw::mbar_expect_tx(xfull + st, T::kX);
+        hw::bulk_copy_cluster(x_peer + st * T::kX, ys + st * T::kX, T::kX,
+                              xfull_peer + st * 8);
+      }
+      hw::mbar_wait(xfull + st, round);
+      const float4* x =
+          reinterpret_cast<const float4*>(xs + st * T::kX) + tid;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 a = x[e * 128], c = x[(4 + e) * 128];
+        s[4 * e] += a.x;
+        s[4 * e + 1] += a.y;
+        s[4 * e + 2] += a.z;
+        s[4 * e + 3] += a.w;
+        dp[4 * e] += c.x;
+        dp[4 * e + 1] += c.y;
+        dp[4 * e + 2] += c.z;
+        dp[4 * e + 3] += c.w;
+      }
+      hw::mbar_arrive_cluster(xempty_peer + st * 8);
+      p_ds_store<T::kBQ>(s, dp, lse_s + st * T::kBQ, delta_s + st * T::kBQ,
+                         needs_mask(causal, q0, T::kBQ, k0, T::kBK, S), causal,
+                         q0, k0, S, scale, scale_log2, pds + st * 2 * kChunk,
+                         warp, lane);
+      hw::fence_async_shared();
+      hw::mbar_arrive(ready + st);
+    }
+    const int j_end = min(2 * m + 2, n_steps);
+    for (int j = 2 * m; j < j_end; ++j) {
+      const int st = j % T::kStages;
+      const uint32_t phase = (j / T::kStages) & 1;
+      const bool loads =
+          warp % 4 == 0 && wg == 1 - j % 2 && j + T::kStages < n_steps;
+      if (loads) fetch_rows(j + T::kStages, rows);
+      hw::mbar_wait(ready + st, phase);
+      // A is p (warpgroup 0) or ds (1), K-major; B is do (0) or q (1),
+      // MN-major; k runs over the step's 32 q rows.
+      const uint32_t a = hw::smem_addr(pds + st * 2 * kChunk + wg * kChunk);
+      const uint32_t bt =
+          hw::smem_addr(qds + 2 * st * T::kQ + (1 - wg) * T::kQ);
+      hw::wgmma_fence();
+      issue_acc<128, T::kBQ>(acc[0], a, bt);
+      issue_acc<128, T::kBQ>(acc[1], a, bt + 2 * T::kChunkQ);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc[0]);
+      hw::fence_regs(acc[1]);
+      if (lane == 0) hw::mbar_arrive(done + st);
+      if (loads) {
+        hw::mbar_wait(done + st, phase);
+        fill(j + T::kStages, rows);
+      }
+    }
+  }
+
+  // Epilogue: this block's columns of dv (warpgroup 0) through the v buffer
+  // and of dk (1) through the k buffer, in bf16 (neither is read once each
+  // warpgroup has waited for every step's p and ds), one TMA store a chunk.
+  uint8_t* out = wg == 0 ? vs : ks;
+  hw::store_acc_sw128(out, acc[0]);
+  hw::store_acc_sw128(out + 2 * kChunk, acc[1]);
+  hw::fence_async_shared();
+  hw::named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    const CUtensorMap* map = wg == 0 ? map_dv : map_dk;
+    for (int c = 0; c < T::kCols / 64; ++c) {
+      hw::tma_store_4d(map, out + c * kChunk, col0 + 64 * c, hk, k0, b);
+    }
+    hw::tma_store_commit();
+    hw::tma_store_wait_read();
+  }
+  hw::cluster_sync();
+}
+
 // Launch with `smem` bytes of dynamic shared memory (above 48 KB only after
 // the opt-in attribute); returns cudaGetLastError().
 template <typename Kernel>
@@ -548,7 +827,7 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
 // (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
 // buffer with atomics.  Elem is the storage type (storage.cuh): float at D
-// 64, 128, 256 and 512, bf16 at D 512; p and ds are rounded to Elem before
+// 64, 128, 256 and 512, bf16 at D 512 with kDq; p and ds are rounded to Elem before
 // the products that take them, and dk and dv to Elem on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
 // lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
 // as at D 256, where 32-row tiles would need 256) and the tiles at 130 KB;
@@ -743,9 +1022,9 @@ int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
 }
 
 // Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
-// D 64, 128, 256 and 512, bf16 at D 512 (dtype 0 = float32, 1 = bfloat16;
-// the bf16 kernels at D 64, 128 and 256 are on wgmma); kDq selects the
-// fused variant.
+// D 64, 128, 256 and 512, and bf16 at D 512 for the fused variant (kDq)
+// only (dtype 0 = float32, 1 = bfloat16; the other bf16 kernels are on
+// wgmma, dk/dv at D 512 over a cluster).
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
@@ -761,8 +1040,10 @@ int launch_kv(const BwdArgs& args, int B, int D, int dtype,
   if (dtype == 0 && D == 512) {
     return launch_kv_f32<float, 512, kDq>(args, B, stream);
   }
-  if (dtype == 1 && D == 512) {
-    return launch_kv_f32<__nv_bfloat16, 512, kDq>(args, B, stream);
+  if constexpr (kDq) {
+    if (dtype == 1 && D == 512) {
+      return launch_kv_f32<__nv_bfloat16, 512, kDq>(args, B, stream);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

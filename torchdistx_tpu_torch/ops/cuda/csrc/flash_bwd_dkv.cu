@@ -61,9 +61,20 @@
 // header there has the design).  The result is the same bits on every
 // run, as below.
 //
-// f32 at D 64, 128, 256 and 512, and bf16 at D 512: CUDA cores, the
-// kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32), shared with the
-// fused kernel.
+// bf16 at D = 512 (flash_bwd_dkv_wgmma_wide<512>): dk and dv of 64 kv rows
+// are 2 x 64 x 512 f32, the whole register file of an SM, and 64 kv rows
+// are the least a wgmma takes.  So two blocks of a cluster (neighbouring
+// SMs, launched by cudaLaunchKernelEx with a cluster dimension of 2 along
+// the grid's x, which pairs them per kv head) share the 64 kv rows, each
+// holding 256 of D's columns of k, v, q, do, dk and dv: the body of
+// bwd_kv_wide on 32-row q tiles (215 registers, no spills; 231,000 bytes
+// of shared memory), with each step's s^T and dp^T summed from the two
+// blocks' partials over their columns, exchanged through shared memory by
+// bulk copies (flash_bwd_common.cuh's bwd_kv_cluster has the design).  The
+// same bits on every run.  A launch the card refuses returns its error.
+//
+// f32 at D 64, 128, 256 and 512: CUDA cores, the kv-tile-outer body of
+// flash_bwd_common.cuh (bwd_kv_f32), shared with the fused kernel.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 4 products of 2 D flops per causal
@@ -81,7 +92,11 @@
 // GFLOP, 35 us at the tensor rate) operations bound it too; with two
 // stages a stage's next load waits for both accumulations of the step
 // before, so a step's chain is a load, s^T and dp^T, p and ds and the
-// accumulations.
+// accumulations.  At D = 512 (B 2, S 1024, 8 heads: the same 34.4 GFLOP)
+// operations bound it as well; the design runs at about a fifth of that
+// rate (PERF.md): a step's partials are m64n32k16 products, whose 64 x 16
+// A tile is read from shared memory for 32 columns of work, and the
+// exchange, knocked out, takes a third of the time off.
 
 #include "flash_bwd_common.cuh"
 
@@ -325,9 +340,10 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The D = 256 kernel: flash_bwd_common.cuh's bwd_kv_wide without dq.
+// The D = 256 kernel, flash_bwd_common.cuh's bwd_kv_wide without dq, and
+// the D = 512 one, its bwd_kv_cluster (launched as clusters of two blocks).
 template <int D>
-__global__ void __launch_bounds__(KvWideTiles<D>::kThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_bwd_dkv_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                          __grid_constant__ const CUtensorMap tm_do,
                          __grid_constant__ const CUtensorMap tm_k,
@@ -337,8 +353,14 @@ flash_bwd_dkv_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, int S, int Hq,
                          int Hkv, int causal, float scale, float scale_log2) {
-  bwd_kv_wide<D, false>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, nullptr,
-                        lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+  if constexpr (D == 512) {
+    bwd_kv_cluster(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, lse, delta, S,
+                   Hq, Hkv, causal, scale, scale_log2);
+  } else {
+    bwd_kv_wide<D, false>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv,
+                          nullptr, lse, delta, S, Hq, Hkv, causal, scale,
+                          scale_log2);
+  }
 }
 
 template <int D>
@@ -364,6 +386,48 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
       <<<dim3(Hkv, n_kv, B), T::kThreads, T::kSmem, stream>>>(
           tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, lse, delta, S, Hq, Hkv,
           causal, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The D = 512 kernel in clusters of two blocks along x (the pair of a kv
+// head's 64 kv rows).  A launch the card refuses (a grid dimension out of
+// range, no room for a cluster) returns the launch's own error.
+int launch_dkv_cluster(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int S, int Hq, int Hkv,
+                       int causal, float scale, float scale_log2,
+                       cudaStream_t stream) {
+  using T = KvClusterTiles;
+  constexpr int D = 512;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_bwd_dkv_wgmma_wide<D>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_do, dout, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dk, dk, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dv, dv, B, S, Hkv, D, T::kBK);
+  if (err) return err;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 2;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(2 * Hkv, (S + T::kBK - 1) / T::kBK, B);
+  config.blockDim = dim3(T::kThreads);
+  config.dynamicSmemBytes = T::kSmem;
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, flash_bwd_dkv_wgmma_wide<D>, tm_q, tm_do, tm_k, tm_v, tm_dk,
+      tm_dv, lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,6 +460,10 @@ extern "C" int tdx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 256) {
     return launch_dkv_wide<256>(q, k, v, dout, lse_f, delta_f, dk, dv, B, S,
                                 Hq, Hkv, causal, scale, scale_log2, st);
+  }
+  if (dtype == 1 && D == 512) {
+    return launch_dkv_cluster(q, k, v, dout, lse_f, delta_f, dk, dv, B, S, Hq,
+                              Hkv, causal, scale, scale_log2, st);
   }
   BwdArgs args{};
   args.q = q;

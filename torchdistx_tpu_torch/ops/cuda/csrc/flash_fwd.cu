@@ -63,12 +63,34 @@
 // at 1 x 2112 x 4 heads (half the blocks); a third kv stage (one q buffer,
 // out from registers) moved nothing.
 //
+// bf16 at D = 512 (flash_fwd_bf16_wgmma<512>, its own body): a 64 x 512
+// f32 accumulator is 256 registers a thread, and split over two warpgroups
+// (64 x 256 each, 128 registers) it does not fit the 168 of a 288-thread
+// block beside s and p.  So a block is 256 threads, two warpgroups and no
+// producer warp (up to 255 registers; 180 used, no spills), one thread
+// issuing the TMA loads.  Both warpgroups share one 64-row q tile, compute
+// the same s = q.k^T (m64n32k16 over q's 8 chunks) and softmax, and each
+// adds p.v for its 256 of o's columns (m64n256k16, p from registers), in
+// ping-pong as above.  A 64 x 512 q tile is 64 KB, and so is a 64-row k
+// or v tile, so two stages of 64-row k and v do not fit beside q: kv tiles
+// are 32 rows, and k and v take turns through five 32 KB slots (64 + 160
+// KB), loaded by TMA as soon as a slot's previous tensor has been read.
+// One block per 64-row q tile, not persistent: with one q buffer a block's
+// next q could not stream in during its epilogue.  Where every row of a
+// warp keeps its max, o's rescale is skipped (alpha is exactly 1: no bit
+// changes).  At B 2, S 1024, 8 heads (the 17.2 GFLOP and 67 MB of D =
+// 256's shape) bytes bound it (20 us); it takes about five times that
+// (PERF.md), the redundant q.k^T on 32-column products (each 64 x 16 A
+// tile read from shared memory for 32 columns) being the price of keeping
+// the softmax of one warpgroup under the other's products.  Tried and
+// dropped (scripts/torch_d256_ab.py --d 512 on an H100, PERF.md): one
+// warpgroup computing s, the softmax and alpha, p written to shared memory
+// in bf16, both adding p.v as a shared-memory A product (q.k^T once, not
+// twice): 25 % slower, the softmax no longer under any product.
+//
 // f32 (flash_fwd_f32): CUDA cores, 4 warps, 16 q rows per block, kv tiles
 // of 32, one warp lane per kv column for q.k and per output column for P.V.
-// It takes f32 at D 64, 128, 256 and 512, and bf16 at D 512, where a 64 x
-// 512 f32 accumulator is 256 registers a thread: bf16 is widened to f32 on
-// the load into shared memory, p is rounded to bf16 before P.V and out to
-// bf16 on the store (storage.cuh).
+// It takes f32 at D 64, 128, 256 and 512.
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512,
 // 32 heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in
@@ -132,6 +154,29 @@ struct Bf16Tiles {
   static constexpr int kBarOffset = 2 * kQBytes + kStages * 2 * kKVBytes;
   static constexpr int kSmem = kBarOffset + (4 + 3 * kStages) * 8 + 1024;
   static constexpr int kThreads = 288;  // 2 consumer warpgroups + 1 warp
+  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+};
+
+// At D = 512 (flash_fwd_bf16_wgmma<512>, its own body below): one block of
+// two warpgroups and no producer warp per 64-row q tile, o's columns split
+// (256 each), kv tiles of 32 rows.  One q buffer (8 chunks of 64 rows, 64
+// KB), then kSlots slots of 32 KB, each holding one kv tile's k or v (8
+// chunks of 32 rows): the block's n-th load (k of its i-th tile at n = 2i,
+// v at 2i + 1) goes to slot n % kSlots; then a full and an empty barrier a
+// slot and q's full barrier; + 1024 bytes to align the base.
+template <>
+struct Bf16Tiles<512> {
+  static constexpr int kBQ = 64, kBK = 32;
+  static constexpr int kOCols = 256;  // o's columns a warpgroup
+  static constexpr int kChunks = 8;
+  static constexpr int kChunkQ = 64 * 128;    // bytes of a 64-row chunk
+  static constexpr int kChunkKV = kBK * 128;  // bytes of a 32-row chunk
+  static constexpr int kQBytes = kBQ * 512 * 2;
+  static constexpr int kKVBytes = kBK * 512 * 2;  // one slot: k or v
+  static constexpr int kSlots = 5;
+  static constexpr int kBarOffset = kQBytes + kSlots * kKVBytes;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kSlots) * 8 + 1024;
+  static constexpr int kThreads = 256;  // 2 warpgroups, no producer warp
   static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
 };
 
@@ -479,6 +524,191 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
+// The D = 512 kernel (see the header): both warpgroups compute s = q.k^T
+// for the block's 64 q rows (m64n32k16) and its softmax, and each adds p.v
+// for its 256 of o's columns (m64n256k16, p from registers).  Thread 0
+// issues every TMA load: q and the first kSlots k and v tiles at the start,
+// then, once its warpgroup's product m has completed, load m - 1 + kSlots
+// into the slot of the tensor that product m - 1 read (both warpgroups'
+// products m - 1 have then nearly always completed, so the wait on the
+// slot's empty barrier is short).  The warpgroups take turns to issue
+// their products (ping-pong), as below D = 512.
+template <>
+__global__ void __launch_bounds__(Bf16Tiles<512>::kThreads, 1)
+flash_fwd_bf16_wgmma<512>(__grid_constant__ const CUtensorMap tm_q,
+                          __grid_constant__ const CUtensorMap tm_k,
+                          __grid_constant__ const CUtensorMap tm_v,
+                          __grid_constant__ const CUtensorMap tm_o,
+                          float* __restrict__ lse, int B, int S, int Hq,
+                          int Hkv, float scale_log2, int causal) {
+  using T = Bf16Tiles<512>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm;
+  uint8_t* slots = sm + T::kQBytes;  // slot j at j * kKVBytes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + T::kSlots;
+
+  // Block -> (q tile, head, batch): under the causal mask the heaviest q
+  // tiles first, each tile's heads and batch rows side by side.
+  const int n_q = (S + T::kBQ - 1) / T::kBQ;
+  const int n_hb = Hq * B;
+  const int qt = causal ? n_q - 1 - static_cast<int>(blockIdx.x) / n_hb
+                        : static_cast<int>(blockIdx.x) / n_hb;
+  const int h = blockIdx.x % n_hb % Hq, b = blockIdx.x % n_hb / Hq;
+  const int hk = h / (Hq / Hkv), q0 = qt * T::kBQ;
+  const int n_tiles = causal ? (min(q0 + T::kBQ, S) - 1) / T::kBK + 1
+                             : (S + T::kBK - 1) / T::kBK;
+  const int n_loads = 2 * n_tiles;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int j = 0; j < T::kSlots; ++j) {
+      hw::mbar_init(full + j, 1);
+      hw::mbar_init(empty + j, 8);  // one arrival per warp
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Load n: k (n even) or v of the block's tile n / 2, which is kv tile
+  // n_tiles - 1 - n / 2 (tiles run from the last), into slot n % kSlots
+  // once the slot's previous tensor, load n - kSlots, has been read by
+  // every warp.  TMA zero-fills rows >= S.
+  auto issue_load = [&](int n) {
+    const int j = n % T::kSlots;
+    const int k0 = (n_tiles - 1 - n / 2) * T::kBK;
+    uint8_t* dst = slots + j * T::kKVBytes;
+    const CUtensorMap* map = n % 2 ? &tm_v : &tm_k;
+    hw::mbar_wait(empty + j, ((n / T::kSlots) & 1) ^ 1);
+    hw::mbar_expect_tx(full + j, T::kKVBytes);
+    for (int c = 0; c < T::kChunks; ++c) {
+      hw::tma_load_4d(dst + c * T::kChunkKV, map, full + j, 64 * c, hk, k0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hw::prefetch_map(&tm_k);
+    hw::prefetch_map(&tm_v);
+    hw::mbar_expect_tx(q_full, T::kQBytes);
+    for (int c = 0; c < T::kChunks; ++c) {
+      hw::tma_load_4d(qs + c * T::kChunkQ, &tm_q, q_full, 64 * c, h, q0, b);
+    }
+    for (int n = 0; n < min(T::kSlots, n_loads); ++n) issue_load(n);
+  }
+
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+  const uint32_t q_addr = hw::smem_addr(qs);
+  float o[T::kOCols / 2], s[T::kBK / 2], m[2], l[2], alpha[2];
+  uint32_t p[T::kBK / 16][4];
+#pragma unroll
+  for (int i = 0; i < T::kOCols / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T::kBK / 2; ++i) s[i] = 0.f;
+  m[0] = m[1] = kMask;
+  l[0] = l[1] = 0.f;
+
+  // Ping-pong on named barriers kTurn + w, as in the template above.
+  constexpr int kTurn = 3;  // ids 3 and 4; 1, 2 and 5 are the epilogue's
+  if (wg == 1) hw::named_arrive(kTurn, 256);
+  hw::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (n_tiles - 1 - i) * T::kBK;
+    const int nk = 2 * i, nv = 2 * i + 1;  // the loads of k and v
+    hw::mbar_wait(full + nk % T::kSlots, (nk / T::kSlots) & 1);
+    hw::fence_regs(s);
+    hw::named_barrier(kTurn + wg, 256);
+    hw::wgmma_fence();
+    issue_qk<512>(s, q_addr,
+                  hw::smem_addr(slots + (nk % T::kSlots) * T::kKVBytes));
+    hw::wgmma_commit();
+    hw::named_arrive(kTurn + 1 - wg, 256);
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+    if (lane == 0) hw::mbar_arrive(empty + nk % T::kSlots);
+    if (threadIdx.x == 0 && i > 0 && nk - 1 + T::kSlots < n_loads) {
+      issue_load(nk - 1 + T::kSlots);
+    }
+    if (k0 + T::kBK > S || (causal && k0 + T::kBK - 1 > q0)) {
+      softmax<true>(s, m, l, alpha, k0, r0, t, S, scale_log2, causal);
+    } else {
+      softmax<false>(s, m, l, alpha, k0, r0, t, S, scale_log2, causal);
+    }
+    // Where every row of the warp kept its max, alpha is exactly 1 and the
+    // rescale would change no bit of o: skip it.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+      rescale(o, alpha);
+    }
+    pack_p(p, s);
+    hw::mbar_wait(full + nv % T::kSlots, (nv / T::kSlots) & 1);
+    hw::named_barrier(kTurn + wg, 256);
+    hw::wgmma_fence();
+    issue_pv<512>(o, p,
+                  hw::smem_addr(slots + (nv % T::kSlots) * T::kKVBytes) +
+                      wg * (T::kOCols / 64) * T::kChunkKV);
+    hw::wgmma_commit();
+    if (wg == 0 || i + 1 < n_tiles) hw::named_arrive(kTurn + 1 - wg, 256);
+    hw::wgmma_wait<0>();
+    hw::fence_regs(o);
+    if (lane == 0) hw::mbar_arrive(empty + nv % T::kSlots);
+    if (threadIdx.x == 0 && nv - 1 + T::kSlots < n_loads) {
+      issue_load(nv - 1 + T::kSlots);
+    }
+  }
+
+  // Epilogue: out = o / l into the q buffer's chunks of this warpgroup's
+  // columns once both warpgroups' products have read all of q (named
+  // barrier 5), one TMA store per chunk (rows >= S dropped), lse by
+  // warpgroup 0 (both hold the same m and l).
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_safe[r] = sum == 0.f ? 1.f : sum;
+  }
+  const int c0 = wg * (T::kOCols / 64);  // the warpgroup's first chunk
+  uint8_t* ow = qs + c0 * T::kChunkQ;
+  hw::named_barrier(5, 256);
+#pragma unroll
+  for (int n = 0; n < T::kOCols / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;  // row % 8 == g
+      uint8_t* dst =
+          ow + (n / 8) * T::kChunkQ + row * 128 + ((n % 8) ^ g) * 16 + t * 4;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+          o[4 * n + 2 * r] / l_safe[r], o[4 * n + 2 * r + 1] / l_safe[r]);
+    }
+  }
+  hw::fence_async_shared();
+  hw::named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    for (int c = 0; c < T::kOCols / 64; ++c) {
+      hw::tma_store_4d(&tm_o, ow + c * T::kChunkQ, 64 * (c0 + c), h, q0, b);
+    }
+    hw::tma_store_commit();
+    hw::tma_store_wait_read();  // before the block exits
+  }
+  if (t == 0 && wg == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < S) {
+        lse[(static_cast<size_t>(b) * Hq + h) * S + row] =
+            m[r] / kLog2e + logf(l_safe[r]);
+      }
+    }
+  }
+}
+
 // The f32 body's tiles: q rows, then k and v rows padded by one float so
 // that lanes reading rows hit distinct banks.  Up to D = 128 they fit the
 // 48 KB of static shared memory, as three arrays (the code of the f32
@@ -646,6 +876,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The D = 512 kernel: one block per (q tile, head, batch), not
+// persistent (one q buffer: a block's next q could not stream in during
+// its epilogue).
+int launch_bf16_512(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
+                    int causal, cudaStream_t stream) {
+  using T = Bf16Tiles<512>;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_fwd_bf16_wgmma<512>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, 512, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, 512, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, 512, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_o, o, B, S, Hq, 512, T::kBQ);
+  if (err) return err;
+  const long long n_blocks =
+      static_cast<long long>((S + T::kBQ - 1) / T::kBQ) * Hq * B;
+  if (n_blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_bf16_wgmma<512>
+      <<<static_cast<int>(n_blocks), T::kThreads, T::kSmem, stream>>>(
+          tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), B, S, Hq, Hkv,
+          scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Elem, int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
@@ -696,8 +951,8 @@ extern "C" int tdx_flash_fwd(const void* q, const void* k, const void* v,
     return launch_f32<float, 256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
                                   causal, st);
   } else if (dtype == 1 && D == 512) {
-    return launch_f32<__nv_bfloat16, 512>(q, k, v, o, lse, B, S, Hq, Hkv,
-                                          scale_log2, causal, st);
+    return launch_bf16_512(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
+                           st);
   } else if (dtype == 0 && D == 512) {
     return launch_f32<float, 512>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
                                   causal, st);

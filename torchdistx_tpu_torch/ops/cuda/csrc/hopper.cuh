@@ -1,7 +1,9 @@
 // Hopper (sm_90a) plumbing shared by the port's kernels: TMA tensor maps
 // over the model's (B, S, H, D) bf16 tensors (and f32 ones, for reductions),
-// mbarriers, named barriers, wgmma shared-memory descriptors and
-// instructions, and the persistent kernels' work list.
+// mbarriers, named barriers, thread block clusters (ranks, the cluster
+// barrier, a peer block's shared memory and bulk copies into it), wgmma
+// shared-memory descriptors and instructions, and the persistent kernels'
+// work list.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and read
 // by wgmma through descriptors of the same swizzle.  A tile is a stack of
@@ -183,19 +185,34 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 // Waits until the barrier's phase of parity `parity` has completed.  A
 // wait that has not completed after about 2^34 cycles (some 10 s) traps, so
-// a protocol fault fails the launch instead of hanging the card.
+// a protocol fault fails the launch instead of hanging the card.  With
+// kCluster the wait acquires at cluster scope, pairing with another block's
+// release arrival (mbar_arrive_cluster): what that block did before it
+// arrived is ordered before what this thread does after the wait.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   long long start = -1;
   for (;;) {
     uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+          " p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    }
     if (done) return;
     const long long now = clock64();
     if (start < 0) {
@@ -279,6 +296,60 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // Arrives on named barrier `id` without waiting for it.
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- clusters
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Barrier over every thread of every block of the cluster (release on
+// arrival, acquire on wait).  After the first, every block's barriers are
+// initialised (fence_barrier_init); the last keeps a block from exiting
+// while another may still write to its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of the byte at shared address `addr` (this
+// block's, from smem_addr) in the shared memory of the cluster's block
+// `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One arrival on a barrier at a shared::cluster address (map_rank),
+// releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// Shared -> shared of another block of the cluster, `bytes` (a multiple of
+// 16) by the bulk-copy engine; completes the transaction count of the
+// barrier at `bar` (a shared::cluster address, in the destination block)
+// with them.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst,
+                                                  const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---- wgmma
@@ -368,6 +439,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same for a 32 x 16 B (m64n32k16).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #define TDX_OUT8(d, i)                                                  \
   "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),           \
       "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
@@ -413,6 +498,20 @@ __device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       TDX_ACC_REGS32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : TDX_OUT8(d, 0), TDX_OUT8(d, 8), TDX_OUT8(d, 16), TDX_OUT8(d, 24)
+      : "l"(a), "l"(b), "r"(0), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[16], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15}"
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : TDX_OUT8(d, 0), TDX_OUT8(d, 8)
       : "l"(a), "l"(b), "r"(0), "n"(kTransA), "n"(kTransB));
 }
 
@@ -480,6 +579,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       " %26, %27, %28, %29, %30, %31}"
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The same for a 16 x 256 B (m64n256k16: 128 registers of d).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      " %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8), TDX_ACC8(d, 16), TDX_ACC8(d, 24),
+        TDX_ACC8(d, 32), TDX_ACC8(d, 40), TDX_ACC8(d, 48), TDX_ACC8(d, 56),
+        TDX_ACC8(d, 64), TDX_ACC8(d, 72), TDX_ACC8(d, 80), TDX_ACC8(d, 88),
+        TDX_ACC8(d, 96), TDX_ACC8(d, 104), TDX_ACC8(d, 112), TDX_ACC8(d, 120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -23,8 +23,9 @@ block of a mesh (the JAX ``shard_map`` wrapper; ``shardable`` says when).  Each 
 one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
 
-The kernels have instances for head dims 64, 128, 256 and 512 (bf16 at 64,
-128 and 256 on TMA + wgmma; f32, and bf16 at 512, on the CUDA cores).  Every
+The kernels have instances for head dims 64, 128, 256 and 512 (bf16 on TMA
++ wgmma, apart from the fused backward and dq at 512; dk/dv at 512 runs on
+clusters of two blocks; f32, and those two, on the CUDA cores).  Every
 entry point takes any head dim up to 512: q, k, v (and ``do``) are
 zero-padded on the last axis to the next instance, the kernels run with the
 scale of the true head dim, and out, dq, dk and dv are cut back to it.  Zero columns add
