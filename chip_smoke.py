@@ -282,6 +282,10 @@ FLASH_SHAPES = [
     # is mesh_rank_block's).
     ("ep_fsdp_block", 2, 512, 32, 32, 128, torch.bfloat16, True),
     ("slowmo_f32_block", 2, 32, 4, 2, 64, torch.float32, True),
+    # The f32 train gates' attention (phase_train_gates at GATE_LAYERS of
+    # llama_7b width, TRAIN_SHAPES' 4 x 512): timed only, it ranks the f32
+    # forward among the CUDA-core bodies.
+    ("train_gate_f32", 4, 512, 32, 32, 128, torch.float32, True),
 ]
 
 BATCH, SEQ, NEW_TOKENS = 4, 512, 32
@@ -337,6 +341,10 @@ BWD_SHAPES = [
     ("pp_gpt2_block", 1, 512, 25, 25, 64, torch.bfloat16, True, "fused"),
     ("ep_fsdp_block", 2, 512, 32, 32, 128, torch.bfloat16, True, "fused"),
     ("slowmo_f32_block", 2, 32, 4, 2, 64, torch.float32, True, "fused"),
+    # The f32 train gates' attention at TRAIN_SHAPES' 4 x 512 (the gates
+    # take each route: fused at 4 x 512, streamed at 1 x 4096), both routes.
+    ("train_gate_f32", 4, 512, 32, 32, 128, torch.float32, True, "fused"),
+    ("train_gate_f32", 4, 512, 32, 32, 128, torch.float32, True, "streamed"),
 ]
 # kernel -> (returns dq, returns dk/dv); per route.
 BWD_KERNELS = {
@@ -723,7 +731,8 @@ def _instance(kernel, d, dtype):
     left out).  bf16 takes TMA + wgmma at D 64, 128 and 256 (the backward
     kernels' wide form at 256), and the forward and dk/dv at 512 (dk/dv's
     wide form, on clusters of two blocks); the rest runs on the CUDA
-    cores."""
+    cores, f32 dk/dv and fused on the register-blocked body
+    (``bwd_kv_f32_tiled``)."""
     bf16 = dtype == torch.bfloat16
     elem = "__nv_bfloat16" if bf16 else "float"
     if kernel == "flash_fwd":
@@ -735,7 +744,10 @@ def _instance(kernel, d, dtype):
         return f"{kernel}_wgmma<(int){d}>"
     if kernel == "flash_bwd_dq":
         return f"bwd_dq_f32<{elem}, (int){d}>"
-    return f"bwd_kv_f32<{elem}, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
+    fused = int(kernel == "flash_bwd_fused")
+    if not bf16:
+        return f"bwd_kv_f32_tiled<(int){d}, (bool){fused}>"
+    return f"bwd_kv_f32<{elem}, (int){d}, (bool){fused}>"
 
 
 # The bf16 D = 256 and D = 512 instances on TMA + wgmma, whose ptxas report
@@ -744,6 +756,10 @@ D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 D512_WGMMA = {kernel: _instance(kernel, 512, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_dkv")}
+# The f32 dk/dv and fused instances (bwd_kv_f32_tiled), by (kernel, D),
+# whose ptxas report the build prints and must show without spills.
+F32_KV = {(kernel, d): _instance(kernel, d, torch.float32)
+          for kernel in ("flash_bwd_dkv", "flash_bwd_fused") for d in (64, 128, 256, 512)}
 
 
 def _in_report(report, instance):
@@ -808,6 +824,12 @@ def phase_build():
         if set(wgmma) <= set(built):
             _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
                        for r in found.values()), f"[build] D = {d} instances spill: {found}")
+    found = {name: _in_report(report, name) for name in F32_KV.values()}
+    print("[build] the f32 dk/dv and fused instances (bwd_kv_f32_tiled): " + json.dumps(found))
+    if {"flash_bwd_dkv", "flash_bwd_fused"} <= set(built):
+        _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
+                   and r["registers"] <= 255 for r in found.values()),
+               f"[build] f32 kv instances spill: {found}")
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -1464,6 +1486,15 @@ def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
 
             got = run()
             got = got if isinstance(got, tuple) else (got,)
+            if dtype == torch.float32:  # the f32 outputs summed in a fixed order
+                again = run()
+                again = again if isinstance(again, tuple) else (again,)
+                outs = [n for n, w in zip(("dq", "dk", "dv"), (want_dq, want_dkv, want_dkv))
+                        if w]
+                same = dict(zip(outs, (torch.equal(g, a) for g, a in zip(got, again))))
+                _check(all(same[n] for n in BWD_DETERMINISTIC[kernel]),
+                       f"D {d} {dtype}: {kernel} two calls gave different bits: {same}")
+                del again
             want = [w for w in plain() if w is not None]
             scale = max(1.0, max(w.float().abs().max().item() for w in want))
             err[kernel] = max((g.float() - w.float()).abs().max().item()

@@ -41,7 +41,7 @@ from pathlib import Path
 F32_SHAPES = [("2x1000_d64", 2, 1000, 8, 8, 64, False),
               ("2x1000_d128", 2, 1000, 8, 8, 128, False)]
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
-_F32_BODIES = ("flash_fwd_f32", "bwd_kv_f32", "bwd_dq_f32")
+_F32_BODIES = ("flash_fwd_f32", "bwd_kv_f32", "bwd_kv_f32_tiled", "bwd_dq_f32")
 
 
 def _cuda_tool(name: str) -> str:

@@ -66,6 +66,41 @@ def test_bwd_bound_streamed_rows(kernel, shape, bound_ms):
     assert got_by == "operations"
 
 
+# The f32 train gates' attention (llama_7b's 32 heads of 128 at 4 x 512,
+# causal), both routes: bounds by operations at the f32 rate, 67 TFLOP/s.
+TRAIN_GATE_F32 = (4, 512, 32, 32, 128)
+
+
+@pytest.mark.parametrize(
+    "kernel, route, bound_ms",
+    [("flash_bwd_fused", "fused", 0.32115), ("flash_bwd_dq", "streamed", 0.19269),
+     ("flash_bwd_dkv", "streamed", 0.25692)],
+    ids=["fused", "dq", "dkv"],
+)
+def test_bwd_bound_train_gate_f32_rows(kernel, route, bound_ms):
+    row = next(r for r in chip_smoke.BWD_SHAPES
+               if r[0] == "train_gate_f32" and r[8] == route)
+    assert row[1:8] == (*TRAIN_GATE_F32, torch.float32, True)
+    got_ms, got_by = chip_smoke._bwd_bound(kernel, *TRAIN_GATE_F32, torch.float32, True)
+    assert got_ms == pytest.approx(bound_ms, rel=1e-4)
+    assert got_by == "operations"
+
+
+def test_train_gate_f32_rows_are_the_gates_shapes():
+    # The rows' shape is the f32 train gates' attention at TRAIN_SHAPES'
+    # 4 x 512 with llama_7b's heads; the forward row is there too.
+    from torchdistx_tpu_torch.models.llama import llama_7b
+
+    cfg = llama_7b()
+    b, s = chip_smoke.TRAIN_SHAPES[0][0]
+    want = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.dim // cfg.n_heads)
+    assert want == TRAIN_GATE_F32
+    routes = sorted(r[8] for r in chip_smoke.BWD_SHAPES if r[0] == "train_gate_f32")
+    assert routes == ["fused", "streamed"]
+    fwd = [r for r in chip_smoke.FLASH_SHAPES if r[0] == "train_gate_f32"]
+    assert fwd == [("train_gate_f32", *TRAIN_GATE_F32, torch.float32, True)]
+
+
 # The port's bf16 kernels as the card's profiler names them
 # (torch.profiler on an H100, CUDA 12).
 PROFILED_NAMES = {
@@ -260,7 +295,7 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
     # The D = 256 path's bf16 step runs the TMA + wgmma forward, dq and
     # dk/dv; the f32 part stays on the CUDA cores.
     assert [e["instance"] for e in entries[4:]] == [
-        "flash_fwd_f32<float, (int)256>", "bwd_kv_f32<float, (int)256, (bool)1>",
+        "flash_fwd_f32<float, (int)256>", "bwd_kv_f32_tiled<(int)256, (bool)1>",
         "flash_fwd_bf16_wgmma<(int)256>", "flash_bwd_dq_wgmma_wide<(int)256>",
         "flash_bwd_dkv_wgmma_wide<(int)256>"]
     assert entries[0]["instance"] == "flash_fwd_bf16_wgmma<(int)128>"
@@ -279,15 +314,20 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
      ("flash_bwd_fused", 256, torch.bfloat16, "flash_bwd_fused_wgmma_wide<(int)256>"),
      ("flash_bwd_dq", 256, torch.bfloat16, "flash_bwd_dq_wgmma_wide<(int)256>"),
      ("flash_fwd", 256, torch.float32, "flash_fwd_f32<float, (int)256>"),
-     ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)0>"),
-     ("flash_bwd_fused", 256, torch.float32, "bwd_kv_f32<float, (int)256, (bool)1>"),
+     ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32_tiled<(int)256, (bool)0>"),
+     ("flash_bwd_fused", 256, torch.float32, "bwd_kv_f32_tiled<(int)256, (bool)1>"),
      ("flash_bwd_dq", 256, torch.float32, "bwd_dq_f32<float, (int)256>"),
      ("flash_fwd", 512, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)512>"),
      ("flash_bwd_dkv", 512, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)512>"),
      ("flash_bwd_fused", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>"),
      ("flash_bwd_dq", 512, torch.bfloat16, "bwd_dq_f32<__nv_bfloat16, (int)512>"),
      ("flash_fwd", 512, torch.float32, "flash_fwd_f32<float, (int)512>"),
-     ("flash_bwd_dkv", 512, torch.float32, "bwd_kv_f32<float, (int)512, (bool)0>"),
+     ("flash_bwd_dkv", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)0>"),
+     ("flash_bwd_fused", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)1>"),
+     ("flash_bwd_dkv", 64, torch.float32, "bwd_kv_f32_tiled<(int)64, (bool)0>"),
+     ("flash_bwd_fused", 64, torch.float32, "bwd_kv_f32_tiled<(int)64, (bool)1>"),
+     ("flash_bwd_dkv", 128, torch.float32, "bwd_kv_f32_tiled<(int)128, (bool)0>"),
+     ("flash_bwd_fused", 128, torch.float32, "bwd_kv_f32_tiled<(int)128, (bool)1>"),
      ("flash_bwd_dkv", 128, torch.bfloat16, "flash_bwd_dkv_wgmma<(int)128>"),
      ("flash_bwd_fused", 64, torch.bfloat16, "flash_bwd_fused_wgmma<(int)64>")],
 )
@@ -325,6 +365,60 @@ def test_d512_wgmma_instances_are_found_in_a_ptxas_report():
                                                            "flash_bwd_dkv": 215}
     assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)512>") is None
     assert chip_smoke._in_report(report, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>") is None
+
+
+def test_f32_kv_instances_are_found_in_a_ptxas_report():
+    # The [build] line reads the register-blocked f32 dk/dv and fused
+    # instances (no storage type: f32 only) from the report, one per (kernel,
+    # D); the f32 instances of the CUDA-core body they replaced are absent,
+    # and its bf16 D = 512 fused instance stays.
+    report = {f"tdx_bwd::bwd_kv_f32_tiled<(int){d}, (bool){f}>": {
+        "registers": 128 if d <= 128 else 208, "spill_stores": 0, "spill_loads": 0}
+        for d in (64, 128, 256, 512) for f in (0, 1)}
+    report["tdx_bwd::bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>"] = {"registers": 245}
+    assert sorted(chip_smoke.F32_KV) == [(k, d) for k in ("flash_bwd_dkv", "flash_bwd_fused")
+                                         for d in (64, 128, 256, 512)]
+    for (kernel, d), name in chip_smoke.F32_KV.items():
+        entry = chip_smoke._in_report(report, name)
+        assert entry == report[f"tdx_bwd::{name}"], (kernel, d)
+        gone = f"bwd_kv_f32<float, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
+        assert chip_smoke._in_report(report, gone) is None
+    assert chip_smoke._in_report(
+        report, chip_smoke._instance("flash_bwd_fused", 512, torch.bfloat16)) == {
+        "registers": 245}
+
+
+def test_ab_script_f32_shapes_are_the_chip_smoke_f32_rows():
+    # scripts/torch_d256_ab.py --dtype f32 times chip_smoke.py's f32 rows:
+    # ragged_f32 at D 64, train_gate_f32 at D 128 (each a phase-2 row of
+    # both routes and a forward row), and [head dims]' shape at D 256 and
+    # 512, causal.
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_d256_ab", Path(__file__).resolve().parents[1] / "scripts" / "torch_d256_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+
+    def rows(name, d):
+        fwd = {(*r[1:5], r[7]) for r in chip_smoke.FLASH_SHAPES
+               if r[0] == name and r[5] == d and r[6] == torch.float32}
+        bwd = {(*r[1:5], r[7]) for r in chip_smoke.BWD_SHAPES
+               if r[0] == name and r[5] == d and r[6] == torch.float32}
+        routes = {r[8] for r in chip_smoke.BWD_SHAPES if r[0] == name and r[5] == d}
+        assert fwd == bwd and routes == {"fused", "streamed"}, name
+        return [(name, *shape) for shape in sorted(fwd)]
+
+    assert sorted(ab.F32_SHAPES) == [64, 128, 256, 512]
+    assert ab.F32_SHAPES[64] == rows("ragged_f32", 64)
+    assert ab.F32_SHAPES[128] == rows("train_gate_f32", 128)
+    for d in (256, 512):
+        assert d in chip_smoke.WIDE_HEAD_DIMS
+        assert ab.F32_SHAPES[d] == [("head_dims", *chip_smoke.PADDED_SHAPE, True)]
+    assert [r[:2] for r in ab._rows("f32", None)] == [
+        ("ragged_f32 D 64", 64), ("train_gate_f32 D 128", 128), ("head_dims D 256", 256),
+        ("head_dims D 512", 512)]
 
 
 def test_slowmo_run_is_cut_as_documented():

@@ -391,6 +391,69 @@ def test_d256_wgmma_instances_compile_without_spills(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+# The f32 dk/dv and fused body (bwd_kv_f32_tiled): kv tiles of 32 rows and
+# q tiles of 16 (64 x 32 at D 64, 16 x 16 at D 512), a kv tile's steps
+# split over a cluster of up to 4 blocks where the tiles give the card
+# fewer blocks than SMs.  S = 1, the tiles' edges (15, 17, 31, 33, 63, 65)
+# and ragged sequences, at GQA groups of 1, 2, 4 and 8; 2 x 1000, 8/8 heads
+# launches without a split.
+@pytest.mark.parametrize("s, hq, hkv", [(1, 8, 1), (15, 4, 1), (17, 4, 2), (31, 2, 2),
+                                        (33, 8, 1), (63, 4, 2), (65, 2, 1), (300, 8, 2),
+                                        (77, 4, 4), (1000, 8, 8)])
+def test_flash_f32_kv_kernels_match_plain(cuda, causal, d, s, hq, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s * 7 + d)
+    q, k, v, do, out, lse = _bwd_inputs(g, 2, s, hq, hkv, d, torch.float32, causal, cuda)
+    delta = fa.attention_delta(do, out)
+    args = (q, k, v, do, lse, delta)
+    before = [t.clone() for t in args]
+    want = fa.flash_bwd_plain(*args, causal=causal)
+    n_fused, n_dkv = fa.launches_bwd_fused, fa.launches_bwd_dkv
+    fused = [fa.flash_bwd_fused(*args, causal=causal) for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv(*args, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd_fused, fa.launches_bwd_dkv) == (n_fused + 2, n_dkv + 2)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+    for name, a, b in zip(("dq", "dk", "dv"), fused[0], want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _bwd_err(a, b) <= BWD_TOL[torch.float32], ("fused", name, _bwd_err(a, b))
+    for name, a, b in zip(("dk", "dv"), dkv[0], want[1:]):
+        assert _bwd_err(a, b) <= BWD_TOL[torch.float32], ("dkv", name, _bwd_err(a, b))
+    # dk and dv are summed in a fixed order (the cluster's partials in rank
+    # order): the same bits on every call, in both kernels.
+    assert torch.equal(fused[0][1], fused[1][1]) and torch.equal(fused[0][2], fused[1][2])
+    assert torch.equal(dkv[0][0], dkv[1][0]) and torch.equal(dkv[0][1], dkv[1][1])
+    assert torch.equal(fused[0][1], dkv[0][0]) and torch.equal(fused[0][2], dkv[0][1])
+
+
+def test_f32_kv_instances_compile_without_spills(cuda, tmp_path):
+    # ptxas's report of the f32 dk/dv and fused instances (bwd_kv_f32_tiled at
+    # D 64, 128, 256 and 512), compiled as the build compiles them: each
+    # present, at most 255 registers, no spills; the f32 instances of the
+    # CUDA-core body they replaced no longer instantiated.
+    import subprocess
+
+    import chip_smoke
+    from torchdistx_tpu_torch.ops.cuda import _build
+
+    logs = {}
+    for name in ("flash_bwd_dkv", "flash_bwd_fused"):
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(tmp_path / f"lib{name}.so"), str(_build.SRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        logs[name] = proc.stdout + proc.stderr
+    report = chip_smoke._ptxas_report(logs)
+    for (kernel, d), instance in chip_smoke.F32_KV.items():
+        entry = chip_smoke._in_report(report, instance)
+        assert entry is not None, (instance, sorted(report))
+        assert entry["spill_stores"] == entry["spill_loads"] == 0, (instance, entry)
+        assert entry["registers"] <= 255, (instance, entry)
+        gone = f"bwd_kv_f32<float, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
+        assert chip_smoke._in_report(report, gone) is None, gone
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_bwd_streamed_is_deterministic(cuda, causal):
     # The streamed pair sums in a fixed order and uses no atomics: two calls
     # on the same inputs give the same bits, and no launch writes its

@@ -33,3 +33,9 @@ def test_instance_names_match_with_and_without_storage_type(before, after, name)
 ], ids=["bf16-instance", "wgmma"])
 def test_bf16_and_wgmma_kernels_are_not_f32_instances(demangled):
     assert ab._instance(demangled) is None
+
+
+def test_register_blocked_kv_body_is_an_f32_instance():
+    # The f32 dk/dv and fused body (no storage-type parameter: f32 only).
+    assert ab._instance("void tdx_bwd::bwd_kv_f32_tiled<256, true>(tdx_bwd::BwdArgs)") == (
+        "bwd_kv_f32_tiled<256, true>")

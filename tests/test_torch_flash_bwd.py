@@ -64,7 +64,9 @@ def _check_grads(got, want):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+# (8, 1): a GQA group of 8, which the f32 kernels' cluster split walks
+# head-major.
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4), (8, 1)], ids=["gqa", "mha", "gqa8"])
 @pytest.mark.parametrize("s", [1, 37, 200])
 def test_reference_matches_jax_fused_kernel(causal, heads, s):
     q, k, v, do = _inputs(s, *heads)
@@ -76,7 +78,7 @@ def test_reference_matches_jax_fused_kernel(causal, heads, s):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4), (8, 1)], ids=["gqa", "mha", "gqa8"])
 def test_reference_matches_jax_streamed_kernels(causal, heads):
     # S = 200 pads to 256: two q blocks and two kv blocks of 128.
     q, k, v, do = _inputs(200, *heads, seed=1)

@@ -26,9 +26,10 @@
 // shared memory, the dk/dv accumulation, dq = ds.k), the body of both at D
 // = 256 (bwd_kv_wide), dk/dv's at D = 512 over a cluster of two blocks
 // (bwd_kv_cluster), the launch helper for dynamic shared memory, and
-// bwd_kv_f32, the kv-tile-outer body on the CUDA cores that the dk/dv
-// kernel runs for f32 and (with kDq, dq by atomics) the fused kernel for
-// f32 and for bf16 at D 512.  The bf16 kernels are built on hopper.cuh.  What
+// bwd_kv_f32, the kv-tile-outer body on the CUDA cores that the fused
+// kernel runs for bf16 at D 512 (dq by atomics; the f32 instances run
+// flash_bwd_kv_f32.cuh's bwd_kv_f32_tiled).  The bf16 kernels are built on
+// hopper.cuh.  What
 // bounds the shared steps: a step's critical path is one warpgroup's p and
 // ds (4,096 pairs, an exp2 each on the special-function unit) and then the
 // accumulations that wait for them; knocking out half the tensor work saved
@@ -826,8 +827,8 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
 // into shared memory; (B) warp w accumulates dV and dK for kv rows
 // BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
 // (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
-// buffer with atomics.  Elem is the storage type (storage.cuh): float at D
-// 64, 128, 256 and 512, bf16 at D 512 with kDq; p and ds are rounded to Elem before
+// buffer with atomics.  Elem is the storage type (storage.cuh): the port
+// instantiates it for bf16 at D 512 with kDq only; p and ds are rounded to Elem before
 // the products that take them, and dk and dv to Elem on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
 // lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
 // as at D 256, where 32-row tiles would need 256) and the tiles at 130 KB;
@@ -1010,7 +1011,6 @@ __global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
 // Hopper grants a block at most 227 KB of shared memory.  The tiles do not
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
-static_assert(KvTileF32<256>::smem() <= kMaxSmem, "f32 tile too large");
 static_assert(KvTileF32<512>::smem() <= kMaxSmem, "f32 tile too large");
 
 template <typename Elem, int D, bool kDq>
@@ -1019,33 +1019,6 @@ int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
   return launch_dyn(bwd_kv_f32<Elem, D, kDq>,
                     dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
                     T::smem(), stream, args);
-}
-
-// Launches the kv-tile-outer body on the CUDA cores for (D, dtype): f32 at
-// D 64, 128, 256 and 512, and bf16 at D 512 for the fused variant (kDq)
-// only (dtype 0 = float32, 1 = bfloat16; the other bf16 kernels are on
-// wgmma, dk/dv at D 512 over a cluster).
-template <bool kDq>
-int launch_kv(const BwdArgs& args, int B, int D, int dtype,
-              cudaStream_t stream) {
-  if (dtype == 0 && D == 64) {
-    return launch_kv_f32<float, 64, kDq>(args, B, stream);
-  }
-  if (dtype == 0 && D == 128) {
-    return launch_kv_f32<float, 128, kDq>(args, B, stream);
-  }
-  if (dtype == 0 && D == 256) {
-    return launch_kv_f32<float, 256, kDq>(args, B, stream);
-  }
-  if (dtype == 0 && D == 512) {
-    return launch_kv_f32<float, 512, kDq>(args, B, stream);
-  }
-  if constexpr (kDq) {
-    if (dtype == 1 && D == 512) {
-      return launch_kv_f32<__nv_bfloat16, 512, kDq>(args, B, stream);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tdx_bwd

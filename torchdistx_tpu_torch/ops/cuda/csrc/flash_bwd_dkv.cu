@@ -73,8 +73,11 @@
 // bulk copies (flash_bwd_common.cuh's bwd_kv_cluster has the design).  The
 // same bits on every run.  A launch the card refuses returns its error.
 //
-// f32 at D 64, 128, 256 and 512: CUDA cores, the kv-tile-outer body of
-// flash_bwd_common.cuh (bwd_kv_f32), shared with the fused kernel.
+// f32 at D 64, 128, 256 and 512: CUDA cores, flash_bwd_kv_f32.cuh's
+// bwd_kv_f32_tiled (register-blocked products, a cp.async ring of q and do
+// tiles, a kv tile's steps split over a cluster whose blocks add their dk
+// and dv partials in a fixed order), shared with the fused kernel; that
+// header has the design and its bound.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 4 products of 2 D flops per causal
@@ -98,7 +101,7 @@
 // A tile is read from shared memory for 32 columns of work, and the
 // exchange, knocked out, takes a third of the time off.
 
-#include "flash_bwd_common.cuh"
+#include "flash_bwd_kv_f32.cuh"
 
 namespace tdx_bwd {
 namespace {

@@ -91,9 +91,11 @@
 // of f32 dq partials added in L2 (0.154 without the additions) and the
 // two-stage ring, whose refill waits for those reductions.
 //
-// f32 at D 64, 128, 256 and 512, and bf16 at D 512: CUDA cores, the
-// kv-tile-outer body of flash_bwd_common.cuh (bwd_kv_f32 with kDq), with
-// dq by scalar atomics into the f32 buffer.
+// f32 at D 64, 128, 256 and 512: CUDA cores, flash_bwd_kv_f32.cuh's
+// bwd_kv_f32_tiled with kDq (the dk/dv body, dq = ds.k added to the f32
+// buffer by 16-byte vector atomics); that header has the design and its
+// bound.  bf16 at D 512: CUDA cores, flash_bwd_common.cuh's bwd_kv_f32
+// with kDq, dq by scalar atomics.
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape (B 4, S 512,
 // 32 heads, D 128, bf16, causal) it must read q, k, v, do and write dq, dk,
@@ -111,7 +113,7 @@
 
 #include <limits.h>
 
-#include "flash_bwd_common.cuh"
+#include "flash_bwd_kv_f32.cuh"
 
 namespace tdx_bwd {
 namespace {
