@@ -728,26 +728,19 @@ def _instance(kernel, d, dtype):
     """The CUDA kernel instance that a launch of ``kernel`` runs at kernel
     head dim ``d`` (64, 128, 256 or 512) in ``dtype``: the dispatch of
     ``csrc/<kernel>.cu``, named as the ptxas report names it (namespaces
-    left out).  bf16 takes TMA + wgmma at D 64, 128 and 256 (the backward
-    kernels' wide form at 256), and the forward and dk/dv at 512 (dk/dv's
-    wide form, on clusters of two blocks); the rest runs on the CUDA
-    cores, f32 dk/dv and fused on the register-blocked body
-    (``bwd_kv_f32_tiled``)."""
-    bf16 = dtype == torch.bfloat16
-    elem = "__nv_bfloat16" if bf16 else "float"
+    left out).  bf16 takes TMA + wgmma at every head dim (the backward
+    kernels' wide form at 256 and 512, on clusters of two blocks at 512);
+    f32 runs on the CUDA cores, dk/dv and fused on the register-blocked
+    body (``bwd_kv_f32_tiled``)."""
+    if dtype == torch.bfloat16:
+        if kernel == "flash_fwd":
+            return f"flash_fwd_bf16_wgmma<(int){d}>"
+        return f"{kernel}_wgmma{'_wide' if d >= 256 else ''}<(int){d}>"
     if kernel == "flash_fwd":
-        return (f"flash_fwd_bf16_wgmma<(int){d}>" if bf16
-                else f"flash_fwd_f32<{elem}, (int){d}>")
-    if bf16 and (d == 256 or (d == 512 and kernel == "flash_bwd_dkv")):
-        return f"{kernel}_wgmma_wide<(int){d}>"
-    if bf16 and d <= 128:
-        return f"{kernel}_wgmma<(int){d}>"
+        return f"flash_fwd_f32<float, (int){d}>"
     if kernel == "flash_bwd_dq":
-        return f"bwd_dq_f32<{elem}, (int){d}>"
-    fused = int(kernel == "flash_bwd_fused")
-    if not bf16:
-        return f"bwd_kv_f32_tiled<(int){d}, (bool){fused}>"
-    return f"bwd_kv_f32<{elem}, (int){d}, (bool){fused}>"
+        return f"bwd_dq_f32<float, (int){d}>"
+    return f"bwd_kv_f32_tiled<(int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
 
 
 # The bf16 D = 256 and D = 512 instances on TMA + wgmma, whose ptxas report
@@ -755,7 +748,7 @@ def _instance(kernel, d, dtype):
 D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 D512_WGMMA = {kernel: _instance(kernel, 512, torch.bfloat16)
-              for kernel in ("flash_fwd", "flash_bwd_dkv")}
+              for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 # The f32 dk/dv and fused instances (bwd_kv_f32_tiled), by (kernel, D),
 # whose ptxas report the build prints and must show without spills.
 F32_KV = {(kernel, d): _instance(kernel, d, torch.float32)
@@ -1486,15 +1479,14 @@ def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
 
             got = run()
             got = got if isinstance(got, tuple) else (got,)
-            if dtype == torch.float32:  # the f32 outputs summed in a fixed order
-                again = run()
-                again = again if isinstance(again, tuple) else (again,)
-                outs = [n for n, w in zip(("dq", "dk", "dv"), (want_dq, want_dkv, want_dkv))
-                        if w]
-                same = dict(zip(outs, (torch.equal(g, a) for g, a in zip(got, again))))
-                _check(all(same[n] for n in BWD_DETERMINISTIC[kernel]),
-                       f"D {d} {dtype}: {kernel} two calls gave different bits: {same}")
-                del again
+            # The outputs each kernel sums in a fixed order, as in phase 2.
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            outs = [n for n, w in zip(("dq", "dk", "dv"), (want_dq, want_dkv, want_dkv)) if w]
+            same = dict(zip(outs, (torch.equal(g, a) for g, a in zip(got, again))))
+            _check(all(same[n] for n in BWD_DETERMINISTIC[kernel]),
+                   f"D {d} {dtype}: {kernel} two calls gave different bits: {same}")
+            del again
             want = [w for w in plain() if w is not None]
             scale = max(1.0, max(w.float().abs().max().item() for w in want))
             err[kernel] = max((g.float() - w.float()).abs().max().item()

@@ -302,11 +302,9 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
 
 
 # The instance each (kernel, kernel head dim, dtype) runs, as the sources'
-# dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 takes
-# TMA + wgmma for every kernel, and no CUDA-core body; f32 at D 256 stays
-# on the CUDA cores.  At D 512 the bf16 forward and dk/dv take TMA + wgmma
-# (dk/dv on clusters of two blocks); the bf16 fused backward and dq, and
-# f32, stay on the CUDA cores.
+# dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 and 512
+# takes TMA + wgmma for every kernel, and no CUDA-core body (the backward
+# kernels on clusters of two blocks at 512); f32 stays on the CUDA cores.
 @pytest.mark.parametrize(
     "kernel, d, dtype, instance",
     [("flash_fwd", 256, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)256>"),
@@ -319,8 +317,8 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
      ("flash_bwd_dq", 256, torch.float32, "bwd_dq_f32<float, (int)256>"),
      ("flash_fwd", 512, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)512>"),
      ("flash_bwd_dkv", 512, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)512>"),
-     ("flash_bwd_fused", 512, torch.bfloat16, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>"),
-     ("flash_bwd_dq", 512, torch.bfloat16, "bwd_dq_f32<__nv_bfloat16, (int)512>"),
+     ("flash_bwd_fused", 512, torch.bfloat16, "flash_bwd_fused_wgmma_wide<(int)512>"),
+     ("flash_bwd_dq", 512, torch.bfloat16, "flash_bwd_dq_wgmma_wide<(int)512>"),
      ("flash_fwd", 512, torch.float32, "flash_fwd_f32<float, (int)512>"),
      ("flash_bwd_dkv", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)0>"),
      ("flash_bwd_fused", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)1>"),
@@ -355,27 +353,71 @@ def test_d256_wgmma_instances_are_found_in_a_ptxas_report():
 
 
 def test_d512_wgmma_instances_are_found_in_a_ptxas_report():
-    # The [build] line checks the bf16 D = 512 forward and dk/dv for spills;
-    # the CUDA-core bodies that they replaced are no instance of the build.
+    # The [build] line checks the four bf16 D = 512 kernels (TMA + wgmma)
+    # for spills; the CUDA-core bodies that they replaced are no instance of
+    # the build.
     report = {"<unnamed>::flash_fwd_bf16_wgmma<(int)512>": {"registers": 180},
-              "tdx_bwd::<unnamed>::flash_bwd_dkv_wgmma_wide<(int)512>": {"registers": 215},
-              "tdx_bwd::bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>": {"registers": 245}}
+              "tdx_bwd::<unnamed>::flash_bwd_fused_wgmma_wide<(int)512>": {"registers": 215},
+              "tdx_bwd::<unnamed>::flash_bwd_dq_wgmma_wide<(int)512>": {"registers": 206},
+              "tdx_bwd::<unnamed>::flash_bwd_dkv_wgmma_wide<(int)512>": {"registers": 215}}
     assert {k: chip_smoke._in_report(report, n)["registers"]
             for k, n in chip_smoke.D512_WGMMA.items()} == {"flash_fwd": 180,
+                                                           "flash_bwd_fused": 215,
+                                                           "flash_bwd_dq": 206,
                                                            "flash_bwd_dkv": 215}
-    assert chip_smoke._in_report(report, "flash_fwd_f32<__nv_bfloat16, (int)512>") is None
-    assert chip_smoke._in_report(report, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>") is None
+    for gone in ("flash_fwd_f32<__nv_bfloat16, (int)512>",
+                 "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>",
+                 "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>",
+                 "bwd_dq_f32<__nv_bfloat16, (int)512>"):
+        assert gone not in chip_smoke.D512_WGMMA.values()
+        assert chip_smoke._in_report(report, gone) is None
+
+
+def _csrc(name):
+    from pathlib import Path
+
+    return (Path(__file__).resolve().parents[1] / "torchdistx_tpu_torch" / "ops" / "cuda"
+            / "csrc" / name).read_text()
+
+
+def _c_function(source, head):
+    """The text of the C++ function whose definition starts with ``head``,
+    up to its closing brace at the start of a line."""
+    start = source.index(head)
+    return source[start:source.index("\n}\n", start) + 3]
+
+
+def test_bf16_backward_has_no_cuda_core_branch_left():
+    # Every bf16 kernel is on TMA + wgmma: launch_kv (the dispatch of the
+    # dk/dv and fused kernels' CUDA-core bodies) takes f32 only, and the dq
+    # kernel's dispatch sends bf16 at every head dim to a wgmma instance;
+    # the CUDA-core body of bf16 D = 512 is gone from the sources.
+    launch_kv = _c_function(_csrc("flash_bwd_kv_f32.cuh"), "int launch_kv(")
+    assert "launch_kv_f32_tiled<512, kDq>" in launch_kv
+    assert "dtype == 1" not in launch_kv and "bfloat16" not in launch_kv
+    dq = _c_function(_csrc("flash_bwd_dq.cu"), 'extern "C" int tdx_flash_bwd_dq(')
+    assert "launch_dq<float, 512>" in dq and "launch_dq<__nv_bfloat16" not in dq
+    assert "launch_dq_cluster(" in dq
+    branches = [line.strip() for line in dq.splitlines() if "dtype == 1" in line]
+    assert branches == [f"if (dtype == 1 && D == {d}) {{" for d in (64, 128, 256, 512)]
+    fused = _c_function(_csrc("flash_bwd_fused.cu"), 'extern "C" int tdx_flash_bwd_fused(')
+    assert [line.strip() for line in fused.splitlines() if "dtype == 1" in line] == [
+        f"if (dtype == 1 && D == {d}) {{" for d in (64, 128, 256, 512)]
+    common = _csrc("flash_bwd_common.cuh")
+    for gone in ("KvTileF32", "bwd_kv_f32(", "launch_kv_f32", "bwd_kv_f32<"):
+        assert gone not in common, gone
+    assert "constexpr size_t kMaxSmem" in common
 
 
 def test_f32_kv_instances_are_found_in_a_ptxas_report():
     # The [build] line reads the register-blocked f32 dk/dv and fused
     # instances (no storage type: f32 only) from the report, one per (kernel,
-    # D); the f32 instances of the CUDA-core body they replaced are absent,
-    # and its bf16 D = 512 fused instance stays.
+    # D); the instances of the CUDA-core body they replaced are absent, its
+    # bf16 D = 512 fused one too (that launch is on TMA + wgmma).
     report = {f"tdx_bwd::bwd_kv_f32_tiled<(int){d}, (bool){f}>": {
         "registers": 128 if d <= 128 else 208, "spill_stores": 0, "spill_loads": 0}
         for d in (64, 128, 256, 512) for f in (0, 1)}
-    report["tdx_bwd::bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>"] = {"registers": 245}
+    report["tdx_bwd::<unnamed>::flash_bwd_fused_wgmma_wide<(int)512>"] = {"registers": 215}
     assert sorted(chip_smoke.F32_KV) == [(k, d) for k in ("flash_bwd_dkv", "flash_bwd_fused")
                                          for d in (64, 128, 256, 512)]
     for (kernel, d), name in chip_smoke.F32_KV.items():
@@ -383,9 +425,10 @@ def test_f32_kv_instances_are_found_in_a_ptxas_report():
         assert entry == report[f"tdx_bwd::{name}"], (kernel, d)
         gone = f"bwd_kv_f32<float, (int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
         assert chip_smoke._in_report(report, gone) is None
+    assert chip_smoke._in_report(report, "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>") is None
     assert chip_smoke._in_report(
         report, chip_smoke._instance("flash_bwd_fused", 512, torch.bfloat16)) == {
-        "registers": 245}
+        "registers": 215}
 
 
 def test_ab_script_f32_shapes_are_the_chip_smoke_f32_rows():

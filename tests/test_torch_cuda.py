@@ -188,14 +188,15 @@ def test_flash_d256_matches_plain(cuda, dtype, causal, s, hq, hkv):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("d", [320, 512])
 # The D = 512 instances (bf16 and f32), and 320 padded to them: the shapes
-# of the D = 256 test (the CUDA-core kv-tile body's tiles are 16 rows here),
-# then the edges of the bf16 TMA + wgmma tiles (the forward's 32-row kv
-# tiles and 64-row q tiles, dk/dv's 32-row q steps and 64 kv rows: 31, 32,
-# 33, 63, 65, 129) at GQA groups of 1, 2 and 4.
+# of the D = 256 test (the f32 CUDA-core kv-tile body's tiles are 16 rows
+# here), then the edges of the bf16 TMA + wgmma tiles (the forward's and
+# dq's 32-row kv tiles and 64-row q tiles, dk/dv's and the fused kernel's
+# 32-row q steps and 64 kv rows: 31, 32, 33, 63, 65, 129) at GQA groups of
+# 1, 2, 4 and 8.
 @pytest.mark.parametrize("s, hq, hkv", [(1, 2, 2), (15, 4, 1), (16, 4, 2), (17, 4, 4),
                                         (33, 8, 2), (300, 4, 1), (2049, 2, 2),
                                         (31, 2, 2), (32, 4, 2), (33, 4, 4), (63, 4, 1),
-                                        (65, 4, 2), (129, 8, 2)])
+                                        (65, 4, 2), (129, 8, 2), (32, 8, 1), (65, 8, 1)])
 def test_flash_d512_matches_plain(cuda, dtype, causal, d, s, hq, hkv):
     g = torch.Generator(device=cuda).manual_seed(s + d)
     q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, s, hq, hkv, d, dtype, causal, cuda)
@@ -287,24 +288,33 @@ def test_flash_d256_bf16_dkv_and_forward_are_deterministic(cuda, causal):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_d512_bf16_dkv_and_forward_are_deterministic(cuda, causal):
-    # The D = 512 dk/dv kernel sums each step's s^T and dp^T from the two
-    # blocks of a cluster in the same order in both, and each block owns
-    # its columns of dk and dv: a second call gives the same bits, as the
-    # forward does, and no launch writes its inputs (a ragged GQA shape over
-    # several kv tiles and q steps).
+    # The D = 512 dk/dv, fused and dq kernels sum each step's partial
+    # products from the two blocks of a cluster in the same order in both,
+    # and each block owns its columns of dk and dv (dk/dv, fused) or dq (dq,
+    # whose two warpgroups' sums it adds in a fixed order): a second call
+    # gives the same bits, as the forward does (the fused kernel's dq is
+    # summed across blocks, so only its dk and dv), and no launch writes its
+    # inputs (a ragged GQA shape over several kv tiles and q steps).
     g = torch.Generator(device=cuda).manual_seed(512 + causal)
     q, k, v, do, out, lse = _bwd_inputs(g, 2, 333, 8, 2, 512, torch.bfloat16, causal, cuda)
     delta = fa.attention_delta(do, out)
     args = (q, k, v, do, lse, delta)
     before = [t.clone() for t in args]
-    n0 = fa.launches_bwd_dkv
+    n0 = (fa.launches_bwd_dkv, fa.launches_bwd_fused, fa.launches_bwd_dq)
     dk1, dv1 = fa.flash_bwd_dkv(*args, causal=causal)
     dk2, dv2 = fa.flash_bwd_dkv(*args, causal=causal)
+    _, fdk1, fdv1 = fa.flash_bwd_fused(*args, causal=causal)
+    _, fdk2, fdv2 = fa.flash_bwd_fused(*args, causal=causal)
+    dq1 = fa.flash_bwd_dq(*args, causal=causal)
+    dq2 = fa.flash_bwd_dq(*args, causal=causal)
     out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.launches_bwd_dkv == n0 + 2
+    assert (fa.launches_bwd_dkv, fa.launches_bwd_fused, fa.launches_bwd_dq) == tuple(
+        n + 2 for n in n0)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert torch.equal(fdk1, fdk2) and torch.equal(fdv1, fdv2)
+    assert torch.equal(dq1, dq2)
     assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
     assert all(torch.equal(a, b) for a, b in zip(args, before))
 
@@ -336,10 +346,53 @@ def test_flash_d512_dkv_cluster_launch_error_is_raised(cuda):
         assert _bwd_err(a, b) <= BWD_TOL[torch.bfloat16]
 
 
+# The D = 512 fused and dq kernels' cluster launches: each wrapper's launch
+# counter and the plain version's (dq, dk, dv) that holds what it returns.
+D512_CLUSTER_LAUNCHES = {
+    "flash_bwd_fused": ("launches_bwd_fused", {}),
+    "flash_bwd_dq": ("launches_bwd_dq", {"dkv": False}),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(D512_CLUSTER_LAUNCHES))
+def test_flash_d512_fused_and_dq_cluster_launch_errors_are_raised(cuda, kernel):
+    # As for dk/dv: 65,536 tiles of 64 rows (the fused kernel's kv tiles,
+    # dq's q tiles) put 65,536 clusters on the grid's y axis, one more than
+    # it takes.  The wrapper raises with the launch's own error and counts
+    # no launch, and the next launch runs.  (Up to 34 GB of uninitialised
+    # inputs and outputs, never read; the fused kernel's f32 dq is zeroed.)
+    counter, plain_kw = D512_CLUSTER_LAUNCHES[kernel]
+    launch = getattr(fa, kernel)
+    s = 64 * 65535 + 1
+    q, k, v, do = (torch.empty((1, s, 1, 512), device=cuda, dtype=torch.bfloat16)
+                   for _ in range(4))
+    lse, delta = (torch.empty((1, 1, s), device=cuda) for _ in range(2))
+    n0 = getattr(fa, counter)
+    with pytest.raises(RuntimeError, match=f"{kernel} launch failed: CUDA error"):
+        launch(q, k, v, do, lse, delta, causal=True)
+    assert getattr(fa, counter) == n0
+    del q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    g = torch.Generator(device=cuda).manual_seed(65)
+    q, k, v, do, out, lse = _bwd_inputs(g, 1, 65, 2, 2, 512, torch.bfloat16, True, cuda)
+    delta = fa.attention_delta(do, out)
+    got = launch(q, k, v, do, lse, delta, causal=True)
+    got = got if isinstance(got, tuple) else (got,)
+    want = [w for w in fa.flash_bwd_plain(q, k, v, do, lse, delta, causal=True, **plain_kw)
+            if w is not None]
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == n0 + 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert _bwd_err(a, b) <= BWD_TOL[torch.bfloat16]
+
+
 def test_d512_wgmma_instances_compile_without_spills(cuda, tmp_path):
-    # ptxas's report of the bf16 D = 512 forward and dk/dv (TMA + wgmma),
-    # compiled as the build compiles them: both present, no spills, and the
-    # CUDA-core bodies they replaced no longer instantiated.
+    # ptxas's report of the bf16 D = 512 forward, fused backward, dq and
+    # dk/dv (TMA + wgmma), compiled as the build compiles them: all present,
+    # no spills, and the CUDA-core bodies they replaced no longer
+    # instantiated.
     import subprocess
 
     import chip_smoke
@@ -358,7 +411,9 @@ def test_d512_wgmma_instances_compile_without_spills(cuda, tmp_path):
         assert entry is not None, (instance, sorted(report))
         assert entry["spill_stores"] == entry["spill_loads"] == 0, (instance, entry)
     for gone in ("flash_fwd_f32<__nv_bfloat16, (int)512>",
-                 "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>"):
+                 "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)0>",
+                 "bwd_kv_f32<__nv_bfloat16, (int)512, (bool)1>",
+                 "bwd_dq_f32<__nv_bfloat16, (int)512>"):
         assert chip_smoke._in_report(report, gone) is None, gone
 
 

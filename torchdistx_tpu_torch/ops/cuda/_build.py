@@ -104,9 +104,10 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
     for name in stale:
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        t0 = time.perf_counter()  # before the process starts, so its whole run counts
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
-        procs[name] = (proc, tmp, time.perf_counter())
+        procs[name] = (proc, tmp, t0)
     waiters = [threading.Thread(target=wait, args=(name, procs[name][0])) for name in stale]
     for t in waiters:
         t.start()

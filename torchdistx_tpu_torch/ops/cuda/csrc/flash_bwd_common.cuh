@@ -24,17 +24,18 @@
 // Also here: the steps that the bf16 kv-tile kernels on wgmma share
 // (flash_bwd_dkv.cu and flash_bwd_fused.cu: s^T and dp^T, p and ds into
 // shared memory, the dk/dv accumulation, dq = ds.k), the body of both at D
-// = 256 (bwd_kv_wide), dk/dv's at D = 512 over a cluster of two blocks
-// (bwd_kv_cluster), the launch helper for dynamic shared memory, and
-// bwd_kv_f32, the kv-tile-outer body on the CUDA cores that the fused
-// kernel runs for bf16 at D 512 (dq by atomics; the f32 instances run
-// flash_bwd_kv_f32.cuh's bwd_kv_f32_tiled).  The bf16 kernels are built on
-// hopper.cuh.  What
-// bounds the shared steps: a step's critical path is one warpgroup's p and
-// ds (4,096 pairs, an exp2 each on the special-function unit) and then the
-// accumulations that wait for them; knocking out half the tensor work saved
-// less than knocking out p and ds, so this chain, not the tensor rate,
-// holds the kv-tile kernels back (each source's header gives its bound).
+// = 256 (bwd_kv_wide) and at D = 512 over a cluster of two blocks
+// (bwd_kv_cluster, whose exchange of partial products between the blocks
+// the D = 512 dq kernel runs too), and the launch helpers for dynamic
+// shared memory and for clusters of two blocks.  Every bf16 kernel is
+// built on hopper.cuh's TMA and wgmma; the f32 ones run on the CUDA cores
+// (flash_bwd_kv_f32.cuh's bwd_kv_f32_tiled, flash_bwd_dq.cu's bwd_dq_f32).
+// What bounds the shared steps: a step's critical path is one warpgroup's p
+// and ds (4,096 pairs, an exp2 each on the special-function unit) and then
+// the accumulations that wait for them; knocking out half the tensor work
+// saved less than knocking out p and ds, so this chain, not the tensor
+// rate, holds the kv-tile kernels back (each source's header gives its
+// bound).
 //
 // Layout: q, do, dq (B, S, Hq, D); k, v, dk, dv (B, S, Hkv, D); contiguous,
 // read and written in place.  GQA maps q head h to kv head h / (Hq / Hkv).
@@ -246,6 +247,46 @@ __device__ __forceinline__ void issue_dq(float (&dq)[N / 2], uint32_t ds_addr,
   for (int kk = 1; kk < 4; ++kk) {
     hw::wgmma_ss_mn<1>(dq, hw::sw128_desc(ds_addr + kk * 16 * 128, kChunk, 1024),
                        hw::sw128_desc(k_addr + kk * 16 * 128, kChunk, 1024));
+  }
+}
+
+// Issues dq^T = k^T.ds^T for one 64-column chunk of k and a step's 32 q
+// rows (not committed), where wgmma's 64 rows cannot be q's: the chunk (64
+// kv rows x 64 columns, as TMA lays it out) read as an MN-major A, ds^T
+// from the p/ds buffer (64 kv rows x 32 q columns in rows of 128 bytes,
+// p_ds_store<32>) as an MN-major B; k runs over the 64 kv rows.  dq^T (row
+// = column of D, column = q row) is a new definition by the first wgmma.
+__device__ __forceinline__ void issue_dqt(float (&dqt)[16], uint32_t k_addr,
+                                          uint32_t ds_addr) {
+  hw::wgmma_ss_init<1, 1>(dqt, hw::sw128_desc(k_addr, kChunk, 1024),
+                          hw::sw128_desc(ds_addr, kChunk, 1024));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) {
+    hw::wgmma_ss_mn<1>(dqt, hw::sw128_desc(k_addr + kk * 16 * 128, kChunk, 1024),
+                       hw::sw128_desc(ds_addr + kk * 16 * 128, kChunk, 1024));
+  }
+}
+
+// Writes dq^T of one 64-column chunk (issue_dqt's accumulator, the
+// m64n32k16 layout of hopper.cuh) transposed into an f32 tile of 32 q rows
+// x 128 columns laid out as four TMA boxes of 32 columns: box x at tile + x
+// 4096, q row r at byte r 128 of its box, 16-byte group j at (j ^ r % 8)
+// 16; the chunk lands at columns c0 .. c0 + 63.  A warp's stores of one
+// register hit 32 distinct banks.
+__device__ __forceinline__ void store_dqt_f32(uint8_t* tile,
+                                              const float (&dqt)[16], int c0) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c0 + 16 * warp + g + 8 * (e >> 1);
+      const int row = 8 * j + 2 * t + (e & 1);
+      *reinterpret_cast<float*>(tile + (col / 32) * 4096 + row * 128 +
+                                (((col % 32) / 4) ^ (row % 8)) * 16 +
+                                (col % 4) * 4) = dqt[4 * j + e];
+    }
   }
 }
 
@@ -538,27 +579,25 @@ __device__ __forceinline__ void bwd_kv_wide(
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv at D = 512 (flash_bwd_dkv_wgmma_wide<512>): a cluster of two blocks
-// on neighbouring SMs shares 64 kv rows, block r (its rank in the cluster)
-// owning D's columns 256 r .. 256 r + 255.  dk and dv of 64 kv rows at D =
-// 512 are 2 x 64 x 512 f32, the whole register file of an SM; a block
-// holds its half of each: warpgroup 0 dv's and warpgroup 1 dk's, 64 x 256
-// f32 (two 64 x 128 halves, 128 registers a thread), as bwd_kv_wide holds
-// D = 256 whole.  Its shared memory holds its columns of k and v (64 KB),
-// two stages of its columns of q and do for 32-row q tiles (64 KB), two
-// p/ds buffers (32 KB: 64 kv rows x 32 q columns each, in rows of 128
-// bytes), two buffers that receive the peer's partials and two that stage
-// its own (64 KB): 231,000 bytes with lse, delta and the barriers.  Steps
-// (GQA head, q tile of 32 rows) alternate owners as in bwd_kv_wide; the
-// owner of a step computes its partial s^T = k.q^T and dp^T = v.do^T over
-// the block's 256 columns (wgmma m64n32k16), stages them (16 KB) and sends
-// them by one bulk copy (cp.async.bulk shared::cluster) into the peer's
-// buffer of the stage, which completes the peer's xfull barrier, once the
-// peer has read the stage's previous partials (its release arrival on this
-// block's xempty); then it waits for the peer's partials in its own
-// buffer, adds them (f32 addition commutes, so both blocks form the same
-// sums, and from them the same bits of p and ds) and arrives on the peer's
-// xempty.  Then p and ds into the p/ds buffer (p_ds_store<32>) and both
+// The kv-tile kernels at D = 512 over a cluster of two blocks:
+// flash_bwd_dkv_wgmma_wide<512> (dk, dv) and flash_bwd_fused_wgmma_wide<512>
+// (kDq: dq as well), one body.  Two blocks on neighbouring SMs share 64 kv
+// rows, block r (its rank in the cluster) owning D's columns 256 r .. 256 r
+// + 255.  dk and dv of 64 kv rows at D = 512 are 2 x 64 x 512 f32, the
+// whole register file of an SM; a block holds its half of each: warpgroup 0
+// dv's and warpgroup 1 dk's, 64 x 256 f32 (two 64 x 128 halves, 128
+// registers a thread), as bwd_kv_wide holds D = 256 whole.  Its shared
+// memory holds its columns of k and v (64 KB), two stages of its columns of
+// q and do for 32-row q tiles (64 KB), two p/ds buffers (32 KB: 64 kv rows
+// x 32 q columns each, in rows of 128 bytes), two buffers that receive the
+// peer's partials and two that stage its own (64 KB): 231,000 bytes with
+// lse, delta and the barriers.  Steps (GQA head, q tile of 32 rows)
+// alternate owners as in bwd_kv_wide; the owner of a step computes its
+// partial s^T = k.q^T and dp^T = v.do^T over the block's 256 columns (wgmma
+// m64n32k16) and exchanges them with the peer (exchange_partials: staged,
+// sent by one bulk copy into the peer's buffer of the stage, the peer's
+// added), so both blocks form the same sums, and from them the same bits of
+// p and ds.  Then p and ds into the p/ds buffer (p_ds_store<32>) and both
 // warpgroups accumulate, as in bwd_kv_wide: dv_h += p^T.do_h, dk_h +=
 // ds^T.q_h (wgmma m64n128k16 on two 32-row chunks of do or q).  The
 // epilogue stores each block's columns of dk and dv through its k and v
@@ -570,6 +609,27 @@ __device__ __forceinline__ void bwd_kv_wide(
 // s^T's half sent while dp^T is still on the tensor cores (no gain beyond
 // the spread), and the other warpgroup's accumulation issued while the
 // peer's partials arrive (30 % slower).
+//
+// With kDq the owner of a step also forms dq = ds.k for the step's 32 q
+// rows over the block's 256 columns once it has accumulated the step.
+// wgmma's 64 rows cannot be the step's 32 q rows, so it forms the
+// transpose, dq^T = k^T.ds^T (issue_dqt: a 64-column chunk of k read as an
+// MN-major A, ds^T from the p/ds buffer as an MN-major B), in two passes of
+// two chunks (128 columns, 32 registers, in those that s^T and dp^T held:
+// 64 would not fit beside dk or dv).  As in bwd_kv_wide, shared memory has
+// no room for an f32 dq tile: a pass's 32 x 128 f32 (16 KB) is written,
+// transposed (store_dqt_f32), into half of the step's own stage and added
+// to the caller's zeroed f32 buffer by TMA bulk tensor reductions (which
+// drop rows >= S): the first pass where the owner's own accumulation read
+// (do for warpgroup 0, q for 1: dead at once), the second where the other
+// warpgroup's did (dead at done).  The owner refills its steps' stages once
+// its reductions have read them.  dq's order of additions across blocks,
+// and so its last bits, vary from run to run.  Adding each pass from
+// registers by float4 atomics instead was 10-17 % slower (PERF.md).
+
+// Bytes of one warpgroup's partial s and dp (16 f32 registers each, a
+// thread's of an m64n32 accumulator) that exchange_partials sends.
+constexpr int kPartialBytes = 2 * 16 * 128 * 4;
 
 struct KvClusterTiles {
   static constexpr int kCols = 256;  // a block's columns of D = 512
@@ -580,21 +640,73 @@ struct KvClusterTiles {
   static constexpr int kStageOffset = 2 * kKv;
   static constexpr int kPOffset = kStageOffset + kStages * 2 * kQ;
   static constexpr int kXOffset = kPOffset + kStages * 2 * kChunk;
-  static constexpr int kX = 2 * 16 * 128 * 4;  // s^T and dp^T: 16 f32 x 128
+  static constexpr int kX = kPartialBytes;  // a step's s^T and dp^T
   static constexpr int kYOffset = kXOffset + kStages * kX;  // staging
   static constexpr int kRowsOffset = kYOffset + kStages * kX;
   static constexpr int kBarOffset = kRowsOffset + 2 * kStages * kBQ * 4;
   static constexpr int kSmem = kBarOffset + (1 + 5 * kStages) * 8 + 1024;
   static constexpr int kThreads = kWideThreads;
   static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+  static_assert(kQ == kBQ * 128 * 4,
+                "a dq pass (kBQ x 128 f32) fills a stage's q or do");
 };
 
+// Sums a warpgroup's partial products of one step (s and dp: 16 f32
+// registers a thread each, an m64n32 accumulator over the block's columns)
+// with the peer block's, which holds the same step over the other columns.
+// This thread's 32 partials are staged in `y` (16-byte group e of thread
+// tid at (e 128 + tid) 16) and sent by one bulk copy into the peer's buffer
+// `x_peer`, once the peer has read that buffer's previous partials (its
+// release arrival on this block's `xempty`, which also means that copy has
+// read `y`); then the peer's partials are awaited in `x` (`xfull`), added
+// (f32 addition commutes, so both blocks form the same sums) and `x`
+// released to the peer (`xempty_peer`).  `round` is the parity of this use
+// of the buffers, `bar` the warpgroup's named barrier.
+__device__ __forceinline__ void exchange_partials(
+    float (&s)[16], float (&dp)[16], uint8_t* y, const uint8_t* x,
+    uint32_t x_peer, uint64_t* xfull, uint32_t xfull_peer, uint64_t* xempty,
+    uint32_t xempty_peer, uint32_t round, int bar) {
+  const int tid = threadIdx.x % 128;
+  hw::mbar_wait<true>(xempty, round ^ 1);
+  float4* yt = reinterpret_cast<float4*>(y) + tid;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    yt[e * 128] =
+        make_float4(s[4 * e], s[4 * e + 1], s[4 * e + 2], s[4 * e + 3]);
+    yt[(4 + e) * 128] =
+        make_float4(dp[4 * e], dp[4 * e + 1], dp[4 * e + 2], dp[4 * e + 3]);
+  }
+  hw::fence_async_shared();
+  hw::named_barrier(bar, 128);
+  if (tid == 0) {
+    hw::mbar_expect_tx(xfull, kPartialBytes);
+    hw::bulk_copy_cluster(x_peer, y, kPartialBytes, xfull_peer);
+  }
+  hw::mbar_wait(xfull, round);
+  const float4* xt = reinterpret_cast<const float4*>(x) + tid;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float4 a = xt[e * 128], c = xt[(4 + e) * 128];
+    s[4 * e] += a.x;
+    s[4 * e + 1] += a.y;
+    s[4 * e + 2] += a.z;
+    s[4 * e + 3] += a.w;
+    dp[4 * e] += c.x;
+    dp[4 * e + 1] += c.y;
+    dp[4 * e + 2] += c.z;
+    dp[4 * e + 3] += c.w;
+  }
+  hw::mbar_arrive_cluster(xempty_peer);
+}
+
+template <bool kDq>
 __device__ __forceinline__ void bwd_kv_cluster(
     const CUtensorMap* map_q, const CUtensorMap* map_do,
     const CUtensorMap* map_k, const CUtensorMap* map_v,
     const CUtensorMap* map_dk, const CUtensorMap* map_dv,
-    const float* __restrict__ lse, const float* __restrict__ delta, int S,
-    int Hq, int Hkv, int causal, float scale, float scale_log2) {
+    const CUtensorMap* map_dq, const float* __restrict__ lse,
+    const float* __restrict__ delta, int S, int Hq, int Hkv, int causal,
+    float scale, float scale_log2) {
   using T = KvClusterTiles;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
@@ -715,42 +827,9 @@ __device__ __forceinline__ void bwd_kv_cluster(
       hw::wgmma_wait<0>();
       hw::fence_regs(s);
       hw::fence_regs(dp);
-      // This thread's 32 partials staged (16-byte group e of thread tid at
-      // (e 128 + tid) 16) and sent into the peer's buffer by one bulk
-      // copy, once the peer has read the stage's previous ones (which also
-      // means that copy has read the staging buffer).
-      hw::mbar_wait<true>(xempty + st, round ^ 1);
-      float4* y = reinterpret_cast<float4*>(ys + st * T::kX) + tid;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        y[e * 128] = make_float4(s[4 * e], s[4 * e + 1], s[4 * e + 2],
-                                 s[4 * e + 3]);
-        y[(4 + e) * 128] = make_float4(dp[4 * e], dp[4 * e + 1],
-                                       dp[4 * e + 2], dp[4 * e + 3]);
-      }
-      hw::fence_async_shared();
-      hw::named_barrier(1 + wg, 128);
-      if (tid == 0) {
-        hw::mbar_expect_tx(xfull + st, T::kX);
-        hw::bulk_copy_cluster(x_peer + st * T::kX, ys + st * T::kX, T::kX,
-                              xfull_peer + st * 8);
-      }
-      hw::mbar_wait(xfull + st, round);
-      const float4* x =
-          reinterpret_cast<const float4*>(xs + st * T::kX) + tid;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 a = x[e * 128], c = x[(4 + e) * 128];
-        s[4 * e] += a.x;
-        s[4 * e + 1] += a.y;
-        s[4 * e + 2] += a.z;
-        s[4 * e + 3] += a.w;
-        dp[4 * e] += c.x;
-        dp[4 * e + 1] += c.y;
-        dp[4 * e + 2] += c.z;
-        dp[4 * e + 3] += c.w;
-      }
-      hw::mbar_arrive_cluster(xempty_peer + st * 8);
+      exchange_partials(s, dp, ys + st * T::kX, xs + st * T::kX,
+                        x_peer + st * T::kX, xfull + st, xfull_peer + st * 8,
+                        xempty + st, xempty_peer + st * 8, round, 1 + wg);
       p_ds_store<T::kBQ>(s, dp, lse_s + st * T::kBQ, delta_s + st * T::kBQ,
                          needs_mask(causal, q0, T::kBQ, k0, T::kBK, S), causal,
                          q0, k0, S, scale, scale_log2, pds + st * 2 * kChunk,
@@ -762,8 +841,9 @@ __device__ __forceinline__ void bwd_kv_cluster(
     for (int j = 2 * m; j < j_end; ++j) {
       const int st = j % T::kStages;
       const uint32_t phase = (j / T::kStages) & 1;
+      const int filler = kDq ? j % 2 : 1 - j % 2;
       const bool loads =
-          warp % 4 == 0 && wg == 1 - j % 2 && j + T::kStages < n_steps;
+          warp % 4 == 0 && wg == filler && j + T::kStages < n_steps;
       if (loads) fetch_rows(j + T::kStages, rows);
       hw::mbar_wait(ready + st, phase);
       // A is p (warpgroup 0) or ds (1), K-major; B is do (0) or q (1),
@@ -779,16 +859,59 @@ __device__ __forceinline__ void bwd_kv_cluster(
       hw::fence_regs(acc[0]);
       hw::fence_regs(acc[1]);
       if (lane == 0) hw::mbar_arrive(done + st);
-      if (loads) {
+      if (!kDq && loads) {
         hw::mbar_wait(done + st, phase);
         fill(j + T::kStages, rows);
+      }
+      if constexpr (kDq) {
+        if (j % 2 == wg) {  // own step: dq = ds.k through the stage
+          const int h = hk * G + j / n_per_group;
+          const int q0 = (qt0 + j % n_per_group) * T::kBQ;
+          const uint32_t ds_addr =
+              hw::smem_addr(pds + st * 2 * kChunk + kChunk);
+          uint8_t* stage = qds + 2 * st * T::kQ;
+#pragma unroll
+          for (int pass = 0; pass < 2; ++pass) {
+            float dqt[2][16];
+            hw::wgmma_fence();
+            issue_dqt(dqt[0], k_addr + 2 * pass * kChunk, ds_addr);
+            issue_dqt(dqt[1], k_addr + (2 * pass + 1) * kChunk, ds_addr);
+            hw::wgmma_commit();
+            hw::wgmma_wait<0>();
+            hw::fence_regs(dqt[0]);
+            hw::fence_regs(dqt[1]);
+            // The area is dead once every warp's accumulation has read it:
+            // this warpgroup's (pass 0) or both (pass 1, done).
+            if (pass == 0) hw::named_barrier(1 + wg, 128);
+            if (pass == 1) hw::mbar_wait(done + st, phase);
+            uint8_t* area = stage + (pass ? wg : 1 - wg) * T::kQ;
+            store_dqt_f32(area, dqt[0], 0);
+            store_dqt_f32(area, dqt[1], 64);
+            hw::fence_async_shared();
+            hw::named_barrier(1 + wg, 128);
+            if (tid == 0) {
+              for (int c = 0; c < 4; ++c) {
+                hw::tma_reduce_add_4d(map_dq, area + c * 4096,
+                                      col0 + 128 * pass + 32 * c, h, q0, b);
+              }
+              hw::tma_store_commit();
+            }
+          }
+          if (loads) {
+            if (lane == 0) hw::tma_store_wait_read();
+            fill(j + T::kStages, rows);
+          }
+        }
       }
     }
   }
 
   // Epilogue: this block's columns of dv (warpgroup 0) through the v buffer
   // and of dk (1) through the k buffer, in bf16 (neither is read once each
-  // warpgroup has waited for every step's p and ds), one TMA store a chunk.
+  // warpgroup has waited for every step's p and ds, but k is read by dq =
+  // ds.k as well, so with kDq both warpgroups first finish their last dq),
+  // one TMA store a chunk.
+  if constexpr (kDq) hw::named_barrier(3, 256);
   uint8_t* out = wg == 0 ? vs : ks;
   hw::store_acc_sw128(out, acc[0]);
   hw::store_acc_sw128(out + 2 * kChunk, acc[1]);
@@ -820,205 +943,36 @@ int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// kv-tile-outer body, f32 on the CUDA cores: one block per (kv tile of BK,
-// kv head, batch), looping over (GQA group, q tile of 16).  Per pair:
-// (A) warp w computes p and ds for q rows 4w..4w+3, one lane per kv column,
-// into shared memory; (B) warp w accumulates dV and dK for kv rows
-// BK/4 w..BK/4 w + BK/4 - 1, one lane per 32nd output column, in registers;
-// (C, kDq) warp w forms dQ for q rows 4w..4w+3 and adds it to the f32 dq
-// buffer with atomics.  Elem is the storage type (storage.cuh): the port
-// instantiates it for bf16 at D 512 with kDq only; p and ds are rounded to Elem before
-// the products that take them, and dk and dv to Elem on the store.  BK is 32 up to D 256; at D 512 it is 16, which keeps a
-// lane's dk and dv accumulators at 2 x 4 rows x 16 columns (128 registers,
-// as at D 256, where 32-row tiles would need 256) and the tiles at 130 KB;
-// (A) then runs two q rows at once, half a warp on each.
-
-template <int D>
-struct KvTileF32 {
-  static constexpr int BK = D > 256 ? 16 : 32, BQ = 16, LDK = D + 1,
-                       LDP = BK + 1;
-  static constexpr size_t smem() {
-    return (2 * BQ + 2 * BQ * D + 2 * BK * LDK + 2 * BQ * LDP) * sizeof(float);
+// Launches `kernel` on `grid` in clusters of two blocks along x, with
+// kWideThreads threads and `smem` bytes of dynamic shared memory (opted in
+// by the caller).  A launch the card refuses (a grid dimension out of
+// range, no room for a cluster) returns the launch's own error.
+template <typename... Params, typename... Args>
+int launch_cluster_pair(void (*kernel)(Params...), dim3 grid, int smem,
+                        cudaStream_t stream, Args&&... args) {
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 2;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kWideThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&config, kernel, static_cast<Args&&>(args)...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind
+    return static_cast<int>(e);
   }
-};
-
-template <typename Elem, int D, bool kDq>
-__global__ void __launch_bounds__(kThreads) bwd_kv_f32(const BwdArgs a) {
-  using T = KvTileF32<D>;
-  constexpr int BK = T::BK, BQ = T::BQ, LDK = T::LDK, LDP = T::LDP;
-  constexpr int DPL = D / 32, RPW = BQ / (kThreads / 32),
-                KPW = BK / (kThreads / 32);
-  extern __shared__ float smf[];
-  float* lse_s = smf;
-  float* delta_s = lse_s + BQ;
-  float* qs = delta_s + BQ;
-  float* dos = qs + BQ * D;
-  float* ks = dos + BQ * D;
-  float* vs = ks + BK * LDK;
-  float* ps = vs + BK * LDK;
-  float* dss = ps + BQ * LDP;
-
-  const int S = a.S, G = a.Hq / a.Hkv;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t q_rs = static_cast<size_t>(a.Hq) * D;
-  const size_t kv_rs = static_cast<size_t>(a.Hkv) * D;
-  const Elem* kb = static_cast<const Elem*>(a.k) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const Elem* vb = static_cast<const Elem*>(a.v) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-
-  for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const bool in = k0 + r < S;
-    const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-    ks[r * LDK + c] = in ? tdx::to_f32(kb[off]) : 0.f;
-    vs[r * LDK + c] = in ? tdx::to_f32(vb[off]) : 0.f;
-  }
-
-  float dk_acc[KPW][DPL], dv_acc[KPW][DPL];
-#pragma unroll
-  for (int j = 0; j < KPW; ++j) {
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
-  }
-
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int qt0 = a.causal ? k0 / BQ : 0;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const Elem* qb = static_cast<const Elem*>(a.q) +
-                     static_cast<size_t>(b) * S * q_rs + h * D;
-    const Elem* dob = static_cast<const Elem*>(a.dout) +
-                      static_cast<size_t>(b) * S * q_rs + h * D;
-    const float* lseb = a.lse + (static_cast<size_t>(b) * a.Hq + h) * S;
-    const float* deltab = a.delta + (static_cast<size_t>(b) * a.Hq + h) * S;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-        const int r = i / D, c = i % D;
-        const bool in = q0 + r < S;
-        const size_t off = static_cast<size_t>(q0 + r) * q_rs + c;
-        qs[i] = in ? tdx::to_f32(qb[off]) : 0.f;
-        dos[i] = in ? tdx::to_f32(dob[off]) : 0.f;
-      }
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < S ? lseb[row] * kLog2e : 0.f;
-        delta_s[threadIdx.x] = row < S ? deltab[row] : 0.f;
-      }
-      __syncthreads();
-
-      // (A) p and ds for (q row, kv col = lane).
-      const bool mask = needs_mask(a.causal, q0, BQ, k0, BK, S);
-      if constexpr (BK == 32) {
-#pragma unroll
-        for (int rr = 0; rr < RPW; ++rr) {
-          const int qr = warp * RPW + rr;
-          float s = 0.f, dp = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < D; ++d) {
-            s = fmaf(qs[qr * D + d], ks[lane * LDK + d], s);
-            dp = fmaf(dos[qr * D + d], vs[lane * LDK + d], dp);
-          }
-          const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + lane, S);
-          const float p =
-              p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
-          ps[qr * LDP + lane] = tdx::round_to<Elem>(p);
-          dss[qr * LDP + lane] = tdx::round_to<Elem>(dp);
-        }
-      } else {
-        // BK 16: half-warp h of the lanes takes q row rr + h, kv col lane % 16.
-        static_assert(BK == 16 && RPW % 2 == 0, "two q rows a pass");
-        const int col = lane % BK;
-#pragma unroll
-        for (int rr = 0; rr < RPW; rr += 2) {
-          const int qr = warp * RPW + rr + lane / BK;
-          float s = 0.f, dp = 0.f;
-#pragma unroll 8
-          for (int d = 0; d < D; ++d) {
-            s = fmaf(qs[qr * D + d], ks[col * LDK + d], s);
-            dp = fmaf(dos[qr * D + d], vs[col * LDK + d], dp);
-          }
-          const bool keep = !mask || keep_pair(a.causal, q0 + qr, k0 + col, S);
-          const float p =
-              p_ds(s, dp, lse_s[qr], delta_s[qr], keep, a.scale, a.scale_log2);
-          ps[qr * LDP + col] = tdx::round_to<Elem>(p);
-          dss[qr * LDP + col] = tdx::round_to<Elem>(dp);
-        }
-      }
-      __syncthreads();
-
-      // (B) dV += P^T.dO, dK += dS^T.Q for kv rows KPW * warp + j.
-#pragma unroll
-      for (int j = 0; j < KPW; ++j) {
-        const int r = warp * KPW + j;
-#pragma unroll 4
-        for (int q = 0; q < BQ; ++q) {
-          const float pv = ps[q * LDP + r], sv = dss[q * LDP + r];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            dv_acc[j][i] = fmaf(pv, dos[q * D + lane + 32 * i], dv_acc[j][i]);
-            dk_acc[j][i] = fmaf(sv, qs[q * D + lane + 32 * i], dk_acc[j][i]);
-          }
-        }
-      }
-
-      if constexpr (kDq) {
-        // (C) dQ = dS.K for q rows RPW * warp + rr.
-#pragma unroll
-        for (int rr = 0; rr < RPW; ++rr) {
-          const int qr = warp * RPW + rr, row = q0 + qr;
-          float acc[DPL];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-#pragma unroll 8
-          for (int c = 0; c < BK; ++c) {
-            const float sv = dss[qr * LDP + c];
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) {
-              acc[i] = fmaf(sv, ks[c * LDK + lane + 32 * i], acc[i]);
-            }
-          }
-          if (row < S) {
-            float* dst = a.dq_acc + (static_cast<size_t>(b) * S + row) * q_rs +
-                         h * D + lane;
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) atomicAdd(dst + 32 * i, acc[i]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < KPW; ++j) {
-    const int kr = k0 + warp * KPW + j;
-    if (kr >= S) continue;
-    const size_t off = (static_cast<size_t>(b) * S + kr) * kv_rs + hk * D + lane;
-    Elem* dkr = static_cast<Elem*>(a.dk) + off;
-    Elem* dvr = static_cast<Elem*>(a.dv) + off;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      dkr[32 * i] = tdx::from_f32<Elem>(dk_acc[j][i]);
-      dvr[32 * i] = tdx::from_f32<Elem>(dv_acc[j][i]);
-    }
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Hopper grants a block at most 227 KB of shared memory.  The tiles do not
 // grow with S, so a kernel that fits here fits every shape.
 constexpr size_t kMaxSmem = 227 * 1024;
-static_assert(KvTileF32<512>::smem() <= kMaxSmem, "f32 tile too large");
-
-template <typename Elem, int D, bool kDq>
-int launch_kv_f32(const BwdArgs& args, int B, cudaStream_t stream) {
-  using T = KvTileF32<D>;
-  return launch_dyn(bwd_kv_f32<Elem, D, kDq>,
-                    dim3((args.S + T::BK - 1) / T::BK, args.Hkv, B),
-                    T::smem(), stream, args);
-}
 
 }  // namespace tdx_bwd

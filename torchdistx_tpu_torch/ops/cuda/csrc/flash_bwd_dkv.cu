@@ -357,8 +357,9 @@ flash_bwd_dkv_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                          const float* __restrict__ delta, int S, int Hq,
                          int Hkv, int causal, float scale, float scale_log2) {
   if constexpr (D == 512) {
-    bwd_kv_cluster(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, lse, delta, S,
-                   Hq, Hkv, causal, scale, scale_log2);
+    bwd_kv_cluster<false>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv,
+                          nullptr, lse, delta, S, Hq, Hkv, causal, scale,
+                          scale_log2);
   } else {
     bwd_kv_wide<D, false>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv,
                           nullptr, lse, delta, S, Hq, Hkv, causal, scale,
@@ -412,26 +413,11 @@ int launch_dkv_cluster(const void* q, const void* k, const void* v,
   if (!err) err = hw::bshd_map(&tm_dk, dk, B, S, Hkv, D, T::kBK);
   if (!err) err = hw::bshd_map(&tm_dv, dv, B, S, Hkv, D, T::kBK);
   if (err) return err;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 2;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(2 * Hkv, (S + T::kBK - 1) / T::kBK, B);
-  config.blockDim = dim3(T::kThreads);
-  config.dynamicSmemBytes = T::kSmem;
-  config.stream = stream;
-  config.attrs = cluster;
-  config.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &config, flash_bwd_dkv_wgmma_wide<D>, tm_q, tm_do, tm_k, tm_v, tm_dk,
-      tm_dv, lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // a refused launch leaves no error behind
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster_pair(flash_bwd_dkv_wgmma_wide<D>,
+                             dim3(2 * Hkv, (S + T::kBK - 1) / T::kBK, B),
+                             T::kSmem, stream, tm_q, tm_do, tm_k, tm_v, tm_dk,
+                             tm_dv, lse, delta, S, Hq, Hkv, causal, scale,
+                             scale_log2);
 }
 
 }  // namespace

@@ -57,9 +57,49 @@
 // 2112, 4/2 heads (2.55; bound 0.014), where 68 blocks fill half the SMs
 // and the heaviest walks 33 kv tiles (PERF.md).
 //
-// f32 at D 64, 128, 256 and 512, and bf16 at D 512 (bwd_dq_f32): CUDA
-// cores, 16 q rows a block, one warp lane per kv column for the two dots
-// and per 32nd output column for dS.K.
+// bf16 at D = 512 (flash_bwd_dq_wgmma_wide<512>): a 64 x 512 f32 dq is
+// 256 registers a thread of a warpgroup, so one block cannot hold a 64-row
+// q tile's dq.  Two blocks of a cluster (neighbouring SMs, launched by
+// cudaLaunchKernelEx with a cluster dimension of 2 along the grid's x,
+// which pairs them per q head) share a q tile of 64 rows, block r owning
+// D's columns 256 r .. 256 r + 255 of q, do, k, v and dq.  Its two
+// warpgroups take the kv tiles of 32 rows in turns (the diagonal first),
+// each holding its own 64 x 256 f32 dq (two m64n128 halves, 128
+// registers).  Per tile a warpgroup forms partial s = q.k^T and dp =
+// do.v^T over the block's columns (m64n32k16), exchanges them with the
+// peer's same warpgroup through distributed shared memory and adds them
+// (flash_bwd_common.cuh's exchange_partials, as the D = 512 dk/dv kernel
+// does; f32 addition commutes, so both blocks get the same bits of p and
+// ds), runs p and ds (p_ds_fast) in registers, and adds dq_h += ds.k_h
+// with ds from registers as the A fragment and k read in place as the
+// MN-major B.  Shared memory: q and do halves 64 KB, three stages of k and
+// v halves 96 KB, a receive and a staging buffer of partials per
+// warpgroup 64 KB: 230,488 of 232,448 bytes.  With no producer warp, the
+// first thread of the warpgroup that read a stage loads the tile three on
+// into it; each tile completes one of six full barriers (one per stage and
+// warpgroup), so a warpgroup waits for every phase of its barriers in
+// turn.  At the end warpgroup 1 hands its dq to warpgroup 0 through the
+// stages, which adds it and stores the block's columns in bf16 by TMA
+// (rows >= S dropped): the same bits on every run, no atomics.  It
+// replaces a CUDA-core body that (1) ran every product as scalar FMAs
+// from shared memory, bf16 widened to f32; (2) took 16 q rows a block
+// with 192 KB of tiles, one 4-warp block an SM; (3) loaded each kv tile
+// between two barriers, nothing in flight under the products.  Here (1)
+// the products run on the tensor cores from bf16 tiles, (2) 64 q rows
+// take two 256-thread blocks, and (3) TMA keeps two tiles in flight.
+// What bounds it on an H100 SXM: at B 2, S 1024, 8 heads of 512, causal,
+// 3 products, 25.8 GFLOP, 0.0261 ms at 989 TFLOP/s, against 84 MB of q,
+// k, v, do, dq, lse and delta, 0.0251 ms at 3.35 TB/s: operations
+// (chip_smoke.py's _bwd_bound).  Device ms on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py, PERF.md): 0.127 there, 21 % of the bound (the
+// CUDA-core body 5.56), and 0.022 at B 2, S 300, 8/2 heads (0.61).  With
+// the exchange knocked out (wrong values) it takes 42 % less
+// (scripts/torch_d256_ab.py --d 512): the exchange, not the products, is
+// what holds it back.
+//
+// f32 at D 64, 128, 256 and 512 (bwd_dq_f32): CUDA cores, 16 q rows a
+// block, one warp lane per kv column for the two dots and per 32nd output
+// column for dS.K.
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 3 products of 2 D flops per causal
@@ -331,7 +371,7 @@ struct DqWideTiles {
 };
 
 template <int D>
-__global__ void __launch_bounds__(DqWideTiles<D>::kThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_bwd_dq_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                         __grid_constant__ const CUtensorMap tm_do,
                         __grid_constant__ const CUtensorMap tm_k,
@@ -553,6 +593,278 @@ int launch_dq_wide(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The D = 512 kernel's tiles and dynamic shared memory (a block's half of
+// D, kCols columns): q and do (each 4 chunks of 64 rows, 8 KB a chunk: 64
+// KB), then kStages stages of k and v (each 4 chunks of 32 rows, 4 KB a
+// chunk: 32 KB a stage), then each warpgroup's buffer that receives the
+// peer's partials, then each warpgroup's that stages its own (16 KB each),
+// then the barriers; + 1024 bytes to align the base to a swizzle atom.
+// Tile i lands in stage i % kStages and is read by warpgroup i % 2 alone,
+// so its full barrier is i % kFulls: each barrier's tiles then go to one
+// warpgroup, which waits for every phase of it in turn (with one barrier
+// a stage, a warpgroup that had not seen tile i land could take the
+// phase of tile i - 3 for that of tile i + 3).
+struct DqClusterTiles {
+  static constexpr int kCols = 256;  // a block's columns of D = 512
+  static constexpr int kBQ = 64, kBK = 32, kStages = 3, kFulls = 2 * kStages;
+  static constexpr int kChunkK = kBK * 128;           // a 32-row chunk: 4 KB
+  static constexpr int kQ = kCols / 64 * kChunk;      // its q or do: 32 KB
+  static constexpr int kKv = kCols / 64 * kChunkK;    // a tile's k or v: 16 KB
+  static constexpr int kStageOffset = 2 * kQ;
+  static constexpr int kX = kPartialBytes;  // a tile's s and dp
+  static constexpr int kXOffset = kStageOffset + kStages * 2 * kKv;
+  static constexpr int kYOffset = kXOffset + 2 * kX;
+  static constexpr int kBarOffset = kYOffset + 2 * kX;
+  static constexpr int kSmem = kBarOffset + (1 + kFulls + 4) * 8 + 1024;
+  static constexpr int kThreads = kWideThreads;
+  static_assert(kSmem <= 232448, "exceeds the 227 KB a block may use");
+  static_assert(kStages * 2 * kKv >= 64 * kCols * 4,
+                "the stages hold a warpgroup's f32 dq at the end");
+};
+
+// The D = 512 kernel (see the header): a cluster of two blocks per (q
+// tile of 64 rows, q head, batch), block r owning D's columns 256 r .. 256
+// r + 255; warpgroup w takes the kv tiles i = w, w + 2, .. of 32 rows, from
+// the causal diagonal down, and keeps its own 64 x 256 f32 dq.
+template <>
+__global__ void __launch_bounds__(DqClusterTiles::kThreads, 1)
+flash_bwd_dq_wgmma_wide<512>(__grid_constant__ const CUtensorMap tm_q,
+                             __grid_constant__ const CUtensorMap tm_do,
+                             __grid_constant__ const CUtensorMap tm_k,
+                             __grid_constant__ const CUtensorMap tm_v,
+                             __grid_constant__ const CUtensorMap tm_dq,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta, int S, int Hq,
+                             int Hkv, int causal, float scale,
+                             float scale_log2) {
+  using T = DqClusterTiles;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = sm;                      // the block's columns of q
+  uint8_t* dos = sm + T::kQ;             // and of do
+  uint8_t* kvs = sm + T::kStageOffset;   // stage st: k at 2 st kKv, then v
+  uint8_t* xs = sm + T::kXOffset;        // warpgroup w's from the peer
+  uint8_t* ys = sm + T::kYOffset;        // warpgroup w's to the peer
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + T::kBarOffset);
+  uint64_t* full = q_full + 1;           // a tile's k and v landed
+  uint64_t* xfull = full + T::kFulls;    // the peer's partials landed
+  uint64_t* xempty = xfull + 2;          // the peer read this block's partials
+
+  const uint32_t rank = hw::cluster_rank(), peer = rank ^ 1;
+  const int col0 = static_cast<int>(rank) * T::kCols;
+  const int h = blockIdx.x / 2, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kBQ;
+  const int hk = h / (Hq / Hkv);
+  const int n_tiles = causal ? (min(q0 + T::kBQ, S) - 1) / T::kBK + 1
+                             : (S + T::kBK - 1) / T::kBK;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int f = 0; f < T::kFulls; ++f) hw::mbar_init(full + f, 1);
+    for (int w = 0; w < 2; ++w) {
+      hw::mbar_init(xfull + w, 1);     // the owner's expect_tx, + the copy
+      hw::mbar_init(xempty + w, 128);  // every thread of the peer's warpgroup
+    }
+    hw::fence_barrier_init();
+  }
+  hw::cluster_sync();
+
+  // Tile i (kv rows from (n_tiles - 1 - i) kBK: the diagonal, and the
+  // tiles that need the mask, first) goes to stage i % kStages and
+  // completes full barrier i % kFulls, whose phase's parity flips every
+  // kFulls tiles.  Only warpgroup i % 2 reads it, so once that warpgroup's
+  // dq += ds.k has read it, its first thread loads tile i + kStages there:
+  // no empty barrier.
+  auto load = [&](int i) {
+    const int st = i % T::kStages;
+    const int k0 = (n_tiles - 1 - i) * T::kBK;
+    uint8_t* ks = kvs + 2 * st * T::kKv;
+    uint64_t* bar = full + i % T::kFulls;
+    hw::mbar_expect_tx(bar, 2 * T::kKv);
+    for (int c = 0; c < T::kCols / 64; ++c) {
+      hw::tma_load_4d(ks + c * T::kChunkK, &tm_k, bar, col0 + 64 * c, hk, k0,
+                      b);
+      hw::tma_load_4d(ks + T::kKv + c * T::kChunkK, &tm_v, bar, col0 + 64 * c,
+                      hk, k0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    hw::prefetch_map(&tm_k);
+    hw::prefetch_map(&tm_v);
+    hw::mbar_expect_tx(q_full, 2 * T::kQ);
+    for (int c = 0; c < T::kCols / 64; ++c) {
+      hw::tma_load_4d(qs + c * kChunk, &tm_q, q_full, col0 + 64 * c, h, q0, b);
+      hw::tma_load_4d(dos + c * kChunk, &tm_do, q_full, col0 + 64 * c, h, q0,
+                      b);
+    }
+    for (int i = 0; i < min(T::kStages, n_tiles); ++i) load(i);
+  }
+
+  // Warps 0-3 are warpgroup 0, 4-7 warpgroup 1; the index goes through a
+  // shuffle so that the compiler knows it is uniform across each warp.
+  // Both hold the tile's 64 q rows; this thread's are r0 and r0 + 8.
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * warp + g;
+  const size_t row_base = (static_cast<size_t>(b) * Hq + h) * S;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    lse2[r] = row < S ? lse[row_base + row] * kLog2e : 0.f;
+    dl[r] = row < S ? delta[row_base + row] * scale : 0.f;
+  }
+  const uint32_t q_addr = hw::smem_addr(qs), do_addr = hw::smem_addr(dos);
+  const uint32_t x_peer = hw::map_rank(hw::smem_addr(xs + wg * T::kX), peer);
+  const uint32_t xfull_peer = hw::map_rank(hw::smem_addr(xfull + wg), peer);
+  const uint32_t xempty_peer = hw::map_rank(hw::smem_addr(xempty + wg), peer);
+  float dq[2][64];
+#pragma unroll
+  for (int n = 0; n < 64; ++n) dq[0][n] = dq[1][n] = 0.f;
+
+  hw::mbar_wait(q_full, 0);
+  for (int i = wg; i < n_tiles; i += 2) {
+    const int st = i % T::kStages;
+    const int k0 = (n_tiles - 1 - i) * T::kBK;
+    const uint32_t k_addr = hw::smem_addr(kvs + 2 * st * T::kKv);
+    const uint32_t v_addr = k_addr + T::kKv;
+    hw::mbar_wait(full + i % T::kFulls, (i / T::kFulls) & 1);
+
+    // Partial s = q.k^T and dp = do.v^T over the block's columns (64 q rows
+    // x 32 kv columns), summed with the peer's.
+    float s[16], dp[16];
+    hw::wgmma_fence();
+    issue_st_dpt<T::kCols, T::kBK>(s, dp, q_addr, do_addr, k_addr, v_addr);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+    hw::fence_regs(dp);
+    exchange_partials(s, dp, ys + wg * T::kX, xs + wg * T::kX, x_peer,
+                      xfull + wg, xfull_peer, xempty + wg, xempty_peer,
+                      (i / 2) & 1, 1 + wg);
+
+    // ds = p (dp scale - delta scale) into dp (dl holds delta scale), p =
+    // 2^(s scale log2 e - lse log2 e), 0 on masked pairs.
+    auto softmax = [&](const bool masked) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          p_ds_fast(s[4 * j + e], dp[4 * j + e], lse2[r], dl[r], masked,
+                    causal, r0 + 8 * r, k0 + 8 * j + 2 * t + (e & 1), S,
+                    scale, scale_log2);
+        }
+      }
+    };
+    if (needs_mask(causal, q0, T::kBQ, k0, T::kBK, S)) {
+      softmax(true);
+    } else {
+      softmax(false);
+    }
+    uint32_t da[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        da[kk][r] = pack_f32(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dq_h += ds.k_h; the k dimension is the 32 kv rows, k read as an
+    // MN-major B operand (chunks of 32 rows), half by half.
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t off = kk * 16 * 128;
+      hw::wgmma_rs(dq[0], da[kk],
+                   hw::sw128_desc(k_addr + off, T::kChunkK, 1024));
+      hw::wgmma_rs(dq[1], da[kk],
+                   hw::sw128_desc(k_addr + 2 * T::kChunkK + off, T::kChunkK,
+                                  1024));
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dq[0]);
+    hw::fence_regs(dq[1]);
+    if (i + T::kStages < n_tiles) {
+      hw::named_barrier(1 + wg, 128);  // every warp's products have read it
+      if (tid == 0) load(i + T::kStages);
+    }
+  }
+
+  // Epilogue: warpgroup 0's dq + warpgroup 1's, in that order (the same
+  // bits on every run), through the stages (no longer read: every tile's
+  // products have completed), then in bf16 through the q buffer and one TMA
+  // store a chunk, which drops rows >= S.
+  hw::named_barrier(3, 256);
+  float4* sum = reinterpret_cast<float4*>(kvs) + tid;
+  if (wg == 1) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      sum[n * 128] = make_float4(dq[0][4 * n], dq[0][4 * n + 1],
+                                 dq[0][4 * n + 2], dq[0][4 * n + 3]);
+      sum[(16 + n) * 128] = make_float4(dq[1][4 * n], dq[1][4 * n + 1],
+                                        dq[1][4 * n + 2], dq[1][4 * n + 3]);
+    }
+  }
+  hw::named_barrier(3, 256);
+  if (wg == 0) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float4 a = sum[n * 128], c = sum[(16 + n) * 128];
+      dq[0][4 * n] += a.x;
+      dq[0][4 * n + 1] += a.y;
+      dq[0][4 * n + 2] += a.z;
+      dq[0][4 * n + 3] += a.w;
+      dq[1][4 * n] += c.x;
+      dq[1][4 * n + 1] += c.y;
+      dq[1][4 * n + 2] += c.z;
+      dq[1][4 * n + 3] += c.w;
+    }
+    hw::store_acc_sw128(qs, dq[0]);
+    hw::store_acc_sw128(qs + 2 * kChunk, dq[1]);
+    hw::fence_async_shared();
+    hw::named_barrier(1, 128);
+    if (tid == 0) {
+      for (int c = 0; c < T::kCols / 64; ++c) {
+        hw::tma_store_4d(&tm_dq, qs + c * kChunk, col0 + 64 * c, h, q0, b);
+      }
+      hw::tma_store_commit();
+      hw::tma_store_wait_read();
+    }
+  }
+  hw::cluster_sync();
+}
+
+// The D = 512 kernel in clusters of two blocks along x (the pair of a q
+// head's 64 q rows); a launch the card refuses returns its own error.
+int launch_dq_cluster(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int B, int S, int Hq, int Hkv, int causal,
+                      float scale, float scale_log2, cudaStream_t stream) {
+  using T = DqClusterTiles;
+  constexpr int D = 512;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_bwd_dq_wgmma_wide<D>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_do, dout, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dq, dq, B, S, Hq, D, T::kBQ);
+  if (err) return err;
+  return launch_cluster_pair(flash_bwd_dq_wgmma_wide<D>,
+                             dim3(2 * Hq, (S + T::kBQ - 1) / T::kBQ, B),
+                             T::kSmem, stream, tm_q, tm_do, tm_k, tm_v, tm_dq,
+                             lse, delta, S, Hq, Hkv, causal, scale,
+                             scale_log2);
+}
+
 template <int D>
 struct DqF32 {
   static constexpr int BQ = 16, BK = 32, LDK = D + 1;
@@ -564,9 +876,9 @@ struct DqF32 {
 // dq on the CUDA cores: one block per (q tile of 16, q head, batch), looping
 // over kv tiles of 32; warp w forms p and ds for q rows 4w..4w+3, one lane
 // per kv column, and dq = ds.k with one lane per 32nd output column.  Elem
-// is the storage type (storage.cuh): float at D 64, 128, 256 and 512, bf16
-// at D 512 (192 KB of tiles; a lane holds 4 rows x 16 dq floats);
-// ds is rounded to Elem before ds.k, and dq to Elem on the store.
+// is the storage type (storage.cuh), float at D 64, 128, 256 and 512 (192
+// KB of tiles at 512; a lane holds 4 rows x 16 dq floats); ds is rounded to
+// Elem before ds.k, and dq to Elem on the store.
 template <typename Elem, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
   using T = DqF32<D>;
@@ -704,6 +1016,10 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq_wide<256>(q, k, v, dout, lse_f, delta_f, dq, B, S, Hq,
                                Hkv, causal, scale, scale_log2, st);
   }
+  if (dtype == 1 && D == 512) {
+    return launch_dq_cluster(q, k, v, dout, lse_f, delta_f, dq, B, S, Hq, Hkv,
+                             causal, scale, scale_log2, st);
+  }
   BwdArgs args{};
   args.q = q;
   args.k = k;
@@ -722,6 +1038,5 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128) return launch_dq<float, 128>(args, B, st);
   if (dtype == 0 && D == 256) return launch_dq<float, 256>(args, B, st);
   if (dtype == 0 && D == 512) return launch_dq<float, 512>(args, B, st);
-  if (dtype == 1 && D == 512) return launch_dq<__nv_bfloat16, 512>(args, B, st);
   return cudaErrorInvalidValue;
 }

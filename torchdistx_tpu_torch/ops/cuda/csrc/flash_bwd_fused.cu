@@ -91,11 +91,39 @@
 // of f32 dq partials added in L2 (0.154 without the additions) and the
 // two-stage ring, whose refill waits for those reductions.
 //
+// bf16 at D = 512 (flash_bwd_fused_wgmma_wide<512>): the D = 512 dk/dv
+// kernel's body with dq, flash_bwd_common.cuh's bwd_kv_cluster<true>: two
+// blocks of a cluster share 64 kv rows, each holding 256 of D's columns;
+// steps of 32 q rows, whose partial s^T and dp^T the blocks exchange; the
+// step's owner forms dq^T = k^T.ds^T over its columns in two passes (wgmma
+// m64n32k16: a step's 32 q rows cannot be wgmma's 64) and adds each by
+// bulk tensor reductions through the step's stage (the header there has
+// the design).  It replaces a CUDA-core body that (1) ran every product as
+// scalar FMAs from shared memory, bf16 widened to f32; (2) took 16-row kv
+// tiles, one 128-thread block each, so 38 blocks at 2 x 300, 8/2 heads;
+// (3) loaded each tile between two barriers, nothing in flight under the
+// products; (4) added dq by one scalar atomic per element and 16-row kv
+// tile.  Here (1) the products run on the tensor cores from bf16 tiles,
+// (2) two blocks of 256 threads share each 64 kv rows, (3) TMA brings the
+// next step's q and do while a step runs, and (4) dq goes out as 32 x 32
+// f32 boxes by bulk reductions, 4 per pass, each 64 kv rows' sum.  What
+// bounds it on an H100 SXM: at B 2, S 1024, 8 heads of 512, causal, 5
+// products, 43.0 GFLOP, 0.0435 ms at the 989 TFLOP/s dense bf16 rate,
+// against 118 MB of q, k, v, do, dq, dk, dv, lse and delta, 0.0351 ms at
+// 3.35 TB/s: bound by operations (chip_smoke.py's _bwd_bound).  Device ms
+// on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): 0.258
+// there and 0.133 at B 2, S 300, 8/2 heads (the CUDA-core body 6.23 and
+// 1.71; dk/dv alone 0.184 and 0.102; SDPA's whole backward 3.38 and
+// 0.63).  Timed against it in turns (scripts/torch_d256_ab.py --d 512):
+// dq added from registers by float4 atomics (a 4 x 4 shuffle transpose to
+// four columns a lane, the stages refilled as in dk/dv) 10-17 % slower;
+// knocked out, the exchange takes 19-22 % off and the dq reductions
+// 10-12 %, so the exchange is the larger cost.
+//
 // f32 at D 64, 128, 256 and 512: CUDA cores, flash_bwd_kv_f32.cuh's
 // bwd_kv_f32_tiled with kDq (the dk/dv body, dq = ds.k added to the f32
 // buffer by 16-byte vector atomics); that header has the design and its
-// bound.  bf16 at D 512: CUDA cores, flash_bwd_common.cuh's bwd_kv_f32
-// with kDq, dq by scalar atomics.
+// bound.
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape (B 4, S 512,
 // 32 heads, D 128, bf16, causal) it must read q, k, v, do and write dq, dk,
@@ -418,10 +446,12 @@ int launch_fused_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The D = 256 kernel: flash_bwd_common.cuh's bwd_kv_wide with dq, added
-// to the f32 buffer through tm_dq by bulk tensor reductions.
+// The D = 256 kernel, flash_bwd_common.cuh's bwd_kv_wide with dq, and the
+// D = 512 one, its bwd_kv_cluster with dq (launched as clusters of two
+// blocks); dq is added to the f32 buffer through tm_dq by bulk tensor
+// reductions.
 template <int D>
-__global__ void __launch_bounds__(KvWideTiles<D>::kThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_bwd_fused_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                            __grid_constant__ const CUtensorMap tm_do,
                            __grid_constant__ const CUtensorMap tm_k,
@@ -433,8 +463,13 @@ flash_bwd_fused_wgmma_wide(__grid_constant__ const CUtensorMap tm_q,
                            const float* __restrict__ delta, int S, int Hq,
                            int Hkv, int causal, float scale,
                            float scale_log2) {
-  bwd_kv_wide<D, true>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, &tm_dq,
-                       lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+  if constexpr (D == 512) {
+    bwd_kv_cluster<true>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, &tm_dq,
+                         lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+  } else {
+    bwd_kv_wide<D, true>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, &tm_dq,
+                         lse, delta, S, Hq, Hkv, causal, scale, scale_log2);
+  }
 }
 
 template <int D>
@@ -462,6 +497,33 @@ int launch_fused_wide(const void* q, const void* k, const void* v,
           tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, tm_dq, lse, delta, S, Hq, Hkv,
           causal, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The D = 512 kernel in clusters of two blocks along x (the pair of a kv
+// head's 64 kv rows); a launch the card refuses returns its own error.
+int launch_fused_cluster(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, float* dq_acc, void* dk, void* dv,
+                         int B, int S, int Hq, int Hkv, int causal, float scale,
+                         float scale_log2, cudaStream_t stream) {
+  using T = KvClusterTiles;
+  constexpr int D = 512;
+  static bool opted[hw::kMaxDevices];
+  int err = hw::smem_opt_in(flash_bwd_fused_wgmma_wide<D>, T::kSmem, opted);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, tm_dq;
+  if (!err) err = hw::bshd_map(&tm_q, q, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_do, dout, B, S, Hq, D, T::kBQ);
+  if (!err) err = hw::bshd_map(&tm_k, k, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dk, dk, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dv, dv, B, S, Hkv, D, T::kBK);
+  if (!err) err = hw::bshd_map(&tm_dq, dq_acc, B, S, Hq, D, T::kBQ, 4);
+  if (err) return err;
+  return launch_cluster_pair(flash_bwd_fused_wgmma_wide<D>,
+                             dim3(2 * Hkv, (S + T::kBK - 1) / T::kBK, B),
+                             T::kSmem, stream, tm_q, tm_do, tm_k, tm_v, tm_dk,
+                             tm_dv, tm_dq, lse, delta, S, Hq, Hkv, causal,
+                             scale, scale_log2);
 }
 
 }  // namespace
@@ -495,6 +557,10 @@ extern "C" int tdx_flash_bwd_fused(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 256) {
     return launch_fused_wide<256>(q, k, v, dout, lse_f, delta_f, dq_f, dk, dv,
                                   B, S, Hq, Hkv, causal, scale, scale_log2, st);
+  }
+  if (dtype == 1 && D == 512) {
+    return launch_fused_cluster(q, k, v, dout, lse_f, delta_f, dq_f, dk, dv, B,
+                                S, Hq, Hkv, causal, scale, scale_log2, st);
   }
   BwdArgs args{};
   args.q = q;

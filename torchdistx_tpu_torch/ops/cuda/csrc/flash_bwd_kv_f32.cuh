@@ -2,8 +2,7 @@
 // bwd_kv_f32_tiled<D, kDq>, which flash_bwd_dkv.cu runs for f32 dk and dv
 // (kDq false) and flash_bwd_fused.cu for f32 dq, dk and dv (kDq true), at
 // D 64, 128, 256 and 512.  Also here: launch_kv, the dispatch of both
-// kernels' CUDA-core bodies (this one, and flash_bwd_common.cuh's
-// bwd_kv_f32 for the fused kernel in bf16 at D 512).
+// kernels' f32 instances (their bf16 ones are on TMA + wgmma).
 //
 // Replaces torchdistx_tpu/ops/pallas/flash_attention.py:_dkv_kernel (dk,
 // dv streamed over q; pallas_call at :731) and _dqkv_fused_kernel (dq, dk
@@ -500,9 +499,8 @@ int launch_kv_f32_tiled(const BwdArgs& args, int B, cudaStream_t stream) {
 }
 
 // Launches the kv-tile body on the CUDA cores for (D, dtype): f32 at D 64,
-// 128, 256 and 512 (bwd_kv_f32_tiled), and bf16 at D 512 for the fused
-// variant (kDq) only (flash_bwd_common.cuh's bwd_kv_f32); dtype 0 =
-// float32, 1 = bfloat16.  The other bf16 kernels are on wgmma.
+// 128, 256 and 512 (bwd_kv_f32_tiled); dtype 0 = float32.  Every bf16
+// kernel is on TMA + wgmma, so a bf16 dtype here is refused.
 template <bool kDq>
 int launch_kv(const BwdArgs& args, int B, int D, int dtype,
               cudaStream_t stream) {
@@ -510,11 +508,6 @@ int launch_kv(const BwdArgs& args, int B, int D, int dtype,
   if (dtype == 0 && D == 128) return launch_kv_f32_tiled<128, kDq>(args, B, stream);
   if (dtype == 0 && D == 256) return launch_kv_f32_tiled<256, kDq>(args, B, stream);
   if (dtype == 0 && D == 512) return launch_kv_f32_tiled<512, kDq>(args, B, stream);
-  if constexpr (kDq) {
-    if (dtype == 1 && D == 512) {
-      return launch_kv_f32<__nv_bfloat16, 512, kDq>(args, B, stream);
-    }
-  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

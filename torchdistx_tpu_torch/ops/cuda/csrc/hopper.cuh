@@ -543,6 +543,21 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1), "n"(kTransA));
 }
 
+// The same for a 16 x 32 B.
+template <int kTransA = 0>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[16], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15}"
+      ", %16, %17, p, 1, 1, %19, 1;\n}\n"
+      : TDX_ACC8(d, 0), TDX_ACC8(d, 8)
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA));
+}
+
 #undef TDX_ACC_REGS64
 #undef TDX_ACC_REGS32
 #undef TDX_OUT8

@@ -24,12 +24,12 @@ one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 :data:`launches_bwd_dq`, :data:`launches_bwd_dkv`.
 
 The kernels have instances for head dims 64, 128, 256 and 512 (bf16 on TMA
-+ wgmma, apart from the fused backward and dq at 512; dk/dv at 512 runs on
-clusters of two blocks; f32, and those two, on the CUDA cores).  Every
-entry point takes any head dim up to 512: q, k, v (and ``do``) are
-zero-padded on the last axis to the next instance, the kernels run with the
-scale of the true head dim, and out, dq, dk and dv are cut back to it.  Zero columns add
-nothing to ``q.k^T``, and out, dq, dk and dv are zero in them, so the padded
++ wgmma, the three backward kernels at 512 on clusters of two blocks; f32
+on the CUDA cores).  Every entry point takes any head dim up to 512: q, k,
+v (and ``do``) are zero-padded on the last axis to the next instance, the
+kernels run with the scale of the true head dim, and out, dq, dk and dv
+are cut back to it.  Zero columns add nothing to ``q.k^T``, and out, dq,
+dk and dv are zero in them, so the padded
 launch computes exactly what an unpadded one would.  The CPU path pads the
 same way, so the tests here cover the padding the card runs.  A head dim
 above 512 raises on CUDA.
