@@ -14,8 +14,9 @@ Phases, each printing a line:
    function (a yardstick only; the port never calls it): the flash forward
    against SDPA, the three backward kernels against SDPA's backward; every
    input of a kernel must be unchanged after its launch, and a second call
-   of a backward kernel must give the same bits in every output that it
-   sums in a fixed order (all but the fused kernel's dq);
+   of a kernel must give the same bits in every output that it sums in a
+   fixed order (the forward's out and lse, every backward output but the
+   fused kernel's dq);
    ``[head dims]``: the forward and the three backward kernels at head dims
    without a kernel instance (16, 32, 80, 192, 320: zero-padded to 64, 128,
    256 or 512 by the wrappers) and at 256 and 512, bf16 and f32, against
@@ -283,8 +284,8 @@ FLASH_SHAPES = [
     ("ep_fsdp_block", 2, 512, 32, 32, 128, torch.bfloat16, True),
     ("slowmo_f32_block", 2, 32, 4, 2, 64, torch.float32, True),
     # The f32 train gates' attention (phase_train_gates at GATE_LAYERS of
-    # llama_7b width, TRAIN_SHAPES' 4 x 512): timed only, it ranks the f32
-    # forward among the CUDA-core bodies.
+    # llama_7b width, TRAIN_SHAPES' 4 x 512): the f32 forward's row beside
+    # the gates' backward rows.
     ("train_gate_f32", 4, 512, 32, 32, 128, torch.float32, True),
 ]
 
@@ -730,16 +731,15 @@ def _instance(kernel, d, dtype):
     ``csrc/<kernel>.cu``, named as the ptxas report names it (namespaces
     left out).  bf16 takes TMA + wgmma at every head dim (the backward
     kernels' wide form at 256 and 512, on clusters of two blocks at 512);
-    f32 runs on the CUDA cores, dk/dv and fused on the register-blocked
-    body (``bwd_kv_f32_tiled``)."""
+    f32 runs on the CUDA cores on two register-blocked bodies: the forward
+    and dq on the q-tile body (``q_f32_tiled``), dk/dv and fused on the
+    kv-tile body (``bwd_kv_f32_tiled``)."""
     if dtype == torch.bfloat16:
         if kernel == "flash_fwd":
             return f"flash_fwd_bf16_wgmma<(int){d}>"
         return f"{kernel}_wgmma{'_wide' if d >= 256 else ''}<(int){d}>"
-    if kernel == "flash_fwd":
-        return f"flash_fwd_f32<float, (int){d}>"
-    if kernel == "flash_bwd_dq":
-        return f"bwd_dq_f32<float, (int){d}>"
+    if kernel in ("flash_fwd", "flash_bwd_dq"):
+        return f"q_f32_tiled<(int){d}, (bool){int(kernel == 'flash_bwd_dq')}>"
     return f"bwd_kv_f32_tiled<(int){d}, (bool){int(kernel == 'flash_bwd_fused')}>"
 
 
@@ -749,8 +749,11 @@ D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 D512_WGMMA = {kernel: _instance(kernel, 512, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
-# The f32 dk/dv and fused instances (bwd_kv_f32_tiled), by (kernel, D),
-# whose ptxas report the build prints and must show without spills.
+# The f32 instances by (kernel, D), whose ptxas report the build prints and
+# must show without spills and within 255 registers: the forward and dq
+# (q_f32_tiled), dk/dv and fused (bwd_kv_f32_tiled).
+F32_Q = {(kernel, d): _instance(kernel, d, torch.float32)
+         for kernel in ("flash_fwd", "flash_bwd_dq") for d in (64, 128, 256, 512)}
 F32_KV = {(kernel, d): _instance(kernel, d, torch.float32)
           for kernel in ("flash_bwd_dkv", "flash_bwd_fused") for d in (64, 128, 256, 512)}
 
@@ -817,12 +820,15 @@ def phase_build():
         if set(wgmma) <= set(built):
             _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
                        for r in found.values()), f"[build] D = {d} instances spill: {found}")
-    found = {name: _in_report(report, name) for name in F32_KV.values()}
-    print("[build] the f32 dk/dv and fused instances (bwd_kv_f32_tiled): " + json.dumps(found))
-    if {"flash_bwd_dkv", "flash_bwd_fused"} <= set(built):
-        _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
-                   and r["registers"] <= 255 for r in found.values()),
-               f"[build] f32 kv instances spill: {found}")
+    for label, f32, sources in (
+            ("forward and dq (q_f32_tiled)", F32_Q, {"flash_fwd", "flash_bwd_dq"}),
+            ("dk/dv and fused (bwd_kv_f32_tiled)", F32_KV, {"flash_bwd_dkv", "flash_bwd_fused"})):
+        found = {name: _in_report(report, name) for name in f32.values()}
+        print(f"[build] the f32 {label} instances: " + json.dumps(found))
+        if sources <= set(built):
+            _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
+                       and r["registers"] <= 255 for r in found.values()),
+                   f"[build] f32 {label} instances spill or exceed 255 registers: {found}")
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -872,6 +878,12 @@ def phase_kernels():
         _check(all(torch.equal(t, c) for t, c in zip((q, k, v), before)),
                f"{name}: an input changed during the forward launch")
         del before
+        # Each block sums its rows in a fixed order (no atomics, no split kv
+        # loop): a second call gives the same bits of out and lse.
+        again = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        _check(same, f"{name}: two forward calls gave different bits")
+        del again
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
@@ -895,7 +907,7 @@ def phase_kernels():
             "shape": name, "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "instance": _instance("flash_fwd", d, dtype), "max_abs_err": err_out,
-            "lse_max_abs_err": err_lse, "inputs_unchanged": True,
+            "lse_max_abs_err": err_lse, "inputs_unchanged": True, "same_bits_twice": same,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         for prefix, fn in calls.items():
@@ -1438,6 +1450,10 @@ def _head_dim_row(fa, gen, b, s, hq, hkv, d, dtype, timed):
 
     q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
     out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    again = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    _check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+           f"D {d} {dtype}: two forward calls gave different bits")
+    del again
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
     err = {"out": (out.float() - ref_out.float()).abs().max().item(),
            "lse": (lse - ref_lse).abs().max().item()}

@@ -16,12 +16,15 @@ kernels into ``ROOT/build/f32_ab`` (once per ROOT) and prints one JSON line:
   10 back-to-back calls between CUDA events, divided by 10), and its plain
   PyTorch version's.
 
-Instances are named by kernel and head dim (``flash_fwd_f32<64>``,
-``bwd_kv_f32<64, true>``, ...), the storage type left out when it is
-float, so instances of checkouts with and without a storage-type template
-parameter line up.  Give the roots as parent, change, change, parent to see
-the drift between calls beside the difference.  The last lines are a table
-by instance and the card's name and power limit.
+Instances are named by body and template arguments (``q_f32_tiled<64,
+false>`` for the forward and ``q_f32_tiled<64, true>`` for dq,
+``bwd_kv_f32_tiled<64, true>`` for the fused kernel, and the names of the
+earlier CUDA-core bodies, ``flash_fwd_f32<64>``, ``bwd_dq_f32<64>``, ...),
+the storage type left out when it is float, so instances of checkouts with
+and without a storage-type template parameter line up.  Give the roots as
+parent, change, change, parent to see the drift between calls beside the
+difference.  The last lines are a table by instance and the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from pathlib import Path
 F32_SHAPES = [("2x1000_d64", 2, 1000, 8, 8, 64, False),
               ("2x1000_d128", 2, 1000, 8, 8, 128, False)]
 KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
-_F32_BODIES = ("flash_fwd_f32", "bwd_kv_f32", "bwd_kv_f32_tiled", "bwd_dq_f32")
+_F32_BODIES = ("flash_fwd_f32", "bwd_kv_f32", "bwd_kv_f32_tiled", "bwd_dq_f32", "q_f32_tiled")
 
 
 def _cuda_tool(name: str) -> str:

@@ -293,9 +293,9 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
     assert entries[6]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/flash_fwd.cu"
     assert entries[6]["replaces"] == "torchdistx_tpu/ops/pallas/flash_attention.py:161"
     # The D = 256 path's bf16 step runs the TMA + wgmma forward, dq and
-    # dk/dv; the f32 part stays on the CUDA cores.
+    # dk/dv; the f32 part runs on the register-blocked CUDA-core bodies.
     assert [e["instance"] for e in entries[4:]] == [
-        "flash_fwd_f32<float, (int)256>", "bwd_kv_f32_tiled<(int)256, (bool)1>",
+        "q_f32_tiled<(int)256, (bool)0>", "bwd_kv_f32_tiled<(int)256, (bool)1>",
         "flash_fwd_bf16_wgmma<(int)256>", "flash_bwd_dq_wgmma_wide<(int)256>",
         "flash_bwd_dkv_wgmma_wide<(int)256>"]
     assert entries[0]["instance"] == "flash_fwd_bf16_wgmma<(int)128>"
@@ -304,22 +304,26 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
 # The instance each (kernel, kernel head dim, dtype) runs, as the sources'
 # dispatch (tdx_flash_fwd, tdx_flash_bwd_*) picks it: bf16 at D 256 and 512
 # takes TMA + wgmma for every kernel, and no CUDA-core body (the backward
-# kernels on clusters of two blocks at 512); f32 stays on the CUDA cores.
+# kernels on clusters of two blocks at 512); f32 runs on the CUDA cores, the
+# forward and dq on the q-tile body, dk/dv and fused on the kv-tile body.
 @pytest.mark.parametrize(
     "kernel, d, dtype, instance",
     [("flash_fwd", 256, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)256>"),
      ("flash_bwd_dkv", 256, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)256>"),
      ("flash_bwd_fused", 256, torch.bfloat16, "flash_bwd_fused_wgmma_wide<(int)256>"),
      ("flash_bwd_dq", 256, torch.bfloat16, "flash_bwd_dq_wgmma_wide<(int)256>"),
-     ("flash_fwd", 256, torch.float32, "flash_fwd_f32<float, (int)256>"),
+     pytest.param("flash_fwd", 256, torch.float32, "q_f32_tiled<(int)256, (bool)0>",
+                  id="flash_fwd-256-dtype4-flash_fwd_f32<float, (int)256>"),
      ("flash_bwd_dkv", 256, torch.float32, "bwd_kv_f32_tiled<(int)256, (bool)0>"),
      ("flash_bwd_fused", 256, torch.float32, "bwd_kv_f32_tiled<(int)256, (bool)1>"),
-     ("flash_bwd_dq", 256, torch.float32, "bwd_dq_f32<float, (int)256>"),
+     pytest.param("flash_bwd_dq", 256, torch.float32, "q_f32_tiled<(int)256, (bool)1>",
+                  id="flash_bwd_dq-256-dtype7-bwd_dq_f32<float, (int)256>"),
      ("flash_fwd", 512, torch.bfloat16, "flash_fwd_bf16_wgmma<(int)512>"),
      ("flash_bwd_dkv", 512, torch.bfloat16, "flash_bwd_dkv_wgmma_wide<(int)512>"),
      ("flash_bwd_fused", 512, torch.bfloat16, "flash_bwd_fused_wgmma_wide<(int)512>"),
      ("flash_bwd_dq", 512, torch.bfloat16, "flash_bwd_dq_wgmma_wide<(int)512>"),
-     ("flash_fwd", 512, torch.float32, "flash_fwd_f32<float, (int)512>"),
+     pytest.param("flash_fwd", 512, torch.float32, "q_f32_tiled<(int)512, (bool)0>",
+                  id="flash_fwd-512-dtype12-flash_fwd_f32<float, (int)512>"),
      ("flash_bwd_dkv", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)0>"),
      ("flash_bwd_fused", 512, torch.float32, "bwd_kv_f32_tiled<(int)512, (bool)1>"),
      ("flash_bwd_dkv", 64, torch.float32, "bwd_kv_f32_tiled<(int)64, (bool)0>"),
@@ -327,7 +331,12 @@ def test_kernels_line_takes_the_d256_rows_at_the_paths_shapes():
      ("flash_bwd_dkv", 128, torch.float32, "bwd_kv_f32_tiled<(int)128, (bool)0>"),
      ("flash_bwd_fused", 128, torch.float32, "bwd_kv_f32_tiled<(int)128, (bool)1>"),
      ("flash_bwd_dkv", 128, torch.bfloat16, "flash_bwd_dkv_wgmma<(int)128>"),
-     ("flash_bwd_fused", 64, torch.bfloat16, "flash_bwd_fused_wgmma<(int)64>")],
+     ("flash_bwd_fused", 64, torch.bfloat16, "flash_bwd_fused_wgmma<(int)64>"),
+     ("flash_bwd_dq", 512, torch.float32, "q_f32_tiled<(int)512, (bool)1>"),
+     ("flash_fwd", 64, torch.float32, "q_f32_tiled<(int)64, (bool)0>"),
+     ("flash_bwd_dq", 64, torch.float32, "q_f32_tiled<(int)64, (bool)1>"),
+     ("flash_fwd", 128, torch.float32, "q_f32_tiled<(int)128, (bool)0>"),
+     ("flash_bwd_dq", 128, torch.float32, "q_f32_tiled<(int)128, (bool)1>")],
 )
 def test_instance_names_the_dispatch(kernel, d, dtype, instance):
     assert chip_smoke._instance(kernel, d, dtype) == instance
@@ -396,7 +405,7 @@ def test_bf16_backward_has_no_cuda_core_branch_left():
     assert "launch_kv_f32_tiled<512, kDq>" in launch_kv
     assert "dtype == 1" not in launch_kv and "bfloat16" not in launch_kv
     dq = _c_function(_csrc("flash_bwd_dq.cu"), 'extern "C" int tdx_flash_bwd_dq(')
-    assert "launch_dq<float, 512>" in dq and "launch_dq<__nv_bfloat16" not in dq
+    assert "tdx_qf32::launch_q_f32<true>(args, B, D, st)" in dq and "launch_dq<" not in dq
     assert "launch_dq_cluster(" in dq
     branches = [line.strip() for line in dq.splitlines() if "dtype == 1" in line]
     assert branches == [f"if (dtype == 1 && D == {d}) {{" for d in (64, 128, 256, 512)]
@@ -429,6 +438,57 @@ def test_f32_kv_instances_are_found_in_a_ptxas_report():
     assert chip_smoke._in_report(
         report, chip_smoke._instance("flash_bwd_fused", 512, torch.bfloat16)) == {
         "registers": 215}
+
+
+def test_f32_q_instances_are_found_in_a_ptxas_report():
+    # The [build] line reads the register-blocked f32 forward and dq
+    # instances (q_f32_tiled, one per (kernel, D)) from the report; the
+    # CUDA-core bodies they replaced (flash_fwd_f32, bwd_dq_f32) are no
+    # longer looked up, and a report of them alone leaves every entry empty.
+    report = {f"tdx_qf32::q_f32_tiled<(int){d}, (bool){f}>": {
+        "registers": 120 if d == 64 else 160, "spill_stores": 0, "spill_loads": 0}
+        for d in (64, 128, 256, 512) for f in (0, 1)}
+    assert sorted(chip_smoke.F32_Q) == [(k, d) for k in ("flash_bwd_dq", "flash_fwd")
+                                        for d in (64, 128, 256, 512)]
+    old = {f"<unnamed>::flash_fwd_f32<float, (int){d}>": {"registers": 96} for d in (64, 512)}
+    old.update({f"tdx_bwd::<unnamed>::bwd_dq_f32<float, (int){d}>": {"registers": 56}
+                for d in (64, 512)})
+    for (kernel, d), name in chip_smoke.F32_Q.items():
+        assert name == chip_smoke._instance(kernel, d, torch.float32)
+        assert chip_smoke._in_report(report, name) == report[f"tdx_qf32::{name}"], (kernel, d)
+        assert chip_smoke._in_report(old, name) is None, (kernel, d)
+    names = set(chip_smoke.F32_Q.values()) | set(chip_smoke.F32_KV.values())
+    assert not any("flash_fwd_f32" in n or "bwd_dq_f32" in n for n in names)
+    assert not any("flash_fwd_f32" in chip_smoke._instance(k, d, dtype)
+                   or "bwd_dq_f32" in chip_smoke._instance(k, d, dtype)
+                   for k in ("flash_fwd", "flash_bwd_dq") for d in (64, 128, 256, 512)
+                   for dtype in (torch.float32, torch.bfloat16))
+
+
+def test_f32_forward_and_dq_run_the_q_tile_body_only():
+    # tdx_flash_fwd and tdx_flash_bwd_dq send f32 at every head dim to the
+    # q-tile body (flash_q_f32.cuh), and the CUDA-core bodies it replaced
+    # are gone from every source: no flag, size or retry reaches them.
+    import re
+    from pathlib import Path
+
+    fwd = _c_function(_csrc("flash_fwd.cu"), 'extern "C" int tdx_flash_fwd(')
+    assert "tdx_qf32::launch_q_f32<false>(args, B, D, st)" in fwd
+    assert [line.strip() for line in fwd.splitlines() if "dtype == 0" in line] == [
+        "} else if (dtype == 0) {  // f32 at D 64, 128, 256 and 512 (flash_q_f32.cuh)"]
+    body = _csrc("flash_q_f32.cuh")
+    launch = _c_function(body, "int launch_q_f32(")
+    assert [line.strip().split(")")[0] for line in launch.splitlines() if "if (D ==" in line] == [
+        f"if (D == {d}" for d in (64, 128, 256, 512)]
+    assert "return static_cast<int>(cudaErrorInvalidValue);" in launch
+    csrc = Path(__file__).resolve().parents[1] / "torchdistx_tpu_torch" / "ops" / "cuda" / "csrc"
+    for path in sorted(csrc.glob("*.cu*")):
+        text = path.read_text()
+        for gone in ("flash_fwd_f32", "bwd_dq_f32", "DqF32", "launch_f32", "launch_dq(",
+                     "launch_dq<", "storage.cuh", "round_to<"):
+            assert gone not in text, (path.name, gone)
+        assert not re.search(r"\bF32Tiles\b", text), path.name
+    assert not (csrc / "storage.cuh").exists()
 
 
 def test_ab_script_f32_shapes_are_the_chip_smoke_f32_rows():

@@ -509,6 +509,68 @@ def test_f32_kv_instances_compile_without_spills(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192, 256, 320, 512])
+# The f32 forward and dq body (q_f32_tiled): q tiles of 64 rows at D 64 and
+# 128, 32 at 256, 16 at 512, kv tiles of 64, 32 or 16.  S = 1, the tiles'
+# edges (15, 16, 17, 63, 65), ragged sequences over several tiles (300,
+# 1000) and past 2048, at GQA groups of 1, 2 and 4; D 16, 80, 192 and 320
+# through the padding wrappers.
+@pytest.mark.parametrize("s, hq, hkv", [(1, 4, 4), (15, 4, 1), (16, 4, 2), (17, 2, 2),
+                                        (63, 8, 2), (65, 4, 1), (300, 8, 2), (1000, 4, 4),
+                                        (2049, 2, 1)])
+def test_flash_f32_q_kernels_match_plain(cuda, causal, d, s, hq, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s * 11 + d)
+    q, k, v, do, ref_out, ref_lse = _bwd_inputs(g, 2, s, hq, hkv, d, torch.float32, causal, cuda)
+    delta = fa.attention_delta(do, ref_out)
+    args = (q, k, v, do, ref_lse, delta)
+    before = [t.clone() for t in args]
+    n_fwd, n_dq = fa.launches, fa.launches_bwd_dq
+    fwd = [fa.flash_attention_fwd_with_lse(q, k, v, causal=causal) for _ in range(2)]
+    dq = [fa.flash_bwd_dq(*args, causal=causal) for _ in range(2)]
+    want = fa.flash_bwd_plain(*args, causal=causal, dkv=False)[0]
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_bwd_dq) == (n_fwd + 2, n_dq + 2)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+    tol_out, tol_lse = TOL[torch.float32]
+    out, lse = fwd[0]
+    assert out.shape == q.shape and lse.shape == (2, hq, s)
+    assert (out - ref_out).abs().max().item() <= tol_out
+    assert (lse - ref_lse).abs().max().item() <= tol_lse
+    assert dq[0].shape == q.shape and bool(torch.isfinite(dq[0]).all())
+    assert _bwd_err(dq[0], want) <= BWD_TOL[torch.float32], _bwd_err(dq[0], want)
+    # Each block owns its rows and sums them in a fixed order: the same bits
+    # on every call.
+    assert torch.equal(fwd[0][0], fwd[1][0]) and torch.equal(fwd[0][1], fwd[1][1])
+    assert torch.equal(dq[0], dq[1])
+
+
+def test_f32_q_instances_compile_without_spills(cuda, tmp_path):
+    # ptxas's report of the f32 forward and dq instances (q_f32_tiled at D
+    # 64, 128, 256 and 512), compiled as the build compiles them: each
+    # present, at most 255 registers, no spills; the CUDA-core bodies they
+    # replaced no longer instantiated.
+    import subprocess
+
+    import chip_smoke
+    from torchdistx_tpu_torch.ops.cuda import _build
+
+    logs = {}
+    for name in ("flash_fwd", "flash_bwd_dq"):
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(tmp_path / f"lib{name}.so"), str(_build.SRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        logs[name] = proc.stdout + proc.stderr
+    report = chip_smoke._ptxas_report(logs)
+    for (kernel, d), instance in chip_smoke.F32_Q.items():
+        entry = chip_smoke._in_report(report, instance)
+        assert entry is not None, (instance, sorted(report))
+        assert entry["spill_stores"] == entry["spill_loads"] == 0, (instance, entry)
+        assert entry["registers"] <= 255, (instance, entry)
+    assert not any("flash_fwd_f32" in name or "bwd_dq_f32" in name for name in report)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_bwd_streamed_is_deterministic(cuda, causal):
     # The streamed pair sums in a fixed order and uses no atomics: two calls
     # on the same inputs give the same bits, and no launch writes its

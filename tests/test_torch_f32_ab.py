@@ -39,3 +39,14 @@ def test_register_blocked_kv_body_is_an_f32_instance():
     # The f32 dk/dv and fused body (no storage-type parameter: f32 only).
     assert ab._instance("void tdx_bwd::bwd_kv_f32_tiled<256, true>(tdx_bwd::BwdArgs)") == (
         "bwd_kv_f32_tiled<256, true>")
+
+
+def test_register_blocked_q_body_is_an_f32_instance():
+    # The f32 forward and dq body (no storage-type parameter: f32 only),
+    # one instance per (D, kDq), beside the CUDA-core bodies it replaced.
+    assert ab._instance("void tdx_qf32::q_f32_tiled<128, false>(tdx_qf32::QF32Args)") == (
+        "q_f32_tiled<128, false>")
+    assert ab._instance("void tdx_qf32::q_f32_tiled<512, true>(tdx_qf32::QF32Args)") == (
+        "q_f32_tiled<512, true>")
+    assert ab._instance("void tdx_bwd::bwd_kv_f32_tiled<64, true>(tdx_bwd::BwdArgs)") == (
+        "bwd_kv_f32_tiled<64, true>")

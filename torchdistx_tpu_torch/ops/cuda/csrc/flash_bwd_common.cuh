@@ -1,5 +1,6 @@
 // Shared pieces of the flash-attention backward kernels for Hopper (sm_90a):
-// flash_bwd_fused.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu include this file.
+// flash_bwd_fused.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu include this file
+// (and flash_fwd.cu, through flash_q_f32.cuh, for the masking rules).
 //
 // Counterpart of torchdistx_tpu/ops/pallas/flash_attention.py:_recompute_p,
 // _needs_mask and _p_ds: ONE definition of the backward block chain
@@ -26,10 +27,11 @@
 // shared memory, the dk/dv accumulation, dq = ds.k), the body of both at D
 // = 256 (bwd_kv_wide) and at D = 512 over a cluster of two blocks
 // (bwd_kv_cluster, whose exchange of partial products between the blocks
-// the D = 512 dq kernel runs too), and the launch helpers for dynamic
-// shared memory and for clusters of two blocks.  Every bf16 kernel is
-// built on hopper.cuh's TMA and wgmma; the f32 ones run on the CUDA cores
-// (flash_bwd_kv_f32.cuh's bwd_kv_f32_tiled, flash_bwd_dq.cu's bwd_dq_f32).
+// the D = 512 dq kernel runs too), and the launch helper for clusters of
+// two blocks.  Every bf16 kernel is built on hopper.cuh's TMA and wgmma;
+// the f32 ones run on the CUDA cores (flash_bwd_kv_f32.cuh's
+// bwd_kv_f32_tiled for dk/dv and the fused kernel, flash_q_f32.cuh's
+// q_f32_tiled for dq, which the forward shares).
 // What bounds the shared steps: a step's critical path is one warpgroup's p
 // and ds (4,096 pairs, an exp2 each on the special-function unit) and then
 // the accumulations that wait for them; knocking out half the tensor work
@@ -47,14 +49,12 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "storage.cuh"
 
 namespace tdx_bwd {
 
 namespace hw = tdx::hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;
 
 // Arguments of every backward kernel; pointers a kernel does not use are
 // null.
@@ -535,6 +535,9 @@ __device__ __forceinline__ void bwd_kv_wide(
             hw::wgmma_commit();
             hw::wgmma_wait<0>();
             hw::fence_regs(dq);
+            // The area is dead once every warp's accumulation has read it:
+            // this warpgroup's (half 0) or both (half 1, done).
+            if (half == 0) hw::named_barrier(1 + wg, 128);
             if (half == 1) hw::mbar_wait(done + st, phase);
             uint8_t* area = stage + (half ? wg : 1 - wg) * T::kTile;
             hw::store_acc_sw128_f32(area, dq);
@@ -926,21 +929,6 @@ __device__ __forceinline__ void bwd_kv_cluster(
     hw::tma_store_wait_read();
   }
   hw::cluster_sync();
-}
-
-// Launch with `smem` bytes of dynamic shared memory (above 48 KB only after
-// the opt-in attribute); returns cudaGetLastError().
-template <typename Kernel>
-int launch_dyn(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-               const BwdArgs& args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches `kernel` on `grid` in clusters of two blocks along x, with

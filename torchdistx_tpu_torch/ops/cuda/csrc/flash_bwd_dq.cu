@@ -97,9 +97,16 @@
 // (scripts/torch_d256_ab.py --d 512): the exchange, not the products, is
 // what holds it back.
 //
-// f32 at D 64, 128, 256 and 512 (bwd_dq_f32): CUDA cores, 16 q rows a
-// block, one warp lane per kv column for the two dots and per 32nd output
-// column for dS.K.
+// f32 at D 64, 128, 256 and 512: flash_q_f32.cuh's q_f32_tiled<D, true>,
+// on the CUDA cores (no TF32), the forward's body with p and ds in place of
+// the softmax: s and dp as 4 x 4 pairs a thread from 16-byte shared loads,
+// p and ds from the rows' lse and delta (read once), dq += ds.k as 4 x 8
+// blocks at D 128, k and v through a two-stage cp.async ring, q tiles of 64
+// rows (32 at D 256, 16 at D 512).  Each block owns its rows, so dq is the
+// same bits on every run.  Bound by operations: at the f32 train gates' 4 x
+// 512, 32 heads of 128, causal, 3 products of 2 D flops a pair take 0.1927
+// ms at 67 TFLOP/s; it takes 0.4679 ms there on an NVIDIA H100 80GB HBM3 at
+// 700 W (41 % of the bound; SDPA's whole f32 backward 0.9665, PERF.md).
 //
 // What bounds it on an H100 SXM: at Llama-7B's max_seq_len (B 1, S 4096, 32
 // heads, D 128, bf16, causal) it does 3 products of 2 D flops per causal
@@ -115,6 +122,7 @@
 // price of two deterministic kernels).
 
 #include "flash_bwd_common.cuh"
+#include "flash_q_f32.cuh"
 
 namespace tdx_bwd {
 namespace {
@@ -865,128 +873,6 @@ int launch_dq_cluster(const void* q, const void* k, const void* v,
                              scale_log2);
 }
 
-template <int D>
-struct DqF32 {
-  static constexpr int BQ = 16, BK = 32, LDK = D + 1;
-  static constexpr size_t smem() {
-    return (2 * BQ * D + 2 * BK * LDK) * sizeof(float);
-  }
-};
-
-// dq on the CUDA cores: one block per (q tile of 16, q head, batch), looping
-// over kv tiles of 32; warp w forms p and ds for q rows 4w..4w+3, one lane
-// per kv column, and dq = ds.k with one lane per 32nd output column.  Elem
-// is the storage type (storage.cuh), float at D 64, 128, 256 and 512 (192
-// KB of tiles at 512; a lane holds 4 rows x 16 dq floats); ds is rounded to
-// Elem before ds.k, and dq to Elem on the store.
-template <typename Elem, int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_f32(const BwdArgs a) {
-  using T = DqF32<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, LDK = T::LDK;
-  constexpr int RPW = BQ / (kThreads / 32), DPL = D / 32;
-  extern __shared__ float smf[];
-  float* qs = smf;
-  float* dos = qs + BQ * D;
-  float* ks = dos + BQ * D;
-  float* vs = ks + BK * LDK;
-
-  const int S = a.S;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = q_tile * BQ;
-  const size_t q_rs = static_cast<size_t>(a.Hq) * D;
-  const size_t kv_rs = static_cast<size_t>(a.Hkv) * D;
-  const Elem* qb = static_cast<const Elem*>(a.q) +
-                   static_cast<size_t>(b) * S * q_rs + h * D;
-  const Elem* dob = static_cast<const Elem*>(a.dout) +
-                    static_cast<size_t>(b) * S * q_rs + h * D;
-  const Elem* kb = static_cast<const Elem*>(a.k) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const Elem* vb = static_cast<const Elem*>(a.v) +
-                   static_cast<size_t>(b) * S * kv_rs + hk * D;
-
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const bool in = q0 + r < S;
-    const size_t off = static_cast<size_t>(q0 + r) * q_rs + c;
-    qs[i] = in ? tdx::to_f32(qb[off]) : 0.f;
-    dos[i] = in ? tdx::to_f32(dob[off]) : 0.f;
-  }
-  const float* lseb = a.lse + (static_cast<size_t>(b) * a.Hq + h) * S;
-  const float* deltab = a.delta + (static_cast<size_t>(b) * a.Hq + h) * S;
-  float lse2[RPW], dl[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = q0 + warp * RPW + rr;
-    lse2[rr] = row < S ? lseb[row] * kLog2e : 0.f;
-    dl[rr] = row < S ? deltab[row] : 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  const int last_row = min(q0 + BQ, S) - 1;
-  const int n_tiles = a.causal ? last_row / BK + 1 : (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < S;
-      const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-      ks[r * LDK + c] = in ? tdx::to_f32(kb[off]) : 0.f;
-      vs[r * LDK + c] = in ? tdx::to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
-
-    const bool mask = needs_mask(a.causal, q0, BQ, k0, BK, S);
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int lr = warp * RPW + rr, row = q0 + lr;
-      float s = 0.f, ds = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qs[lr * D + d], ks[lane * LDK + d], s);
-        ds = fmaf(dos[lr * D + d], vs[lane * LDK + d], ds);
-      }
-      const bool keep = !mask || keep_pair(a.causal, row, k0 + lane, S);
-      p_ds(s, ds, lse2[rr], dl[rr], keep, a.scale, a.scale_log2);
-      const float ds_q = tdx::round_to<Elem>(ds);  // ds in q's dtype
-#pragma unroll 8
-      for (int c = 0; c < BK; ++c) {
-        const float dsc = __shfl_sync(0xffffffffu, ds_q, c);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          acc[rr][i] = fmaf(dsc, ks[c * LDK + lane + 32 * i], acc[rr][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = q0 + warp * RPW + rr;
-    if (row >= S) continue;
-    Elem* out = static_cast<Elem*>(a.dq) +
-                (static_cast<size_t>(b) * S + row) * q_rs + h * D + lane;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      out[32 * i] = tdx::from_f32<Elem>(acc[rr][i]);
-    }
-  }
-}
-
-static_assert(DqF32<512>::smem() <= kMaxSmem, "f32 dq tile too large");
-
-template <typename Elem, int D>
-int launch_dq(const BwdArgs& args, int B, cudaStream_t stream) {
-  using T = DqF32<D>;
-  return launch_dyn(bwd_dq_f32<Elem, D>,
-                    dim3((args.S + T::BQ - 1) / T::BQ, args.Hq, B), T::smem(),
-                    stream, args);
-}
-
 }  // namespace
 }  // namespace tdx_bwd
 
@@ -1020,23 +906,22 @@ extern "C" int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq_cluster(q, k, v, dout, lse_f, delta_f, dq, B, S, Hq, Hkv,
                              causal, scale, scale_log2, st);
   }
-  BwdArgs args{};
-  args.q = q;
-  args.k = k;
-  args.v = v;
-  args.dout = dout;
-  args.lse = lse_f;
-  args.delta = delta_f;
-  args.dq = dq;
-  args.S = S;
-  args.Hq = Hq;
-  args.Hkv = Hkv;
-  args.causal = causal;
-  args.scale = scale;
-  args.scale_log2 = scale_log2;
-  if (dtype == 0 && D == 64) return launch_dq<float, 64>(args, B, st);
-  if (dtype == 0 && D == 128) return launch_dq<float, 128>(args, B, st);
-  if (dtype == 0 && D == 256) return launch_dq<float, 256>(args, B, st);
-  if (dtype == 0 && D == 512) return launch_dq<float, 512>(args, B, st);
+  if (dtype == 0) {  // f32 at D 64, 128, 256 and 512 (flash_q_f32.cuh)
+    tdx_qf32::QF32Args args{};
+    args.q = static_cast<const float*>(q);
+    args.k = static_cast<const float*>(k);
+    args.v = static_cast<const float*>(v);
+    args.dout = static_cast<const float*>(dout);
+    args.delta = delta_f;
+    args.lse = const_cast<float*>(lse_f);  // read only
+    args.out = static_cast<float*>(dq);
+    args.S = S;
+    args.Hq = Hq;
+    args.Hkv = Hkv;
+    args.causal = causal;
+    args.scale = scale;
+    args.scale_log2 = scale_log2;
+    return tdx_qf32::launch_q_f32<true>(args, B, D, st);
+  }
   return cudaErrorInvalidValue;
 }

@@ -70,35 +70,7 @@
 
 namespace tdx_bwd {
 
-// ---- cp.async and the cluster's shared memory
-
-// 16 bytes global -> shared, asynchronous; `src_bytes` 0 zero-fills them
-// (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   hw::smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// 4 bytes global -> shared, asynchronous; `src_bytes` 0 zero-fills them.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   hw::smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until every cp.async group this thread committed has landed.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// ---- the cluster's shared memory
 
 __device__ __forceinline__ uint32_t cluster_size() {
   uint32_t n;
@@ -207,9 +179,9 @@ __global__ void __launch_bounds__(KvF32Tiles<D>::NT, KvF32Tiles<D>::kMinBlocks)
     for (int i = tid; i < n * (D / 4); i += NT) {
       const int r = i / (D / 4), c = i % (D / 4);
       const bool in = r0 + r < S;
-      cp_async16(dst + r * LDX + 4 * c,
-                 src + static_cast<size_t>(in ? r0 + r : 0) * rs + 4 * c,
-                 in ? 16 : 0);
+      hw::cp_async16(dst + r * LDX + 4 * c,
+                     src + static_cast<size_t>(in ? r0 + r : 0) * rs + 4 * c,
+                     in ? 16 : 0);
     }
   };
   // Step j's q, do, lse and delta into stage st.
@@ -223,8 +195,8 @@ __global__ void __launch_bounds__(KvF32Tiles<D>::NT, KvF32Tiles<D>::kMinBlocks)
       const bool in = q0 + r < S;
       const float* row = (tid < BQ ? a.lse : a.delta) +
                          (static_cast<size_t>(b) * Hq + h) * S + (in ? q0 + r : 0);
-      cp_async4(sm + (tid < BQ ? T::kLse : T::kDelta) + st * BQ + r, row,
-                in ? 4 : 0);
+      hw::cp_async4(sm + (tid < BQ ? T::kLse : T::kDelta) + st * BQ + r, row,
+                    in ? 4 : 0);
     }
   };
 
@@ -234,7 +206,7 @@ __global__ void __launch_bounds__(KvF32Tiles<D>::NT, KvF32Tiles<D>::kMinBlocks)
     load_rows(vs, static_cast<const float*>(a.v) + kv0, kv_rs, k0, BK);
     load_step(0, rank);
   }
-  cp_async_commit();
+  hw::cp_async_commit();
 
   // dv (kind2 0) or dk (kind2 1) of kv rows RR rg2 + r, columns 4 cg2 + 4
   // NCG m + e.
@@ -253,10 +225,10 @@ __global__ void __launch_bounds__(KvF32Tiles<D>::NT, KvF32Tiles<D>::kMinBlocks)
     const int q0 = (qt0 + j % n_per_group) * BQ;
     const float* qs = sm + T::kQ + st * BQ * LDX;
     const float* dos = sm + T::kDo + st * BQ * LDX;
-    cp_async_wait_all();
+    hw::cp_async_wait_all();
     __syncthreads();  // stage st landed; step l - 1 is done with the rest
     if (l + 1 < n_loc) load_step(st ^ 1, j + split);
-    cp_async_commit();
+    hw::cp_async_commit();
 
     // (1) s^T (kind 0) or dp^T (kind 1) partials over slice z of D.
     {
@@ -422,7 +394,7 @@ __global__ void __launch_bounds__(KvF32Tiles<D>::NT, KvF32Tiles<D>::kMinBlocks)
   // `rank` sums its share of them over the cluster's blocks in rank order
   // and stores the rows < S.  The last barrier keeps every block's shared
   // memory alive until its peers have read it.
-  cp_async_wait_all();
+  hw::cp_async_wait_all();
   __syncthreads();
   float* part = sm + T::kK;
 #pragma unroll

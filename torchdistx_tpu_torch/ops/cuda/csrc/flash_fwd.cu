@@ -88,9 +88,16 @@
 // in bf16, both adding p.v as a shared-memory A product (q.k^T once, not
 // twice): 25 % slower, the softmax no longer under any product.
 //
-// f32 (flash_fwd_f32): CUDA cores, 4 warps, 16 q rows per block, kv tiles
-// of 32, one warp lane per kv column for q.k and per output column for P.V.
-// It takes f32 at D 64, 128, 256 and 512.
+// f32 at D 64, 128, 256 and 512: flash_q_f32.cuh's q_f32_tiled<D, false>,
+// on the CUDA cores (no TF32, which the 1e-4 gates would see), the dq
+// kernel's body with the softmax in place of p and ds.  Register-blocked
+// products from 16-byte shared loads (s as 4 x 4 pairs a thread, o += p.v
+// as 4 x 8 blocks at D 128), the softmax's row max by shuffles over the
+// lanes of a row, k and v through a two-stage cp.async ring, q tiles of 64
+// rows (32 at D 256, 16 at D 512).  Bound by operations: at the f32 train
+// gates' 4 x 512, 32 heads of 128, causal, 8.6 GFLOP take 0.1285 ms at 67
+// TFLOP/s; it takes 0.3275 ms there on an NVIDIA H100 80GB HBM3 at 700 W
+// (39 % of the bound; SDPA's f32 forward 0.2736, PERF.md).
 //
 // What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512,
 // 32 heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in
@@ -116,8 +123,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "flash_q_f32.cuh"
 #include "hopper.cuh"
-#include "storage.cuh"
 
 namespace {
 
@@ -125,7 +132,6 @@ namespace hw = tdx::hopper;
 
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;  // the f32 kernel's block
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -709,146 +715,6 @@ flash_fwd_bf16_wgmma<512>(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
-// The f32 body's tiles: q rows, then k and v rows padded by one float so
-// that lanes reading rows hit distinct banks.  Up to D = 128 they fit the
-// 48 KB of static shared memory, as three arrays (the code of the f32
-// instances from before bf16 was added); at D = 256 (82 KB) and D = 512
-// (160 KB: a lane then holds 4 rows x 16 output floats) they are this
-// struct in dynamic shared memory, which needs the opt-in attribute.
-template <int D>
-struct F32Tiles {
-  static constexpr int kBQ = 16, kBK = 32;
-  float qs[kBQ][D];
-  float ks[kBK][D + 1];
-  float vs[kBK][D + 1];
-};
-
-template <int D>
-constexpr bool kF32Dynamic = sizeof(F32Tiles<D>) > 48 * 1024;
-static_assert(sizeof(F32Tiles<512>) <= 232448,
-              "exceeds the 227 KB a block may use");
-
-template <typename Elem, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const Elem* __restrict__ q, const Elem* __restrict__ k,
-              const Elem* __restrict__ v, Elem* __restrict__ o,
-              float* __restrict__ lse, int S, int Hq, int Hkv,
-              float scale_log2, int causal) {
-  using Tiles = F32Tiles<D>;
-  constexpr int BQ = Tiles::kBQ, BK = Tiles::kBK;
-  constexpr int RPW = BQ / (kThreads / 32), DPL = D / 32;
-  float (*qs)[D];
-  float (*ks)[D + 1];
-  float (*vs)[D + 1];
-  if constexpr (kF32Dynamic<D>) {
-    extern __shared__ float4 fwd_f32_smem[];
-    Tiles* tiles = reinterpret_cast<Tiles*>(fwd_f32_smem);
-    qs = tiles->qs;
-    ks = tiles->ks;
-    vs = tiles->vs;
-  } else {
-    __shared__ float qs_fixed[BQ][D];
-    __shared__ float ks_fixed[BK][D + 1];
-    __shared__ float vs_fixed[BK][D + 1];
-    qs = qs_fixed;
-    ks = ks_fixed;
-    vs = vs_fixed;
-  }
-
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t q_rs = static_cast<size_t>(Hq) * D;
-  const size_t kv_rs = static_cast<size_t>(Hkv) * D;
-  const Elem* qb = q + static_cast<size_t>(b) * S * q_rs + h * D;
-  const Elem* kb = k + static_cast<size_t>(b) * S * kv_rs + hk * D;
-  const Elem* vb = v + static_cast<size_t>(b) * S * kv_rs + hk * D;
-
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, row = q_tile * BQ + r;
-    qs[r][c] = row < S ? tdx::to_f32(qb[row * q_rs + c]) : 0.f;
-  }
-
-  float acc[RPW][DPL], m[RPW], l[RPW];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    m[rr] = kMask;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  const int last_row = min(q_tile * BQ + BQ, S) - 1;
-  const int n_tiles = causal ? last_row / BK + 1 : (S + BK - 1) / BK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < S;
-      const size_t off = static_cast<size_t>(k0 + r) * kv_rs + c;
-      ks[r][c] = in ? tdx::to_f32(kb[off]) : 0.f;
-      vs[r][c] = in ? tdx::to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int lr = warp * RPW + rr, row = q_tile * BQ + lr;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[lr][d], ks[lane][d], dot);
-      const int col = k0 + lane;
-      const bool keep = col < S && (!causal || col <= row);
-      const float x = keep ? dot * scale_log2 : kMask;
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_next = fmaxf(m[rr], mx);
-      const float alpha = exp2f(m[rr] - m_next);
-      const float p = exp2f(x - m_next);
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      l[rr] = l[rr] * alpha + sum;
-      m[rr] = m_next;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= alpha;
-      const float p_v = tdx::round_to<Elem>(p);  // p.v takes p in v's dtype
-#pragma unroll 8
-      for (int c = 0; c < BK; ++c) {
-        const float pc = __shfl_sync(0xffffffffu, p_v, c);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          acc[rr][i] = fmaf(pc, vs[c][lane + 32 * i], acc[rr][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = q_tile * BQ + warp * RPW + rr;
-    if (row >= S) continue;
-    const float l_safe = l[rr] == 0.f ? 1.f : l[rr];
-    Elem* orow = o + (static_cast<size_t>(b) * S + row) * q_rs + h * D;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      orow[lane + 32 * i] = tdx::from_f32<Elem>(acc[rr][i] / l_safe);
-    }
-    if (lane == 0) {
-      lse[(static_cast<size_t>(b) * Hq + h) * S + row] =
-          m[rr] / kLog2e + logf(l_safe);
-    }
-  }
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
@@ -901,25 +767,6 @@ int launch_bf16_512(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Elem, int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
-               int causal, cudaStream_t stream) {
-  constexpr int smem =
-      kF32Dynamic<D> ? static_cast<int>(sizeof(F32Tiles<D>)) : 0;
-  if constexpr (kF32Dynamic<D>) {
-    static bool opted[hw::kMaxDevices];
-    const int err = hw::smem_opt_in(flash_fwd_f32<Elem, D>, smem, opted);
-    if (err) return err;
-  }
-  const dim3 grid((S + F32Tiles<D>::kBQ - 1) / F32Tiles<D>::kBQ, Hq, B);
-  flash_fwd_f32<Elem, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k),
-      static_cast<const Elem*>(v), static_cast<Elem*>(o),
-      static_cast<float*>(lse), S, Hq, Hkv, scale_log2, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launches the forward on `stream`; returns cudaGetLastError() (0 on
@@ -941,21 +788,22 @@ extern "C" int tdx_flash_fwd(const void* q, const void* k, const void* v,
   } else if (dtype == 1 && D == 256) {
     return launch_bf16<256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
                             st);
-  } else if (dtype == 0 && D == 64) {
-    return launch_f32<float, 64>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-                                 causal, st);
-  } else if (dtype == 0 && D == 128) {
-    return launch_f32<float, 128>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-                                  causal, st);
-  } else if (dtype == 0 && D == 256) {
-    return launch_f32<float, 256>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-                                  causal, st);
   } else if (dtype == 1 && D == 512) {
     return launch_bf16_512(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2, causal,
                            st);
-  } else if (dtype == 0 && D == 512) {
-    return launch_f32<float, 512>(q, k, v, o, lse, B, S, Hq, Hkv, scale_log2,
-                                  causal, st);
+  } else if (dtype == 0) {  // f32 at D 64, 128, 256 and 512 (flash_q_f32.cuh)
+    tdx_qf32::QF32Args args{};
+    args.q = static_cast<const float*>(q);
+    args.k = static_cast<const float*>(k);
+    args.v = static_cast<const float*>(v);
+    args.out = static_cast<float*>(o);
+    args.lse = static_cast<float*>(lse);
+    args.S = S;
+    args.Hq = Hq;
+    args.Hkv = Hkv;
+    args.causal = causal;
+    args.scale_log2 = scale_log2;
+    return tdx_qf32::launch_q_f32<false>(args, B, D, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) plumbing shared by the port's kernels: TMA tensor maps
 // over the model's (B, S, H, D) bf16 tensors (and f32 ones, for reductions),
-// mbarriers, named barriers, thread block clusters (ranks, the cluster
-// barrier, a peer block's shared memory and bulk copies into it), wgmma
+// mbarriers, cp.async copies (the f32 bodies on the CUDA cores), named
+// barriers, thread block clusters (ranks, the cluster barrier, a peer
+// block's shared memory and bulk copies into it), wgmma
 // shared-memory descriptors and instructions, and the persistent kernels'
 // work list.
 //
@@ -283,6 +284,36 @@ __device__ __forceinline__ void tma_store_commit() {
 // source, so the block may reuse it or exit.
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- cp.async (the f32 bodies' copies into shared memory)
+
+// 16 bytes global -> shared, asynchronous; `src_bytes` 0 zero-fills them
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronous; `src_bytes` 0 zero-fills them.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until every cp.async group this thread committed has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- named barriers

@@ -25,7 +25,9 @@ one to its counter: :data:`launches` (forward), :data:`launches_bwd_fused`,
 
 The kernels have instances for head dims 64, 128, 256 and 512 (bf16 on TMA
 + wgmma, the three backward kernels at 512 on clusters of two blocks; f32
-on the CUDA cores).  Every entry point takes any head dim up to 512: q, k,
+on the CUDA cores, register-blocked: the forward and dq on one q-tile body,
+``csrc/flash_q_f32.cuh``, dk/dv and the fused backward on one kv-tile body,
+``csrc/flash_bwd_kv_f32.cuh``).  Every entry point takes any head dim up to 512: q, k,
 v (and ``do``) are zero-padded on the last axis to the next instance, the
 kernels run with the scale of the true head dim, and out, dq, dk and dv
 are cut back to it.  Zero columns add nothing to ``q.k^T``, and out, dq,
