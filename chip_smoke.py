@@ -749,6 +749,9 @@ D256_WGMMA = {kernel: _instance(kernel, 256, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
 D512_WGMMA = {kernel: _instance(kernel, 512, torch.bfloat16)
               for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+# The bf16 D = 64 and D = 128 forward instances, whose consumers run past
+# the launch's register count (setmaxnreg): ptxas' report shows any spill.
+FWD_WGMMA = {d: {"flash_fwd": _instance("flash_fwd", d, torch.bfloat16)} for d in (64, 128)}
 # The f32 instances by (kernel, D), whose ptxas report the build prints and
 # must show without spills and within 255 registers: the forward and dq
 # (q_f32_tiled), dk/dv and fused (bwd_kv_f32_tiled).
@@ -814,7 +817,8 @@ def phase_build():
     _check(bool(report) or not built, "no ptxas report from the build")
     wide = {k: v for k, v in report.items() if "(int)512" in k}
     print("[build] the D = 512 instances: " + json.dumps(wide))
-    for d, wgmma in ((256, D256_WGMMA), (512, D512_WGMMA)):
+    for d, wgmma in ((64, FWD_WGMMA[64]), (128, FWD_WGMMA[128]), (256, D256_WGMMA),
+                     (512, D512_WGMMA)):
         found = {name: _in_report(report, name) for name in wgmma.values()}
         print(f"[build] the bf16 D = {d} instances (TMA + wgmma): " + json.dumps(found))
         if set(wgmma) <= set(built):

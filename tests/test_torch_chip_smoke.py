@@ -440,6 +440,30 @@ def test_f32_kv_instances_are_found_in_a_ptxas_report():
         "registers": 215}
 
 
+def test_bf16_forward_chooses_its_work_order():
+    # The bf16 forward at D 64, 128 and 256 walks ForwardWorks in the order
+    # forward_order chooses from each order's busiest block (busiest_block,
+    # the same struct walked on the host); PairedWorks itself is the fused
+    # backward's.  [build] checks the D 64 and 128 instances for spills.
+    fwd = _csrc("flash_fwd.cu")
+    assert "hw::PairedWorks" not in fwd
+    assert fwd.count("hw::ForwardWorks w(n_q, Hq, B, order, blockIdx.x, gridDim.x)") == 2
+    launch = _c_function(fwd, "int launch_bf16(")
+    assert "forward_order(n_q, B * Hq, n_sm, causal != 0, &grid)" in launch
+    choose = _c_function(fwd, "int forward_order(")
+    for order in ("kPaired", "kHeadMajor", "kTileMajor"):
+        assert f"hw::busiest_block(n, n_hb, 1, W::{order}, " in choose
+    assert "hw::PairedWorks" in _csrc("flash_bwd_fused.cu")
+    assert chip_smoke.FWD_WGMMA == {d: {"flash_fwd": f"flash_fwd_bf16_wgmma<(int){d}>"}
+                                    for d in (64, 128)}
+    report = {f"<unnamed>::flash_fwd_bf16_wgmma<(int){d}>": {
+        "registers": 128 if d == 64 else 166, "spill_stores": 0, "spill_loads": 0}
+        for d in (64, 128)}
+    for d in (64, 128):
+        assert chip_smoke._in_report(report, chip_smoke.FWD_WGMMA[d]["flash_fwd"]) == report[
+            f"<unnamed>::flash_fwd_bf16_wgmma<(int){d}>"]
+
+
 def test_f32_q_instances_are_found_in_a_ptxas_report():
     # The [build] line reads the register-blocked f32 forward and dq
     # instances (q_f32_tiled, one per (kernel, D)) from the report; the
@@ -522,6 +546,102 @@ def test_ab_script_f32_shapes_are_the_chip_smoke_f32_rows():
     assert [r[:2] for r in ab._rows("f32", None)] == [
         ("ragged_f32 D 64", 64), ("train_gate_f32 D 128", 128), ("head_dims D 256", 256),
         ("head_dims D 512", 512)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ab_script_bf16_shapes_are_the_chip_smoke_bf16_rows(d):
+    # scripts/torch_d256_ab.py --d 64 / --d 128 times exactly chip_smoke.py's
+    # bf16 forward rows at that head dim, in FLASH_SHAPES' order, so its
+    # A/B tables read against the kernel table row by row.
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_d256_ab", Path(__file__).resolve().parents[1] / "scripts" / "torch_d256_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+
+    want = [(r[0], *r[1:5], r[7]) for r in chip_smoke.FLASH_SHAPES
+            if r[5] == d and r[6] == torch.bfloat16]
+    assert ab.SHAPES[d] == want
+    assert [r[:2] for r in ab._rows("bf16", d)] == [(r[0], d) for r in want]
+    names = {64: ["ragged_bf16_d64", "gpt2_xl_heads", "pp_gpt2_block"],
+             128: ["llama7b_main", "gqa_70b_heads", "decode_s1", "train_1x4096",
+                   "gqa_ragged_bf16", "mesh_rank_block", "pp_micro_block", "pp_tp_block",
+                   "ep_fsdp_block"]}
+    assert [r[0] for r in want] == names[d]
+
+
+def _ab_script():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_d256_ab", Path(__file__).resolve().parents[1] / "scripts" / "torch_d256_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    return ab
+
+
+@pytest.mark.parametrize("order", [0, 1, 2], ids=["pairs", "head_major", "tile_major"])
+@pytest.mark.parametrize("n, h, b, grid", [(4, 16, 1, 64), (4, 32, 4, 132), (8, 25, 4, 132),
+                                           (32, 32, 1, 132), (7, 19, 1, 132), (3, 5, 2, 7),
+                                           (1, 32, 4, 128)])
+def test_forward_works_take_every_work_once(n, h, b, grid, order):
+    # hopper.cuh's ForwardWorks in each order, as the A/B script mirrors it
+    # step for step: over the grid's blocks every (q tile, head, batch) is
+    # taken once, and a pair's two tiles go to one block, the longer first.
+    ab = _ab_script()
+    taken = [w for block in range(grid) for w in ab._works(n, h * b, order, block, grid)]
+    assert sorted(taken) == [(t, hb) for t in range(n) for hb in range(h * b)]
+    if order == ab.PAIRED:
+        for block in range(grid):
+            mine = list(ab._works(n, h * b, order, block, grid))
+            for (t0, hb0), (t1, hb1) in zip(mine, mine[1:]):
+                if t0 > n - 1 - t0:  # the long tile of a pair: its partner follows
+                    assert (t1, hb1) == (n - 1 - t0, hb0)
+
+
+def test_forward_order_at_the_kernel_table_rows():
+    # The forward's order, grid and busiest block at chip_smoke.py's bf16
+    # rows on a 132-SM H100 (PERF.md's kernel table), beside the
+    # pairs-only rule's: single q tiles where pairs would leave a block busier
+    # (the 1 x 512 blocks, GPT-2 XL's heads, the 1 x 4096 step, the D 256
+    # path's step), pairs elsewhere.
+    ab = _ab_script()
+    got = {name: ab.schedule(b, s, hq, d, causal)
+           for d in (64, 128, 256) for name, b, s, hq, _, causal in ab.SHAPES[d]}
+    assert {k: (v["order"], v["grid"], v["busiest_kv_tiles"], v["paired_grid"],
+                v["paired_busiest_kv_tiles"]) for k, v in got.items()} == {
+        "ragged_bf16_d64": ("pairs", 96, 16, 96, 16),
+        "gpt2_xl_heads": ("tile-major", 132, 28, 132, 36),
+        "pp_gpt2_block": ("head-major", 100, 4, 50, 5),
+        "llama7b_main": ("pairs", 132, 10, 132, 10),
+        "gqa_70b_heads": ("pairs", 132, 36, 132, 36),
+        "decode_s1": ("pairs", 128, 1, 128, 1),
+        "train_1x4096": ("tile-major", 132, 128, 132, 132),
+        "gqa_ragged_bf16": ("tile-major", 132, 128, 132, 132),
+        "mesh_rank_block": ("head-major", 128, 4, 64, 5),
+        "pp_micro_block": ("head-major", 128, 4, 64, 5),
+        "pp_tp_block": ("head-major", 64, 4, 32, 5),
+        "ep_fsdp_block": ("pairs", 128, 5, 128, 5),
+        "wide_d256": ("pairs", 132, 34, 132, 34),
+        "d256_path_bf16": ("head-major", 132, 33, 68, 34)}
+    assert got["gpt2_xl_heads"]["mean_kv_tiles"] == 27.3
+
+
+@pytest.mark.parametrize(
+    "name, bound_ms, bound_by",
+    [("gqa_70b_heads", 0.034776, "operations"), ("decode_s1", 3.9279e-05, "bytes"),
+     ("ragged_bf16_d64", 0.0062123, "operations"), ("gqa_ragged_bf16", 0.13893, "operations")],
+)
+def test_flash_bound_of_the_kernel_tables_added_rows(name, bound_ms, bound_by):
+    # The bf16 forward rows that PERF.md's kernel table gained: their bounds
+    # as chip_smoke.py computes them from FLASH_SHAPES.
+    (row,) = [r for r in chip_smoke.FLASH_SHAPES if r[0] == name]
+    got_ms, got_by = chip_smoke._flash_bound(*row[1:])
+    assert got_ms == pytest.approx(bound_ms, rel=1e-4)
+    assert got_by == bound_by
 
 
 def test_slowmo_run_is_cut_as_documented():

@@ -27,20 +27,33 @@ def cuda():
     return torch.device("cuda")
 
 
+# Shapes that stress the bf16 forward's work rule (one 128-row q tile of
+# one (batch, head) a work, longest first over min(SMs, works) persistent
+# blocks; an H100 has 132 SMs), as (B, S, Hq, Hkv): fewer works than SMs
+# (1 x 512 x 16 heads: 64 works); one work over a whole wave (7 q tiles x
+# 19 heads = 133 works); uneven waves (GPT-2 XL's 4 x 1024 x 25 heads: 800
+# works, 6.06 a block); a GQA group of 8 at a ragged S (3 x 777 x 24/3).
+WORK_RULE_SHAPES = [(1, 512, 16, 16), (1, 896, 19, 19), (4, 1024, 25, 25), (3, 777, 24, 3)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 # 127, 128 and 129: one q tile of the bf16 kernel minus one, exactly one,
-# and plus one; 1000 with 8 q heads on one kv head: a long ragged GQA case.
+# and plus one; 1000 with 8 q heads on one kv head: a long ragged GQA case
+# (each at B 2); then WORK_RULE_SHAPES.
 @pytest.mark.parametrize(
-    "s, hq, hkv",
-    [(1, 4, 4), (77, 8, 2), (300, 4, 1), (127, 4, 4), (128, 8, 2), (129, 8, 8), (1000, 8, 1)],
+    "b, s, hq, hkv",
+    [pytest.param(2, *shape, id="-".join(map(str, shape)))
+     for shape in [(1, 4, 4), (77, 8, 2), (300, 4, 1), (127, 4, 4), (128, 8, 2), (129, 8, 8),
+                   (1000, 8, 1)]]
+    + [pytest.param(*shape, id="b" + "-".join(map(str, shape))) for shape in WORK_RULE_SHAPES],
 )
-def test_flash_fwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv):
-    g = torch.Generator(device=cuda).manual_seed(s * d)
-    q = torch.randn((2, s, hq, d), generator=g, device=cuda, dtype=dtype)
-    k = torch.randn((2, s, hkv, d), generator=g, device=cuda, dtype=dtype)
-    v = torch.randn((2, s, hkv, d), generator=g, device=cuda, dtype=dtype)
+def test_flash_fwd_matches_plain(cuda, dtype, d, causal, b, s, hq, hkv):
+    g = torch.Generator(device=cuda).manual_seed(s * d + b - 2)  # the B 2 cases' seeds as before
+    q = torch.randn((b, s, hq, d), generator=g, device=cuda, dtype=dtype)
+    k = torch.randn((b, s, hkv, d), generator=g, device=cuda, dtype=dtype)
+    v = torch.randn((b, s, hkv, d), generator=g, device=cuda, dtype=dtype)
     n0 = fa.launches
     out, lse = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -51,18 +64,31 @@ def test_flash_fwd_matches_plain(cuda, dtype, d, causal, s, hq, hkv):
     assert (lse - ref_lse).abs().max().item() <= tol_lse
 
 
-def test_flash_fwd_is_deterministic(cuda):
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize(
+    "b, s, hq, hkv, d",
+    [(4, 512, 32, 32, 128)] + [(*shape, d) for shape in WORK_RULE_SHAPES for d in (64, 128)],
+)
+def test_flash_fwd_is_deterministic(cuda, causal, b, s, hq, hkv, d):
     # The forward sums in a fixed order and uses no atomics: two calls on
-    # the same inputs give the same bits (the Llama-7B training shape).
-    g = torch.Generator(device=cuda).manual_seed(11)
-    q, k, v = (
-        torch.randn((4, 512, 32, 128), generator=g, device=cuda, dtype=torch.bfloat16)
-        for _ in range(3)
-    )
-    out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
-    out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=True)
+    # the same inputs give the same bits, each one launch (the Llama-7B
+    # training shape, then WORK_RULE_SHAPES), and hold the plain version to
+    # TOL.
+    g = torch.Generator(device=cuda).manual_seed(11 if (b, s, d) == (4, 512, 128) else 11 + s + d)
+    q = torch.randn((b, s, hq, d), generator=g, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    n0 = fa.launches
+    out1, lse1 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    assert fa.launches == n0 + 1
+    out2, lse2 = fa.flash_attention_fwd_with_lse(q, k, v, causal=causal)
+    assert fa.launches == n0 + 2
     torch.cuda.synchronize()
     assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    tol_out, tol_lse = TOL[torch.bfloat16]
+    assert (out1.float() - ref_out.float()).abs().max().item() <= tol_out
+    assert (lse1 - ref_lse).abs().max().item() <= tol_lse
 
 
 def test_flash_rejects_unsupported_head_dim(cuda):

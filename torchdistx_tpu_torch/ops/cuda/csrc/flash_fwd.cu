@@ -17,33 +17,47 @@
 // that bound).
 //
 // bf16 (flash_fwd_bf16_wgmma), built from hopper.cuh.  Persistent: one block
-// per SM walks its works (PairedWorks), a work being 128 q rows of one
-// (batch, head), the two q tiles n_q - 1 - p and p of a head taken together
-// so that every block gets the same number of causal kv tiles; works go out
-// head-major, so blocks running side by side share their heads' k and v in
-// L2.  A block has two consumer warpgroups (64 q rows each) and one
-// producer warp.  One producer thread loads each work's q into one of two q
-// buffers (the next work's q streams in during this one) and k and v tiles
-// of 128 rows by TMA into a ring of kStages stages, numbered across works
-// (2 at D = 128: 2 x q 32 KB + 2 x (k 32 KB + v 32 KB) = 192 KB of dynamic
-// shared memory; 4 at D = 64), each stage with its own k-full, v-full and
-// empty mbarrier, so the next tile, of this work or the next, streams in
-// while one is multiplied.  TMA zero-fills rows >= S, so loads need no
-// guard.  Per kv tile a consumer computes s = q.k^T with wgmma m64n128k16
-// (both operands K-major in shared memory), takes the online softmax in
-// registers, and adds p.v with wgmma m64nDk16, p from registers (the s
-// accumulator packed pairwise to bf16 is the A fragment, see hopper.cuh)
-// and v from shared memory as an MN-major operand, so v needs no transpose
-// copy.  The two consumers take turns to issue their products (ping-pong
-// on two named barriers), so one's softmax runs while the other's wgmma
-// does; a warp releases the stage after wgmma_wait for both products.  kv
-// tiles run from the last to the first, so the one tile that needs the
-// mask (the causal diagonal, or the ragged tile holding columns >= S when
-// not causal: the Pallas kernel's _needs_mask, with kv tiles aligned to the
-// q tile) comes first, and every other tile skips the iota/compare/select
-// and folds the scale into its exponent's FFMA.  A work's epilogue writes
-// out through the warpgroup's half of its q buffer and a TMA store, which
-// drops rows >= S, and lse directly.
+// per SM, or one per unit of work where there are fewer, walks its units
+// (hopper.cuh's ForwardWorks) in the order forward_order chooses from each
+// order's busiest block (busiest_block, the same struct walked on the host).
+// Pairs: a unit is the q tiles n_q - 1 - p and p of one (batch, head), 128 rows
+// each, so that every causal unit holds the same work and the second tile reads
+// kv tiles the block has just read; taken where no block is then busier than
+// with single tiles (Llama-7B's 4 x 512 and 70B's GQA heads: single tiles were
+// 2.5-7 % slower there at equal balance on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md).  Single q tiles, longest first, in a snake over the blocks: where
+// pairs would leave SMs idle (B x H x n_q / 2 below the SM count: the 1 x 512
+// mesh and pipeline blocks run on 64-128 blocks, not 32-64, their busiest block
+// doing 4 kv tiles, not 5) or unbalanced (GPT-2 XL's 4 x 1024 x 25 heads: 28 kv
+// tiles on the busiest block, not 36); head-major (a head's tiles side by side,
+// k and v shared in L2) or, where it balances better, tile-major (every head's
+// last tile, then the tiles before them).  A block has two consumer warpgroups
+// (64 q rows each) and one producer warp.  One producer thread loads each
+// unit's q tiles into one of two q buffers (the next one's q streams in during
+// this one) and k and v tiles of 128 rows by TMA into a ring of kStages stages,
+// numbered across works (2 at D = 128: 2 x q 32 KB + 2 x (k 32 KB + v 32 KB) =
+// 192 KB of dynamic shared memory; 4 at D = 64), each stage with its own
+// k-full, v-full and empty mbarrier, so the next tile, of this work or the
+// next, streams in while one is multiplied.  TMA zero-fills rows >= S, so loads
+// need no guard.  Per kv tile a consumer computes s = q.k^T with wgmma
+// m64n128k16 (both operands K-major in shared memory), takes the online softmax
+// in registers, and adds p.v with wgmma m64nDk16, p from registers (the s
+// accumulator packed pairwise to bf16 is the A fragment, see hopper.cuh) and v
+// from shared memory as an MN-major operand, so v needs no transpose copy.  The
+// two consumers take turns to issue their products (ping-pong on two named
+// barriers), so one's softmax runs while the other's wgmma does; a warp
+// releases the stage after wgmma_wait for both products.  kv tiles run from the
+// last to the first, so the one tile that needs the mask (the causal diagonal,
+// or the ragged tile holding columns >= S when not causal: the Pallas kernel's
+// _needs_mask, with kv tiles aligned to the q tile) comes first, and every
+// other tile skips the iota/compare/select and folds the scale into its
+// exponent's FFMA.  A work's epilogue takes 1 / l once a row and o / l by
+// div_rn (three FMAs, the division's bits; the division itself was a large
+// share of the epilogue, which knocked out took 17-28 % off the bytes-bound
+// rows on that card, PERF.md), writes out through the warpgroup's half of its q
+// buffer by stmatrix and a TMA store, which drops rows >= S, and lse directly.
+// out and lse are the same bits under every work order and as with the plain
+// division (kv tiles and their order do not change).
 //
 // bf16 at D = 256 (flash_fwd_bf16_wgmma<256>, Bf16Tiles::kSplit): a 64 x
 // 256 f32 accumulator is 128 registers a thread, and beside a tile's s and
@@ -55,7 +69,10 @@
 // the MN-major operand).  kv tiles are 64 rows, so a q buffer is 32 KB and
 // a stage of k and v 64 KB: 2 x 32 + 2 x 64 = 192 KB, as at D = 128.  The
 // epilogue waits for both warpgroups (named barrier 5) before either
-// writes its columns of out into the q buffer.  128 registers, no spills.
+// writes its columns of out into the q buffer.  146 registers, no spills.
+// Its 64-row q tiles follow the same work rule: pairs at 2 x 1024 x 16
+// heads, single tiles at the D = 256 path's 1 x 2112 x 4 heads (132
+// blocks, not 68: 6 % faster on that card, PERF.md).
 // Tried and dropped (scripts/torch_d256_ab.py on an H100, PERF.md): 128 q
 // rows a block with o whole in each warpgroup (256 threads, no producer
 // warp, 209 registers), which computes q.k^T once and reads each kv tile
@@ -99,19 +116,30 @@
 // TFLOP/s; it takes 0.3275 ms there on an NVIDIA H100 80GB HBM3 at 700 W
 // (39 % of the bound; SDPA's f32 forward 0.2736, PERF.md).
 //
-// What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512,
-// 32 heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in
-// all: 20 us at 3.35 TB/s, against 4 B H D S(S+1)/2 = 8.6 GFLOP, 8.7 us at
-// the 989 TFLOP/s dense bf16 tensor rate, so bytes bound it; at B 1, S 4096
-// the 137 GFLOP take 139 us at that rate against 34 MB in 10 us, so
-// operations do (from S of about 1200 up, or with GQA).  What this design
-// leaves on the table: each consumer waits for one product before its next
-// step.  Overlapping a tile's softmax with its own next q.k^T needs s, p and
-// o (160 registers) live at once, and ptxas holds a thread of this kernel
-// to 168 registers: it spilled at 384 threads with setmaxnreg granting 232
-// and at 288 threads, and __maxnreg__(224) compiled without spills but the
-// launch was refused for want of registers.  A block's first q and k loads
-// and its last epilogue are still exposed, which weighs most at S = 512.
+// What bounds it on an H100 SXM: at the Llama-7B training shape B 4, S 512, 32
+// heads, D 128, bf16, causal, q, k, v and out are 16.8 MB each, 67 MB in all:
+// 20 us at 3.35 TB/s, against 4 B H D S(S+1)/2 = 8.6 GFLOP, 8.7 us at the 989
+// TFLOP/s dense bf16 tensor rate, so bytes bound it; at B 1, S 4096 the 137
+// GFLOP take 139 us at that rate against 34 MB in 10 us, so operations do
+// (from S of about 1200 up, or with GQA).  What this design leaves on the
+// table: each consumer waits for one product before its next step.  Overlapping
+// a tile's softmax with its own next q.k^T needs s, p and o (about 200
+// registers at D = 128) live at once, and ptxas holds a thread of this kernel
+// to 168: three warps share each SM quarter's 16 K registers.  A producer
+// warpgroup at 24 registers and consumers raised to 240 (setmaxnreg.dec /
+// .inc, as FlashAttention-3 has) gave the consumers nothing:
+// USETMAXREG.TRY_ALLOC 0xf0 is in the SASS, but the code after it names no
+// register above R165 and spills (33 STL / 28 LDL, 156 bytes at D = 128; nvcc
+// 12.9), also with __maxnreg__(168) in place of the launch bounds and with
+// ptxas --register-usage-level=10; it ran 2x slower at D = 128, and at D = 64
+// (4 bytes spilled) it was slower than without the overlap (PERF.md, NVIDIA
+// H100 80GB HBM3, 700 W): the SASS shows why an earlier try spilled at 384
+// threads with setmaxnreg granting 232.  __maxnreg__(224) at 288 threads
+// compiles without spills, but the launch is refused for want of
+// registers.  Tried and dropped at D = 64 (the same card): kv tiles of 192 rows
+// (11 % slower at 4 x 1024 x 25 heads, spilling at 168).  At D = 64 the step is
+// mostly not products: on GPT-2 XL's heads a kv step takes about twice its
+// products' time, the softmax's 2^x alone about a tenth (PERF.md).
 // At D = 256 (B 2, S 1024, 16 heads, causal: 17.2 GFLOP, 17 us at the
 // tensor rate, against 67 MB in 20 us) bytes bound it; the split design
 // does q.k^T twice, 1.5x the tensor work, and each 64-column q.k^T reads
@@ -141,11 +169,14 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 // The bf16 kernel's tiles and dynamic shared memory: two q buffers (each
 // kBQ / 64 x D / 64 chunks of 64 rows), then per stage k and v (D / 64
 // chunks of kBK rows each), then the barriers; + 1024 bytes to align the
-// base to a swizzle atom.  Below D = 256 a block takes 128 q rows, 64 for
-// each consumer warpgroup, against kv tiles of 128.  At D = 256 (kSplit)
-// the two warpgroups share one tile of 64 q rows and split o's columns,
-// 128 each, against kv tiles of 64: both compute the same s and p, and
-// each adds p.v for its half of v's columns.
+// base to a swizzle atom.  A work (ForwardWorks: a unit is one q tile or a
+// pair of them) is one q tile of kBQ rows at a time.  Below D = 256 that is
+// 128 q rows, 64 for each consumer warpgroup, against kv tiles of 128, at
+// D = 64 too (192-row kv tiles spilled and were slower, PERF.md),
+// with four stages there, each half the bytes of D = 128's.  At D = 256
+// (kSplit) the two warpgroups share one tile of 64 q rows and split o's
+// columns, 128 each, against kv tiles of 64: both compute the same s and
+// p, and each adds p.v for its half of v's columns.
 template <int D>
 struct Bf16Tiles {
   static constexpr bool kSplit = D == 256;
@@ -231,6 +262,16 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// x / l rounded to nearest, as the division x / l gives it, from r = 1 / l
+// rounded to nearest (taken once a row): q = x r is within an ulp of the
+// quotient, and one correction with the remainder x - q l (exact by FMA)
+// rounds to it (Markstein's theorem, for normal operands; l is at least
+// 1 here).  Three FMA-pipe instructions in place of a division each.
+__device__ __forceinline__ float div_rn(float x, float l, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, l, x), r, q);
+}
+
 // The online softmax update of one tile: m to the new row max of the
 // logits in the log2 domain, s to p = exp2(s * scale_log2 - m), l rescaled
 // and summed; returns in alpha the factor exp2(m_old - m_new) that o still
@@ -312,7 +353,7 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
                      __grid_constant__ const CUtensorMap tm_v,
                      __grid_constant__ const CUtensorMap tm_o,
                      float* __restrict__ lse, int B, int S, int Hq, int Hkv,
-                     float scale_log2, int causal) {
+                     float scale_log2, int causal, int order) {
   using T = Bf16Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
@@ -361,7 +402,8 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
       hw::prefetch_map(&tm_v);
       int tile = 0;
       int j = 0;
-      for (hw::PairedWorks w(n_q, Hq, B); !w.done(); w.next(), ++j) {
+      for (hw::ForwardWorks w(n_q, Hq, B, order, blockIdx.x, gridDim.x);
+           !w.done(); w.next(), ++j) {
         const int q0 = w.tile() * T::kBQ, h = w.head(), b = w.batch();
         const int hk = h / (Hq / Hkv), n_tiles = n_tiles_of(q0);
         uint8_t* qj = qs + (j % 2) * T::kQBytes;
@@ -410,7 +452,8 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
     if (wg == 1) hw::named_arrive(kTurn, 256);
     int tile = 0;
     int j = 0;
-    for (hw::PairedWorks w(n_q, Hq, B); !w.done(); ++j) {
+    for (hw::ForwardWorks w(n_q, Hq, B, order, blockIdx.x, gridDim.x);
+         !w.done(); ++j) {
       const int q0 = w.tile() * T::kBQ, h = w.head(), b = w.batch();
       const int n_tiles = n_tiles_of(q0);
       w.next();
@@ -481,28 +524,40 @@ flash_fwd_bf16_wgmma(__grid_constant__ const CUtensorMap tm_q,
       // chunk, which frees the buffer once it has been read (see above);
       // lse from the quad's summed l (under kSplit both warpgroups hold
       // the same m and l, and warpgroup 0 writes it).
-      float l_safe[2];
+      float l_safe[2], l_inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float sum = l[r];
         sum += __shfl_xor_sync(0xffffffffu, sum, 1);
         sum += __shfl_xor_sync(0xffffffffu, sum, 2);
         l_safe[r] = sum == 0.f ? 1.f : sum;
+        l_inv[r] = __frcp_rn(l_safe[r]);
       }
       const int c0 = T::kSplit ? wg * (T::kOCols / 64) : 0;  // first chunk
       uint8_t* ow = qw + c0 * T::kChunkQ;
-      if (T::kSplit) hw::named_barrier(5, 256);
+      // out packed to bf16 pairs, ok[2n + r] = rows g + 8r, columns 8n +
+      // 2t (the accumulator's layout), stored as 8 x 8 matrices: lane l
+      // gives row l % 8 of matrix l / 8 of each stmatrix.x4, which writes
+      // columns 16jp .. 16jp + 15 of the warp's 16 rows.
+      uint32_t ok[T::kOCols / 4];
 #pragma unroll
       for (int n = 0; n < T::kOCols / 8; ++n) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int row = 16 * warp + g + 8 * r;  // row % 8 == g
-          uint8_t* dst = ow + (n / 8) * T::kChunkQ + row * 128 +
-                         ((n % 8) ^ g) * 16 + t * 4;
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(o[4 * n + 2 * r] / l_safe[r],
-                                    o[4 * n + 2 * r + 1] / l_safe[r]);
+          ok[2 * n + r] =
+              pack_f32(div_rn(o[4 * n + 2 * r], l_safe[r], l_inv[r]),
+                       div_rn(o[4 * n + 2 * r + 1], l_safe[r], l_inv[r]));
         }
+      }
+      if (T::kSplit) hw::named_barrier(5, 256);
+      const int m_row = 16 * warp + lane % 8 + 8 * (lane / 8 % 2);
+#pragma unroll
+      for (int jp = 0; jp < T::kOCols / 16; ++jp) {
+        const int group = 2 * (jp % 4) + lane / 16;  // 16-byte group in a chunk
+        const uint32_t dst = hw::smem_addr(ow + (jp / 4) * T::kChunkQ) +
+                             m_row * 128 + (group ^ (lane % 8)) * 16;
+        hw::stmatrix_x4(dst, ok[4 * jp], ok[4 * jp + 1], ok[4 * jp + 2],
+                        ok[4 * jp + 3]);
       }
       hw::fence_async_shared();
       hw::named_barrier(1 + wg, 128);
@@ -546,7 +601,8 @@ flash_fwd_bf16_wgmma<512>(__grid_constant__ const CUtensorMap tm_q,
                           __grid_constant__ const CUtensorMap tm_v,
                           __grid_constant__ const CUtensorMap tm_o,
                           float* __restrict__ lse, int B, int S, int Hq,
-                          int Hkv, float scale_log2, int causal) {
+                          int Hkv, float scale_log2, int causal,
+                          int /*order: one block per q tile here*/) {
   using T = Bf16Tiles<512>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
@@ -715,6 +771,48 @@ flash_fwd_bf16_wgmma<512>(__grid_constant__ const CUtensorMap tm_q,
   }
 }
 
+// The forward's work order and grid (hopper.cuh's ForwardWorks) for n q
+// tiles of n_hb (batch, head) pairs on n_sm SMs: pairs where no block is
+// then busier than with single q tiles (a pair's second tile reads the kv
+// tiles its block has just read: on one card, single tiles were 2.5-7 %
+// slower at equal balance, PERF.md), else single q tiles,
+// tile-major where that balances the blocks better than head-major.  The
+// last few answers are kept, since a model calls the forward at a few
+// shapes.
+int forward_order(int n, int n_hb, int n_sm, bool causal, int* grid) {
+  using W = hw::ForwardWorks;
+  struct Entry {
+    int n, n_hb, n_sm, causal, order, grid;
+  };
+  constexpr int kEntries = 16;
+  static thread_local Entry seen[kEntries];
+  static thread_local int next = 0;
+  for (const Entry& e : seen) {
+    if (e.n == n && e.n_hb == n_hb && e.n_sm == n_sm && e.causal == causal) {
+      *grid = e.grid;
+      return e.order;
+    }
+  }
+  const long long units = static_cast<long long>(n_hb) * ((n + 1) / 2);
+  const long long works = static_cast<long long>(n_hb) * n;
+  const int grid_pairs = static_cast<int>(units < n_sm ? units : n_sm);
+  const int grid_single = static_cast<int>(works < n_sm ? works : n_sm);
+  const long long pairs =
+      hw::busiest_block(n, n_hb, 1, W::kPaired, grid_pairs, causal);
+  const long long head =
+      hw::busiest_block(n, n_hb, 1, W::kHeadMajor, grid_single, causal);
+  const long long tile =
+      causal ? hw::busiest_block(n, n_hb, 1, W::kTileMajor, grid_single, true)
+             : head;
+  const int order = pairs <= (tile < head ? tile : head) ? W::kPaired
+                    : tile < head                         ? W::kTileMajor
+                                                          : W::kHeadMajor;
+  *grid = order == W::kPaired ? grid_pairs : grid_single;
+  seen[next] = {n, n_hb, n_sm, causal, order, *grid};
+  next = (next + 1) % kEntries;
+  return order;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int Hq, int Hkv, float scale_log2,
@@ -730,15 +828,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (!err) err = hw::bshd_map(&tm_v, v, B, S, Hkv, D, T::kBK);
   if (!err) err = hw::bshd_map(&tm_o, o, B, S, Hq, D, 64);
   if (err) return err;
-  // One persistent block per SM, or one per unit of work (PairedWorks).
+  // One persistent block per SM, or one per unit of work (forward_order).
   const int n_q = (S + T::kBQ - 1) / T::kBQ;
-  const long long n_units = static_cast<long long>(B) * Hq * ((n_q + 1) / 2);
-  if (n_units > INT_MAX) return cudaErrorInvalidValue;
-  const int grid =
-      static_cast<int>(n_units < n_sm ? n_units : n_sm);
+  if (static_cast<long long>(B) * Hq * n_q > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  int grid = 0;
+  const int order = forward_order(n_q, B * Hq, n_sm, causal != 0, &grid);
   flash_fwd_bf16_wgmma<D><<<grid, T::kThreads, T::kSmem, stream>>>(
       tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), B, S, Hq, Hkv,
-      scale_log2, causal);
+      scale_log2, causal, order);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -763,7 +862,7 @@ int launch_bf16_512(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16_wgmma<512>
       <<<static_cast<int>(n_blocks), T::kThreads, T::kSmem, stream>>>(
           tm_q, tm_k, tm_v, tm_o, static_cast<float*>(lse), B, S, Hq, Hkv,
-          scale_log2, causal);
+          scale_log2, causal, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

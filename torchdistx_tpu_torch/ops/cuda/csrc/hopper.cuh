@@ -4,7 +4,7 @@
 // barriers, thread block clusters (ranks, the cluster barrier, a peer
 // block's shared memory and bulk copies into it), wgmma
 // shared-memory descriptors and instructions, and the persistent kernels'
-// work list.
+// work lists.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle and read
 // by wgmma through descriptors of the same swizzle.  A tile is a stack of
@@ -128,7 +128,8 @@ inline int sm_count(int* count) {
 // taken in that order, so that under the causal mask every unit holds the
 // same work (tile t of a forward sees t + 1 kv tiles, kv tile t of a
 // backward n - t q tiles) and a static round robin balances the blocks (the
-// middle tile of an odd n stands alone).
+// middle tile of an odd n stands alone).  The fused backward's; the
+// forward walks the same pairs as one order of ForwardWorks.
 struct PairedWorks {
   int n, n_pairs, n_units, H, u, part;
   __device__ PairedWorks(int n_, int H_, int B)
@@ -151,6 +152,76 @@ struct PairedWorks {
     }
   }
 };
+
+// The works of a persistent forward block (at most one block per SM), in
+// one of three orders the launcher chooses (forward_order).  kPaired: a
+// unit is PairedWorks' pair of q tiles n - 1 - p and p of one (batch,
+// head), so the second tile's kv tiles are those the block has just read,
+// and blocks take units round robin.  Otherwise a unit is one q tile of
+// one (batch, head), longest first (tile n - 1, which sees n kv tiles under
+// the causal mask, then n - 2, ...): kHeadMajor with a head's tiles side by
+// side, kTileMajor every head's tile n - 1, then every head's tile n - 2,
+// ... (heads side by side within a tile); block i of G takes units i, 2G -
+// 1 - i, 2G + i, 4G - 1 - i, ... (a snake: the rounds alternate direction,
+// so a block given a long work in one round gets a short one in the next).
+// Host and device: the launcher walks it to count each order's busiest
+// block (busiest_block).
+struct ForwardWorks {
+  static constexpr int kPaired = 0, kHeadMajor = 1, kTileMajor = 2;
+  int n, n_pairs, H, n_hb, n_units, order, block, grid, u, step;
+  __host__ __device__ ForwardWorks(int n_, int H_, int B, int order_,
+                                   int block_, int grid_)
+      : n(n_), n_pairs((n_ + 1) / 2), H(H_), n_hb(H_ * B),
+        n_units(H_ * B * (order_ == kPaired ? (n_ + 1) / 2 : n_)),
+        order(order_), block(block_), grid(grid_), u(block_), step(0) {}
+  __host__ __device__ bool done() const { return u >= n_units; }
+  __host__ __device__ int tile() const {
+    if (order == kPaired) {
+      const int p = u % n_pairs;
+      return step == 0 ? n - 1 - p : p;
+    }
+    return n - 1 - (order == kTileMajor ? u / n_hb : u % n);
+  }
+  __host__ __device__ int head() const { return hb() % H; }
+  __host__ __device__ int batch() const { return hb() / H; }
+  __host__ __device__ void next() {
+    if (order == kPaired) {  // step: which tile of the pair
+      const int p = u % n_pairs;
+      if (step == 0 && p != n - 1 - p) {
+        step = 1;
+      } else {
+        step = 0;
+        u += grid;
+      }
+    } else {  // step: the round
+      ++step;
+      u = step * grid + (step % 2 ? grid - 1 - block : block);
+    }
+  }
+
+ private:
+  __host__ __device__ int hb() const {
+    return order == kPaired      ? u / n_pairs
+           : order == kTileMajor ? u % n_hb
+                                 : u / n;
+  }
+};
+
+// The kv tiles of ForwardWorks' busiest block in `order` on `grid` blocks
+// (tile t sees t + 1 kv tiles under the causal mask, n without it).  Host
+// side.
+inline long long busiest_block(int n, int H, int B, int order, int grid,
+                               bool causal) {
+  long long busiest = 0;
+  for (int block = 0; block < grid; ++block) {
+    long long load = 0;
+    for (ForwardWorks w(n, H, B, order, block, grid); !w.done(); w.next()) {
+      load += causal ? w.tile() + 1 : n;
+    }
+    if (load > busiest) busiest = load;
+  }
+  return busiest;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
