@@ -27,10 +27,16 @@ Phases, each printing a line:
    f32 against the CPU port (forward, 3 SGD steps), and one bf16 step past
    2048 tokens (the streamed pair); phase 2 holds every D = 256 kernel
    that this path launches at the path's own shapes and dtypes;
+   ``[philox]``: the counter-based generator (``csrc/philox.cu``) at
+   llama_7b's largest parameters, whole and as an fsdp=2 x tp=2 box at
+   non-zero offsets, bit-equal to its plain version on the card, the box
+   equal to its slice of the whole draw, timed beside its plain version,
+   ``Tensor.normal_`` / ``uniform_`` (a yardstick) and its bound;
 3. ``deferred_init`` Llama-7B on ``cuda`` (no bytes allocated); the
    in-place ``materialize_module`` timed as the comparison and freed; then
    a second recording through ``materialize_module_torch(model, seed=0)``
-   (per-node seeded generators; bytes, peak and time), one parameter alone
+   (its random fills drawn by the philox kernel, one launch a drawn
+   parameter; bytes, peak and time), one parameter alone
    bit-equal to the module's, distinct streams, the init's statistics, and
    the values loaded into the module by assignment;
 4. the 4 x 512 forward with ``attn_impl="auto"`` on those values, which
@@ -97,7 +103,13 @@ Phases, each printing a line:
    same state, whose loss at lr 0 is the default step's bit for bit), then
    the 2-layer reference run of phase 15 (a);
 15. ``[mesh ranks]``: 4 gloo processes sharing the card and 4 on the CPU:
-   (a) Llama-7B's widths at 2 layers under ``MeshSpec(fsdp=2, tp=2)``
+   (a) first ``llama.init_sharded`` of the full 32-layer Llama-7B on the
+   ranks' ``MeshSpec(fsdp=2, tp=2)`` mesh (each rank draws its own shards
+   only: its bytes its shards', its peak over them at most twice its
+   largest shard, every parameter replayed shard-local, the embedding and
+   a ``w_down`` bit-equal to their slices of an unsharded materialize on
+   the card; then freed), then Llama-7B's widths at 2 layers under
+   ``MeshSpec(fsdp=2, tp=2)``
    (the kernels on each rank's 2 rows and 16 of 32 heads, phase 2's
    ``mesh_rank_block`` rows) against phase 14's reference: losses, the
    first step's gradients and the parameters' change; (b) ``llama_test``
@@ -200,12 +212,15 @@ Phases, each printing a line:
 
 Fourteen main paths are driven, each with every launch count set to 0 just
 before it and read just after: the D = 256 path (end of phase 2), the
-forward path (phases 3 to 5: seeded materialize, forward, generate), the
+forward path (phases 3 to 5: seeded materialize, which launches the philox
+kernel, forward, generate; the philox count is read with the flash
+counts), the
 train path (phase 6, on the forward path's values), the fit path (phase 8),
 the SlowMo path (phase 10), the mesh path (phase 14, read around each of
 its steps, so that its single-device reference forwards and its 2-layer
 reference run are not counted), the mesh ranks' runs (phase 15 (a), (b)
-and (d), in each card rank), the SlowMo ranks' runs and the ep ranks'
+and (d), in each card rank; (a)'s init_sharded counts its philox
+launches), the SlowMo ranks' runs and the ep ranks'
 runs (in each card rank; their references are not counted), the pipeline
 path (phase 16, read around each
 of its steps; the pipeline ranks' runs in each card rank), the GPT-2 path
@@ -413,6 +428,48 @@ WIDE_PATH_SHAPES = {torch.float32: "d256_path_f32", torch.bfloat16: "d256_path_b
 MAT_SEED = 0
 MAT_SMALL_LAYERS = 2
 
+# [philox]: the counter-based generator (ops/cuda/philox.py) at llama_7b's
+# largest parameters (the embedding (32000, 4096), w_gate (11008, 4096) and
+# w_down (4096, 11008)), whole and as the last rank's fsdp=2 x tp=2 box (the
+# second half of both dims: non-zero offsets in each), each against its
+# plain version on the card.  Every kind must be bit-equal: raw words and
+# uniforms take the same integer steps and the same once-rounded products
+# and sums (the kernel's __fmul_rn / __fadd_rn cannot be contracted into
+# FMAs); normals too, since the kernel calls CUDA's precise logf / sqrtf /
+# cosf / sinf, which PyTorch's CUDA ops call (0 ulps apart in the first
+# run on an NVIDIA H100 80GB HBM3 with torch 2.11 + CUDA 12.8; each row
+# prints the largest distance in ulps of its dtype).  Each row also gives
+# the box drawn alone bit-equal to its slice of the whole draw on the card.
+# (name, kind, dtype, full shape, box offset or None for the whole tensor,
+# (a, b)): the normal of the model's init (std 0.02), the uniform of
+# nn.Linear's kaiming init (1 / sqrt(in)).
+PHILOX_KEY = 0x5EED_0000_0000_0007
+PHILOX_ROWS = [
+    ("embed_normal", "normal", torch.bfloat16, (32000, 4096), None, (0.0, 0.02)),
+    ("embed_normal_box", "normal", torch.bfloat16, (32000, 4096), (16000, 2048), (0.0, 0.02)),
+    ("w_gate_uniform", "uniform", torch.bfloat16, (11008, 4096), None, (-1 / 64, 1 / 64)),
+    ("w_down_uniform_box", "uniform", torch.bfloat16, (4096, 11008), (2048, 5504),
+     (-11008 ** -0.5, 11008 ** -0.5)),
+    ("embed_words_box", "words", torch.int32, (32000, 4096), (16000, 2048), (0.0, 0.0)),
+    ("w_down_normal_f32_box", "normal", torch.float32, (4096, 11008), (2048, 5504),
+     (0.0, 0.02)),
+    ("w_down_normal_f16_box", "normal", torch.float16, (4096, 11008), (2048, 5504),
+     (0.0, 0.02)),
+    ("w_down_normal_f64_box", "normal", torch.float64, (4096, 11008), (2048, 5504),
+     (0.0, 0.02)),
+]
+# The philox kernel's instances as the ptxas report names them.
+PHILOX_INSTANCE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+                   torch.float16: "__half", torch.float64: "double", torch.int32: "unsigned int"}
+PHILOX_KINDS = {"words": 0, "uniform": 1, "normal": 2}
+PHILOX_INSTANCES = ["philox_fill<unsigned int, (int)0>"] + [
+    f"philox_fill<{PHILOX_INSTANCE[dtype]}, (int){k}>" for k in (1, 2)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64)]
+# The row of the kernels line: the forward path's draw (phase 3) at its
+# largest parameter, and the mesh ranks' shard of it.
+PHILOX_MAIN_ROW = "embed_normal"
+PHILOX_RANK_ROW = "embed_normal_box"
+
 # [fit]: depth cut to FIT_LAYERS at Llama-7B's width, so that a checkpoint
 # (parameters and AdamW's two moments, bf16) is about 4 GB, not 40 GB.
 # FIT_STEPS steps of 4 x 512, a checkpoint every FIT_EVERY, FIT_KEEP kept;
@@ -607,8 +664,16 @@ EP_RANK_RUNS = {"a": {"ep": 4}, "b": {"fsdp": 2, "ep": 2}}
 # the parameters' change): about 4x the readings of a run on an H100 80GB
 # HBM3 at 700 W (a: 3.5e-2, 3.2e-3, 0.23; b: 5.2e-2, 8.8e-3, 0.24): bf16
 # expert GEMMs on a share's rows round otherwise than on the whole buffer,
-# and top-2 near-ties then route otherwise from the second step.
-EP_RANKS_BOUNDS = {"a": (0.14, 0.013, 0.92), "b": (0.2, 0.036, 0.96)}
+# and top-2 near-ties then route otherwise from the second step.  (b)'s
+# gradient bound was re-derived by the same rule when the seeded weights
+# became counter-based Philox draws: this seed's draw reads 6.4e-2 there
+# (layer 1's e_down, router and wq worst; the first loss already differs
+# by 2.5e-4, so a top-2 near-tie routes otherwise at the first step under
+# the fsdp batch split), while seeds 21 and 22 read 8.9e-3 and 9.3e-3, and
+# the earlier generators' draws 8.8e-3, 1.3e-2 and 8.9e-3 at seeds 15, 21
+# and 22 (scripts/torch_ep_ranks_fingerprints.py on copies of the tree with
+# EP_RANKS_SEED edited).
+EP_RANKS_BOUNDS = {"a": (0.14, 0.013, 0.92), "b": (0.2, 0.25, 0.96)}
 EP_RANKS_F32_STEPS = 3
 EP_RANKS_TIMEOUT_S = 400
 # The (B, S, Hq, Hkv, D) each run hands the kernel, and its phase-2 rows:
@@ -833,6 +898,11 @@ def phase_build():
             _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
                        and r["registers"] <= 255 for r in found.values()),
                    f"[build] f32 {label} instances spill or exceed 255 registers: {found}")
+    found = {name: _in_report(report, name) for name in PHILOX_INSTANCES}
+    print("[build] philox instances: " + json.dumps(found))
+    if "philox" in built:
+        _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
+                   for r in found.values()), f"[build] philox instances spill: {found}")
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -998,6 +1068,97 @@ def phase_bwd_kernels():
     return rows
 
 
+def _philox_box(full, offset):
+    """``(offset, size)`` of a PHILOX_ROWS box: the whole tensor, or from
+    ``offset`` to the end of every dim."""
+    if offset is None:
+        return [0] * len(full), list(full)
+    return list(offset), [n - o for n, o in zip(full, offset)]
+
+
+def _ulps(got, want):
+    """Per-element distance of ``got`` from ``want`` in ulps of their dtype."""
+    bits = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24, torch.float64: 53}
+    w = want.double()
+    _, exp = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), exp - bits[want.dtype])
+    return (got.double() - w).abs() / ulp
+
+
+def phase_philox():
+    """Each PHILOX_ROWS row: the kernel bit-equal to its plain version on
+    the card, one launch a call, the same bits twice, the box equal to its slice of
+    the whole draw, and the times: the kernel's, the plain version's,
+    ``Tensor.normal_`` / ``uniform_`` at the same size (a yardstick only:
+    not the same function) and the bound (the bytes written at
+    PEAK_BYTES_PER_S)."""
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    fills = {"normal": philox.normal_, "uniform": philox.uniform_,
+             "words": lambda out, key, a, b, **box: philox.words_(out, key, **box)}
+    rows = []
+    for name, kind, dtype, full, offset, (a, b) in PHILOX_ROWS:
+        off, size = _philox_box(full, offset)
+        out = torch.empty(size, dtype=dtype, device="cuda")
+
+        def run(out=out, kind=kind, a=a, b=b, full=full, off=off):
+            return fills[kind](out, PHILOX_KEY, a, b, full_shape=full, offset=off)
+
+        def plain(out=out, kind=kind, a=a, b=b, full=full, off=off):
+            return philox.fill_plain(torch.empty_like(out), kind, PHILOX_KEY, a, b,
+                                     full_shape=full, offset=off)
+
+        before = philox.launches
+        got = run().clone()
+        torch.cuda.synchronize()
+        _check(philox.launches - before == 1, f"[philox] {name}: {philox.launches - before} "
+               "launches for one call")
+        again = run()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        _check(same, f"[philox] {name}: two calls gave different bits")
+        want = plain()
+        equal = torch.equal(got, want)
+        n_unequal = int((got != want).sum())
+        max_ulp = _ulps(got, want).max().item() if kind != "words" else 0.0
+        _check(equal, f"[philox] {name}: {n_unequal} elements differ from the plain version "
+               f"(at most {max_ulp} ulps)")
+        err = (got.double() - want.double()).abs().max().item()
+        _check(bool(torch.isfinite(got.double()).all()), f"[philox] {name}: non-finite")
+        del want
+        if offset is not None:  # the box alone against its slice of the whole
+            whole = fills[kind](torch.empty(full, dtype=dtype, device="cuda"), PHILOX_KEY,
+                                a, b, full_shape=full, offset=[0] * len(full))
+            piece = whole[tuple(slice(o, o + n) for o, n in zip(off, size))]
+            _check(torch.equal(got, piece), f"[philox] {name}: the box differs from its "
+                   "slice of the whole draw")
+            del whole, piece
+        library = None
+        if kind != "words":
+            lib = torch.empty(size, dtype=dtype, device="cuda")
+            library = ((lambda: lib.normal_(a, b)) if kind == "normal"
+                       else (lambda: lib.uniform_(a, b)))
+        nbytes = got.numel() * got.element_size()
+        row = {
+            "shape": name, "kind": kind, "dtype": str(dtype).replace("torch.", ""),
+            "full_shape": list(full), "offset": off, "size": size,
+            "instance": f"philox_fill<{PHILOX_INSTANCE[dtype]}, (int){PHILOX_KINDS[kind]}>",
+            "max_abs_err": err, "max_ulp": max_ulp, "n_unequal": n_unequal,
+            "bit_equal": equal, "same_bits_twice": same, "box_equals_slice": True,
+            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            # By events only, and the plain version (0.04-1.2 s a call,
+            # warm from the comparison above) once: the script's time.
+            "ms": _time_ms(run),
+            "plain_ms": _time_ms(plain, warmup=0, reps=1, calls=1),
+            "library_ms": _time_ms(library) if library else None,
+        }
+        print("[philox] " + json.dumps(row))
+        rows.append(row)
+        del got, again, out, library
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_deferred_init(cfg):
     """deferred_init Llama-7B on the card (no bytes), the in-place
     ``materialize_module`` timed as the comparison and freed, then the path:
@@ -1015,6 +1176,7 @@ def phase_deferred_init(cfg):
         materialize_tensor_torch,
     )
     from torchdistx_tpu_torch.models.llama import Llama, num_params
+    from torchdistx_tpu_torch.ops.cuda import philox
 
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -1046,12 +1208,19 @@ def phase_deferred_init(cfg):
     _check(all(is_deferred(p) for p in params), "a parameter is not deferred")
     _check(sum(p.numel() for p in params) == n, "parameter count")
     largest = max(p.numel() * p.element_size() for p in params)
+    drawn = sum(1 for name, _ in model.named_parameters() if not name.endswith("norm.weight"))
     del params
     torch.cuda.reset_peak_memory_stats()
+    before_launches = philox.launches
     t0 = time.perf_counter()
     values = materialize_module_torch(model, seed=MAT_SEED)
     torch.cuda.synchronize()
     mat_s = time.perf_counter() - t0
+    mat_launches = philox.launches - before_launches
+    # One draw a drawn parameter: nn.Linear's kaiming uniform_ is overwritten
+    # by the model's normal_ before anything reads it, so it is not drawn.
+    _check(mat_launches == drawn, f"materialize_module_torch launched philox {mat_launches} "
+           f"times for {drawn} drawn parameters")
     allocated = torch.cuda.memory_allocated() - before
     peak = torch.cuda.max_memory_allocated() - before
     _check(abs(allocated - want) <= 0.01 * want,
@@ -1087,12 +1256,14 @@ def phase_deferred_init(cfg):
            "a parameter was not loaded on the card")
     print(f"[deferred_init] llama_7b: {n} params, bytes after record {recorded}; in-place "
           f"materialize_module (the comparison) {inplace_s:.3f} s; "
-          f"materialize_module_torch(seed={MAT_SEED}) {mat_s:.3f} s, bytes {allocated} "
+          f"materialize_module_torch(seed={MAT_SEED}) {mat_s:.3f} s with {mat_launches} philox "
+          f"launches ({drawn} drawn parameters), bytes {allocated} "
           f"(2 x params = {want}), peak {peak} (<= + largest {largest}); {last} alone "
           f"bit-equal; std wq {stds['wq']:.6f} (0.02), wo {stds['wo']:.6f} ({resid:.6f}); "
           f"norms 1; loaded by assignment; record {record_s:.3f} s")
     return model, {"record_s": record_s, "materialize_s": inplace_s,
-                   "seeded_materialize_s": mat_s, "bytes_recorded": recorded,
+                   "seeded_materialize_s": mat_s,
+                   "seeded_materialize_philox_launches": mat_launches, "bytes_recorded": recorded,
                    "bytes_materialized": allocated, "peak_bytes": peak,
                    "largest_param_bytes": largest, "std": stds}
 
@@ -2572,6 +2743,79 @@ def _rank_f32(device, spec, kw):
                                          for n, p in state.model.named_parameters()}}
 
 
+def _rank_init_sharded(mesh):
+    """[mesh ranks] (a)'s shard-then-materialize: ``llama.init_sharded`` of
+    the full llama_7b on ``mesh``: seconds, bytes, peak and philox launches;
+    the bytes this rank's values hold exactly its shards' (the allocator's
+    count within its rounding of at most 1 MiB a block), the peak over them
+    at most 2 x the largest shard, every parameter replayed on its shard
+    (``materialize.shard_local``, no ``materialize.full_replays``), and the
+    embedding and the last ``w_down`` bit-equal to their slices of an
+    unsharded ``materialize_tensor_torch`` on this card (no collective: gloo
+    on CUDA tensors is fragile).  Everything is freed before returning."""
+    from torchdistx_tpu_torch import telemetry
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import _shard_box, materialize_tensor_torch
+    from torchdistx_tpu_torch.models.llama import Llama, init_sharded, llama_7b
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    cfg = llama_7b()
+    _free()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    counted = telemetry.counters()
+    launches = philox.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_sharded(MESH_RANKS_SEED, cfg, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = philox.launches - launches
+    allocated = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    moved = {k: v - counted.get(k, 0) for k, v in telemetry.counters().items()
+             if k.startswith(("materialize.shard_local", "materialize.full_replays"))
+             and v != counted.get(k, 0)}
+    params = dict(model.named_parameters())
+    locals_ = [p.to_local() for p in params.values()]
+    shard_bytes = sum(t.numel() * t.element_size() for t in locals_)
+    held = sum(t.untyped_storage().nbytes() for t in locals_)
+    largest = max(t.numel() * t.element_size() for t in locals_)
+    del locals_
+    # The values hold exactly their shards' bytes; the allocator counts each
+    # block rounded up by at most 1 MiB (a large block's tail under 1 MiB
+    # is not split off: 0.5 MiB for each of llama_7b's 96 MLP shards of
+    # 21.5 MiB, 1.5 % of a rank's 3.37 GB).
+    _check(held == shard_bytes, f"init_sharded: the values hold {held} bytes, "
+           f"their shards {shard_bytes}")
+    _check(shard_bytes <= allocated <= shard_bytes + len(params) * 2**20,
+           f"init_sharded: the allocator counts {allocated} bytes for {shard_bytes} in "
+           f"{len(params)} shards")
+    _check(peak - allocated <= 2 * largest,
+           f"init_sharded: peak {peak} over the values {allocated} > 2 x largest shard {largest}")
+    _check(moved == {"materialize.shard_local": len(params)},
+           f"init_sharded: counters {moved} for {len(params)} parameters")
+    fakes = deferred_init(Llama, cfg, device="cuda")
+    checked = ("embed.weight", f"layers.{cfg.n_layers - 1}.w_down.weight")
+    for name in checked:
+        p = params[name]
+        whole = materialize_tensor_torch(fakes.get_parameter(name), seed=MESH_RANKS_SEED)
+        off, size = _shard_box(tuple(whole.shape), mesh, p.placements)
+        piece = whole[tuple(slice(o, o + n) for o, n in zip(off, size))]
+        _check(torch.equal(p.to_local(), piece), f"init_sharded: {name} differs from its "
+               "slice of the unsharded materialize")
+        del whole, piece
+    stats = {"s": secs, "bytes": allocated, "shard_bytes": shard_bytes, "held_bytes": held,
+             "peak_bytes": peak,
+             "peak_over_values": peak - allocated, "largest_shard_bytes": largest,
+             "philox_launches": launches, "counters": moved, "n_params": len(params),
+             "bit_equal_to_unsharded": list(checked)}
+    del model, params, fakes, p
+    _free()
+    _check(torch.cuda.memory_allocated() == before, "init_sharded: memory not freed")
+    return stats
+
+
 def _rank_llama7b_width(fa, rank):
     """[mesh ranks] (a): llama_7b's widths at MESH_RANKS_LAYERS layers, bf16,
     MeshSpec(fsdp=2, tp=2): the steps' losses, times and launches, the
@@ -2584,6 +2828,7 @@ def _rank_llama7b_width(fa, rank):
 
     cfg = dataclasses.replace(llama_7b(), n_layers=MESH_RANKS_LAYERS)
     mesh = make_mesh(MeshSpec(fsdp=2, tp=2), device_type="cuda")
+    sharded = _rank_init_sharded(mesh)
     init_fn, step_fn = make_train_step(cfg, _mesh_tx, mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     state = init_fn(MESH_RANKS_SEED)
@@ -2599,6 +2844,7 @@ def _rank_llama7b_width(fa, rank):
             "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held,
             "placed_by_plan": placed and _placed_by_plan(state.model, mesh, state.optimizer),
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "init_sharded": sharded,
             "fingerprints": {"grads": grads, "change": change} if rank == 0 else None}
 
 
@@ -2719,6 +2965,20 @@ def phase_mesh_ranks(mesh_stats):
     _check(all(r["d_kernel_blocks"] == [MESH_RANK_BLOCKS["b"][0]] for r in got["cuda"]),
            f"(d): the kernel saw (B, S, Hq, Hkv, D) {got['cuda'][0]['d_kernel_blocks']}")
     _check(not any(got["cpu"][0]["d_launches"].values()), "a CPU rank launched a kernel")
+    # (a)'s init_sharded of the full llama_7b, before its steps.
+    inits = [r["init_sharded"] for r in a]
+    full_cfg = llama_7b()
+    drawn = full_cfg.n_layers * 7 + 2  # every parameter but the norms: one draw each
+    for rank, r in enumerate(inits):
+        _check(r["philox_launches"] == drawn,
+               f"(a) rank {rank}: init_sharded launched philox {r['philox_launches']} times "
+               f"for {drawn} drawn parameters")
+    print("[mesh ranks] (a) init_sharded(llama_7b, fsdp=2 x tp=2), by rank: " + json.dumps(
+        [{k: r[k] for k in ("s", "bytes", "shard_bytes", "held_bytes", "peak_bytes",
+                            "peak_over_values", "largest_shard_bytes", "philox_launches",
+                            "counters")}
+         for r in inits]) + f"; of {2 * num_params(full_cfg)} bytes in all; the embedding and "
+          f"the last w_down bit-equal to their unsharded slices on every rank")
     # Each run's launches over the 4 card ranks, for the kernels line.
     launches = {key: {k: sum(r[field][k] for r in rs) for k in want_a}
                 for key, field, rs in (("a", "launches", a), ("b", "b_launches", got["cuda"]),
@@ -2732,6 +2992,8 @@ def phase_mesh_ranks(mesh_stats):
              "a_held_param_bytes_per_rank": a[0]["held_param_bytes"],
              "a_total_param_bytes": total,
              "a_peak_allocated_bytes_by_rank": [r["peak_allocated_bytes"] for r in a],
+             "a_init_sharded_by_rank": inits,
+             "a_init_sharded_philox_launches": sum(r["philox_launches"] for r in inits),
              "f32": errs, "b_launches_card_rank0": b_launches, "wall_s": wall_s}
     print(f"[mesh ranks] 4 gloo ranks on the card: (a) llama_7b widths x {cfg.n_layers} "
           f"layers, bf16, fsdp=2 x tp=2, {MESH_RANKS_SHAPE[0]}x{MESH_RANKS_SHAPE[1]}: losses "
@@ -6033,6 +6295,33 @@ def _mesh_rank_entries(rows, bwd_rows, launches):
                                        f"mesh_ranks_{key}", launches[key])]
 
 
+# The philox kernel replaces no Pallas kernel: the JAX package's counterpart
+# is the threefry RNG that XLA partitions inside its sharded init program.
+PHILOX_REPLACES = ("none: no TPU kernel; its counterpart is the JAX package's partitioned "
+                   "threefry RNG, torchdistx_tpu/materialize.py:1041")
+
+
+def _philox_entries(rows, forward_launches, rank_launches):
+    """The kernels line's philox entries: the forward path's draw at
+    PHILOX_MAIN_ROW, and [mesh ranks] (a)'s init_sharded over the 4 card
+    ranks at PHILOX_RANK_ROW (the embedding's shard)."""
+    by_name = {r["shape"]: r for r in rows}
+    entries = []
+    for label, row, launches in (("philox", PHILOX_MAIN_ROW, {"forward": forward_launches}),
+                                 ("philox (mesh ranks (a) shard)", PHILOX_RANK_ROW,
+                                  {"mesh_ranks_a": rank_launches})):
+        r = by_name[row]
+        entries.append({
+            "name": label, "route": "cuda",
+            "source": "torchdistx_tpu_torch/ops/cuda/csrc/philox.cu",
+            "instance": r["instance"], "replaces": PHILOX_REPLACES,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -6053,11 +6342,13 @@ def main() -> int:
 
     from torchdistx_tpu_torch.models.llama import llama_7b
     from torchdistx_tpu_torch.ops.cuda import flash_attention as fa
+    from torchdistx_tpu_torch.ops.cuda import philox
 
     ptxas = phase_build()
     lap("build")
     rows = phase_kernels()
     bwd_rows = phase_bwd_kernels()
+    philox_rows = phase_philox()
     if ptxas:  # every row's instance is one that the build compiled
         missing = sorted({r["instance"] for r in rows + bwd_rows
                           if _in_report(ptxas, r["instance"]) is None})
@@ -6075,14 +6366,17 @@ def main() -> int:
 
     cfg = llama_7b()
     _reset_counts(fa)  # the forward path starts here
+    philox.launches = 0
     model, init_stats = phase_deferred_init(cfg)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=gen, device="cuda")
     logits, first_ms = phase_forward(model, tokens, fa)
     gen_stats = phase_generate(model, tokens)
     fwd_launches = _counts(fa)  # the forward path ends here
+    fwd_philox = philox.launches
     _check(fwd_launches["flash_fwd"] > 0, "flash_fwd was not launched on the forward path")
-    print(f"[forward path] launches: {json.dumps(fwd_launches)}")
+    _check(fwd_philox > 0, "philox was not launched on the forward path")
+    print(f"[forward path] launches: {json.dumps({**fwd_launches, 'philox': fwd_philox})}")
 
     fwd_stats = check_forward_against_f32(model, tokens, logits)
     fwd_peak = torch.cuda.max_memory_allocated()
@@ -6219,7 +6513,8 @@ def main() -> int:
         "wide_llama": wide_stats, "materialize_gates": mat_gate_stats,
         "slowmo": slowmo_stats, "slowmo_replicas": replica_stats, "mesh": mesh_stats,
         "pipeline": pipe_stats, "resnet": resnet_stats, "gpt2": gpt2_stats,
-        "moe": moe_stats, "serve": serve_stats, "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
+        "moe": moe_stats, "serve": serve_stats, "philox": philox_rows,
+        "ptxas_d512": {k: v for k, v in ptxas.items() if "(int)512" in k},
         "ptxas_d256_wgmma": {n: _in_report(ptxas, n) for n in D256_WGMMA.values()},
         "ptxas_d512_wgmma": {n: _in_report(ptxas, n) for n in D512_WGMMA.values()},
         "phase_s": phase_s, "script_s": time.perf_counter() - t_start,
@@ -6241,6 +6536,8 @@ def main() -> int:
                                ep_launches["b"])
                + _slowmo_rank_entries(rows, bwd_rows,
                                       replica_stats["ranks"]["launches_all_ranks"]))
+    entries += _philox_entries(philox_rows, fwd_philox,
+                               mesh_stats["ranks"]["a_init_sharded_philox_launches"])
     print(json.dumps({"kernels": entries}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,36 @@ case's model with ``deferred_init``, materializes it on the mesh with the
 case's plan and unsharded on the CPU, and checks, for every parameter, that
 this rank's local shard is bit-equal to its slice of the unsharded value
 and that the gathered ``full_tensor()`` is the unsharded value (and that one
-tensor materialized alone on the mesh is replicated and equal to it).  Writes
-``{"mesh": [...], "params": {name: {"placements": [...], "local_shape":
-[...]}}}`` to ``out_json`` for the parent to hold against JAX's specs.
+tensor materialized alone on the mesh is replicated and equal to it).
+
+Then, on the same mesh, the shard-local replay: ``llama.init_sharded`` of
+``init_sharded_cfg()`` and ``gpt2_test`` / ``moe_test`` under their
+``param_specs``, each shard bit-equal to its slice of the unsharded
+materialization and every parameter counted under
+``materialize.shard_local``; each of the Llama's parameters materialized
+alone under the profiler, no tensor allocated larger than its shard; and an
+``nn.Embedding`` with ``padding_idx`` (its row write is a view of part of
+the weight), counted under ``materialize.full_replays`` and still bit-equal
+to its slice.  Writes ``{"mesh": [...], "params": {name: {"placements":
+[...], "local_shape": [...]}}, "init_sharded": {name: [...]}, "counts":
+{...}}`` to ``out_json`` for the parent to hold against JAX's specs.
 """
 
 import json
 import sys
 
 SEED = 7
+# init_sharded's Llama: llama_test with a vocabulary that no mesh axis
+# divides, so the embedding and the head replicate that dim.
+INIT_SHARDED_VOCAB = 255
+
+
+def init_sharded_cfg():
+    import dataclasses
+
+    from torchdistx_tpu_torch.models.llama import llama_test
+
+    return dataclasses.replace(llama_test(), vocab_size=INIT_SHARDED_VOCAB)
 
 
 def _case(case):
@@ -104,10 +125,119 @@ def main() -> None:
         one = materialize_tensor_torch(fake, mesh=mesh, seed=SEED)
         assert set(placement_names(one.placements)) == {"R"}, name
         assert torch.equal(one.to_local(), full[name]), name
+        placed, counts = _shard_local(mesh)
         with open(out_json, "w") as f:
-            json.dump({"mesh": list(mesh.mesh_dim_names), "params": report}, f)
+            json.dump({"mesh": list(mesh.mesh_dim_names), "params": report,
+                       "init_sharded": placed, "counts": counts}, f)
     finally:
         dist.destroy_process_group()
+
+
+def _counted(fn):
+    """``fn()`` and the ``materialize.*`` counters it moved."""
+    from torchdistx_tpu_torch import telemetry
+
+    before = telemetry.counters()
+    out = fn()
+    moved = {k: v - before.get(k, 0) for k, v in telemetry.counters().items()
+             if k.startswith("materialize.") and k != "materialize.calls"
+             and v != before.get(k, 0)}
+    return out, moved
+
+
+def _assert_slices(values, full):
+    """Every DTensor in ``values`` holds this rank's slice of ``full``."""
+    import torch
+
+    assert list(values) == list(full)
+    for name, dt in values.items():
+        local, piece = dt.to_local(), full[name]
+        for d, (start, size) in enumerate(zip(_offsets(dt), local.shape)):
+            piece = piece.narrow(d, start, size)
+        assert torch.equal(local, piece), name
+
+
+def _largest_allocation(fn):
+    """The largest tensor allocation (bytes) that ``fn()`` makes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        fn()
+    return max([e.cpu_memory_usage for e in prof.events() if e.cpu_memory_usage > 0],
+               default=0)
+
+
+def _shard_local(mesh):
+    """The shard-local replay's checks on ``mesh`` (see the module
+    docstring): ``(init_sharded's placements, the counters each part
+    moved)``."""
+    import torch
+    import torch.nn as nn
+    from torch.distributed.tensor import DTensor
+
+    from torchdistx_tpu_torch.deferred_init import deferred_init
+    from torchdistx_tpu_torch.materialize import (
+        materialize_module_torch,
+        materialize_tensor_torch,
+    )
+    from torchdistx_tpu_torch.models import gpt2, llama, moe
+    from torchdistx_tpu_torch.parallel.sharding import (
+        PartitionSpec,
+        fit_spec_to_mesh,
+        replicate_indivisible,
+    )
+
+    counts = {}
+    cfg = init_sharded_cfg()
+    model, counts["init_sharded"] = _counted(lambda: llama.init_sharded(SEED, cfg, mesh))
+    values = dict(model.named_parameters())
+    assert all(isinstance(p, DTensor) and p.device_mesh is mesh for p in values.values())
+    fakes = deferred_init(llama.Llama, cfg, device="cpu")
+    full = materialize_module_torch(fakes, seed=SEED, device="cpu")
+    _assert_slices(values, full)
+    placed = {name: placement_names(p.placements) for name, p in values.items()}
+    # Each parameter alone: no allocation larger than this rank's shard.
+    specs = llama.param_specs(cfg)
+    over = {}
+    for name, fake in fakes.named_parameters():
+        spec = replicate_indivisible(fit_spec_to_mesh(specs[name], mesh), tuple(fake.shape),
+                                     mesh)
+        shard = values[name].to_local()
+        largest = _largest_allocation(
+            lambda: materialize_tensor_torch(fake, mesh=mesh, spec=spec, seed=SEED))
+        if largest > shard.numel() * shard.element_size():
+            over[name] = (largest, shard.numel() * shard.element_size())
+    assert not over, f"allocations larger than the shard: {over}"
+    del model, values, full
+    for family, cls, fcfg in (("gpt2", gpt2.GPT2, gpt2.gpt2_test()),
+                              ("moe", moe.MoE, moe.moe_test())):
+        fakes = deferred_init(cls, fcfg, device="cpu")
+        values, counts[family] = _counted(lambda: materialize_module_torch(
+            fakes, mesh=mesh, plan=family_specs(family, fcfg), seed=SEED))
+        _assert_slices(values, materialize_module_torch(fakes, seed=SEED, device="cpu"))
+    # A row of the embedding written through a view: replayed whole.
+    class Padded(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(64, 16, padding_idx=0)
+            self.proj = nn.Linear(16, 8)
+
+    axis = mesh.mesh_dim_names[0]
+    fakes = deferred_init(Padded)
+    values, counts["padded"] = _counted(lambda: materialize_module_torch(
+        fakes, mesh=mesh, plan={"emb.weight": PartitionSpec(axis)}, seed=SEED))
+    full = materialize_module_torch(fakes, seed=SEED, device="cpu")
+    _assert_slices(values, full)
+    assert not full["emb.weight"][0].any() and full["emb.weight"][1:].std() > 0.5
+    assert isinstance(values["emb.weight"], DTensor) and torch.equal(
+        values["emb.weight"].full_tensor(), full["emb.weight"])
+    return placed, counts
+
+
+def family_specs(family, cfg):
+    from torchdistx_tpu_torch.models import gpt2, moe
+
+    return {"gpt2": gpt2, "moe": moe}[family].param_specs(cfg)
 
 
 def _too_big(spec):

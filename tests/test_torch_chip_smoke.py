@@ -1258,3 +1258,83 @@ def test_drill_check_runs_the_drills_in_children_on_the_cpu():
     assert "chunk 6" in out["scripts/torch_incident_replay.py --drill"]["last"]
     assert "chunk 6" in out["scripts/torch_incident_replay.py --journal-drill"]["last"]
     assert "scripts/trace_report.py --strict" in out
+
+
+class _RankMesh:
+    """The coordinate and shape of one rank of a 2 x 2 mesh, as
+    ``materialize._shard_box`` reads them."""
+
+    shape = (2, 2)
+
+    def __init__(self, coord):
+        self.coord = coord
+
+    def get_coordinate(self):
+        return list(self.coord)
+
+
+def test_philox_rows_are_llama_7b_parameters_and_the_last_ranks_boxes():
+    from torchdistx_tpu_torch.materialize import _shard_box
+    from torchdistx_tpu_torch.models import llama
+    from torchdistx_tpu_torch.parallel import MeshSpec
+    from torchdistx_tpu_torch.parallel.sharding import spec_placements
+
+    cfg = llama.llama_7b()
+    specs = llama.param_specs(cfg)
+    shapes = {"embed": ((cfg.vocab_size, cfg.dim), specs["embed.weight"]),
+              "w_gate": ((cfg.ffn_dim, cfg.dim), specs["layers.0.w_gate.weight"]),
+              "w_down": ((cfg.dim, cfg.ffn_dim), specs["layers.0.w_down.weight"])}
+    mesh = MeshSpec(fsdp=2, tp=2)
+    for name, kind, dtype, full, offset, (a, b) in chip_smoke.PHILOX_ROWS:
+        shape, spec = shapes[name.split("_")[0] if name.startswith("embed") else
+                             "_".join(name.split("_")[:2])]
+        assert full == shape, name
+        if offset is not None:  # the last rank's (1, 1) box
+            off, size = _shard_box(full, _RankMesh((1, 1)), spec_placements(spec, mesh, 2))
+            assert chip_smoke._philox_box(full, offset) == (off, size), name
+            assert all(o > 0 for o in off), name
+        if kind == "uniform":  # nn.Linear's kaiming bound, 1 / sqrt(in)
+            assert (a, b) == pytest.approx((-full[1] ** -0.5, full[1] ** -0.5)), name
+    rows = {r[0]: r for r in chip_smoke.PHILOX_ROWS}
+    assert rows[chip_smoke.PHILOX_MAIN_ROW][4] is None  # the forward path's whole draw
+    assert rows[chip_smoke.PHILOX_RANK_ROW][4] is not None
+
+
+def test_philox_bound_is_the_bytes_written():
+    # The embedding in bf16: 32000 x 4096 x 2 bytes at 3.35 TB/s.
+    assert 32000 * 4096 * 2 / chip_smoke.PEAK_BYTES_PER_S * 1e3 == pytest.approx(0.078248,
+                                                                                rel=1e-4)
+
+
+def test_ulps_of_the_stored_dtype():
+    # bf16 holds 8 significant bits: 1 + 2^-7 is one ulp above 1.
+    want = torch.tensor([1.0, -3.0, 0.02], dtype=torch.bfloat16)
+    got = torch.tensor([1.0078125, -3.0, want[2].item()], dtype=torch.bfloat16)
+    assert chip_smoke._ulps(got, want).tolist() == [1.0, 0.0, 0.0]
+    w32 = torch.tensor([0.5, 1e-3])
+    assert chip_smoke._ulps(torch.nextafter(w32, torch.ones(2)), w32).tolist() == [1.0, 1.0]
+
+
+def test_philox_instances_are_found_in_a_ptxas_report():
+    report = {f"tdx_philox::{name}": {"registers": 40, "spill_stores": 0, "spill_loads": 0}
+              for name in chip_smoke.PHILOX_INSTANCES}
+    assert len(chip_smoke.PHILOX_INSTANCES) == 9
+    assert all(chip_smoke._in_report(report, n) for n in chip_smoke.PHILOX_INSTANCES)
+    # Each row's instance is one the build compiles.
+    for name, kind, dtype, *_ in chip_smoke.PHILOX_ROWS:
+        inst = (f"philox_fill<{chip_smoke.PHILOX_INSTANCE[dtype]}, "
+                f"(int){chip_smoke.PHILOX_KINDS[kind]}>")
+        assert inst in chip_smoke.PHILOX_INSTANCES, name
+
+
+def test_philox_entries_take_the_rows():
+    rows = [{"shape": name, "instance": "philox_fill<__nv_bfloat16, (int)2>",
+             "max_abs_err": 0.0, "ms": 1.0, "plain_ms": 9.0, "bound_ms": 0.08,
+             "bound_by": "bytes", "library_ms": 0.5} for name, *_ in chip_smoke.PHILOX_ROWS]
+    entries = chip_smoke._philox_entries(rows, 227, 904)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(e) for e in entries)
+    assert [e["launches"] for e in entries] == [227, 904]
+    assert entries[0]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/philox.cu"
+    assert all(e["route"] == "cuda" for e in entries)

@@ -993,3 +993,39 @@ def test_model_pool_eviction_drops_its_graph_and_bytes(cuda):
     assert again == first
     assert telemetry.counter("serve.graph_captures").value - captures == 2
     eng.close()
+
+
+# The counter-based generator (ops/cuda/philox.py): boxes of 1-4 dims at
+# ragged offsets, every dtype and kind, bit-equal to the plain version on
+# the card (no FMA contraction in the kernel, and CUDA's precise libm, which
+# PyTorch's CUDA ops call too), and each box equal to its slice of the
+# whole draw.
+PHILOX_BOXES = [((1001,), (3,), (517,)), ((37, 29), (5, 7), (19, 13)),
+                ((6, 11, 13), (1, 4, 3), (4, 5, 9)), ((3, 5, 7, 9), (1, 2, 1, 5), (2, 3, 5, 3)),
+                ((300, 70000), (1, 3), (299, 69990))]
+
+
+@pytest.mark.parametrize("full, offset, size", PHILOX_BOXES,
+                         ids=["1d", "2d", "3d", "4d", "wide_rows"])
+@pytest.mark.parametrize(
+    "kind, dtype",
+    [(kind, dtype) for kind in ("normal", "uniform")
+     for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64)]
+    + [("words", torch.int32)], ids=str)
+def test_philox_matches_plain(cuda, kind, dtype, full, offset, size):
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    key, a, b = 0x0123456789ABCDEF, -0.25, 1.5
+    fill = {"normal": philox.normal_, "uniform": philox.uniform_,
+            "words": lambda out, key, a, b, **kw: philox.words_(out, key, **kw)}[kind]
+    n0 = philox.launches
+    got = fill(torch.empty(size, dtype=dtype, device=cuda), key, a, b, full_shape=full,
+               offset=offset)
+    torch.cuda.synchronize()
+    assert philox.launches == n0 + 1
+    want = philox.fill_plain(torch.empty(size, dtype=dtype, device=cuda), kind, key, a, b,
+                             full_shape=full, offset=offset)
+    assert torch.equal(got, want)
+    whole = fill(torch.empty(full, dtype=dtype, device=cuda), key, a, b)
+    piece = whole[tuple(slice(o, o + n) for o, n in zip(offset, size))]
+    assert torch.equal(got, piece)

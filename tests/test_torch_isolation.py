@@ -74,7 +74,7 @@ def test_walk_finds_every_module():
     names = {m.name for m in pkgutil.walk_packages(
         torchdistx_tpu_torch.__path__, "torchdistx_tpu_torch.")}
     for want in ("_device", "_tape", "fake", "deferred_init", "ops.attention",
-                 "ops.cuda._build", "ops.cuda.flash_attention", "models.llama",
+                 "ops.cuda._build", "ops.cuda.flash_attention", "ops.cuda.philox", "models.llama",
                  "models.convert", "models.generate", "parallel.train_step",
                  "resilience.guard", "telemetry", "telemetry._core",
                  "resilience.retry", "resilience.faults", "resilience.preemption",

@@ -4,7 +4,7 @@
 
 Deterministic tapes (no random op) are held exactly against JAX: the same
 recorded ops give the same values.  Random draws differ by design (threefry
-in JAX, mt19937 or Philox here), so where values come from an RNG the tests
+in JAX, a counter-based Philox here), so where values come from an RNG the tests
 hold statistics and properties: order independence, reproducibility across
 recordings, distinct streams.  The slice as a whole (``llama_test``
 recorded, materialized by the port, forward and one SGD step) is held
@@ -364,3 +364,63 @@ def test_placements_follow_the_mesh_order():
     assert _placements(PartitionSpec(), mesh, 2) == [Replicate()] * 3
     with pytest.raises(ValueError, match="out of the mesh's order"):
         _placements(PartitionSpec(("tp", "fsdp")), mesh, 1)
+
+
+class _Mixed(nn.Module):
+    """A parameter or buffer for each way a recording replays: chains of
+    whole-tensor creates, scalar elementwise ops, casts and aliases; and
+    one for each reason a target replays whole."""
+
+    def __init__(self):
+        super().__init__()
+        self.scaled = nn.Parameter(torch.randn(6, 10) * 0.1)  # out of place by a scalar
+        self.cast = nn.Parameter(torch.rand(5, dtype=torch.float64).to(torch.float32))
+        self.filled = nn.Parameter(torch.empty(4, 4).uniform_(-1, 1).mul_(2).clamp_(-1, 1))
+        self.emb = nn.Embedding(12, 4, padding_idx=0)  # a row written through a view
+        self.register_buffer("steps", torch.arange(5.0))  # not a whole-tensor create
+        self.register_buffer("ids", torch.randint(0, 9, (7,)))  # another random op
+        self.register_buffer("strided", torch.empty(2, 3, 4, 5,
+                                                    memory_format=torch.channels_last).fill_(1))
+
+
+def test_targets_replay_on_their_box_or_are_counted_by_reason():
+    telemetry.reset()
+    m = tdi.deferred_init(_Mixed)
+    out = materialize_module_torch(m, seed=3, **CPU)
+    counts = {k: v for k, v in telemetry.counters().items()
+              if k.startswith(("materialize.shard_local", "materialize.full_replays"))
+              and v}
+    assert counts == {"materialize.shard_local": 3,
+                      "materialize.full_replays{reason=view}": 1,
+                      "materialize.full_replays{reason=source}": 1,
+                      "materialize.full_replays{reason=random_op}": 1,
+                      "materialize.full_replays{reason=layout}": 1}
+    # The chains' values: the statistics of what they recorded.
+    assert abs(out["scaled"].std().item() / 0.1 - 1) < 0.35
+    assert out["cast"].dtype == torch.float32 and 0 <= out["cast"].min() <= out["cast"].max() < 1
+    assert out["filled"].abs().max() <= 1 and (out["filled"].abs() == 1).any()
+    assert not out["emb.weight"][0].any() and out["emb.weight"][1:].std() > 0.5
+    assert torch.equal(out["steps"], torch.arange(5.0)) and bool((out["strided"] == 1).all())
+    again = materialize_module_torch(m, seed=3, **CPU)
+    assert all(torch.equal(out[k], again[k]) for k in out)
+
+
+def test_a_fill_overwritten_unread_is_not_drawn(monkeypatch):
+    # Each Linear of the Llama records nn.Linear's kaiming uniform_ and then
+    # the model's normal_; the embedding two normal_: one draw each, none
+    # for the norms' ones.
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    drawn = []
+    fill = philox.fill_plain
+
+    def counted(out, kind, *args, **kwargs):
+        drawn.append(kind)
+        return fill(out, kind, *args, **kwargs)
+
+    monkeypatch.setattr(philox, "fill_plain", counted)
+    cfg = tllama.llama_test()
+    m = tdi.deferred_init(tllama.Llama, cfg, device_="cuda")
+    values = materialize_module_torch(m, seed=1, **CPU)
+    n_norms = sum(1 for k in values if k.endswith("norm.weight"))
+    assert drawn == ["normal"] * (len(values) - n_norms)

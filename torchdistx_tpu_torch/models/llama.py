@@ -63,6 +63,7 @@ __all__ = [
     "llama_7b",
     "llama_70b",
     "num_params",
+    "init_sharded",
     "param_specs",
     "pp_pieces",
     "pp_value_and_grad",
@@ -162,6 +163,30 @@ def param_specs(cfg: LlamaConfig, *, tp: Optional[str] = "tp",
     specs["norm.weight"] = P()
     specs["lm_head.weight"] = P(tp, fsdp)
     return specs if pp is None else stage_specs(specs, pp=pp)
+
+
+def init_sharded(seed: int, cfg: LlamaConfig, mesh, *, tp: Optional[str] = "tp",
+                 fsdp: Optional[str] = "fsdp") -> "Llama":
+    """Shard-then-materialize: a :class:`Llama` whose parameters are
+    ``DTensor``s on ``mesh``, placed by :func:`param_specs` (fitted to the
+    mesh, dims its axes do not divide replicated), each rank drawing only its
+    own shards, so no rank ever holds a full parameter.
+
+    The counterpart of the JAX ``init_sharded(key, cfg, mesh)``: the model is
+    recorded with ``deferred_init`` on the mesh's device type and
+    materialized by
+    :func:`~torchdistx_tpu_torch.materialize.materialize_module_torch` with
+    ``seed`` (every parameter of the model replays on its shard alone), then
+    loaded by assignment.  Each shard equals the same slice of the unsharded
+    seeded materialization, bit for bit."""
+    from ..deferred_init import deferred_init
+    from ..materialize import materialize_module_torch
+
+    model = deferred_init(Llama, cfg, device=mesh.device_type)
+    values = materialize_module_torch(model, mesh=mesh, plan=param_specs(cfg, tp=tp, fsdp=fsdp),
+                                      seed=seed)
+    model.load_state_dict(values, assign=True)
+    return model
 
 
 def _rmsnorm(x, weight, eps: float):
