@@ -240,6 +240,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -254,6 +255,13 @@ import torch
 # Yardsticks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The philox kernel's operations are 32-bit integer multiplies: 64 a clock
+# on each SM (the CUDA C++ Programming Guide's throughput table, compute
+# capability 9.0) x 132 SMs x 1.98 GHz (the H100 SXM's highest SM clock).
+SM_COUNT = 132
+PEAK_INT32_MULS_PER_S = 64 * SM_COUNT * 1.98e9
+# Thread-instructions an SM issues a clock: 4 schedulers, a warp of 32 each.
+ISSUE_PER_SM_CLOCK = 128
 
 # Kernel vs plain tolerances on (out, lse).  bf16: out is rounded to bf16
 # (2^-8 relative) and p is rounded to bf16 against a running max in the
@@ -469,6 +477,14 @@ PHILOX_INSTANCES = ["philox_fill<unsigned int, (int)0>"] + [
 # largest parameter, and the mesh ranks' shard of it.
 PHILOX_MAIN_ROW = "embed_normal"
 PHILOX_RANK_ROW = "embed_normal_box"
+# Philox4x32-10's 32-bit multiplies a block: two products a round, each
+# taken as its high and its low word.
+PHILOX_MULS_PER_BLOCK = 40
+# Philox's first multiplier, 0xD2511F53, as SASS writes the immediate
+# (signed): it marks the kernel's loops that draw.
+PHILOX_SASS_MARK = r"-0x2daee0ad\b|0xd2511f53\b"
+# Two bounds within this share of each other tie.
+BOUNDS_TIE = 0.01
 
 # [fit]: depth cut to FIT_LAYERS at Llama-7B's width, so that a checkpoint
 # (parameters and AdamW's two moments, bf16) is about 4 GB, not 40 GB.
@@ -664,16 +680,31 @@ EP_RANK_RUNS = {"a": {"ep": 4}, "b": {"fsdp": 2, "ep": 2}}
 # the parameters' change): about 4x the readings of a run on an H100 80GB
 # HBM3 at 700 W (a: 3.5e-2, 3.2e-3, 0.23; b: 5.2e-2, 8.8e-3, 0.24): bf16
 # expert GEMMs on a share's rows round otherwise than on the whole buffer,
-# and top-2 near-ties then route otherwise from the second step.  (b)'s
-# gradient bound was re-derived by the same rule when the seeded weights
-# became counter-based Philox draws: this seed's draw reads 6.4e-2 there
-# (layer 1's e_down, router and wq worst; the first loss already differs
-# by 2.5e-4, so a top-2 near-tie routes otherwise at the first step under
-# the fsdp batch split), while seeds 21 and 22 read 8.9e-3 and 9.3e-3, and
-# the earlier generators' draws 8.8e-3, 1.3e-2 and 8.9e-3 at seeds 15, 21
-# and 22 (scripts/torch_ep_ranks_fingerprints.py on copies of the tree with
-# EP_RANKS_SEED edited).
-EP_RANKS_BOUNDS = {"a": (0.14, 0.013, 0.92), "b": (0.2, 0.25, 0.96)}
+# and top-2 near-ties then route otherwise from the second step.
+EP_RANKS_BOUNDS = {"a": (0.14, 0.013, 0.92), "b": (0.2, 0.036, 0.96)}
+# (b)'s margin rule.  Under the fsdp batch split a first-step token can go
+# to another expert than in the 1-rank run, and one token sent elsewhere
+# moves that expert's and the router's gradients far more than rounding
+# does (seed 15's counter-based draw reads 6.4e-2 there, its first loss
+# 2.5e-4 off; seeds 21 and 22 read 8.9e-3 and 9.3e-3).  So both runs record
+# each layer's first-step routing, and the 1-rank run each token's gap
+# between its k-th and (k+1)-th router logit in units of bf16's last place
+# at the larger of the two (_route_gaps).  The logits are bf16 roundings of
+# f32 sums over D; the runs' sums differ by summation order and by their
+# inputs' own roundings, so each of the two logits that decide the k-th
+# choice may land one unit away, toward the other: a gap of up to
+# EP_RANKS_NEAR_TIE_ULPS units can close or cross, a wider one cannot.  A
+# token routed otherwise across a wider gap fails the run.  Where every
+# token routes as in the 1-rank run, (b)'s first-step gradients are held at
+# EP_RANKS_BOUNDS; where near-ties routed otherwise, they are named (layer,
+# token, gap) and the gradients held at EP_RANKS_NEAR_TIE_GRAD_RTOL.  That a
+# near-tie exists cannot decide it: 93, 103 and 78 of the first step's 4096
+# token-layers lie within 2 units at seeds 15, 21 and 22, and only seed 15
+# routes any otherwise: 5 tokens of layer 1, each within 1 unit
+# (scripts/torch_ep_ranks_fingerprints.py on copies of the tree with
+# EP_RANKS_SEED edited, on an H100 80GB HBM3 at 700 W).
+EP_RANKS_NEAR_TIE_ULPS = 2
+EP_RANKS_NEAR_TIE_GRAD_RTOL = {"b": 0.25}
 EP_RANKS_F32_STEPS = 3
 EP_RANKS_TIMEOUT_S = 400
 # The (B, S, Hq, Hkv, D) each run hands the kernel, and its phase-2 rows:
@@ -903,6 +934,8 @@ def phase_build():
     if "philox" in built:
         _check(all(r is not None and r["spill_stores"] == r["spill_loads"] == 0
                    for r in found.values()), f"[build] philox instances spill: {found}")
+    print("[build] philox SASS (static; the tiled loop's hot instructions over the "
+          "elements a step computes): " + json.dumps(_philox_sass()))
     # The compile observatory's row of each library: an nvcc build (its
     # process's seconds), or a load where the library was fresh on disk.
     for name in _build.sources():
@@ -1085,14 +1118,168 @@ def _ulps(got, want):
     return (got.double() - w).abs() / ulp
 
 
+def _philox_blocks(full, offset, size):
+    """The Philox blocks a draw of the box computes: in each row (the
+    innermost dim, after whole dims are merged) the blocks from the one
+    holding its first element to the one holding its last."""
+    from torchdistx_tpu_torch.ops.cuda.philox import _collapse
+
+    full, off, size = _collapse(full, offset, size)
+    rest = torch.arange(math.prod(size[:-1]), dtype=torch.int64)
+    g0 = torch.full_like(rest, off[-1])
+    for d in range(len(size) - 2, -1, -1):
+        g0 += (rest % size[d] + off[d]) * math.prod(full[d + 1:])
+        rest //= size[d]
+    return int((((g0 + size[-1] - 1) >> 2) - (g0 >> 2) + 1).sum())
+
+
+def _philox_bound(kind, dtype, full, offset, size):
+    """The bound of one draw: the bytes it writes at PEAK_BYTES_PER_S, and
+    its Philox blocks' 32-bit multiplies (two blocks a counter for float64
+    variates) at PEAK_INT32_MULS_PER_S; ``bound_ms`` the larger, named by
+    ``bound_by``, and ``bounds_tie`` where they are within BOUNDS_TIE."""
+    nbytes = math.prod(size) * torch.tensor([], dtype=dtype).element_size()
+    wide = 2 if dtype == torch.float64 and kind != "words" else 1
+    muls = _philox_blocks(full, offset, size) * wide * PHILOX_MULS_PER_BLOCK
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = muls / PEAK_INT32_MULS_PER_S * 1e3
+    return {"bytes": nbytes, "int32_muls": muls, "bound_bytes_ms": t_bytes,
+            "bound_ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bounds_tie": abs(t_bytes - t_ops) <= BOUNDS_TIE * max(t_bytes, t_ops)}
+
+
+def _sass_functions(lib):
+    """``{demangled function: [(address, instruction)]}`` from ``cuobjdump
+    -sass`` of the library ``lib``."""
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], text=True, capture_output=True,
+                          check=True, timeout=120).stdout
+    funcs, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            funcs[current] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if current is not None and m:
+            funcs[current].append((int(m.group(1), 16), m.group(2)))
+    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cu++filt")
+    names = subprocess.run([filt], input="\n".join(funcs), text=True, capture_output=True,
+                           check=True, timeout=60).stdout.splitlines()
+    return {name.removeprefix("void "): funcs[mangled] for mangled, name in zip(funcs, names)}
+
+
+def _sass_loop(body, mark=None):
+    """Static counts of one function's SASS ``body``: its instructions (no
+    NOPs) and its outer loops (the spans of backward branches that no wider
+    one holds; with ``mark``, a regex, only those holding an instruction
+    that matches it), each with all its instructions and its hot ones: those
+    outside the cold paths, the innermost regions a forward branch inside
+    the loop skips that hold a local-memory access or a call (the precise trig's
+    large-argument reduction, the precise sqrt's and the 64-bit divisions'
+    out-of-line routines).  ``loop`` is the hot count of the shortest outer
+    loop (None without a loop), ``loop_ops`` the count of each opcode on
+    its hot path."""
+    import re
+
+    pred = r"(?:@!?U?P\w+\s+)?"
+    code = [(addr, ins) for addr, ins in body if not re.match(pred + r"NOP\b", ins)]
+    branches = []
+    for addr, ins in code:
+        m = re.match(pred + r"BRA\S*\s+(?:\S+,\s*)?(0x[0-9a-f]+)", ins)
+        if m:
+            branches.append((addr, int(m.group(1), 16), ins.startswith("@")))
+    spans = sorted({(t, a) for a, t, _ in branches if t < a}, key=lambda s: s[0] - s[1])
+    outer = []
+    for lo, hi in spans:  # widest first
+        if not any(o[0] <= lo and hi <= o[1] for o in outer):
+            outer.append((lo, hi))
+    if mark is not None:
+        outer = [(lo, hi) for lo, hi in outer
+                 if any(lo <= x <= hi and re.search(mark, ins) for x, ins in code)]
+    loops = []
+    for lo, hi in sorted(outer):
+        slow = [(a, t) for a, t, conditional in branches if conditional and lo <= a < t <= hi
+                and any(a < x < t and re.match(pred + r"(STL|LDL|CALL)\b", ins)
+                        for x, ins in code)]
+        cold = {x for a, t in slow  # the innermost such regions only
+                if not any((a, t) != (b, u) and a <= b and u <= t for b, u in slow)
+                for x, _ in code if a < x < t}
+        hot = [ins for x, ins in code if lo <= x <= hi and x not in cold]
+        loops.append({"span": [lo, hi], "all": sum(lo <= x <= hi for x, _ in code),
+                      "hot": len(hot), "hot_ins": hot})
+    ops = {}
+    best = min(loops, key=lambda lp: lp["hot"]) if loops else None
+    for ins in best["hot_ins"] if best else []:
+        op = re.sub("^" + pred, "", ins).split()[0].split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+    for lp in loops:
+        del lp["hot_ins"]
+    return {"instructions": len(code), "loops": loops, "loop": best["hot"] if best else None,
+            "loop_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+@functools.cache
+def _philox_sass():
+    """For each PHILOX_INSTANCES instance of the built philox library:
+    :func:`_sass_loop`'s counts and its shortest loop's hot instructions an
+    element (over ``philox.UNIT``, the elements a step computes: the
+    kernel's tiled loop, which every PHILOX_ROWS row takes; static: each
+    branch of the loop counts once, its fallback stores too, so it bounds
+    the executed count from above)."""
+    from torchdistx_tpu_torch.ops.cuda import _build, philox
+
+    funcs = _sass_functions(_build.BUILD_DIR / "libphilox.so")
+    out = {}
+    for inst in PHILOX_INSTANCES:
+        body = next((b for name, b in funcs.items() if f"::{inst}(" in name), None)
+        if body is not None:
+            row = _sass_loop(body, PHILOX_SASS_MARK)
+            row["per_element"] = row["loop"] / philox.UNIT if row["loop"] else None
+            out[inst] = row
+    return out
+
+
+def _sm_clock_hz():
+    """The card's highest SM clock, from nvidia-smi."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def _issue_ms(per_element, elements, clock_hz):
+    """The time to issue ``per_element`` instructions for each of
+    ``elements`` on every SM at ISSUE_PER_SM_CLOCK a clock."""
+    return per_element * elements / (SM_COUNT * ISSUE_PER_SM_CLOCK * clock_hz) * 1e3
+
+
+def _philox_issue(instance, elements, sass, clock_hz):
+    """A [philox] row's diagnostic beside its bound: the instance's SASS
+    instructions an element (``sass``: :func:`_philox_sass`) and the issue
+    time they imply for ``elements`` at ``clock_hz``."""
+    per_element = sass.get(instance, {}).get("per_element")
+    return {"sass_per_element": per_element, "sm_clock_hz": clock_hz,
+            "issue_ms": _issue_ms(per_element, elements, clock_hz) if per_element else None}
+
+
 def phase_philox():
     """Each PHILOX_ROWS row: the kernel bit-equal to its plain version on
     the card, one launch a call, the same bits twice, the box equal to its slice of
     the whole draw, and the times: the kernel's, the plain version's,
-    ``Tensor.normal_`` / ``uniform_`` at the same size (a yardstick only:
-    not the same function) and the bound (the bytes written at
-    PEAK_BYTES_PER_S)."""
+    ``Tensor.normal_`` / ``uniform_`` / ``random_`` (the words: over the
+    whole int32 range) at the same size (a yardstick only: not the same
+    function), the bound (:func:`_philox_bound`) and, beside it, the time
+    to issue the instance's SASS instructions an element (:func:`_philox_sass`,
+    at the card's highest SM clock: a diagnostic, not a bound)."""
     from torchdistx_tpu_torch.ops.cuda import philox
+
+    sass = _philox_sass()
+    clock_hz = _sm_clock_hz()
 
     fills = {"normal": philox.normal_, "uniform": philox.uniform_,
              "words": lambda out, key, a, b, **box: philox.words_(out, key, **box)}
@@ -1133,28 +1320,28 @@ def phase_philox():
             _check(torch.equal(got, piece), f"[philox] {name}: the box differs from its "
                    "slice of the whole draw")
             del whole, piece
-        library = None
-        if kind != "words":
-            lib = torch.empty(size, dtype=dtype, device="cuda")
-            library = ((lambda: lib.normal_(a, b)) if kind == "normal"
-                       else (lambda: lib.uniform_(a, b)))
-        nbytes = got.numel() * got.element_size()
+        lib = torch.empty(size, dtype=dtype, device="cuda")
+        library = {"normal": lambda: lib.normal_(a, b), "uniform": lambda: lib.uniform_(a, b),
+                   "words": lambda: lib.random_(-2 ** 31, 2 ** 31)}[kind]
+        instance = f"philox_fill<{PHILOX_INSTANCE[dtype]}, (int){PHILOX_KINDS[kind]}>"
         row = {
             "shape": name, "kind": kind, "dtype": str(dtype).replace("torch.", ""),
             "full_shape": list(full), "offset": off, "size": size,
-            "instance": f"philox_fill<{PHILOX_INSTANCE[dtype]}, (int){PHILOX_KINDS[kind]}>",
+            "instance": instance,
             "max_abs_err": err, "max_ulp": max_ulp, "n_unequal": n_unequal,
             "bit_equal": equal, "same_bits_twice": same, "box_equals_slice": True,
-            "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            **_philox_bound(kind, dtype, full, off, size),
+            **_philox_issue(instance, got.numel(), sass, clock_hz),
             # By events only, and the plain version (0.04-1.2 s a call,
             # warm from the comparison above) once: the script's time.
             "ms": _time_ms(run),
             "plain_ms": _time_ms(plain, warmup=0, reps=1, calls=1),
-            "library_ms": _time_ms(library) if library else None,
+            "library": "Tensor." + {"words": "random_"}.get(kind, kind + "_"),
+            "library_ms": _time_ms(library),
         }
         print("[philox] " + json.dumps(row))
         rows.append(row)
-        del got, again, out, library
+        del got, again, out, lib, library
         torch.cuda.empty_cache()
     return rows
 
@@ -2497,6 +2684,63 @@ def _fingerprinted_steps(state, step_fn, batch, steps):
     return state, losses, step_ms, grads, change
 
 
+def _route_gaps(logits, k):
+    """Each token's gap between its k-th and (k+1)-th router logit (rows
+    of ``logits``), in units of bf16's last place at the larger magnitude
+    of the two."""
+    vals = logits.float().sort(dim=-1, descending=True).values
+    top, nxt = vals[:, k - 1], vals[:, k]
+    _, exp = torch.frexp(torch.maximum(top.abs(), nxt.abs()))
+    return (top - nxt) / torch.ldexp(torch.ones_like(top), exp - 8)
+
+
+class _FirstRouting:
+    """Within it, the first ``n_layers`` calls of ``moe.route`` (the first
+    step's forward, layer by layer): each layer's chosen experts and
+    :func:`_route_gaps` of its tokens (``layers``)."""
+
+    def __init__(self, n_layers):
+        from torchdistx_tpu_torch.models import moe
+
+        self.moe, self.bare, self.n, self.layers = moe, moe.route, n_layers, []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        def spy(h, router_w, cfg):
+            r = self.bare(h, router_w, cfg)
+            if len(self.layers) < self.n:
+                with torch.no_grad():  # route's own product, again
+                    logits = F.linear(h.reshape(-1, h.shape[-1]), router_w)
+                self.layers.append({"experts": r.experts.cpu(), "logits": logits.float().cpu(),
+                                    "gap_ulps": _route_gaps(logits, cfg.experts_per_token).cpu()})
+            return r
+
+        self.moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.bare
+
+
+def _logit_moves(want, got):
+    """Per layer, the largest distance of ``got``'s first-step router
+    logits from ``want``'s."""
+    return [(g["logits"] - w["logits"]).abs().max().item()
+            for w, g in zip(want, got, strict=True)]
+
+
+def _route_flips(want, got):
+    """``[(layer, token, gap in ulps in want)]`` of the tokens whose sets
+    of chosen experts differ between two runs' first-step routings."""
+    out = []
+    for layer, (w, g) in enumerate(zip(want, got, strict=True)):
+        moved = (w["experts"].sort(-1).values != g["experts"].sort(-1).values).any(-1)
+        out += [(layer, t, float(w["gap_ulps"][t]))
+                for t in torch.nonzero(moved).flatten().tolist()]
+    return out
+
+
 class _KernelBlocks:
     """Within it, the (B, S, Hq, Hkv, D) of every ``flash_attention`` call
     (``blocks``)."""
@@ -3753,7 +3997,7 @@ def _ep_rank_run(fa, rank, key):
     _reset_counts(fa)
     a2a, undo = _timed_exchange()
     try:
-        with _KernelBlocks(fa) as spy:
+        with _KernelBlocks(fa) as spy, _FirstRouting(cfg.n_layers) as routing:
             state, losses, step_ms, grads, change = _fingerprinted_steps(
                 state, step_fn, batch, EP_RANKS_STEPS)
     finally:
@@ -3762,7 +4006,8 @@ def _ep_rank_run(fa, rank, key):
            "kernel_blocks": sorted(spy.blocks), "held_param_bytes": held,
            "expert_stacks": experts, "a2a_ms": a2a["ms"], "a2a_calls": a2a["calls"],
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "fingerprints": {"grads": grads, "change": change} if rank == 0 else None}
+           "fingerprints": {"grads": grads, "change": change} if rank == 0 else None,
+           "routing": routing.layers if rank == 0 else None}
     del state, init_fn, step_fn
     _free()
     return out
@@ -3849,8 +4094,9 @@ def phase_ep_reference():
         state = init_fn(EP_RANKS_SEED)
         batch = {k: v.cuda() for k, v in _pipe_batch(cfg.vocab_size, *EP_RANKS_SHAPE,
                                                      EP_RANKS_DATA_SEED).items()}
-        state, losses, step_ms, grads, change = _fingerprinted_steps(state, step_fn, batch,
-                                                                     EP_RANKS_STEPS)
+        with _FirstRouting(cfg.n_layers) as routing:
+            state, losses, step_ms, grads, change = _fingerprinted_steps(state, step_fn, batch,
+                                                                         EP_RANKS_STEPS)
         del state, init_fn, step_fn
     finally:
         dist.destroy_process_group()
@@ -3858,7 +4104,7 @@ def phase_ep_reference():
     print(f"[ep ranks] the 1-rank reference: MoEConfig() widths x {cfg.n_layers} layers, "
           f"bf16, {EP_RANKS_SHAPE[0]}x{EP_RANKS_SHAPE[1]}: losses {losses}; step ms "
           f"{[round(x, 1) for x in step_ms]}")
-    return {"losses": losses, "step_ms": step_ms,
+    return {"losses": losses, "step_ms": step_ms, "routing": routing.layers,
             "fingerprints": {"grads": grads, "change": change}}
 
 
@@ -3883,9 +4129,14 @@ def phase_ep_ranks(ref):
     wall_s = time.perf_counter() - t0
     mod, cfg = _pipe_cfg("moe", EP_RANKS_LAYERS)
     whole_bytes = 2 * moe.num_params(cfg)
+    gaps = torch.cat([r["gap_ulps"] for r in ref["routing"]])
+    near = int((gaps <= EP_RANKS_NEAR_TIE_ULPS).sum())
+    print(f"[ep ranks] the 1-rank reference's first step: {near} of {gaps.numel()} "
+          f"token-layers with the router's k-th and (k+1)-th logits at most "
+          f"{EP_RANKS_NEAR_TIE_ULPS} ulps apart")
     stats = {"wall_s": wall_s, "runs": {}, "launches_all_ranks": {},
              "reference_losses": ref["losses"], "reference_step_ms": ref["step_ms"],
-             "whole_param_bytes": whole_bytes}
+             "whole_param_bytes": whole_bytes, "near_tie_token_layers": near}
     per_step = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_fused": cfg.n_layers,
                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}  # remat: the forward twice
     want_launches = {k: v * EP_RANKS_STEPS for k, v in per_step.items()}
@@ -3902,8 +4153,23 @@ def phase_ep_ranks(ref):
               f"{ref['losses']}; the fingerprints' relative error: first-step gradients "
               f"{grad_err}, the parameters' change {change_err}")
         loss_atol, grad_rtol, change_rtol = EP_RANKS_BOUNDS[key]
+        flips = _route_flips(ref["routing"], ranks[0]["routing"])
+        moves = _logit_moves(ref["routing"], ranks[0]["routing"])
+        print(f"[ep ranks] ({key}) first-step tokens routed to other experts than the 1-rank "
+              f"run's (layer, token, the reference's gap in ulps): {flips}; the router "
+              f"logits' largest move by layer: {moves}")
+        # The first layer that routes otherwise must do so at near-ties only;
+        # the layers after it see inputs that its choices changed.
+        far = [f for f in flips if f[0] == flips[0][0] and f[2] > EP_RANKS_NEAR_TIE_ULPS]
+        _check(not far, f"({key}): first-step tokens routed otherwise across a gap wider than "
+               f"{EP_RANKS_NEAR_TIE_ULPS} ulps (layer, token, ulps): {far}")
+        if flips and key in EP_RANKS_NEAR_TIE_GRAD_RTOL:  # the margin rule
+            grad_rtol = EP_RANKS_NEAR_TIE_GRAD_RTOL[key]
+            print(f"[ep ranks] ({key}) near-ties routed otherwise at the first step (layer, "
+                  f"token, ulps): {flips}; first-step gradients held at {grad_rtol}")
         _check(loss_err <= loss_atol, f"({key}): losses {losses} vs 1-rank {ref['losses']}")
-        _check(grad_err <= grad_rtol, f"({key}): first-step gradients {grad_err}")
+        _check(grad_err <= grad_rtol, f"({key}): first-step gradients {grad_err} (rtol "
+               f"{grad_rtol}; routed otherwise: {flips})")
         _check(change_err <= change_rtol, f"({key}): the parameters' change {change_err}")
         plan_bytes = _plan_bytes(mod, cfg, axes)
         e_loc = cfg.n_experts // axes["ep"]
@@ -3927,6 +4193,7 @@ def phase_ep_ranks(ref):
         stats["runs"][key] = {
             "mesh": axes, "losses": losses, "loss_max_abs_err": loss_err,
             "grad_fingerprint_rel_err": grad_err, "change_fingerprint_rel_err": change_err,
+            "grad_rtol": grad_rtol, "first_step_flips": flips,
             "step_ms_by_rank": [r["step_ms"] for r in ranks],
             "held_param_bytes_per_rank": ranks[0]["held_param_bytes"],
             "experts_per_layer_per_rank": e_loc,

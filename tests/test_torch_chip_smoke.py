@@ -1338,3 +1338,106 @@ def test_philox_entries_take_the_rows():
     assert [e["launches"] for e in entries] == [227, 904]
     assert entries[0]["source"] == "torchdistx_tpu_torch/ops/cuda/csrc/philox.cu"
     assert all(e["route"] == "cuda" for e in entries)
+
+
+def test_philox_blocks_count_each_rows_partial_blocks():
+    # Each row of the (37, 29) box at (5, 7) of 19 x 13: its blocks from
+    # the one holding its first element to the one holding its last.
+    want = 0
+    for r in range(19):
+        g0 = (5 + r) * 29 + 7
+        want += (g0 + 12) // 4 - g0 // 4 + 1
+    assert chip_smoke._philox_blocks((37, 29), [5, 7], [19, 13]) == want
+    assert chip_smoke._philox_blocks((32000, 4096), [0, 0], [32000, 4096]) == 32000 * 1024
+
+
+def test_philox_bound_is_the_larger_of_bytes_and_multiplies():
+    # bf16 normal at the embedding: 262,144,000 bytes at 3.35 TB/s and
+    # 32,768,000 blocks x 40 multiplies at 64 x 132 x 1.98e9 a second tie.
+    b = chip_smoke._philox_bound("normal", torch.bfloat16, (32000, 4096), [0, 0], [32000, 4096])
+    assert b["bytes"] == 262_144_000 and b["int32_muls"] == 1_310_720_000
+    assert b["bound_bytes_ms"] == pytest.approx(0.078252, rel=1e-4)
+    assert b["bound_ops_ms"] == pytest.approx(0.078359, rel=1e-4)
+    assert b["bound_ms"] == b["bound_ops_ms"] and b["bound_by"] == "operations"
+    assert b["bounds_tie"]
+    # float64 draws two blocks a counter; its bytes still bound it.
+    f64 = chip_smoke._philox_bound("normal", torch.float64, (4096, 11008), [2048, 5504],
+                                   [2048, 5504])
+    assert f64["int32_muls"] == 2048 * 1376 * 2 * 40
+    assert f64["bound_by"] == "bytes" and not f64["bounds_tie"]
+    words = chip_smoke._philox_bound("words", torch.int32, (32000, 4096), [16000, 2048],
+                                     [16000, 2048])
+    assert words["int32_muls"] == 16000 * 512 * 40 and words["bound_by"] == "bytes"
+
+
+_SASS = [(0x00, "LDC R1, c[0x0][0x28]"), (0x10, "S2R R0, SR_TID.X"),
+         (0x20, "IMAD.WIDE.U32 R2, R0, R3, RZ"), (0x30, "LOP3.LUT R4, R2, R5, R6, 0x96, !PT"),
+         (0x40, "@P0 BRA 0x20"), (0x50, "IMAD.WIDE.U32 R2, R4, R3, RZ"),
+         (0x60, "@!P1 BRA 0x10"), (0x70, "EXIT"), (0x80, "BRA 0x80"), (0x90, "NOP")]
+
+
+# Two outer loops: a drawing one (0x10-0xc0) whose cold path (0x80-0x90,
+# skipped by the branch at 0x70, holds a local store) sits inside a wider
+# forward skip (0x30-0xa0, which holds the cold path only through it), and
+# a 2-instruction loop after EXIT that does not draw.
+_SASS_COLD = [(0x00, "S2R R0, SR_TID.X"), (0x10, "IMAD.WIDE.U32 R2, R5, -0x2daee0ad, RZ"),
+              (0x20, "@P2 BRA 0xb0"), (0x30, "IADD3 R4, R2, 0x1, RZ"),
+              (0x40, "LOP3.LUT R4, R2, R5, R6, 0x96, !PT"), (0x50, "MUFU.RSQ R7, R4"),
+              (0x60, "FMUL R7, R7, R4"), (0x70, "@!P1 BRA 0xa0"), (0x80, "STL [R1], R4"),
+              (0x90, "LDL R4, [R1+0x4]"), (0xa0, "STG.E.128 desc[UR4][R8.64], R4"),
+              (0xb0, "ISETP.GE.AND P0, PT, R0, R9, PT"), (0xc0, "@!P0 BRA 0x10"),
+              (0xd0, "EXIT"), (0xe0, "IADD3 R1, R1, 0x1, RZ"), (0xf0, "@P3 BRA 0xe0")]
+
+
+def test_sass_loop_takes_the_widest_backward_branch():
+    got = chip_smoke._sass_loop(_SASS)
+    assert got["instructions"] == 9  # the NOP left out
+    assert got["loop"] == 6  # 0x10 to the branch at 0x60
+    assert got["loops"] == [{"span": [0x10, 0x60], "all": 6, "hot": 6}]
+    assert got["loop_ops"] == {"IMAD": 2, "BRA": 2, "S2R": 1, "LOP3": 1}
+    assert chip_smoke._sass_loop(_SASS[:4])["loop"] is None
+
+
+def test_sass_loop_leaves_out_the_innermost_cold_paths_and_loops_that_do_not_draw():
+    got = chip_smoke._sass_loop(_SASS_COLD)
+    assert got["loops"] == [{"span": [0x10, 0xc0], "all": 12, "hot": 10},
+                            {"span": [0xe0, 0xf0], "all": 2, "hot": 2}]
+    assert got["loop"] == 2  # the shortest loop, without a mark
+    marked = chip_smoke._sass_loop(_SASS_COLD, chip_smoke.PHILOX_SASS_MARK)
+    assert marked["loops"] == got["loops"][:1] and marked["loop"] == 10
+    assert "STL" not in marked["loop_ops"] and marked["loop_ops"]["BRA"] == 3
+
+
+def test_philox_issue_time_is_instructions_over_the_card_issue_rate():
+    sass = {"philox_fill<__nv_bfloat16, (int)2>": {"per_element": 50.0}}
+    got = chip_smoke._philox_issue("philox_fill<__nv_bfloat16, (int)2>", 131_072_000, sass,
+                                   1.98e9)
+    # 50 x 131,072,000 / (132 SMs x 128 a clock x 1.98e9) s.
+    assert got["issue_ms"] == pytest.approx(0.19590, rel=1e-4)
+    assert got["sass_per_element"] == 50.0 and got["sm_clock_hz"] == 1.98e9
+    assert chip_smoke._philox_issue("philox_fill<float, (int)1>", 10, sass, 1.98e9)[
+        "issue_ms"] is None
+
+
+def test_route_gaps_near_ties_flips_and_logit_moves():
+    # bf16 logits (8 significant bits): token 0's 2nd and 3rd are 2^-9
+    # apart, half a unit of the last place at the larger, 0.5 (2^-8);
+    # token 1's 0.375 apart, 48 units at 1.0 (2^-7).
+    lg = torch.tensor([[1.0, 0.5, 0.5 - 2 ** -9, -1.0], [2.0, 1.0, 0.625, 0.0]],
+                      dtype=torch.bfloat16)
+    gaps = chip_smoke._route_gaps(lg, 2)
+    assert gaps.tolist() == [0.5, 48.0]
+    ref = [{"experts": torch.tensor([[0, 1], [0, 1]]), "logits": lg.float(), "gap_ulps": gaps}]
+    moved = lg.float() + torch.tensor([[0.0, 0.0, 2 ** -8, 0.0], [0.0] * 4])
+    got = [{"experts": torch.tensor([[0, 2], [1, 0]]), "logits": moved, "gap_ulps": None}]
+    assert chip_smoke._route_flips(ref, got) == [(0, 0, 0.5)]  # token 1: the same set
+    assert chip_smoke._logit_moves(ref, got) == [2 ** -8]
+
+
+def test_ep_margin_rule_constants():
+    # The margin is a few units of bf16's last place, and the near-tie
+    # bound applies to (b) alone, above (b)'s own.
+    assert 0 < chip_smoke.EP_RANKS_NEAR_TIE_ULPS <= 4
+    assert set(chip_smoke.EP_RANKS_NEAR_TIE_GRAD_RTOL) == {"b"}
+    assert chip_smoke.EP_RANKS_BOUNDS["b"][1] == 0.036
+    assert chip_smoke.EP_RANKS_NEAR_TIE_GRAD_RTOL["b"] > chip_smoke.EP_RANKS_BOUNDS["b"][1]

@@ -1000,13 +1000,28 @@ def test_model_pool_eviction_drops_its_graph_and_bytes(cuda):
 # the card (no FMA contraction in the kernel, and CUDA's precise libm, which
 # PyTorch's CUDA ops call too), and each box equal to its slice of the
 # whole draw.
+# The next seven are the edges of the kernel's unit of 8 elements (two
+# Philox blocks, 16-byte stores where a unit lies wholly in its row at an
+# aligned address): rows whose length is no multiple of 8, starts at every
+# phase of a unit (row strides of a multiple of 8 and of none), a box
+# narrower than a Philox block, one-element rows, more rows than a grid's
+# y extent (65,535), and 5 dims after merging.  The last two are tiled
+# (rows from a unit's start, of whole units: the flat loop), their last
+# warp's units fewer than 32.
 PHILOX_BOXES = [((1001,), (3,), (517,)), ((37, 29), (5, 7), (19, 13)),
                 ((6, 11, 13), (1, 4, 3), (4, 5, 9)), ((3, 5, 7, 9), (1, 2, 1, 5), (2, 3, 5, 3)),
-                ((300, 70000), (1, 3), (299, 69990))]
+                ((300, 70000), (1, 3), (299, 69990)),
+                ((50, 83), (3, 5), (40, 77)), ((20, 64), (2, 3), (10, 50)),
+                ((33, 101), (1, 1), (31, 99)), ((10, 1000), (2, 5), (7, 3)),
+                ((1000, 7), (3, 6), (997, 1)), ((70000, 9), (0, 4), (70000, 3)),
+                ((4, 6, 5, 3, 10), (1, 1, 2, 0, 3), (3, 4, 2, 3, 6)),
+                ((40, 4000), (8, 800), (30, 3000)), ((20000,), (16,), (19976,))]
 
 
 @pytest.mark.parametrize("full, offset, size", PHILOX_BOXES,
-                         ids=["1d", "2d", "3d", "4d", "wide_rows"])
+                         ids=["1d", "2d", "3d", "4d", "wide_rows", "ragged_rows", "phase3",
+                              "odd_stride", "narrow", "one_element_rows", "70000_rows", "5d", "tiled",
+                              "tiled_1d"])
 @pytest.mark.parametrize(
     "kind, dtype",
     [(kind, dtype) for kind in ("normal", "uniform")
@@ -1029,3 +1044,119 @@ def test_philox_matches_plain(cuda, kind, dtype, full, offset, size):
     whole = fill(torch.empty(full, dtype=dtype, device=cuda), key, a, b)
     piece = whole[tuple(slice(o, o + n) for o, n in zip(offset, size))]
     assert torch.equal(got, piece)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64, torch.int32],
+                         ids=str)
+def test_philox_tiled_box_into_an_unaligned_out(cuda, dtype):
+    # A tiled box written one element past a 16-byte boundary: the general
+    # loop's lane-by-lane stores, the same bits.
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    full, off, size = (64, 96), (32, 0), (32, 96)
+    kind = "words" if dtype == torch.int32 else "normal"
+    fill = {"normal": philox.normal_,
+            "words": lambda out, key, a, b, **kw: philox.words_(out, key, **kw)}[kind]
+    buf = torch.zeros(32 * 96 + 1, dtype=dtype, device=cuda)
+    got = fill(buf[1:].view(size), 5, 0.5, 2.0, full_shape=full, offset=off)
+    assert got.data_ptr() % 16 != 0
+    want = philox.fill_plain(torch.empty(size, dtype=dtype, device=cuda), kind, 5, 0.5, 2.0,
+                             full_shape=full, offset=off)
+    assert torch.equal(got, want) and buf[0] == 0
+
+
+def _philox_library():
+    import ctypes
+
+    from torchdistx_tpu_torch.ops.cuda import _build
+
+    fn = _build.load("philox").tdx_philox_box_muller
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _box_muller_parts(wa, wb, dtype):
+    """The kernel's own Box-Muller halves on the words ``wa`` (and ``wb``
+    for float64), int64 tensors of values in [0, 2^32): the radius of u1
+    and the cosine and sine of 2 pi u2, each word read as both lanes."""
+    def int32(w):
+        return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+    n = wa.numel()
+    a32, b32 = int32(wa), None if wb is None else int32(wb)
+    r, c, s = (torch.empty(n, dtype=dtype, device=wa.device) for _ in range(3))
+    err = _philox_library()(int(dtype == torch.float64), n, a32.data_ptr(),
+                            None if b32 is None else b32.data_ptr(), r.data_ptr(),
+                            c.data_ptr(), s.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return r, c, s
+
+
+def _box_muller_plain(wa, wb, dtype):
+    """The plain version's Box-Muller halves (ops/cuda/philox.py's ops) on
+    the same words: torch.log / sqrt / cos / sin on the card."""
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    u1 = philox._unit(wa, wb, dtype, True)
+    u2 = philox._unit(wa, wb, dtype, False)
+    r = torch.log(u1).mul_(-2.0).sqrt_()
+    theta = u2.mul_(philox._TWO_PI[dtype])
+    return r, torch.cos(theta), torch.sin(theta)
+
+
+def test_philox_box_muller_float_is_every_u1_and_u2_bit_equal(cuda):
+    # Word i << 8 is u1 = (i + 1) 2^-24 as the even lane and u2 = i 2^-24 as
+    # the odd: i over [0, 2^24) is every float u1 and every u2 the kernel
+    # can draw, so its radius and its sincosf are proved bit-equal to the
+    # plain version's log / sqrt / cos / sin, not sampled.
+    w = torch.arange(1 << 24, dtype=torch.int64, device=cuda) << 8
+    got = _box_muller_parts(w, None, torch.float32)
+    want = _box_muller_plain(w, None, torch.float32)
+    for name, g, x in zip(("radius", "cos", "sin"), got, want):
+        assert torch.equal(g, x), f"{name}: {int((g != x).sum())} of {g.numel()} differ"
+
+
+def test_philox_box_muller_double_sampled_bit_equal(cuda):
+    # 2^26 random word pairs: the 53-bit u1 and u2 of float64 draws.
+    g = torch.Generator(device=cuda).manual_seed(26)
+    wa, wb = (torch.randint(0, 1 << 32, (1 << 26,), generator=g, device=cuda,
+                            dtype=torch.int64) for _ in range(2))
+    got = _box_muller_parts(wa, wb, torch.float64)
+    want = _box_muller_plain(wa, wb, torch.float64)
+    for name, gv, x in zip(("radius", "cos", "sin"), got, want):
+        assert torch.equal(gv, x), f"{name}: {int((gv != x).sum())} of {gv.numel()} differ"
+
+
+def test_philox_box_far_in_a_huge_tensor(cuda):
+    # A 3 x 1000 box at the end of a 2^34-element tensor: counters past
+    # 2^32 (their high word in use), drawn without the tensor.
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    full, off = (1 << 20, 1 << 14), ((1 << 20) - 3, 100)
+    for kind, dtype in (("normal", torch.bfloat16), ("uniform", torch.float64),
+                        ("words", torch.int32)):
+        fill = {"normal": philox.normal_, "uniform": philox.uniform_,
+                "words": lambda out, key, a, b, **kw: philox.words_(out, key, **kw)}[kind]
+        got = fill(torch.empty(3, 1000, dtype=dtype, device=cuda), 77, -1.0, 2.0,
+                   full_shape=full, offset=off)
+        want = philox.fill_plain(torch.empty(3, 1000, dtype=dtype, device=cuda), kind, 77,
+                                 -1.0, 2.0, full_shape=full, offset=off)
+        assert torch.equal(got, want), kind
+
+
+def test_philox_box_of_more_than_2_31_elements(cuda):
+    # 2^31 + 4101 bf16 uniforms (2^29 Philox blocks and more), whole: the
+    # head, the elements around 2^31 and the tail against the plain
+    # version's boxes there (each bit-equal to its slice of the whole).
+    from torchdistx_tpu_torch.ops.cuda import philox
+
+    n = (1 << 31) + 4101
+    got = philox.uniform_(torch.empty(n, dtype=torch.bfloat16, device=cuda), 91, -0.5, 0.5)
+    for start in (0, (1 << 31) - 2048, n - 4096):
+        want = philox.fill_plain(torch.empty(4096, dtype=torch.bfloat16, device=cuda),
+                                 "uniform", 91, -0.5, 0.5, full_shape=(n,), offset=(start,))
+        assert torch.equal(got[start:start + 4096], want), start
+    del got
+    torch.cuda.empty_cache()

@@ -13,6 +13,8 @@ the same recorded ``normal_`` / ``uniform_`` are held to JAX's by a
 two-sample Kolmogorov-Smirnov test.
 """
 
+import math
+
 import numpy as np
 import pytest
 import scipy.stats
@@ -168,3 +170,85 @@ def test_seeded_draws_match_jax_in_distribution(fill, kind):
     assert scipy.stats.ks_2samp(got, want).pvalue > 1e-3
     if kind == "uniform":
         assert got.min() >= -0.5 and got.max() < 1.5
+
+
+def test_fast_division_is_integer_division_below_2_31():
+    # The kernel's row start divides by a box's sizes in 32 bits
+    # (CUTLASS's FastDivmod); csrc/philox.cu's find_divisor, mirrored.
+    rng = np.random.default_rng(5)
+    divisors = [1, 2, 3, 5, 7, 64, 100, 4095, 65535, 65537, 2 ** 30 + 1, 2 ** 31 - 1]
+    divisors += rng.integers(2, 2 ** 31, size=40).tolist()
+    ns = [0, 1, 2 ** 31 - 1, 2 ** 31 - 2] + rng.integers(0, 2 ** 31, size=200).tolist()
+    for d in divisors:
+        mul, shr = philox._divisor(int(d))
+        assert mul < 2 ** 32 and shr < 32
+        for n in ns + [int(d) - 1, int(d), int(d) + 1, 2 * int(d) - 1]:
+            if 0 <= n < 2 ** 31:
+                assert philox._fast_div(n, mul, shr) == n // int(d), (n, d)
+
+
+# (full shape, offset, size) of the kernel's launch plan: rows whose length
+# is not a multiple of a unit, starts at every phase of a unit (row strides
+# that are and are not multiples of it), rows narrower than a Philox block,
+# one-element rows, more rows than a grid's y extent, 3-5 dims after
+# merging (the 32-bit divisions), and a box in a tensor past 2^32 elements.
+PLAN_BOXES = [
+    ((1001,), (3,), (517,)), ((37, 29), (5, 7), (19, 13)), ((20, 64), (2, 3), (10, 50)),
+    ((33, 101), (1, 1), (31, 99)), ((10, 1000), (2, 5), (7, 3)), ((1000, 7), (3, 6), (997, 1)),
+    ((70000, 9), (0, 4), (70000, 3)), ((6, 11, 13), (1, 4, 3), (4, 5, 9)),
+    ((3, 5, 7, 9), (1, 2, 1, 5), (2, 3, 5, 3)),
+    ((4, 6, 5, 3, 10), (1, 1, 2, 0, 3), (3, 4, 2, 3, 6)),
+    ((1 << 20, 1 << 14), ((1 << 20) - 3, 100), (3, 1000)), ((64, 96), (32, 0), (32, 96)),
+]
+
+
+@pytest.mark.parametrize("threads", [1, 7, 256, 4096])
+@pytest.mark.parametrize("full, offset, size", PLAN_BOXES,
+                         ids=[f"{len(b[0])}d_{i}" for i, b in enumerate(PLAN_BOXES)])
+def test_launch_plan_covers_every_element_once(full, offset, size, threads):
+    plan = philox.launch_plan(full, offset, size, threads)
+    steps = [s for t in range(threads) for s in philox.walk(plan, t)]
+    assert len(steps) == len(set(steps))  # no unit computed twice
+    covered = []
+    for row, e0 in steps:
+        g0 = philox._row_start(plan, row)
+        assert e0 % philox.UNIT == 0 and e0 < g0 + plan["len"] and e0 + philox.UNIT > g0
+        covered += [(row, g) for g in range(max(e0, g0), min(e0 + philox.UNIT,
+                                                             g0 + plan["len"]))]
+    assert len(covered) == len(set(covered)) == math.prod(size)  # each element once
+    # Each row's start: the 32-bit division against the plain one.
+    plain = dict(plan, fast=False)
+    for row in {0, plan["rows"] // 2, plan["rows"] - 1}:
+        assert philox._row_start(plan, row) == philox._row_start(plain, row)
+    # A row spans at most `units` units, every row exactly that many where
+    # the row stride is a multiple of a unit.
+    spans = {}
+    for row, _ in steps:
+        spans[row] = spans.get(row, 0) + 1
+    assert max(spans.values()) <= plan["units"]
+    if len(plan["size"]) == 1 or plan["full"][-1] % philox.UNIT == 0:
+        assert set(spans.values()) == {plan["units"]}
+    # A tiled box's flat loop: every unit whole in its row, unit q of the
+    # box at out's elements from q UNIT.
+    for row, e0 in steps if plan["tiled"] else []:
+        g0 = philox._row_start(plan, row)
+        assert g0 % philox.UNIT == 0 and g0 <= e0 and e0 + philox.UNIT <= g0 + plan["len"]
+        q = row * plan["units"] + (e0 - g0) // philox.UNIT
+        assert row * plan["len"] + e0 - g0 == q * philox.UNIT
+
+
+def test_launch_plan_merges_whole_dims_and_strides_the_grid():
+    # The embedding's fsdp=2 x tp=2 box: 16000 rows of 2048 from element
+    # 16000 x 4096 + 2048, each 256 units; the whole embedding: one row.
+    plan = philox.launch_plan((32000, 4096), (16000, 2048), (16000, 2048), 132 * 8 * 256)
+    assert (plan["rows"], plan["len"], plan["units"]) == (16000, 2048, 256)
+    assert (plan["step_rows"], plan["step_units"]) == divmod(132 * 8 * 256, 256)
+    whole = philox.launch_plan((32000, 4096), (0, 0), (32000, 4096), 1024)
+    assert (whole["rows"], whole["len"], whole["units"]) == (1, 32000 * 4096,
+                                                             32000 * 4096 // 8)
+    assert (whole["step_rows"], whole["step_units"]) == (0, 1024)
+    assert plan["tiled"] and whole["tiled"]
+    # Tiled: rows from a unit's start, of whole units.
+    tiled = [philox.launch_plan(f, o, s, 256)["tiled"] for f, o, s in PLAN_BOXES]
+    assert tiled == [False] * 11 + [True]
+    assert philox.launch_plan((1001,), (8,), (512,), 256)["tiled"]

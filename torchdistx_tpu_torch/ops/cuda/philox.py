@@ -39,7 +39,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fill_plain", "launches", "normal_", "philox4x32", "uniform_", "words_"]
+__all__ = ["fill_plain", "launch_plan", "launches", "normal_", "philox4x32", "uniform_",
+           "walk", "words_"]
 
 # Kernel launches made by this process (a plain count; callers reset it).
 launches = 0
@@ -56,6 +57,9 @@ _TWO_PI = {torch.float32: float(torch.tensor(2 * math.pi, dtype=torch.float32)),
 _MAX_DIMS = 8
 # The plain version's temporaries: at most this many int64 elements each.
 _MAX_CHUNK = 1 << 20
+# Elements a kernel thread computes a step (csrc/philox.cu's kUnit): two
+# Philox blocks, from an element index that is a multiple of it.
+UNIT = 8
 
 _LL = ctypes.c_longlong
 _launcher_fn = None
@@ -156,6 +160,81 @@ def _collapse(full_shape, offset, size):
     if len(full) > 1 and full[0] == 1:
         full, off, sz = full[1:], off[1:], sz[1:]
     return full, off, sz
+
+
+def _divisor(d: int) -> Tuple[int, int]:
+    """CUTLASS's FastDivmod constants ``(mul, shr)`` of ``d`` (csrc/philox.cu's
+    ``find_divisor``): ``n // d == _fast_div(n, mul, shr)`` for ``0 <= n <
+    2^31``; ``mul`` 0 for ``d`` 1."""
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()  # 31 + ceil(log2(d))
+    return ((1 << p) + d - 1) // d, p - 32
+
+
+def _fast_div(n: int, mul: int, shr: int) -> int:
+    return n if mul == 0 else ((n * mul) >> 32) >> shr
+
+
+def launch_plan(full_shape, offset, size, grid_threads: int) -> dict:
+    """The kernel's launch plan of a box (csrc/philox.cu's ``Box``, as
+    ``tdx_philox_fill`` and ``launch`` fill it), for ``grid_threads``
+    threads in all: the box with whole dims merged, its ``rows`` and
+    ``len``, ``units`` a row (a unit: UNIT elements from a multiple of
+    UNIT), the grid's stride in whole rows and units, whether a row's start
+    may divide in 32 bits (``fast``), each dim's divisor constants, and
+    whether the box is ``tiled`` (every row starts at a unit's first
+    element and spans whole units: the kernel's flat loop, for an output
+    at a 16-byte-aligned address)."""
+    full, off, size = _collapse([int(n) for n in full_shape], [int(o) for o in offset],
+                                [int(s) for s in size])
+    rows, length = math.prod(size[:-1]), size[-1]
+    # Every row starts at offset[-1] modulo UNIT where the row stride is a
+    # multiple of UNIT; else a row may start anywhere in its first unit.
+    phase = off[-1] % UNIT if len(size) == 1 or full[-1] % UNIT == 0 else UNIT - 1
+    units = (phase + length - 1) // UNIT + 1
+    return {"full": full, "offset": off, "size": size, "rows": rows, "len": length,
+            "units": units, "step_rows": grid_threads // units,
+            "step_units": grid_threads % units,
+            "fast": rows < 1 << 31 and all(s < 1 << 31 for s in size),
+            "tiled": phase == 0 and length % UNIT == 0,
+            "divisors": [_divisor(s) if s < 1 << 31 else (0, 0) for s in size]}
+
+
+def _row_start(plan: dict, row: int) -> int:
+    """Row ``row``'s first element in the full tensor (csrc/philox.cu's
+    ``row_start``)."""
+    full, off, size = plan["full"], plan["offset"], plan["size"]
+    strides = [math.prod(full[d + 1:]) for d in range(len(full))]
+    nd = len(size)
+    if nd == 1:
+        return off[0]
+    if nd == 2:
+        return off[1] + (off[0] + row) * strides[0]
+    g0, rest = off[-1], row
+    for d in range(nd - 2, 0 if plan["fast"] else -1, -1):
+        q = _fast_div(rest, *plan["divisors"][d]) if plan["fast"] else rest // size[d]
+        g0 += (off[d] + rest - q * size[d]) * strides[d]
+        rest = q
+    return g0 + (off[0] + rest) * strides[0] if plan["fast"] else g0
+
+
+def walk(plan: dict, thread: int):
+    """The ``(row, first element of the unit)`` that thread ``thread`` of the
+    plan's grid computes, step by step (csrc/philox.cu's ``philox_fill``
+    loop): its first from one division, then carried by the grid's
+    stride; a unit past its row's end is skipped."""
+    row, u = divmod(thread, plan["units"])
+    while row < plan["rows"]:
+        g0 = _row_start(plan, row)
+        e0 = (g0 // UNIT + u) * UNIT
+        if e0 < g0 + plan["len"]:
+            yield row, e0
+        u += plan["step_units"]
+        row += plan["step_rows"]
+        if u >= plan["units"]:
+            u -= plan["units"]
+            row += 1
 
 
 def _box(out: torch.Tensor, full_shape, offset):
